@@ -26,6 +26,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -33,11 +34,15 @@ import sys
 import time
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: torch.cuda.is_available() is False; this script needs a GPU")
 
+from uccl_tpu_torch.collective import Communicator, dma, plan  # noqa: E402
+from uccl_tpu_torch.collective import ring_ccl as rc  # noqa: E402
 from uccl_tpu_torch.models import flagship  # noqa: E402
+from uccl_tpu_torch.parallel.mesh import AXIS, MeshConfig, make_mesh  # noqa: E402
 from uccl_tpu_torch.models.layers import rms_norm, rope  # noqa: E402
 from uccl_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from uccl_tpu_torch.ops.attention import _NEG_INF, _repeat_kv  # noqa: E402
@@ -100,23 +105,40 @@ def toolchain() -> None:
 # ---------------------------------------------------------------------------
 # 2. Build
 
-def build_kernels() -> None:
-    t0 = time.perf_counter()
-    lib = build.build("flash_attention")
-    seconds = time.perf_counter() - t0
+def ptxas_report(source: str, short) -> list:
+    """Registers per kernel from nvcc's -Xptxas -v report (``short`` cuts
+    the mangled name); fails on spills."""
     ptxas, kernel = [], None
-    for line in build.build_log("flash_attention").splitlines():
+    for line in build.build_log(source).splitlines():
         if "Compiling entry function" in line:
-            name = line.split("'")[1]
-            kernel = name[name.find("flash_"):name.find("EEEv") + 3]
+            kernel = short(line.split("'")[1])
         elif "registers" in line and kernel:
             ptxas.append({"kernel": kernel, "registers": int(line.split("Used ")[1].split()[0])})
         elif "spill stores" in line and kernel:
             spills = int(line.split("bytes spill stores")[0].split(",")[-1])
             if spills:
                 fail(f"{kernel} spills {spills} bytes")
-    emit("build", library=str(lib.relative_to(build.PACKAGE_DIR.parent)),
-         seconds=round(seconds, 3), ptxas=ptxas)
+    return ptxas
+
+def build_kernels() -> None:
+    """Both CUDA sources, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(name):
+        t0 = time.perf_counter()
+        return build.build(name), time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        fa_job, ring_job = pool.submit(timed, "flash_attention"), pool.submit(timed, "ring_ccl")
+        (lib, seconds), (ring_lib, ring_seconds) = fa_job.result(), ring_job.result()
+    root = build.PACKAGE_DIR.parent
+    emit("build", library=str(lib.relative_to(root)), seconds=round(seconds, 3),
+         ptxas=ptxas_report("flash_attention",
+                           lambda n: n[n.find("flash_"):n.find("EEEv") + 3]))
+    emit("ring_ccl_build", library=str(ring_lib.relative_to(root)),
+         seconds=round(ring_seconds, 3), both_seconds=round(time.perf_counter() - t0, 3),
+         ptxas=ptxas_report("ring_ccl", lambda n: n[n.find("ring_"):]))
 
 # ---------------------------------------------------------------------------
 # 3. Kernels against their plain versions
@@ -405,6 +427,390 @@ def main_path() -> dict:
          launches=launches, launches_per_step={k: v // STEPS for k, v in launches.items()})
     return launches
 
+# ---------------------------------------------------------------------------
+# 6. The collective plane: ring kernels B4, B5, B7 over a W-member world
+
+# The gradient bucket of the bench config (a DDP replica of the model above
+# syncs it every step), at W = 4 members on this one card.
+WORLD = 4
+BUCKET = 320_906_240  # f32 elements per member: flagship.bench_config()'s parameters
+SWEEP_MIB = (1, 16, 256)
+RING_SOURCE = "uccl_tpu_torch/csrc/ring_ccl.cu"
+RING_REPLACES = {
+    "ring_all_gather": "uccl_tpu/collective/pallas_ccl.py:434",
+    "ring_reduce_scatter": "uccl_tpu/collective/pallas_ccl.py:546",
+    "ring_all_reduce": "uccl_tpu/collective/pallas_ccl.py:645",
+}
+UNIT_ROUNDOFF = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8}
+
+def ring_rule(kind, got, plain, x, w, dtype) -> dict:
+    """The check a ring kernel's output passes: bit-identical to its plain
+    version, and right by itself — an all-gather equal to the members'
+    contributions, a sum within (W-1)·u·Σ|x| of the float64 sum over
+    members (the bound of W-1 correctly rounded adds). ``x`` is the
+    members' payloads ``[W, ...]``; ``got`` and ``plain`` the per-member
+    results in the layout the rule's ``kind`` names."""
+    r = {"bit_identical": bool(torch.equal(got, plain)),
+         "max_abs_err_vs_plain": (got.double() - plain.double()).abs().max().item()}
+    if kind == "gather":  # every member holds all contributions
+        r["exact"] = bool(torch.equal(got, x.reshape(1, -1).expand(w, -1).reshape(got.shape)))
+        r["ok"] = r["bit_identical"] and r["exact"]
+        return r
+    exact = x.double().sum(0)
+    bound = (w - 1) * UNIT_ROUNDOFF[dtype] * x.double().abs().sum(0)
+    if kind == "scatter":  # member r keeps block r
+        exact, bound = exact.reshape(w, -1), bound.reshape(w, -1)
+    err = (got.double() - exact).abs()
+    r["worst_over_bound"] = (err / bound.clamp_min(1e-300)).max().item()
+    r["ok"] = r["bit_identical"] and bool((err <= bound).all())
+    return r
+
+def run_ring(kind, x, d, dirs=None):
+    """One kernel launch and its plain version on ``x`` [W, N]; returns the
+    per-member results (kernel, plain) in the rule's layout."""
+    w, size = x.shape
+    if kind == "gather":
+        chunk, _, m = rc._dma.pad_chunks(x, 1)
+        chunk = chunk.reshape(w, m)
+        lane, got = rc._ag_kernel(chunk, d, 0)
+        lane.check("ring_all_gather")
+        plain = rc.ag_plain(chunk, d)
+        return got[:, :, :size].reshape(w, -1), plain[:, :, :size].reshape(w, -1)
+    if kind == "scatter":
+        chunks, per, m = rc._dma.pad_chunks(x, w)
+        chunks = chunks.reshape(w, w, m)
+        lane, got = rc._rs_kernel(chunks, d, 0)
+        lane.check("ring_reduce_scatter")
+        return got[:, :per], rc.rs_plain(chunks, d)[:, :per]
+    view, k, _ = rc._ar_layout(x, len(dirs))
+    lane, got = rc._ar_kernel(view, dirs, 0)
+    lane.check("ring_all_reduce")
+    return rc._ar_unlayout(got, k, x), rc._ar_unlayout(rc.ar_plain(view, dirs), k, x)
+
+def ring_inputs(w, size, dtype, seed):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn((w, size), generator=g, device=DEV)
+    return (x * 1000).to(torch.int32) if dtype == torch.int32 else x.to(dtype)
+
+RING_CASES = [  # (W, elements per member, dtype, direction); odd sizes need padding
+    (2, 1_000_003, torch.float32, 1),
+    (3, 777_777, torch.bfloat16, -1),
+    (4, 4_194_309, torch.float32, -1),
+    (8, 2_000_001, torch.bfloat16, 1),
+]
+
+def ring_vs_plain() -> dict:
+    """Each ring kernel against its plain version, bit for bit, and against
+    the float64 sum; W in {2, 3, 4, 8}, f32 and bf16 (int32 for B4 too),
+    sizes that need padding, both directions, B7 with one and two streams."""
+    rc.reset_launch_counts()
+    readings = []
+    for w, size, dtype, d in RING_CASES:
+        x = ring_inputs(w, size, dtype, seed=w)
+        cases = [("ring_all_gather", "gather", dict()),
+                 ("ring_reduce_scatter", "scatter", dict()),
+                 ("ring_all_reduce S=1", "reduce", dict(dirs=(d,))),
+                 ("ring_all_reduce S=2", "reduce", dict(dirs=(1, -1)))]
+        for name, kind, kw in cases:
+            xin = x[:, : size - size % w] if kind == "scatter" else x
+            got, plain = run_ring(kind, xin, d, **kw)
+            r = ring_rule(kind, got, plain, xin, w, dtype)
+            readings.append({"kernel": name, "W": w, "size": size, "dtype": str(dtype),
+                             "dir": d, **r})
+            if not r["ok"]:
+                fail(f"{name} W={w} size={size} {dtype} dir={d}: {r}")
+    xi = ring_inputs(3, 1_234_567, torch.int32, seed=9)
+    got, plain = run_ring("gather", xi, -1)
+    r = ring_rule("gather", got, plain, xi, 3, torch.int32)
+    readings.append({"kernel": "ring_all_gather", "W": 3, "size": 1_234_567,
+                     "dtype": "torch.int32", "dir": -1, **r})
+    if not r["ok"]:
+        fail(f"ring_all_gather int32: {r}")
+    emit("ring_ccl_vs_plain", readings=readings, launches=dict(rc.launch_counts))
+    return {"cases": len(readings)}
+
+def ring_planted_faults() -> None:
+    """Faults made with the plain versions must fail the rule the kernels
+    pass: RS with its last hop dropped, AG with every slot off by one, and
+    B7 whose AG phase starts before its RS phase's last fold landed."""
+    w, size, dtype = 4, 1_000_000, torch.float32
+    x = ring_inputs(w, size, dtype, seed=11)
+    r_idx = torch.arange(w, device=DEV)
+
+    def rs_hops_but_last(buf):
+        """The RS phase on [W, W, m] in place (direction +1), last hop left out."""
+        for s in range(w - 2):
+            send = (r_idx - (s + 1)) % w
+            arrived = buf[r_idx, send].clone()
+            buf[(r_idx + 1) % w, send] = buf[(r_idx + 1) % w, send] + arrived
+        return buf
+
+    faults = {}
+    # RS without its last hop
+    chunks, per, m = rc._dma.pad_chunks(x, w)
+    buf = rs_hops_but_last(chunks.reshape(w, w, m).clone())
+    ok_rs, _ = run_ring("scatter", x, 1)
+    faults["rs: last hop dropped"] = ring_rule("scatter", buf[r_idx, r_idx][:, :per], ok_rs,
+                                               x, w, dtype)
+    # AG with each slot one off
+    ok_ag, plain_ag = run_ring("gather", x, 1)
+    shifted = plain_ag.reshape(w, w, size).roll(1, dims=1).reshape(w, -1)
+    faults["ag: slot off by one"] = ring_rule("gather", shifted, ok_ag, x, w, dtype)
+    # B7 whose AG phase forwards slots before the RS phase's last fold
+    view, k, _ = rc._ar_layout(x, 1)
+    ok_ar, _ = run_ring("reduce", x, 1, dirs=(1,))
+    buf = rs_hops_but_last(view[:, :, 0].clone())
+    rc._ag_hops(buf, 1)
+    early = rc._ar_unlayout(buf.unsqueeze(2), k, x)
+    faults["ar: no phase barrier data"] = ring_rule("reduce", early, ok_ar, x, w, dtype)
+    passed = [name for name, r in faults.items() if r["ok"]]
+    if passed:
+        fail(f"planted ring faults pass the check: {passed}")
+    emit("ring_ccl_planted_faults", W=w, size=size, readings=faults)
+
+def ring_bound_ms(name, w, p_elems, itemsize) -> float:
+    """Compulsory HBM bytes over 3.35 TB/s, each input read once and each
+    output written once, with P the per-member payload: B7 reads W·P and
+    writes W·P; B5 reads W·P and writes P (P/W per member); B4 reads P
+    (P/W contributed per member) and writes W·P."""
+    p = p_elems * itemsize
+    nbytes = {"ring_all_reduce": 2 * w * p, "ring_reduce_scatter": (w + 1) * p,
+              "ring_all_gather": (w + 1) * p}[name]
+    return nbytes / PEAK_BYTES * 1e3
+
+def ring_launchers(w, p_elems):
+    """Preallocated operands at a per-member payload of ``p_elems`` f32 and
+    a launch function per kernel (no sync, no check: the lanes are checked
+    after timing), plus the plain version and the library call beside each."""
+    g = torch.Generator(device=DEV).manual_seed(5)
+    x = torch.randn((w, p_elems), generator=g, device=DEV)
+    view, _, m_ar = rc._ar_layout(x, 2)
+    ar_out, ar_stage = torch.empty_like(view), view.new_empty((w, 2, 2, m_ar))
+    chunks, _, m_rs = rc._dma.pad_chunks(x, w)
+    chunks = chunks.reshape(w, w, m_rs)
+    rs_buf, rs_stage = torch.empty_like(chunks), chunks.new_empty((w, 2, m_rs))
+    rs_out = chunks.new_empty((w, m_rs))
+    contrib = x[:, : p_elems // w].contiguous()
+    chunk, _, m_ag = rc._dma.pad_chunks(contrib, 1)
+    chunk = chunk.reshape(w, m_ag)
+    ag_out = chunk.new_empty((w, w, m_ag))
+    lanes = []
+
+    def launch(fn, *args):
+        return lambda: lanes.append(fn(*args))
+
+    red = torch.empty_like(x[0])
+    ar_lib_out = torch.empty_like(x)
+    xv = x[:, : p_elems - p_elems % w].reshape(w, w, -1)
+    runs = {
+        "ring_all_reduce": (launch(rc.launch_ar, view, ar_out, ar_stage, (1, -1), 0),
+                            lambda: rc.ar_plain(view, (1, -1)),
+                            lambda: ar_lib_out.copy_(torch.sum(x, 0, out=red).expand_as(x)),
+                            "torch.sum(x, 0, out=red) then out.copy_(red.expand_as(x))"),
+        "ring_reduce_scatter": (launch(rc.launch_rs, chunks, rs_buf, rs_stage, rs_out, 1, 0),
+                                lambda: rc.rs_plain(chunks, 1),
+                                lambda: xv.sum(0),
+                                "x.view(W, W, P/W).sum(0)"),
+        "ring_all_gather": (launch(rc.launch_ag, chunk, ag_out, 1, 0),
+                            lambda: rc.ag_plain(chunk, 1),
+                            lambda: contrib.reshape(1, -1).repeat(w, 1),
+                            "x.reshape(1, P).repeat(W, 1)"),
+    }
+    return runs, lanes
+
+def ring_timing() -> dict:
+    """CUDA-event medians of each ring kernel at the gradient bucket, W = 4,
+    beside its bound, its plain version and the library call; and a sweep of
+    smaller payloads per member."""
+    res = {}
+    runs, lanes = ring_launchers(WORLD, BUCKET)
+    for name, (kernel, plain, library, call) in runs.items():
+        ms = time_ms(kernel, 10)
+        bnd = ring_bound_ms(name, WORLD, BUCKET, 4)
+        res[name] = dict(ms=ms, bound_ms=bnd, bound_by="bytes", share_of_bound=bnd / ms,
+                         plain_ms=time_ms(plain, 3), library_ms=time_ms(library, 10),
+                         library_call=call)
+    for lane in lanes:
+        lane.check("ring timing")
+    del runs, lanes
+    torch.cuda.empty_cache()
+    sweep = []
+    for mib in SWEEP_MIB:
+        p = mib * 2 ** 20 // 4
+        runs, lanes = ring_launchers(WORLD, p)
+        for name, (kernel, _, library, _) in runs.items():
+            ms = time_ms(kernel, 20)
+            bnd = ring_bound_ms(name, WORLD, p, 4)
+            sweep.append(dict(kernel=name, mib_per_member=mib, ms=ms, bound_ms=bnd,
+                              share_of_bound=bnd / ms, library_ms=time_ms(library, 20)))
+        for lane in lanes:
+            lane.check("ring sweep")
+    emit("ring_ccl_timing", W=WORLD, bucket_elems_per_member=BUCKET, dtype="float32",
+         kernels=res, sweep=sweep,
+         note="one card: every hop is an HBM-to-HBM store; no NVLink or bus-bandwidth claim")
+    return res
+
+def gradient_bucket() -> torch.Tensor:
+    """The members' payloads [W, BUCKET]: each member's gradient of the
+    bench-config flagship on its own batch (B=8, S=1024), flattened in
+    parameter order."""
+    cfg = flagship.bench_config()
+    params = flagship.init_params(cfg, torch.Generator().manual_seed(0), DEV)
+    leaves = [p.requires_grad_() for p in flagship.tree_leaves(params)]
+    total = sum(p.numel() for p in leaves)
+    if total != BUCKET:
+        fail(f"bench config has {total} parameters, expected {BUCKET}")
+    x = torch.empty((WORLD, BUCKET), device=DEV)
+    for r in range(WORLD):
+        tokens, targets = _batch_for_step(100 + r, BATCH, SEQ, cfg.vocab)
+        loss, _ = flagship.loss_fn(params, torch.as_tensor(tokens, device=DEV),
+                                   torch.as_tensor(targets, device=DEV), cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        x[r].copy_(torch.cat([g.reshape(-1) for g in grads]))
+        del grads, loss
+    del params, leaves
+    torch.cuda.empty_cache()
+    if not torch.isfinite(x).all():
+        fail("non-finite gradients in the bucket")
+    return x
+
+def plain_all_reduce(x, dirs):
+    view, k, _ = rc._ar_layout(x, len(dirs))
+    return rc._ar_unlayout(rc.ar_plain(view, dirs), k, x)
+
+_SPLIT = (("ring_kernels", re.compile(r"ring_(ag|rs|ar)_kernel")),
+          ("fill", re.compile(r"fill|memset", re.I)),
+          ("copy", re.compile(r"copy|memcpy|cat", re.I)))
+
+def verb_breakdown(verbs) -> list:
+    """Where one verb call's time goes once its buffers exist: the host
+    clock around warm calls (median of 3, ending in a sync), and one
+    profiled warm call's device time split into the ring kernels, zero
+    fills (``pad_chunks``' padded buffers), copies (into the padded layout,
+    the cut back out, ``cat``) and other kernels, with the device's busy
+    time (union of kernel intervals). The first call's excess over the warm
+    median is first-use allocation."""
+    out = []
+    for verb, algo, run, cold_ms in verbs:
+        warm = []
+        for _ in range(3):
+            t = time.perf_counter()
+            got = run()
+            torch.cuda.synchronize()
+            warm.append((time.perf_counter() - t) * 1e3)
+            del got
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            got = run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        del got
+        split, spans = {name: 0.0 for name, _ in _SPLIT}, []
+        split["other"] = 0.0
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            spans.append((ev.time_range.start, ev.time_range.end))
+            cls = next((name for name, pat in _SPLIT if pat.search(ev.name)), "other")
+            split[cls] += (ev.time_range.end - ev.time_range.start) / 1e3
+        if not split["ring_kernels"]:
+            fail(f"{verb} {algo}: the profiler saw no ring kernel")
+        warm_ms = statistics.median(warm)
+        out.append(dict(verb=verb, algo=algo, first_call_host_ms=cold_ms, warm_host_ms=warm_ms,
+                        first_use_ms=cold_ms - warm_ms, profiled_host_ms=wall_ms,
+                        device_ms=split, device_busy_ms=_union_ms(spans)))
+    return out
+
+def _union_ms(spans) -> float:
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total / 1e3
+
+def collective_path() -> tuple:
+    """The Communicator verbs at the gradient bucket, W = 4, through the
+    kernels: each result against its plain counterpart, launches per call,
+    and no fallback. Counts are set to 0 just before and read just after."""
+    x = gradient_bucket()
+    comm = Communicator(make_mesh(MeshConfig(dp=WORLD)), AXIS.DP)
+    w = WORLD
+    contrib = x[:, : BUCKET // w].contiguous()  # all-gather: P/W per member
+    fb0 = dma.WIRE_FALLBACK.total()
+    torch.cuda.synchronize()
+    rc.reset_launch_counts()
+    calls, errs = [], {name: 0.0 for name in rc.KERNELS}
+    verbs = [
+        ("all_reduce", "pallas", lambda: comm.all_reduce(x, algo="pallas"),
+         lambda: plain_all_reduce(x, (1, -1)), {"ring_all_reduce": 1}),
+        ("all_reduce", "bidir", lambda: comm.all_reduce(x, algo="bidir"),
+         lambda: torch.cat([plain_all_reduce(h, (d,)) for h, d in
+                            zip((x[:, : BUCKET // 2], x[:, BUCKET // 2:]), (1, -1))], 1),
+         {"ring_all_reduce": 2}),
+        ("all_gather", "ring", lambda: comm.all_gather(contrib, algo="ring"),
+         lambda: contrib, {"ring_all_gather": 1}),
+        ("all_gather", "bidir", lambda: comm.all_gather(contrib, algo="bidir"),
+         lambda: contrib, {"ring_all_gather": 2}),
+        ("reduce_scatter", "ring", lambda: comm.reduce_scatter(x, algo="ring"),
+         lambda: rc.rs_plain(rc._dma.pad_chunks(x, w)[0].reshape(w, w, -1))[:, : BUCKET // w],
+         {"ring_reduce_scatter": 1}),
+        ("broadcast", "scatter_ag", lambda: comm.broadcast(x, 0, algo="scatter_ag"),
+         lambda: x[0].expand_as(x), {"ring_all_gather": 2}),
+    ]
+    for verb, algo, run, plain, want in verbs:
+        before = dict(rc.launch_counts)
+        t = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 1e3
+        delta = {k: rc.launch_counts[k] - before[k] for k in rc.KERNELS}
+        expect = {k: want.get(k, 0) for k in rc.KERNELS}
+        if delta != expect:
+            fail(f"{verb} {algo}: launches {delta}, expected {expect}")
+        ref = plain()
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            fail(f"{verb} {algo}: shape {tuple(got.shape)} vs {tuple(ref.shape)} or non-finite")
+        err = (got - ref).abs().max().item()
+        if not torch.equal(got, ref):
+            fail(f"{verb} {algo}: differs from its plain counterpart (max abs {err})")
+        for k, v in want.items():
+            errs[k] = max(errs[k], err)
+        calls.append(dict(verb=verb, algo=algo, launches=delta, host_ms=host_ms,
+                          shape=list(got.shape), max_abs_err_vs_plain=err))
+        del got, ref
+    launches = dict(rc.launch_counts)
+    fallbacks = dma.WIRE_FALLBACK.total() - fb0
+    if fallbacks:
+        fail(f"the collective path fell back {fallbacks} times")
+    # The Communicator returns one member's copy of a gather; the kernels
+    # write every member's. Hold all W copies at the bucket.
+    for name, fn in (("ring", rc.ring_all_gather), ("bidir", rc.bidir_all_gather)):
+        got = fn(contrib.unsqueeze(1)).reshape(w, -1)
+        err = (got - contrib.reshape(1, -1)).abs().max().item()
+        if not torch.equal(got, contrib.reshape(1, -1).expand(w, -1)):
+            fail(f"all_gather {name}: a member's copy differs at the bucket (max abs {err})")
+        errs["ring_all_gather"] = max(errs["ring_all_gather"], err)
+        del got
+    breakdown = verb_breakdown([(v, a, run, c["host_ms"])
+                                for (v, a, run, _, _), c in zip(verbs, calls)])
+    planner = plan.get_planner()
+    auto = {
+        "all_reduce": planner.plan_all_reduce((BUCKET,), x.dtype, w, pallas_ok=True,
+                                              emit=False).algo,
+        "all_gather": planner.plan_all_gather((BUCKET // w,), x.dtype, w, pallas_ok=True,
+                                              emit=False).algo,
+        "reduce_scatter": planner.plan_reduce_scatter((BUCKET,), x.dtype, w, pallas_ok=True,
+                                                      emit=False).algo,
+        "broadcast": planner.plan_broadcast((BUCKET,), x.dtype, w, pallas_ok=True,
+                                            emit=False).algo,
+    }
+    emit("collective_path", W=w, bucket_elems_per_member=BUCKET,
+         bucket_bytes_per_member=BUCKET * 4, calls=calls, launches=launches,
+         fallbacks=fallbacks, auto_picks=auto, warm_breakdown=breakdown,
+         peak_mem_gib=torch.cuda.max_memory_allocated(DEV) / 2**30)
+    return launches, errs
+
 def main() -> None:
     t_start = time.perf_counter()
     toolchain()
@@ -418,6 +824,13 @@ def main() -> None:
             "flash_bwd_dkv": max(readings["dk"]["max_abs_err"], readings["dv"]["max_abs_err"])}
     timing = time_kernels(8, 1024, 16, 4, 64)
     launches = main_path()
+    torch.cuda.empty_cache()
+    ring_vs_plain()
+    ring_planted_faults()
+    ring_time = ring_timing()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    ring_launches, ring_errs = collective_path()
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": errs[name],
@@ -426,7 +839,18 @@ def main() -> None:
          "library_ms": timing[name]["library_ms"],
          "library_call": timing[name]["library_call"]}
         for name in fa.KERNELS
+    ] + [
+        {"name": name, "route": "cuda", "source": RING_SOURCE, "replaces": RING_REPLACES[name],
+         "launches": ring_launches[name], "max_abs_err": ring_errs[name],
+         "ms": ring_time[name]["ms"], "plain_ms": ring_time[name]["plain_ms"],
+         "bound_ms": ring_time[name]["bound_ms"], "bound_by": ring_time[name]["bound_by"],
+         "library_ms": ring_time[name]["library_ms"],
+         "library_call": ring_time[name]["library_call"]}
+        for name in rc.KERNELS
     ]
+    for k in kernels:
+        if not k["launches"]:
+            fail(f"kernel {k['name']} was not launched on its main path")
     emit("done", seconds=time.perf_counter() - t_start)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
