@@ -10,8 +10,11 @@ that the same rule rejects planted faults), times them, then trains the
 flagship MoE model at the benchmark's base configuration for a few steps and
 checks that the step went through the kernels. At that size it also holds
 the kernels' autograd path, on layer 0's q/k/v, to the plain backward, and
-the first two losses to the same steps through plain attention. Every phase
-raises on failure; nothing is caught. Each phase prints one JSON line; the
+the first two losses to the same steps through plain attention. Then the
+collective plane at the model's gradient bucket over a 4-member world: the
+ring kernels and the Communicator verbs, first on the full-precision wire,
+then on the quantized one (fp8 and int8). Every phase raises on failure;
+nothing is caught. Each phase prints one JSON line; the
 last three lines are the card's name and power limit (nvidia-smi), the
 per-kernel JSON summary and
 
@@ -23,6 +26,7 @@ It exits non-zero, before printing anything, when PyTorch sees no GPU.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -45,6 +49,7 @@ from uccl_tpu_torch.models import flagship  # noqa: E402
 from uccl_tpu_torch.parallel.mesh import AXIS, MeshConfig, make_mesh  # noqa: E402
 from uccl_tpu_torch.models.layers import rms_norm, rope  # noqa: E402
 from uccl_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from uccl_tpu_torch.ops import quant  # noqa: E402
 from uccl_tpu_torch.ops.attention import _NEG_INF, _repeat_kv  # noqa: E402
 from uccl_tpu_torch.train import _batch_for_step  # noqa: E402
 from uccl_tpu_torch.utils import build  # noqa: E402
@@ -440,7 +445,13 @@ RING_REPLACES = {
     "ring_all_gather": "uccl_tpu/collective/pallas_ccl.py:434",
     "ring_reduce_scatter": "uccl_tpu/collective/pallas_ccl.py:546",
     "ring_all_reduce": "uccl_tpu/collective/pallas_ccl.py:645",
+    "ring_reduce_scatter_q": "uccl_tpu/collective/pallas_ccl.py:621",
+    "ring_all_reduce_q": "uccl_tpu/collective/pallas_ccl.py:742",
 }
+FULL_PRECISION = ("ring_all_gather", "ring_reduce_scatter", "ring_all_reduce")
+QUANTIZED = {"ring_reduce_scatter_q": "ring_reduce_scatter",  # its full-precision twin
+             "ring_all_reduce_q": "ring_all_reduce"}
+WIRES = ("fp8", "int8")
 UNIT_ROUNDOFF = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8}
 
 def ring_rule(kind, got, plain, x, w, dtype) -> dict:
@@ -678,7 +689,7 @@ def plain_all_reduce(x, dirs):
     view, k, _ = rc._ar_layout(x, len(dirs))
     return rc._ar_unlayout(rc.ar_plain(view, dirs), k, x)
 
-_SPLIT = (("ring_kernels", re.compile(r"ring_(ag|rs|ar)_kernel")),
+_SPLIT = (("ring_kernels", re.compile(r"ring_(ag|rs|ar|rsq|arq)_kernel")),
           ("fill", re.compile(r"fill|memset", re.I)),
           ("copy", re.compile(r"copy|memcpy|cat", re.I)))
 
@@ -687,8 +698,9 @@ def verb_breakdown(verbs) -> list:
     clock around warm calls (median of 3, ending in a sync), and one
     profiled warm call's device time split into the ring kernels, zero
     fills (``pad_chunks``' padded buffers), copies (into the padded layout,
-    the cut back out, ``cat``) and other kernels, with the device's busy
-    time (union of kernel intervals). The first call's excess over the warm
+    the cut back out, ``cat``) and other kernels (for a quantized all-gather
+    or broadcast: the codec's torch passes), with the device's busy time
+    (union of kernel intervals). The first call's excess over the warm
     median is first-use allocation."""
     out = []
     for verb, algo, run, cold_ms in verbs:
@@ -729,18 +741,20 @@ def _union_ms(spans) -> float:
             end = e
     return total / 1e3
 
-def collective_path() -> tuple:
-    """The Communicator verbs at the gradient bucket, W = 4, through the
-    kernels: each result against its plain counterpart, launches per call,
-    and no fallback. Counts are set to 0 just before and read just after."""
-    x = gradient_bucket()
+def collective_path(x) -> tuple:
+    """The Communicator verbs at the gradient bucket ``x`` [W, BUCKET], W = 4,
+    through the kernels: each result against its plain counterpart, launches
+    per call, and no fallback. Counts are set to 0 just before and read just
+    after. Also returns what the quantized path is held against: one
+    member's all-reduce result, the reduce-scatter result, and each verb's
+    wire bytes (``ep_bytes_total``)."""
     comm = Communicator(make_mesh(MeshConfig(dp=WORLD)), AXIS.DP)
     w = WORLD
     contrib = x[:, : BUCKET // w].contiguous()  # all-gather: P/W per member
     fb0 = dma.WIRE_FALLBACK.total()
     torch.cuda.synchronize()
     rc.reset_launch_counts()
-    calls, errs = [], {name: 0.0 for name in rc.KERNELS}
+    calls, errs, refs = [], {name: 0.0 for name in FULL_PRECISION}, {"wire_bytes": {}}
     verbs = [
         ("all_reduce", "pallas", lambda: comm.all_reduce(x, algo="pallas"),
          lambda: plain_all_reduce(x, (1, -1)), {"ring_all_reduce": 1}),
@@ -759,11 +773,16 @@ def collective_path() -> tuple:
          lambda: x[0].expand_as(x), {"ring_all_gather": 2}),
     ]
     for verb, algo, run, plain, want in verbs:
-        before = dict(rc.launch_counts)
+        before, bytes0 = dict(rc.launch_counts), rc._WIRE_BYTES.total()
         t = time.perf_counter()
         got = run()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t) * 1e3
+        refs["wire_bytes"][verb, algo] = rc._WIRE_BYTES.total() - bytes0
+        if (verb, algo) == ("all_reduce", "pallas"):
+            refs["all_reduce"] = got[0].clone()
+        elif verb == "reduce_scatter":
+            refs["reduce_scatter"] = got.clone()
         delta = {k: rc.launch_counts[k] - before[k] for k in rc.KERNELS}
         expect = {k: want.get(k, 0) for k in rc.KERNELS}
         if delta != expect:
@@ -809,7 +828,391 @@ def collective_path() -> tuple:
          bucket_bytes_per_member=BUCKET * 4, calls=calls, launches=launches,
          fallbacks=fallbacks, auto_picks=auto, warm_breakdown=breakdown,
          peak_mem_gib=torch.cuda.max_memory_allocated(DEV) / 2**30)
-    return launches, errs
+    return launches, errs, refs
+
+# ---------------------------------------------------------------------------
+# 7. The quantized wire: ring kernels B6, B8 and every verb's wire_dtype
+
+def same(a, b) -> bool:
+    """Bit-identical, a nan equal to a nan (a poisoned block is nan in both)."""
+    return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+def row_max(a, parts, halves=False):
+    """``a`` [..., N] → the max of each 128-lane row of the ring layout its
+    values ride in (``parts`` padded chunks per member; ``halves``: each
+    half of the payload laid out on its own, as the bidir pairs do), at
+    every element of the row."""
+    if halves:
+        h = a.shape[-1] // 2
+        return torch.cat([row_max(a[..., :h], parts), row_max(a[..., h:], parts)], -1)
+    view, k, m = dma.pad_chunks(a, parts)  # [..., parts, rows, 128]
+    rm = view.amax(-1, keepdim=True).expand_as(view)
+    return rm.reshape(*a.shape[:-1], parts, m)[..., :k].reshape(*a.shape[:-1], -1)[
+        ..., : a.shape[-1]]
+
+def quant_bound(a_row, trips, wd, w, dtype):
+    """The error budget of ``trips`` quantize round trips whose blocks'
+    amax is at most ``a_row`` (the row max of the members' summed absolute
+    values): each trip at most amax / ROUND_TRIP_DIVISOR, a partial sum's
+    amax above ``a_row`` by at most the error so far, plus the input
+    dtype's rounding of the W-1 adds and of the dequantized values."""
+    div = quant.ROUND_TRIP_DIVISOR[wd]
+    return a_row.double() * (trips / div * (1 + trips / div)
+                             + (w + trips) * UNIT_ROUNDOFF[dtype])
+
+def ring_q_rule(kind, got, plain, view, w, dtype, wd) -> dict:
+    """The check a quantized ring kernel's output passes, in the kernel's
+    own layout (``view``: [W, W, m] for B6, [W, W, S, m] for B8): equal to
+    its plain version bit for bit; where the members' values are finite,
+    within the round-trip budget of the float64 sum (W-1 trips for B6, W
+    for B8); non-finite wherever the float64 sum is; and, for B8, every
+    member's copy the same."""
+    r = {"bit_identical": same(got, plain)}
+    exact = view.double().sum(0)  # [W(slot), ...]
+    rows = view.abs().sum(0).reshape(*exact.shape[:-1], -1, rc.LANES).amax(-1, keepdim=True)
+    a_row = rows.expand(*rows.shape[:-1], rc.LANES).reshape(exact.shape)
+    trips = w - 1 if kind == "scatter" else w
+    bound = quant_bound(a_row, trips, wd, w, dtype)
+    if kind == "scatter":  # member r holds slot r: the same [W, m]
+        mine = got.double()
+    else:
+        mine = got.double()[0]
+        r["members_identical"] = all(same(got[i], got[0]) for i in range(1, w))
+    finite = torch.isfinite(a_row)
+    err = (mine - exact).abs()
+    r["worst_over_bound"] = (err[finite] / bound[finite].clamp_min(1e-300)).max().item()
+    r["nonfinite_kept"] = bool((~torch.isfinite(mine[~torch.isfinite(exact)])).all())
+    r["ok"] = (r["bit_identical"] and r["nonfinite_kept"] and r.get("members_identical", True)
+               and bool((err[finite] <= bound[finite]).all()))
+    return r
+
+def ring_q_inputs(w, size, dtype, seed):
+    """Members' payloads whose 128-element blocks span magnitudes of e^±3,
+    so that a row's scale matters."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    mag = torch.exp(3 * torch.randn((w, size // 128 + 1), generator=g, device=DEV))
+    x = torch.randn((w, size), generator=g, device=DEV)
+    return (x * mag.repeat_interleave(128, 1)[:, :size]).to(dtype)
+
+def run_ring_q(kind, x, d, wd, dirs=None):
+    """One B6 or B8 launch and its plain version on ``x`` [W, N], both in
+    the kernel's layout, with that layout's input."""
+    w = x.shape[0]
+    if kind == "scatter":
+        chunks = dma.pad_chunks(x, w)[0].reshape(w, w, -1)
+        lane, got = rc._rs_kernel(chunks, d, 0, wd)
+        lane.check("ring_reduce_scatter_q")
+        return got, rc.rs_q_plain(chunks, d, wd), chunks
+    view, _, _ = rc._ar_layout(x, len(dirs))
+    lane, got = rc._ar_kernel(view, dirs, 0, wd)
+    lane.check("ring_all_reduce_q")
+    return got, rc.ar_q_plain(view, dirs, wd), view
+
+def ring_q_vs_plain() -> dict:
+    """B6 and B8 against their plain versions (bit for bit) and the float64
+    sum (within the round-trip budget): the ring cases' worlds, dtypes,
+    padded sizes and directions, fp8 and int8, B8 with one and two streams;
+    then a payload with an inf, a nan, an all-zero and a denormal block."""
+    rc.reset_launch_counts()
+    readings, worst = [], 0.0
+    for w, size, dtype, d in RING_CASES:
+        x = ring_q_inputs(w, size, dtype, seed=20 + w)
+        for wd in WIRES:
+            for name, kind, kw in (("ring_reduce_scatter_q", "scatter", dict()),
+                                   ("ring_all_reduce_q S=1", "reduce", dict(dirs=(d,))),
+                                   ("ring_all_reduce_q S=2", "reduce", dict(dirs=(1, -1)))):
+                xin = x[:, : size - size % w] if kind == "scatter" else x
+                got, plain, view = run_ring_q(kind, xin, d, wd, **kw)
+                r = ring_q_rule(kind, got, plain, view, w, dtype, wd)
+                readings.append({"kernel": name, "W": w, "size": size, "dtype": str(dtype),
+                                 "dir": d, "wire": wd, **r})
+                if not r["ok"]:
+                    fail(f"{name} W={w} size={size} {dtype} dir={d} {wd}: {r}")
+                worst = max(worst, torch.nan_to_num(got.double() - plain.double()).abs()
+                            .max().item())
+    x = ring_q_inputs(4, 1_000_000, torch.float32, seed=31)
+    x[0, 5], x[1, 70_000] = float("inf"), float("nan")
+    x[:, 1024:1152], x[2, 4096:4224] = 0.0, 1e-42
+    for wd in WIRES:
+        got, plain, view = run_ring_q("reduce", x, 1, wd, dirs=(1,))
+        r = ring_q_rule("reduce", got, plain, view, 4, torch.float32, wd)
+        r["zero_block_exact"] = bool((rc._ar_unlayout(got, 250_000, x)[:, 1024:1152] == 0).all())
+        readings.append({"kernel": "ring_all_reduce_q S=1", "W": 4, "size": 1_000_000,
+                         "dtype": "torch.float32", "dir": 1, "wire": wd,
+                         "planted": "inf, nan, zero and denormal blocks", **r})
+        if not (r["ok"] and r["zero_block_exact"]):
+            fail(f"ring_all_reduce_q with non-finite and zero blocks, {wd}: {r}")
+    emit("ring_q_vs_plain", readings=readings, launches=dict(rc.launch_counts),
+         rule="bit-identical to the plain version (nan equal to nan); within "
+              "trips * rowmax(sum|x|) / ROUND_TRIP_DIVISOR of the float64 sum "
+              "(see quant_bound); non-finite where the sum is; B8's members identical")
+    return {"max_abs_err_vs_plain": worst}
+
+def ring_q_planted_faults() -> None:
+    """Faults made with the plain versions must fail the rule the kernels
+    pass, on both wires: RS with its last hop dropped, scales applied one
+    row off, B8 whose owner keeps its reduced slot undequantized, and a nan
+    block that arrives as zeros."""
+    w, size, dtype = 4, 1_000_000, torch.float32
+    x = ring_q_inputs(w, size, dtype, seed=41)
+    xn = x.clone()
+    xn[1, 70_000] = float("nan")
+    r_idx = torch.arange(w, device=DEV)
+    right = (r_idx + 1) % w
+    readings = {}
+
+    def hops(buf, n_hops, wd, scale_shift=0, nan_to_zero=False):
+        """rc._rs_q_hops (direction +1) in place, with the fault asked for."""
+        m = buf.shape[2]
+        for s in range(n_hops):
+            send = (r_idx - (s + 1)) % w
+            q, sc = quant.quantize_block(buf[r_idx, send].reshape(w, m // 128, 128), wd, 128)
+            if nan_to_zero:
+                sc = torch.where(torch.isinf(sc), 0.0, sc)
+            arrived = quant.dequantize_block(q, sc.roll(scale_shift, 1), 128, dtype)
+            buf[right, send] = buf[right, send] + arrived.reshape(w, m)
+        return buf
+
+    for wd in WIRES:
+        faults = readings[wd] = {}
+        ok_rs, _, chunks = run_ring_q("scatter", x, 1, wd)
+        faults["rs: last hop dropped"] = ring_q_rule(
+            "scatter", hops(chunks.clone(), w - 2, wd)[r_idx, r_idx], ok_rs, chunks, w, dtype,
+            wd)
+        faults["rs: scales one row off"] = ring_q_rule(
+            "scatter", hops(chunks.clone(), w - 1, wd, scale_shift=1)[r_idx, r_idx], ok_rs,
+            chunks, w, dtype, wd)
+        ok_ar, plain_ar, view = run_ring_q("reduce", x, 1, wd, dirs=(1,))
+        kept = plain_ar.clone()
+        kept[r_idx, r_idx, 0] = hops(view[:, :, 0].clone(), w - 1, wd)[r_idx, r_idx]
+        faults["ar: owner's slot not dequantized"] = ring_q_rule("reduce", kept, ok_ar, view, w,
+                                                                 dtype, wd)
+        ok_n, _, chunks_n = run_ring_q("scatter", xn, 1, wd)
+        faults["rs: nan block arrives as zeros"] = ring_q_rule(
+            "scatter", hops(chunks_n.clone(), w - 1, wd, nan_to_zero=True)[r_idx, r_idx], ok_n,
+            chunks_n, w, dtype, wd)
+        passed = [name for name, r in faults.items() if r["ok"]]
+        if passed:
+            fail(f"planted quantized-ring faults pass the check on the {wd} wire: {passed}")
+    emit("ring_q_planted_faults", W=w, size=size, readings=readings)
+
+def ring_q_launchers(w, p_elems):
+    """Preallocated operands at ``p_elems`` f32 per member and, per
+    quantized kernel and wire dtype, a launch function (no sync, no check)
+    and its plain version."""
+    g = torch.Generator(device=DEV).manual_seed(5)
+    x = torch.randn((w, p_elems), generator=g, device=DEV)
+    view, _, _ = rc._ar_layout(x, 2)
+    ar_ops = rc._ar_operands(view, "fp8")
+    chunks = dma.pad_chunks(x, w)[0].reshape(w, w, -1)
+    m = chunks.shape[2]
+    rs_buf, rs_out = torch.empty_like(chunks), chunks.new_empty((w, m))
+    qstage, sstage = rc._wire_buffers(chunks, w, 2)
+    lanes, runs = [], {}
+    for wd in WIRES:
+        runs["ring_reduce_scatter_q", wd] = (
+            lambda wd=wd: lanes.append(rc.launch_rs_q(chunks, rs_buf, qstage, sstage, rs_out,
+                                                      1, 0, wd)),
+            lambda wd=wd: rc.rs_q_plain(chunks, 1, wd))
+        runs["ring_all_reduce_q", wd] = (
+            lambda wd=wd: lanes.append(rc.launch_ar_q(view, *ar_ops, (1, -1), 0, wd)),
+            lambda wd=wd: rc.ar_q_plain(view, (1, -1), wd))
+    return runs, lanes
+
+def ring_q_timing(full) -> dict:
+    """CUDA-event medians of B6 and B8, fp8 and int8, at the gradient bucket
+    (W = 4) and the smaller payloads, beside B5's and B7's times from this
+    run (``full``). Their bound is the same compulsory traffic as B5's and
+    B7's: the quantized wire changes what a hop moves, not what the
+    function reads and writes. No single PyTorch call computes a per-hop
+    quantized sum, so there is no library time of their own."""
+    res = {}
+    runs, lanes = ring_q_launchers(WORLD, BUCKET)
+    for (name, wd), (kernel, plain) in runs.items():
+        twin = full[QUANTIZED[name]]
+        ms = time_ms(kernel, 10)
+        res.setdefault(name, {})[wd] = dict(
+            ms=ms, bound_ms=twin["bound_ms"], bound_by="bytes",
+            share_of_bound=twin["bound_ms"] / ms, plain_ms=time_ms(plain, 2),
+            full_precision_ms=twin["ms"], ratio_to_full_precision=ms / twin["ms"])
+    for lane in lanes:
+        lane.check("quantized ring timing")
+    del runs, lanes
+    torch.cuda.empty_cache()
+    sweep = []
+    for mib in SWEEP_MIB:
+        p = mib * 2 ** 20 // 4
+        runs, lanes = ring_q_launchers(WORLD, p)
+        for (name, wd), (kernel, _) in runs.items():
+            ms = time_ms(kernel, 20)
+            bnd = ring_bound_ms(QUANTIZED[name], WORLD, p, 4)
+            sweep.append(dict(kernel=name, wire=wd, mib_per_member=mib, ms=ms, bound_ms=bnd,
+                              share_of_bound=bnd / ms))
+        for lane in lanes:
+            lane.check("quantized ring sweep")
+    emit("ring_q_timing", W=WORLD, bucket_elems_per_member=BUCKET, dtype="float32",
+         kernels=res, sweep=sweep,
+         library="none computes a per-hop quantized sum; B5's and B7's library calls "
+                 "(ring_ccl_timing) are the verbs' yardstick",
+         note="one card: every hop is an HBM-to-HBM store; no NVLink or bus-bandwidth claim")
+    return res
+
+def quant_held_at_bucket(x) -> list:
+    """Each kernel launch of the quantized path once more, at the shapes the
+    path gave it and on the bucket's own data, against its plain version:
+    bit for bit, for both wires. B6 on the W slots of the bucket; B8 with
+    two streams on the bucket (``pallas``) and with one stream on each half
+    in its direction (``bidir``); B4 on the quantized payload and on the
+    packed scales of a member's contribution (``ring``) and of its halves in
+    their directions (``bidir``; the broadcast's pair gathers chunks of the
+    same size). Returns one reading per case."""
+    w = WORLD
+    half = BUCKET // 2
+    contrib = x[:, : BUCKET // w]
+    chalf = contrib.shape[1] // 2
+    readings = []
+
+    def hold(kernel, case, wd, pairs):
+        ok = all(same(got, plain) for got, plain in pairs)
+        err = max(torch.nan_to_num(got.double() - plain.double()).abs().max().item()
+                  for got, plain in pairs)
+        readings.append(dict(kernel=kernel, case=case, wire=wd, bit_identical=ok,
+                             max_abs_err_vs_plain=err))
+        if not ok:
+            fail(f"{kernel} {case} {wd} at the bucket differs from its plain version "
+                 f"by up to {err}")
+
+    for wd in WIRES:
+        chunks = dma.pad_chunks(x, w)[0].reshape(w, w, -1)
+        lane, got = rc._rs_kernel(chunks, 1, 0, wd)
+        lane.check("ring_reduce_scatter_q")
+        hold("ring_reduce_scatter_q", f"slots of {chunks.shape[2]}", wd,
+             [(got, rc.rs_q_plain(chunks, 1, wd))])
+        del chunks, got
+        for case, part, dirs in (("S=2", x, (1, -1)), ("S=1 first half +1", x[:, :half], (1,)),
+                                 ("S=1 second half -1", x[:, half:], (-1,))):
+            view, _, m = rc._ar_layout(part, len(dirs))
+            lane, got = rc._ar_kernel(view, dirs, 0, wd)
+            lane.check("ring_all_reduce_q")
+            hold("ring_all_reduce_q", f"{case}, slots of {m}", wd,
+                 [(got, rc.ar_q_plain(view, dirs, wd))])
+            del view, got
+        for case, part, d in (("contribution +1", contrib, 1),
+                              ("first half +1", contrib[:, :chalf], 1),
+                              ("second half -1", contrib[:, chalf:], -1)):
+            ring = rc._AgQuant(part, wd)
+            lanes, gathered = ring.start(d, 0)
+            for lane in lanes:
+                lane.check("ring_all_gather")
+            hold("ring_all_gather", f"payload and packed scales, {case}, chunk of {ring.m}", wd,
+                 list(zip(gathered, ring.plain(d))))
+            del ring, gathered
+        torch.cuda.empty_cache()
+    return readings
+
+def quant_path(x, refs) -> tuple:
+    """Every Communicator verb with a wire_dtype at the gradient bucket,
+    W = 4, fp8 and int8: launches per call exact, no fallback, each result
+    within its round-trip budget of the full-precision verb's, members'
+    copies identical, and the wire bytes (``ep_bytes_total``) beside the
+    full-precision verb's. Counts are set to 0 just before and read just
+    after; then every kernel of the path is held to its plain version at
+    the bucket (:func:`quant_held_at_bucket`). Returns the path's launches
+    and the largest difference from a plain version."""
+    comm = Communicator(make_mesh(MeshConfig(dp=WORLD)), AXIS.DP)
+    w = WORLD
+    contrib = x[:, : BUCKET // w].contiguous()
+    a_sum = x.abs().sum(0)  # every partial sum's magnitude is under it
+    fb0 = dma.WIRE_FALLBACK.total()
+    torch.cuda.synchronize()
+    rc.reset_launch_counts()
+    calls = []
+    # (verb, algo, run(wd), reference, row magnitude bound, trips, launches)
+    verbs = [
+        ("all_reduce", "pallas", lambda wd: comm.all_reduce(x, algo="pallas", wire_dtype=wd),
+         lambda: refs["all_reduce"], lambda: row_max(a_sum, 2 * w), w,
+         {"ring_all_reduce_q": 1}),
+        ("all_reduce", "bidir", lambda wd: comm.all_reduce(x, algo="bidir", wire_dtype=wd),
+         lambda: refs["all_reduce"], lambda: row_max(a_sum, w, halves=True), w,
+         {"ring_all_reduce_q": 2}),
+        ("all_gather", "ring", lambda wd: comm.all_gather(contrib, algo="ring", wire_dtype=wd),
+         lambda: contrib, lambda: row_max(contrib.abs(), 1), 1, {"ring_all_gather": 2}),
+        ("all_gather", "bidir",
+         lambda wd: comm.all_gather(contrib, algo="bidir", wire_dtype=wd),
+         lambda: contrib, lambda: row_max(contrib.abs(), 1, halves=True), 1,
+         {"ring_all_gather": 4}),
+        ("reduce_scatter", "ring",
+         lambda wd: comm.reduce_scatter(x, algo="ring", wire_dtype=wd),
+         lambda: refs["reduce_scatter"],
+         lambda: row_max(a_sum, w).reshape(w, -1), w - 1, {"ring_reduce_scatter_q": 1}),
+        ("broadcast", "scatter_ag",
+         lambda wd: comm.broadcast(x, 0, algo="scatter_ag", wire_dtype=wd),
+         lambda: x[0], lambda: row_max(x[0].abs(), w), 1, {"ring_all_gather": 4}),
+    ]
+    for verb, algo, run, ref, rows, trips, want in verbs:
+        for wd in WIRES:
+            before, bytes0 = dict(rc.launch_counts), rc._WIRE_BYTES.total()
+            t = time.perf_counter()
+            got = run(wd)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t) * 1e3
+            wire_bytes = rc._WIRE_BYTES.total() - bytes0
+            delta = {k: rc.launch_counts[k] - before[k] for k in rc.KERNELS}
+            expect = {k: want.get(k, 0) for k in rc.KERNELS}
+            if delta != expect:
+                fail(f"{verb} {algo} {wd}: launches {delta}, expected {expect}")
+            if not torch.isfinite(got).all():
+                fail(f"{verb} {algo} {wd}: non-finite result")
+            mine = got[0] if verb in ("all_reduce", "broadcast") else got
+            if mine.shape != ref().shape:
+                fail(f"{verb} {algo} {wd}: shape {tuple(mine.shape)} vs {tuple(ref().shape)}")
+            if verb in ("all_reduce", "broadcast") and not all(
+                    torch.equal(got[i], got[0]) for i in range(1, w)):
+                fail(f"{verb} {algo} {wd}: the members' results differ")
+            # the full-precision verb's own rounding is inside quant_bound's
+            # second term; all_gather and broadcast move the input itself
+            bound = quant_bound(rows(), trips, wd, w, torch.float32)
+            err = (mine.double() - ref().double()).abs()
+            over = (err / bound.clamp_min(1e-300)).max().item()
+            if not bool((err <= bound).all()):
+                fail(f"{verb} {algo} {wd}: {over} of the round-trip budget")
+            full_bytes = refs["wire_bytes"][verb, algo]
+            calls.append(dict(verb=verb, algo=algo, wire=wd, launches=delta, host_ms=host_ms,
+                              max_abs_err_vs_full_precision=err.max().item(),
+                              worst_over_bound=over, wire_bytes=wire_bytes,
+                              full_precision_wire_bytes=full_bytes,
+                              wire_byte_reduction=full_bytes / wire_bytes))
+            del got, mine, bound, err
+    launches = dict(rc.launch_counts)
+    fallbacks = dma.WIRE_FALLBACK.total() - fb0
+    if fallbacks:
+        fail(f"the quantized path fell back {fallbacks} times")
+    # The Communicator returns one member's copy of a gather: hold all W.
+    for wd in WIRES:
+        got = rc.ring_all_gather(contrib.unsqueeze(1), wire_dtype=wd)
+        if not all(torch.equal(got[i], got[0]) for i in range(1, w)):
+            fail(f"all_gather ring {wd}: the members' copies differ at the bucket")
+        del got
+    cold = {(c["verb"], c["algo"]): c["host_ms"] for c in calls if c["wire"] == "fp8"}
+    breakdown = verb_breakdown([(verb, f"{algo} fp8", functools.partial(run, "fp8"),
+                                 cold[verb, algo]) for verb, algo, run, *_ in verbs])
+    planner = plan.get_planner()
+    auto = {wd: {
+        "all_reduce": planner.plan_all_reduce((BUCKET,), x.dtype, w, wire_dtype=wd,
+                                              pallas_ok=True, emit=False).algo,
+        "all_gather": planner.plan_all_gather((BUCKET // w,), x.dtype, w, wire_dtype=wd,
+                                              pallas_ok=True, emit=False).algo,
+        "reduce_scatter": planner.plan_reduce_scatter((BUCKET,), x.dtype, w, wire_dtype=wd,
+                                                      pallas_ok=True, emit=False).algo,
+        "broadcast": planner.plan_broadcast((BUCKET,), x.dtype, w, wire_dtype=wd,
+                                            pallas_ok=True, emit=False).algo,
+    } for wd in WIRES}
+    held_plain = quant_held_at_bucket(x)
+    emit("quant_path", W=w, bucket_elems_per_member=BUCKET, calls=calls, launches=launches,
+         fallbacks=fallbacks, auto_picks=auto, warm_breakdown=breakdown,
+         kernels_vs_plain_at_bucket=held_plain,
+         peak_mem_gib=torch.cuda.max_memory_allocated(DEV) / 2**30)
+    return launches, max(r["max_abs_err_vs_plain"] for r in held_plain)
 
 def main() -> None:
     t_start = time.perf_counter()
@@ -829,8 +1232,18 @@ def main() -> None:
     ring_planted_faults()
     ring_time = ring_timing()
     torch.cuda.empty_cache()
+    q_err = ring_q_vs_plain()["max_abs_err_vs_plain"]
+    ring_q_planted_faults()
+    q_time = ring_q_timing(ring_time)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(DEV)
-    ring_launches, ring_errs = collective_path()
+    bucket = gradient_bucket()
+    ring_launches, ring_errs, refs = collective_path(bucket)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    q_launches, q_err_bucket = quant_path(bucket, refs)
+    q_err = max(q_err, q_err_bucket)
+    del bucket, refs
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": errs[name],
@@ -846,7 +1259,18 @@ def main() -> None:
          "bound_ms": ring_time[name]["bound_ms"], "bound_by": ring_time[name]["bound_by"],
          "library_ms": ring_time[name]["library_ms"],
          "library_call": ring_time[name]["library_call"]}
-        for name in rc.KERNELS
+        for name in FULL_PRECISION
+    ] + [
+        # ms is the fp8 wire's; int8's stands beside it. The bound is the
+        # full-precision twin's: the same compulsory bytes.
+        {"name": name, "route": "cuda", "source": RING_SOURCE, "replaces": RING_REPLACES[name],
+         "launches": q_launches[name], "max_abs_err": q_err,
+         "ms": q_time[name]["fp8"]["ms"], "int8_ms": q_time[name]["int8"]["ms"],
+         "plain_ms": q_time[name]["fp8"]["plain_ms"],
+         "bound_ms": q_time[name]["fp8"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None,
+         "library_call": f"none computes a per-hop quantized sum; see {twin}'s"}
+        for name, twin in QUANTIZED.items()
     ]
     for k in kernels:
         if not k["launches"]:

@@ -166,14 +166,185 @@ def test_kernel_algos_need_one_axis(devices):
 
 
 def test_quantized_wire_raises_not_implemented(dp4):
-    _, tcomm = dp4
+    """It is implemented now. What still raises, as in the JAX package
+    (ValueError, the same message): a wire_dtype on an explicit algo that
+    cannot carry a quantized wire, and an unknown wire_dtype."""
+    jcomm, tcomm = dp4
     x = np.zeros((4, 8), np.float32)
+    jx = jcomm.device_put(x)
+    for verb, kw in (("all_reduce", dict(algo="xla")), ("all_reduce", dict(algo="ring")),
+                     ("all_reduce", dict(algo="hd")), ("all_gather", dict(algo="xla")),
+                     ("reduce_scatter", dict(algo="xla")), ("broadcast", dict(algo="tree")),
+                     ("broadcast", dict(algo="xla")), ("broadcast", dict(algo="psum"))):
+        with pytest.raises(ValueError, match="wire_dtype quantization rides") as jerr:
+            getattr(jcomm, verb)(jx, wire_dtype="fp8", **kw)
+        with pytest.raises(ValueError, match="wire_dtype quantization rides") as terr:
+            getattr(tcomm, verb)(x, wire_dtype="fp8", **kw)
+        assert str(terr.value) == str(jerr.value)
+    for call in (lambda: tcomm.all_reduce(x, algo="pallas", wire_dtype="fp4"),
+                 lambda: tcomm.all_gather(x, algo="ring", wire_dtype="fp4"),
+                 lambda: tcomm.reduce_scatter(x, algo="ring", wire_dtype="fp4"),
+                 lambda: tcomm.broadcast(x, algo="scatter_ag", wire_dtype="fp4")):
+        with pytest.raises(ValueError, match="unknown wire_dtype"):
+            call()
     for call in (lambda: tcomm.all_reduce(x, algo="pallas", wire_dtype="fp8"),
                  lambda: tcomm.all_gather(x, algo="ring", wire_dtype="int8"),
                  lambda: tcomm.reduce_scatter(x, algo="ring", wire_dtype="fp8"),
                  lambda: tcomm.broadcast(x, algo="scatter_ag", wire_dtype="fp8")):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            call()
+        assert (call() == 0).all()
+
+
+# -- the quantized wire: every verb's wire_dtype against the JAX Communicator.
+# bf16 payloads and pure data movement must agree bit for bit; an f32 sum to
+# a few ulps per hop, because XLA:CPU contracts the hop's dequantize-multiply
+# and accumulate-add into one fma (tests/test_torch_quant_wire.py states it).
+
+
+def _quant_close(got, want, x, trips):
+    np.testing.assert_allclose(_np(got), want, rtol=0,
+                               atol=trips * 4 * 2.0 ** -23 * np.abs(x).sum(0).max())
+
+
+@pytest.mark.parametrize("wd", ["fp8", "int8"])
+@pytest.mark.parametrize("algo", ["pallas", "bidir"])
+def test_all_reduce_quantized(dp4, algo, wd):
+    jcomm, tcomm = dp4
+    x = _x(jcomm, (5, 40), seed=20)
+    want = np.asarray(jcomm.all_reduce(jcomm.device_put(x), algo=algo, wire_dtype=wd))
+    got = tcomm.all_reduce(x, algo=algo, wire_dtype=wd)
+    _quant_close(got, want, x, trips=4)
+    assert (got == got[0]).all()
+    # the n-trip budget of tests/test_quant_wire.py:85
+    assert np.abs(_np(got) - x.sum(0)).max() <= \
+        4 * np.abs(x).sum(0).max() / {"fp8": 448 / 16.125, "int8": 254.0}[wd] * 1.05
+
+
+@pytest.mark.parametrize("wd", ["fp8", "int8"])
+@pytest.mark.parametrize("verb,algo", [("all_gather", "ring"), ("all_gather", "bidir"),
+                                       ("broadcast", "scatter_ag")])
+def test_data_movement_quantized_is_bit_identical(dp4, verb, algo, wd):
+    jcomm, tcomm = dp4
+    x = _x(jcomm, (6, 50), seed=21)
+    want = np.asarray(getattr(jcomm, verb)(jcomm.device_put(x), algo=algo, wire_dtype=wd))
+    got = getattr(tcomm, verb)(x, algo=algo, wire_dtype=wd)
+    np.testing.assert_array_equal(_np(got), want)
+    ref = x if verb == "all_gather" else np.broadcast_to(x[0], x.shape)
+    assert np.abs(_np(got) - ref).max() <= \
+        np.abs(x).max() / {"fp8": 448 / 16.125, "int8": 254.0}[wd] * 1.05
+
+
+@pytest.mark.parametrize("wd", ["fp8", "int8"])
+def test_reduce_scatter_quantized(dp4, wd):
+    jcomm, tcomm = dp4
+    x = np.random.default_rng(22).standard_normal((4, 12, 30)).astype(np.float32)
+    want = np.asarray(jcomm.reduce_scatter(jcomm.device_put(x), algo="ring", wire_dtype=wd))
+    got = tcomm.reduce_scatter(x, algo="ring", wire_dtype=wd)
+    assert got.shape == want.shape == (4, 3, 30)
+    _quant_close(got, want, x, trips=3)
+
+
+def _snap(counter):
+    return {tuple(sorted(lb.items())): v for lb, v in counter.samples()}
+
+
+def _moved(before, counter):
+    """The series of ``counter`` that grew since ``before``, by how much."""
+    return {k: v - before.get(k, 0) for k, v in _snap(counter).items() if v > before.get(k, 0)}
+
+
+@pytest.mark.parametrize("wd", ["fp8", "int8"])
+def test_auto_picks_labels_and_quant_downgrades_match_jax(dp4, wd):
+    """``auto`` with a wire_dtype on both packages: the same winner and
+    emitted plan label (``collective_plan_total``), and the same
+    ``quant_algo`` downgrades counted on ``ep_wire_fallback_total`` when the
+    winner cannot carry the wire — a tiny payload (the tree / hd / xla
+    range), a larger one, and a non-sum all-reduce."""
+    from uccl_tpu.collective import dma as jdma
+    from uccl_tpu.collective import plan as jplan
+    from uccl_tpu_torch.collective import plan as tplan
+
+    jcomm, tcomm = dp4
+    dma.MAX_ARENA_BYTES.set(jdma.budget_limit(jdma.resolve_interpret(None)))
+    try:
+        # shapes no other test of this module sends, so neither memo has them
+        for shape in ((8 + (wd == "int8"),), (3000 + (wd == "int8"),)):
+            x = _x(jcomm, shape, seed=23)
+            jx = jcomm.device_put(x)
+            for verb, kw in (("all_reduce", dict(algo="auto")), ("all_gather", {}),
+                             ("broadcast", {}), ("all_reduce", dict(op="max", algo="auto"))):
+                jf, tf = _snap(jdma.WIRE_FALLBACK), _snap(dma.WIRE_FALLBACK)
+                jp, tp = _snap(jplan.PLAN_TOTAL), _snap(tplan.PLAN_TOTAL)
+                want = np.asarray(getattr(jcomm, verb)(jx, wire_dtype=wd, **kw))
+                got = getattr(tcomm, verb)(x, wire_dtype=wd, **kw)
+                key = (shape, verb, tuple(kw.items()))
+                assert _moved(tf, dma.WIRE_FALLBACK) == _moved(jf, jdma.WIRE_FALLBACK), key
+                plans = _moved(tp, tplan.PLAN_TOTAL)
+                assert plans == _moved(jp, jplan.PLAN_TOTAL) and len(plans) == 1, key
+                np.testing.assert_allclose(_np(got), want, rtol=0, atol=1e-5, err_msg=str(key))
+    finally:
+        dma.MAX_ARENA_BYTES.set(None)
+
+
+def test_reduce_scatter_auto_quantized_matches_jax(dp4):
+    from uccl_tpu.collective import dma as jdma
+
+    jcomm, tcomm = dp4
+    dma.MAX_ARENA_BYTES.set(jdma.budget_limit(jdma.resolve_interpret(None)))
+    try:
+        x = np.random.default_rng(25).standard_normal((4, 8, 2)).astype(np.float32)
+        jb, tb = _snap(jdma.WIRE_FALLBACK), _snap(dma.WIRE_FALLBACK)
+        want = np.asarray(jcomm.reduce_scatter(jcomm.device_put(x), wire_dtype="fp8"))
+        got = tcomm.reduce_scatter(x, wire_dtype="fp8")
+        assert _moved(tb, dma.WIRE_FALLBACK) == _moved(jb, jdma.WIRE_FALLBACK)
+        np.testing.assert_allclose(_np(got), want, rtol=1e-5, atol=1e-5)
+    finally:
+        dma.MAX_ARENA_BYTES.set(None)
+
+
+def test_wire_bytes_of_the_verbs_match_jax_and_shrink(devices):
+    """ep_bytes_total deltas of one call per verb equal the JAX package's,
+    and tests/test_bcast_ag.py's reductions hold on the port's own
+    counters at world 8, 64 KiB f32: the scatter-allgather broadcast moves
+    at least 2x fewer bytes than the masked-psum baseline, at least 4x
+    fewer with an fp8 wire."""
+    from uccl_tpu.collective import pallas_ccl
+
+    jcomm = JComm(jmake_mesh(JMeshConfig(dp=8), devices), "dp")
+    tcomm = Communicator(make_mesh(MeshConfig(dp=8), device="cpu", n_members=8), "dp")
+    x = _x(jcomm, (16384,), seed=26)
+    jx = jcomm.device_put(x)
+    moved = {}
+    for name, kw in (("psum", dict(algo="psum")), ("scatter_ag", dict(algo="scatter_ag")),
+                     ("fp8", dict(algo="scatter_ag", wire_dtype="fp8"))):
+        jb, tb = pallas_ccl._WIRE_BYTES.total(), ring_ccl._WIRE_BYTES.total()
+        want = np.asarray(jcomm.broadcast(jx, 3, **kw))
+        got = tcomm.broadcast(x, 3, **kw)
+        np.testing.assert_array_equal(_np(got), want)
+        moved[name] = ring_ccl._WIRE_BYTES.total() - tb
+        assert moved[name] == pallas_ccl._WIRE_BYTES.total() - jb > 0, name
+    assert moved["psum"] / moved["scatter_ag"] >= 2.0
+    assert moved["psum"] / moved["fp8"] >= 4.0
+    label = dict(verb="bcast", wire="pallas", wire_dtype="fp8")
+    assert ring_ccl._WIRE_BYTES.get(**label) >= moved["fp8"]
+
+
+def test_plan_memo_keys_carry_the_wire_dtype(dp4):
+    """Two requests that differ only in wire_dtype resolve apart, each
+    emitted once, with its own wire_dtype label."""
+    _, tcomm = dp4
+    from uccl_tpu_torch.collective import plan
+
+    x = _x(tcomm, (2, 70), seed=27)
+    keys = {wd: dict(algo="pallas", chunks=1, wire_dtype=wd or "none", outcome="explicit")
+            for wd in (None, "fp8", "int8")}
+    before = {wd: plan.PLAN_TOTAL.get(**k) for wd, k in keys.items()}
+    outs = {}
+    for _ in range(2):
+        for wd in keys:
+            outs[wd] = tcomm.all_reduce(x, algo="pallas", wire_dtype=wd)
+    for wd, k in keys.items():
+        assert plan.PLAN_TOTAL.get(**k) == before[wd] + 1, wd
+    assert not torch.equal(outs[None], outs["fp8"]) and not torch.equal(outs["fp8"], outs["int8"])
 
 
 def test_forced_small_budget_counts_a_fallback(dp4):

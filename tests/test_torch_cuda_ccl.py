@@ -1,4 +1,4 @@
-"""The port's CUDA ring kernels (B4, B5, B7 in uccl_tpu_torch/csrc/ring_ccl.cu)
+"""The port's CUDA ring kernels (B4-B8 in uccl_tpu_torch/csrc/ring_ccl.cu)
 against their plain versions, on the card.
 
 Every test here needs an NVIDIA Hopper GPU and ``nvcc``; without a GPU each
@@ -9,7 +9,11 @@ past the suite's conftest:
 
 Tolerance: none. Each kernel runs the plain version's hop schedule with one
 correctly rounded add per hop in the input dtype, so the results must be
-bit-identical (``torch.equal``).
+bit-identical (``torch.equal``). The quantized kernels B6 and B8 carry the
+block codec's arithmetic in their bodies (the scale as amax * (1 / QMAX), an
+IEEE division by it, the dequantized value rounded to the input dtype before
+the add), so they too must equal their plain versions bit for bit, a nan
+counting as equal to a nan (a block poisoned by a non-finite input).
 """
 
 import ctypes
@@ -36,6 +40,16 @@ def _x(dev, shape, dtype, seed):
     if dtype == torch.int32:
         x = (x * 1000).to(torch.int32)
     return x.to(dtype).to(dev)
+
+
+def _counts():
+    """The kernels launched since the last reset."""
+    return {k: v for k, v in ring_ccl.launch_counts.items() if v}
+
+
+def _same(a, b):
+    """Bit-identical, a nan equal to a nan."""
+    return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
 
 
 CASES = [  # (n, per-member elements, dtype, direction)
@@ -71,8 +85,7 @@ def test_kernels_equal_plain(dev, n, size, dtype, d):
         lane, got = ring_ccl._ar_kernel(view, dirs, 0)
         lane.check("test")
         assert torch.equal(got, ring_ccl.ar_plain(view, dirs))
-    assert ring_ccl.launch_counts == {"ring_all_gather": 1, "ring_reduce_scatter": 1,
-                                      "ring_all_reduce": 2}
+    assert _counts() == {"ring_all_gather": 1, "ring_reduce_scatter": 1, "ring_all_reduce": 2}
 
 
 def test_entry_points_against_plain_and_sum(dev):
@@ -109,14 +122,16 @@ def test_repeated_calls_on_one_flag_region(dev):
         assert torch.equal(got, want), i
 
 
-def _launch_all_but_last(name, x, buf, stage, out, streams, dirs, cid, slot_bytes):
+def _launch_all_but_last(name, x, buf, stage, out, streams, dirs, cid, slot_bytes, *,
+                         wire_dtype=None, sstage=None, qbuf=None, sbuf=None):
     """``ring_ccl._launch`` with the last member left out of the grid: the
     C entry launches members [0, n-1) only."""
     n, t = x.shape[0], ring_ccl._table
     lane = ring_ccl._lane(x.device, cid)
     rc = ring_ccl._lib().uccl_ring_launch(
-        ring_ccl._KERNEL_ID[name], ring_ccl._ADD_DTYPES.get(x.dtype, 0), n, n - 1, streams,
-        dirs[0], dirs[-1], slot_bytes, t(x, n), t(buf, n), t(stage, n), t(out, n),
+        ring_ccl._KERNEL_ID[name], ring_ccl._ADD_DTYPES.get(x.dtype, 0),
+        ring_ccl._WIRE_ID.get(wire_dtype, 0), n, n - 1, streams, dirs[0], dirs[-1], slot_bytes,
+        t(x, n), t(buf, n), t(stage, n), t(out, n), t(sstage, n), t(qbuf, n), t(sbuf, n),
         t(lane.flags, n), ctypes.c_void_p(lane.err.data_ptr()), cid, lane.next_epoch(),
         ring_ccl.SPIN_TIMEOUT_MS.get() * 1_000_000,
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
@@ -126,21 +141,29 @@ def _launch_all_but_last(name, x, buf, stage, out, streams, dirs, cid, slot_byte
 
 def test_missing_member_raises_instead_of_hanging(dev):
     """Launch all but the last member: its neighbors' waits time out, the
-    kernel writes its error word and returns, and the check raises. The
-    flag region works again afterwards."""
+    kernel writes its error word and returns, and the check raises, for all
+    five kernels. The flag region works again afterwards."""
     n, m = 4, 4096
     x = _x(dev, (n, n, m), torch.float32, seed=2)
     e = torch.empty_like
     slot = m * 4
+    view = x.reshape(n, n, 1, m)
+    qstage, sstage = ring_ccl._wire_buffers(x, n, 2)
+    _, *ar_q = ring_ccl._ar_operands(view, "fp8")
     ring_ccl.SPIN_TIMEOUT_MS.set(200)
     try:
-        for args in (("ring_reduce_scatter", x, e(x), x.new_empty((n, 2, m)),
-                      x.new_empty((n, m)), 1, (1,), 5, slot),
-                     ("ring_all_gather", x[:, 0].contiguous(), e(x), None, None, 1, (1,), 5,
-                      slot),
-                     ("ring_all_reduce", x.reshape(n, n, 1, m), e(x).reshape(n, n, 1, m),
-                      x.new_empty((n, 1, 2, m)), None, 1, (1,), 5, slot)):
-            lane = _launch_all_but_last(*args)
+        for args, kw in (
+                (("ring_reduce_scatter", x, e(x), x.new_empty((n, 2, m)), x.new_empty((n, m)),
+                  1, (1,), 5, slot), {}),
+                (("ring_all_gather", x[:, 0].contiguous(), e(x), None, None, 1, (1,), 5, slot),
+                 {}),
+                (("ring_all_reduce", view, e(view), x.new_empty((n, 1, 2, m)), None, 1, (1,), 5,
+                  slot), {}),
+                (("ring_reduce_scatter_q", x, e(x), qstage, x.new_empty((n, m)), 1, (1,), 5,
+                  slot), dict(wire_dtype="int8", sstage=sstage)),
+                (("ring_all_reduce_q", view, e(view), ar_q[0], None, 1, (1,), 5, slot),
+                 dict(wire_dtype="fp8", sstage=ar_q[1], qbuf=ar_q[2], sbuf=ar_q[3]))):
+            lane = _launch_all_but_last(*args, **kw)
             with pytest.raises(RuntimeError, match="timed out"):
                 lane.check("test")
     finally:
@@ -167,8 +190,8 @@ def test_cuda_tensors_ignore_the_arena_budget(dev):
         assert torch.equal(comm.broadcast(x, 1, algo="scatter_ag"), x[1].expand_as(x))
         comm.reduce_scatter(x, algo="ring")
         assert dma.WIRE_FALLBACK.total() == fb
-        assert ring_ccl.launch_counts == {"ring_all_gather": 5, "ring_reduce_scatter": 1,
-                                          "ring_all_reduce": 3}
+        assert _counts() == {"ring_all_gather": 5, "ring_reduce_scatter": 1,
+                             "ring_all_reduce": 3}
     finally:
         dma.MAX_ARENA_BYTES.set(None)
 
@@ -215,3 +238,131 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     # B4 moves bytes of any dtype
     x = torch.arange(4 * 3000, dtype=torch.int64, device=dev).reshape(4, 3000)
     assert torch.equal(ring_ccl.ring_all_gather(x.unsqueeze(1))[3], x)
+
+
+# ---------------------------------------------------------------------------
+# The quantized wire: B6 and B8
+
+
+def _xq(dev, shape, dtype, seed):
+    """Payloads whose 128-element blocks span magnitudes of e^±3."""
+    rng = np.random.default_rng(seed)
+    mag = np.exp(3 * rng.standard_normal((shape[0], shape[1] // 128 + 1)))
+    x = rng.standard_normal(shape) * np.repeat(mag, 128, axis=1)[:, : shape[1]]
+    return torch.tensor(x, dtype=torch.float32).to(dtype).to(dev)
+
+
+QUANT_CASES = [  # (n, per-member elements, dtype, direction)
+    (2, 5000, torch.float32, 1),
+    (3, 70_001, torch.bfloat16, -1),
+    (4, 1_000_003, torch.float32, -1),
+    (4, 4096, torch.float16, 1),
+    (8, 300_001, torch.bfloat16, 1),
+    (16, 333, torch.float32, -1),
+]
+
+
+@pytest.mark.parametrize("wd", ["fp8", "int8"])
+@pytest.mark.parametrize("n,size,dtype,d", QUANT_CASES, ids=lambda v: str(v))
+def test_quantized_kernels_equal_plain(dev, n, size, dtype, d, wd):
+    x = _xq(dev, (n, size), dtype, seed=n)
+    ring_ccl.reset_launch_counts()
+    chunks = dma.pad_chunks(x[:, : size - size % n], n)[0].reshape(n, n, -1)
+    lane, got = ring_ccl._rs_kernel(chunks, d, 0, wd)
+    lane.check("test")
+    assert _same(got, ring_ccl.rs_q_plain(chunks, d, wd))
+    for dirs in ((d,), (1, -1)):
+        view, _, _ = ring_ccl._ar_layout(x, len(dirs))
+        lane, got = ring_ccl._ar_kernel(view, dirs, 0, wd)
+        lane.check("test")
+        assert _same(got, ring_ccl.ar_q_plain(view, dirs, wd))
+        assert all(_same(got[i], got[0]) for i in range(1, n))
+    assert _counts() == {"ring_reduce_scatter_q": 1, "ring_all_reduce_q": 2}
+
+
+@pytest.mark.parametrize("wd", ["fp8", "int8"])
+def test_quantized_kernels_keep_nonfinite_loud_and_zeros_exact(dev, wd):
+    """An inf and a nan each poison their own 128-lane block on every
+    member (the row's scale becomes +inf: fmaxf alone would drop the nan),
+    an all-zero block comes out exactly zero, a denormal block stays
+    finite; all of it equal to the plain version."""
+    x = _xq(dev, (4, 8192), torch.float32, seed=7)
+    x[0, 5], x[1, 300] = float("inf"), float("nan")
+    x[:, 1024:1152], x[3, 2048:2176] = 0.0, 1e-42
+    view, k, _ = ring_ccl._ar_layout(x, 1)
+    lane, got = ring_ccl._ar_kernel(view, (1,), 0, wd)
+    lane.check("test")
+    assert _same(got, ring_ccl.ar_q_plain(view, (1,), wd))
+    out = ring_ccl._ar_unlayout(got, k, x)
+    assert out[:, :128].isnan().all() and out[:, 256:384].isnan().all()
+    assert out[:, 128:256].isfinite().all() and out[:, 384:].isfinite().all()
+    assert (out[:, 1024:1152] == 0).all()
+
+
+@pytest.mark.parametrize("wd", ["fp8", "int8"])
+def test_quantized_entry_points_against_plain(dev, wd):
+    """The public wrappers with a wire_dtype on CUDA tensors (B6, B8, B4 on
+    payload and scales, the codec's torch ops on the card) against the same
+    calls on the CPU (plain versions), bit for bit."""
+    n = 4
+    x = _xq(dev, (n, 30_021), torch.float32, seed=8).reshape(n, 3, 10_007)
+    xc = x.cpu()
+    ring_ccl.reset_launch_counts()
+    for name, fn in [("ag", lambda t: ring_ccl.ring_all_gather(t, direction=-1, wire_dtype=wd)),
+                     ("rs", lambda t: ring_ccl.ring_reduce_scatter(
+                         t.reshape(n, -1)[:, :30_020], wire_dtype=wd)),
+                     ("ar", lambda t: ring_ccl.ring_all_reduce(t, wire_dtype=wd)),
+                     ("ar1", lambda t: ring_ccl.ring_all_reduce(t, bidirectional=False,
+                                                                wire_dtype=wd)),
+                     ("bidir_ar", lambda t: ring_ccl.bidir_all_reduce(t, wire_dtype=wd)),
+                     ("bidir_ag", lambda t: ring_ccl.bidir_all_gather(t, wire_dtype=wd)),
+                     ("bcast", lambda t: ring_ccl.scatter_ag_broadcast(t, 2, wire_dtype=wd))]:
+        got = fn(x)
+        assert got.is_cuda and torch.equal(got.cpu(), fn(xc)), name
+    assert _counts() == {"ring_all_gather": 2 + 4 + 4, "ring_reduce_scatter_q": 1,
+                         "ring_all_reduce_q": 1 + 1 + 2}
+
+
+def test_quantized_communicator_on_the_card(dev):
+    """Every verb's wire_dtype through the kernels, equal to the same verb
+    on the CPU (plain versions), with the arena budget forced tiny: CUDA
+    tensors launch at every size and nothing falls back."""
+    comm = Communicator(make_mesh(MeshConfig(dp=4)), "dp")
+    cpu = Communicator(make_mesh(MeshConfig(dp=4), device="cpu"), "dp")
+    x = _xq(dev, (4, 3000), torch.float32, seed=9)
+    xc = x.cpu()
+    want = {}
+    verbs = [("all_reduce", dict(algo="pallas")), ("all_reduce", dict(algo="bidir")),
+             ("all_gather", dict(algo="ring")), ("all_gather", dict(algo="bidir")),
+             ("broadcast", dict(root=1, algo="scatter_ag")),
+             ("reduce_scatter", dict(algo="ring"))]
+    for wd in ("fp8", "int8"):
+        for i, (verb, kw) in enumerate(verbs):
+            want[wd, i] = getattr(cpu, verb)(xc, wire_dtype=wd, **kw)
+    dma.MAX_ARENA_BYTES.set(64)
+    try:
+        fb = dma.WIRE_FALLBACK.total()
+        ring_ccl.reset_launch_counts()
+        for wd in ("fp8", "int8"):
+            for i, (verb, kw) in enumerate(verbs):
+                got = getattr(comm, verb)(x, wire_dtype=wd, **kw)
+                assert got.is_cuda and torch.equal(got.cpu(), want[wd, i]), (verb, kw, wd)
+        assert dma.WIRE_FALLBACK.total() == fb
+        assert _counts() == {"ring_all_gather": 2 * (2 + 4 + 4), "ring_reduce_scatter_q": 2,
+                             "ring_all_reduce_q": 2 * 3}
+    finally:
+        dma.MAX_ARENA_BYTES.set(None)
+
+
+def test_quantized_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    with pytest.raises(TypeError):
+        ring_ccl.ring_all_reduce(torch.ones(4, 100, dtype=torch.float64, device=dev),
+                                 wire_dtype="fp8")
+    with pytest.raises(ValueError, match="unknown wire_dtype"):
+        ring_ccl.ring_all_reduce(torch.ones(4, 100, device=dev), wire_dtype="e5m2")
+    # an int payload ships full precision through B7, counted
+    fb = dma.WIRE_FALLBACK.get(what="all_reduce", reason="quant_dtype")
+    xi = torch.arange(4 * 300, dtype=torch.int32, device=dev).reshape(4, 300)
+    assert torch.equal(ring_ccl.ring_all_reduce(xi, wire_dtype="int8"),
+                       xi.sum(0, dtype=torch.int32).expand_as(xi))
+    assert dma.WIRE_FALLBACK.get(what="all_reduce", reason="quant_dtype") == fb + 1

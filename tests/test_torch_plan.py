@@ -9,6 +9,8 @@ outcome) and the same predicted cost over a table of payload sizes, worlds
 and verbs, with the port's arena budget set to the JAX gate's limit here.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -124,32 +126,44 @@ WORLDS = [(2, 1, None), (4, 1, None), (8, 1, None), (3, 1, None), (8, 2, (2, 4))
           (4, 2, (2, 2))]
 
 
-def _plans(jfn, tfn, shape, dt, world, n_axes, worlds):
+def _plans(jfn, tfn, shape, dt, world, n_axes, worlds, wire_dtype=None):
     j = jfn(shape, jnp.dtype(dt[0]), world, n_axes=n_axes, worlds=worlds,
+            wire_dtype=wire_dtype, pallas_ok=n_axes == 1, emit=False)
+    t = tfn(shape, dt[1], world, n_axes=n_axes, worlds=worlds, wire_dtype=wire_dtype,
             pallas_ok=n_axes == 1, emit=False)
-    t = tfn(shape, dt[1], world, n_axes=n_axes, worlds=worlds, pallas_ok=n_axes == 1,
-            emit=False)
     return j, t
 
 
-@pytest.mark.parametrize("verb", ["all_reduce", "all_gather", "reduce_scatter", "broadcast"])
-def test_planner_decisions_match_jax(same_budget, verb):
+PLAN_FNS = {"all_reduce": "plan_all_reduce", "all_gather": "plan_all_gather",
+            "reduce_scatter": "plan_reduce_scatter", "broadcast": "plan_broadcast"}
+
+
+@pytest.mark.parametrize("wire_dtype", [None, "fp8", "int8"])
+@pytest.mark.parametrize("verb", list(PLAN_FNS))
+def test_planner_decisions_match_jax(same_budget, verb, wire_dtype):
+    """The same algo, chunks, outcome, emitted wire_dtype label (None when
+    the winner cannot carry a quantized wire), wire bytes and predicted cost,
+    over the table; a quantized wire is priced at its wire bytes and probed
+    at the quantized kernels' charges."""
     jp, tp = jplan.get_planner(), tplan.get_planner()
-    fns = {"all_reduce": "plan_all_reduce", "all_gather": "plan_all_gather",
-           "reduce_scatter": "plan_reduce_scatter", "broadcast": "plan_broadcast"}[verb]
+    fns = PLAN_FNS[verb]
     seen = set()
-    for shape in SIZES:
+    for shape in SIZES + ([(3, 100), (4096,)] if wire_dtype else []):
         for world, n_axes, worlds in WORLDS:
-            for dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            for dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16),
+                       ("int32", torch.int32)):
                 j, t = _plans(getattr(jp, fns), getattr(tp, fns), shape, dt, world, n_axes,
-                              worlds)
-                key = (verb, shape, world, n_axes, dt[0])
-                assert (t.algo, t.chunks, t.outcome, t.verb, t.wire_bytes) == \
-                    (j.algo, j.chunks, j.outcome, j.verb, j.wire_bytes), key
+                              worlds, wire_dtype)
+                key = (verb, shape, world, n_axes, dt[0], wire_dtype)
+                assert (t.algo, t.chunks, t.outcome, t.verb, t.wire_bytes, t.wire_dtype) == \
+                    (j.algo, j.chunks, j.outcome, j.verb, j.wire_bytes, j.wire_dtype), key
                 assert t.predicted_us == pytest.approx(j.predicted_us, rel=1e-12), key
-                seen.add(t.algo)
-    # the table reaches more than one decision for every verb
-    assert len(seen) >= 2, seen
+                seen.add((t.algo, t.wire_dtype))
+    # the table reaches more than one decision for every verb, and with a
+    # wire_dtype both a winner that carries it and one re-labelled to None
+    assert len({a for a, _ in seen}) >= 2, seen
+    if wire_dtype:
+        assert {w for _, w in seen} == {wire_dtype, None}, seen
 
 
 def test_forced_algo_and_explicit_plans(same_budget, monkeypatch):
@@ -204,5 +218,49 @@ def test_cost_features_match():
 
 
 def test_wire_dtype_raises_in_the_planner():
-    with pytest.raises(NotImplementedError):
-        tplan.get_planner().plan_all_reduce((64,), torch.float32, 4, wire_dtype="int8")
+    """Only an unknown wire_dtype raises now (ValueError); fp8 and int8 are
+    priced at the wire bytes of ops/quant.py's wire_bytes_of."""
+    tp = tplan.get_planner()
+    for fn in (tp.plan_all_reduce, tp.plan_all_gather, tp.plan_reduce_scatter,
+               tp.plan_broadcast, functools.partial(tp.plan_explicit, "ring")):
+        with pytest.raises(ValueError, match="unknown wire_dtype"):
+            fn((64,), torch.float32, 4, wire_dtype="fp4")
+    for wd in ("fp8", "int8"):
+        assert tp.wire_bytes((4, 256), torch.float32, wd) == 1024 + 8 * 4
+        assert tp.wire_bytes((4, 256), torch.int32, wd) == 4096  # non-float: raw wire
+        p = tp.plan_all_reduce((64,), torch.float32, 4, wire_dtype=wd, emit=False)
+        assert p.wire_dtype is None and p.wire_bytes == 256  # hd cannot carry it
+
+
+@pytest.mark.parametrize("wd", ["fp8", "int8"])
+def test_quantized_plans_relabel_and_emit_like_jax(same_budget, wd):
+    """tests/test_bcast_ag.py's planner cases, on both packages: a quantized
+    wire that fits where the f32 pair does not flips the decision to the
+    kernel; a winner that cannot carry the wire is emitted at full
+    precision; explicit plans keep the label they were given; the counter's
+    wire_dtype label follows."""
+    jp, tp = jplan.get_planner(), tplan.get_planner()
+    # f32: each half's gather buffer (8 x 3072 x 4 B) is over the 64 KiB
+    # limit; quantized: both halves' wire buffers together (2 x 8 x 3584 B)
+    # fit, under the JAX interpreter's larger-half rule and the port's sum
+    shape = (8 * 6144,)
+    for wire_dtype, algo, label in ((None, "xla", None), (wd, "scatter_ag", wd)):
+        j = jp.plan_broadcast(shape, jnp.float32, 8, pallas_ok=True, wire_dtype=wire_dtype,
+                              emit=False)
+        t = tp.plan_broadcast(shape, torch.float32, 8, pallas_ok=True, wire_dtype=wire_dtype,
+                              emit=False)
+        assert (t.algo, t.wire_dtype) == (j.algo, j.wire_dtype) == (algo, label)
+    t = tp.plan_broadcast((64,), torch.float32, 8, pallas_ok=True, wire_dtype=wd, emit=False)
+    assert (t.algo, t.wire_dtype) == ("tree", None)
+    for verb, algo in (("all_reduce", "pallas"), ("all_reduce", "hd"), ("all_gather", "bidir"),
+                       ("reduce_scatter", "ring"), ("broadcast", "scatter_ag")):
+        j = jp.plan_explicit(algo, (1000,), jnp.float32, 4, verb=verb, wire_dtype=wd, emit=False)
+        t = tp.plan_explicit(algo, (1000,), torch.float32, 4, verb=verb, wire_dtype=wd,
+                             emit=False)
+        assert (t.algo, t.chunks, t.wire_dtype, t.wire_bytes) == \
+            (j.algo, j.chunks, j.wire_dtype, j.wire_bytes)
+        assert t.predicted_us == pytest.approx(j.predicted_us)
+    key = dict(algo="ring", chunks=1, wire_dtype=wd, outcome="model", verb="reduce_scatter")
+    before = tplan.PLAN_TOTAL.get(**key)
+    p = tp.plan_reduce_scatter((4096,), torch.float32, 4, pallas_ok=True, wire_dtype=wd)
+    assert p.algo == "ring" and tplan.PLAN_TOTAL.get(**key) == before + 1

@@ -7,7 +7,8 @@ mesh of the virtual CPU devices. The port's side runs on CPU tensors, so its
 wrappers take each kernel's plain version (the same hop schedule on the
 member-stacked tensor, the same per-hop add in the input dtype): the results
 must be bit-identical, for f32 and bf16, n in {2, 3, 4, 8} and both ring
-directions. Payloads are a few KiB, under the interpreter's 64 KiB ceiling,
+directions. This file is the full-precision wire; the quantized one is
+tests/test_torch_quant_wire.py. Payloads are a few KiB, under the interpreter's 64 KiB ceiling,
 and sized so each member's chunks need padding.
 """
 
@@ -138,11 +139,19 @@ def test_int32_all_gather_and_all_reduce_plain():
 
 
 def test_quantized_wire_is_the_next_slice():
+    """That slice has landed: every entry takes a wire_dtype (held against
+    the JAX kernels in tests/test_torch_quant_wire.py), None and "none" are
+    the full-precision wire, and an unknown value raises ValueError."""
     x = torch.randn(4, 8)
     for fn in (ring_ccl.ring_all_reduce, ring_ccl.ring_all_gather,
                ring_ccl.ring_reduce_scatter, ring_ccl.bidir_all_reduce):
-        with pytest.raises(NotImplementedError, match="B6/B8"):
-            fn(x, wire_dtype="fp8")
+        full = fn(x)
+        assert torch.equal(fn(x, wire_dtype="none"), full)
+        for wd in ("fp8", "int8"):
+            got = fn(x, wire_dtype=wd)
+            assert got.shape == full.shape and torch.allclose(got, full, atol=0.5)
+        with pytest.raises(ValueError, match="unknown wire_dtype"):
+            fn(x, wire_dtype="fp16")
 
 
 def test_indivisible_reduce_scatter_raises():

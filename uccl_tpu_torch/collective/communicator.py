@@ -22,9 +22,17 @@ Algorithms per verb, as in the JAX package:
 * ``all_to_all``, ``permute``, ``ring_shift``, ``send_recv``, ``barrier``.
 
 Every resolution (modeled, forced, explicit) is emitted on
-``collective_plan_total`` once per distinct request (the plan memo). The
-quantized wire is not ported yet: a ``wire_dtype`` raises
-``NotImplementedError``.
+``collective_plan_total`` once per distinct request (the plan memo).
+
+``wire_dtype="fp8"|"int8"`` on the four verbs, as in
+``uccl_tpu/collective/communicator.py``: it rides the ring kernels only —
+``pallas``/``bidir`` all-reduce (B8), ``ring``/``bidir`` all-gather (B4 on
+payload and scales), ``ring`` reduce-scatter (B6), ``scatter_ag`` broadcast
+— and any other explicit algo raises ``ValueError``. With ``auto`` the
+planner prices the algorithms at the quantized wire size; a winner that
+cannot carry a quantized wire ships full precision, counted on
+``ep_wire_fallback_total`` (reason ``quant_algo``), never silently. The plan
+memo's keys carry the requested, and its values the resolved, ``wire_dtype``.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from uccl_tpu_torch.collective import dma as _dma
 from uccl_tpu_torch.collective import ops as _ops
 from uccl_tpu_torch.collective import plan as _plan
 from uccl_tpu_torch.collective import ring_ccl
+from uccl_tpu_torch.ops import quant as _quant
 from uccl_tpu_torch.parallel.mesh import AXIS, Mesh, get_mesh, mesh_axis_size
 from uccl_tpu_torch.utils.topology import ppermute_pairs
 
@@ -109,9 +118,31 @@ class Communicator:
             memo = self._plan_memo[req] = resolve()
         return memo
 
+    def _quant_wire(self, verb: str, algo: str, wire_dtype):
+        """Validate ``wire_dtype`` and refuse an explicit algo that cannot
+        carry a quantized wire."""
+        wire_dtype = _quant.resolve_wire_dtype(wire_dtype)
+        carriers = _plan._QUANT_CARRIERS[verb]
+        if wire_dtype is not None and algo not in (*carriers, "auto"):
+            name = "allreduce" if verb == "all_reduce" else verb  # the JAX package's words
+            raise ValueError(f"wire_dtype quantization rides the {'/'.join(carriers)} "
+                             f"{name} only")
+        return wire_dtype
+
+    def _quant_downgrade(self, verb: str, algo: str, wire_dtype):
+        """The wire_dtype ``auto``'s winner will carry: None, counted on
+        ``ep_wire_fallback_total``, when it cannot carry a quantized wire."""
+        if wire_dtype is None or algo in _plan._QUANT_CARRIERS[verb]:
+            return wire_dtype
+        _dma.record_fallback(
+            f"{verb}_plan", "quant_algo", detail=algo,
+            msg=f"{verb} plan {algo!r} cannot carry a quantized wire; shipping full precision",
+        )
+        return None
+
     # -- all_reduce ----------------------------------------------------------
 
-    def _resolve_ar_plan(self, x, op, algo):
+    def _resolve_ar_plan(self, x, op, algo, wire_dtype):
         planner = _plan.get_planner()
         kw = dict(n_axes=len(self.axes), worlds=self._worlds())
         plan_ = None
@@ -120,31 +151,35 @@ class Communicator:
                 algo = "xla"  # the explicit plans are sum-only
             else:
                 plan_ = planner.plan_all_reduce(self._payload_shape(x), x.dtype, self.world,
+                                                wire_dtype=wire_dtype,
                                                 pallas_ok=self._pallas_ok(), **kw)
                 algo = plan_.algo
+            wire_dtype = self._quant_downgrade("all_reduce", algo, wire_dtype)
         if algo not in ("xla", "ring", "hd", "torus", "pallas", "bidir"):
             raise ValueError(f"unknown all_reduce algo {algo!r}")
         if plan_ is None:
             plan_ = planner.plan_explicit(algo, self._payload_shape(x), x.dtype, self.world,
-                                          **kw)
-        return plan_.algo
+                                          wire_dtype=wire_dtype, **kw)
+        return plan_.algo, wire_dtype
 
     def all_reduce(self, x, op: str = ReduceOp.SUM, algo: str = "xla",
                    wire_dtype=None) -> torch.Tensor:
         """out[i] = reduce_j x[j] for every rank i (see the module
-        docstring for the algos); ``UCCL_TPU_AR_ALGO`` forces ``auto``."""
+        docstring for the algos and ``wire_dtype``); ``UCCL_TPU_AR_ALGO``
+        forces ``auto``."""
         x = self._check(x)
-        _dma.resolve_wire_dtype(wire_dtype, "all_reduce")
-        req = ("ar", op, algo, tuple(x.shape), x.dtype,
+        wire_dtype = self._quant_wire("all_reduce", algo, wire_dtype)
+        req = ("ar", op, algo, tuple(x.shape), x.dtype, wire_dtype,
                _plan._AR_FORCE_ALGO.get() if algo == "auto" else "")
-        algo = self._memo(req, lambda: self._resolve_ar_plan(x, op, algo))
+        algo, wire_dtype = self._memo(
+            req, lambda: self._resolve_ar_plan(x, op, algo, wire_dtype))
         if algo in ("pallas", "bidir", "ring", "hd", "torus") and op != ReduceOp.SUM:
             raise ValueError(f"{algo} allreduce supports sum only")
         if algo in ("pallas", "bidir"):
             self._single_axis(f"{algo} allreduce")
             if algo == "bidir":
-                return ring_ccl.bidir_all_reduce(x)
-            return ring_ccl.ring_all_reduce(x)
+                return ring_ccl.bidir_all_reduce(x, wire_dtype=wire_dtype)
+            return ring_ccl.ring_all_reduce(x, wire_dtype=wire_dtype)
         if algo == "ring":
             return _plan.ring_all_reduce(x)
         if algo == "hd":
@@ -157,31 +192,43 @@ class Communicator:
 
     # -- all_gather ----------------------------------------------------------
 
-    def _resolve_verb_plan(self, verb, x, algo, allowed, plan_fn):
+    def _resolve_verb_plan(self, verb, x, algo, wire_dtype, allowed, plan_fn):
+        """Resolve one request to (algo, wire_dtype), emitting the planner's
+        decision and counting any quant downgrade."""
         planner = _plan.get_planner()
-        kw = dict(n_axes=len(self.axes), worlds=self._worlds())
+        kw = dict(n_axes=len(self.axes), worlds=self._worlds(), wire_dtype=wire_dtype)
         if algo == "auto":
-            return plan_fn(planner)(self._payload_shape(x), x.dtype, self.world,
+            algo = plan_fn(planner)(self._payload_shape(x), x.dtype, self.world,
                                     pallas_ok=self._pallas_ok(), **kw).algo
+            return algo, self._quant_downgrade(verb, algo, wire_dtype)
         if algo not in allowed:
             raise ValueError(f"unknown {verb} algo {algo!r}")
         planner.plan_explicit(algo, self._payload_shape(x), x.dtype, self.world, verb=verb,
                               **kw)
-        return algo
+        return algo, wire_dtype
+
+    def _verb_plan(self, tag, verb, x, algo, wire_dtype, allowed, plan_fn):
+        """The memoized (algo, wire_dtype) of one request of a verb."""
+        wire_dtype = self._quant_wire(verb, algo, wire_dtype)
+        return self._memo(
+            (tag, algo, tuple(x.shape), x.dtype, wire_dtype),
+            lambda: self._resolve_verb_plan(verb, x, algo, wire_dtype, allowed, plan_fn))
 
     def all_gather(self, x, algo: str = "auto", wire_dtype=None) -> torch.Tensor:
         """Every rank receives the concatenation over the rank dim: out is
         the same global array, replicated on every member (NCCL allgather
-        semantics; the kernels build every member's copy)."""
+        semantics; the kernels build every member's copy). ``wire_dtype``
+        (ring/bidir) quantizes the contributed payload once: one round trip
+        of error, all members identical."""
         x = self._check(x)
-        _dma.resolve_wire_dtype(wire_dtype, "all_gather")
-        algo = self._memo(("ag", algo, tuple(x.shape), x.dtype), lambda: self._resolve_verb_plan(
-            "all_gather", x, algo, ("xla", "ring", "bidir"), lambda p: p.plan_all_gather))
+        algo, wire_dtype = self._verb_plan("ag", "all_gather", x, algo, wire_dtype,
+                                           ("xla", "ring", "bidir"),
+                                           lambda p: p.plan_all_gather)
         if algo in ("ring", "bidir"):
             self._single_axis(f"{algo} all_gather")
             fn = ring_ccl.bidir_all_gather if algo == "bidir" else ring_ccl.ring_all_gather
             # member 0's copy: [1, k...] per member gathered to [world, ...]
-            return fn(x.unsqueeze(1))[0].reshape(x.shape)
+            return fn(x.unsqueeze(1), wire_dtype=wire_dtype)[0].reshape(x.shape)
         return _ops.all_gather(x.unsqueeze(1))[0].reshape(x.shape)
 
     # -- reduce_scatter ------------------------------------------------------
@@ -189,7 +236,9 @@ class Communicator:
     def reduce_scatter(self, x, op: str = ReduceOp.SUM, algo: str = "auto",
                        wire_dtype=None) -> torch.Tensor:
         """x: [world, N, ...] (each rank contributes a full buffer); out:
-        [world, N/world, ...] with out[i] = reduce_j x[j] chunk i."""
+        [world, N/world, ...] with out[i] = reduce_j x[j] chunk i.
+        ``wire_dtype`` (ring) quantizes every hop's partial sum: one round
+        trip of error per hop."""
         x = self._check(x)
         if x.dim() < 2 or x.shape[1] % self.world != 0:
             raise ValueError(
@@ -197,12 +246,11 @@ class Communicator:
             )
         if op != ReduceOp.SUM:
             raise NotImplementedError("reduce_scatter supports sum only")
-        _dma.resolve_wire_dtype(wire_dtype, "reduce_scatter")
-        algo = self._memo(("rs", algo, tuple(x.shape), x.dtype), lambda: self._resolve_verb_plan(
-            "reduce_scatter", x, algo, ("xla", "ring"), lambda p: p.plan_reduce_scatter))
+        algo, wire_dtype = self._verb_plan("rs", "reduce_scatter", x, algo, wire_dtype,
+                                           ("xla", "ring"), lambda p: p.plan_reduce_scatter)
         if algo == "ring":
             self._single_axis("ring reduce_scatter")
-            return ring_ccl.ring_reduce_scatter(x)
+            return ring_ccl.ring_reduce_scatter(x, wire_dtype=wire_dtype)
         return _ops.reduce_scatter(x)
 
     # -- all_to_all ----------------------------------------------------------
@@ -218,17 +266,18 @@ class Communicator:
 
     def broadcast(self, x, root: int = 0, algo: str = "auto",
                   wire_dtype=None) -> torch.Tensor:
-        """out[i] = x[root] for every i."""
+        """out[i] = x[root] for every i. ``wire_dtype`` (scatter_ag)
+        quantizes the all-gather legs once: one round trip of error, every
+        member identical."""
         x = self._check(x)
         if not 0 <= root < self.world:
             raise ValueError(f"root {root} outside world {self.world}")
-        _dma.resolve_wire_dtype(wire_dtype, "broadcast")
-        algo = self._memo(("bc", algo, tuple(x.shape), x.dtype), lambda: self._resolve_verb_plan(
-            "broadcast", x, algo, ("xla", "tree", "scatter_ag", "psum"),
-            lambda p: p.plan_broadcast))
+        algo, wire_dtype = self._verb_plan("bc", "broadcast", x, algo, wire_dtype,
+                                           ("xla", "tree", "scatter_ag", "psum"),
+                                           lambda p: p.plan_broadcast)
         if algo == "scatter_ag":
             self._single_axis("scatter_ag broadcast")
-            return ring_ccl.scatter_ag_broadcast(x, root)
+            return ring_ccl.scatter_ag_broadcast(x, root, wire_dtype=wire_dtype)
         if algo == "tree":
             return _plan.tree_broadcast(x, root)
         if algo == "psum":

@@ -19,6 +19,9 @@ What changed on the way from the TPU:
   versions instead.
 * The entry and phase barriers (``ring_barrier``, ``all_barrier``) are flag
   waits inside ``csrc/ring_ccl.cu``.
+* The scale sidecar's layout (``scale_rows``, ``pack_row_scales``,
+  ``unpack_row_scales``) is carried over as it is: one f32 scale per
+  128-lane payload row, 128 scales per sidecar row, zero tail.
 """
 
 from __future__ import annotations
@@ -87,29 +90,34 @@ CID_SCHED = 22
 CID_SCHED_COMBINE = 32
 
 
-WIRE_DTYPES = ("fp8", "int8")
-
-
-def resolve_wire_dtype(wire_dtype, what: str = "ring collective"):
-    """Validate a ``wire_dtype`` knob value. ``None`` (or ``""``/``"none"``)
-    is the full-precision wire, the only one ported; ``"fp8"``/``"int8"``
-    raise ``NotImplementedError``: the quantized wire (kernels B6 and B8,
-    with the ``ops/quant.py`` block codec) is the next slice of the port."""
-    if wire_dtype is None or wire_dtype in ("", "none"):
-        return None
-    if wire_dtype in WIRE_DTYPES:
-        raise NotImplementedError(
-            f"{what}: wire_dtype={wire_dtype!r} needs the quantized ring kernels "
-            "B6/B8 (pallas_ccl.py:621 and :742) and the ops/quant.py codec, which "
-            "are the next slice of the port; use wire_dtype=None"
-        )
-    raise ValueError(f"unknown wire_dtype {wire_dtype!r} (want None, 'fp8', or 'int8')")
-
-
 def chunk_collective_id(base: int, chunk: int) -> int:
     """2-deep rotation: chunk kernels alternate ``base``/``base+1`` so chunk
     c+1 can enter while chunk c-1 drains, without sharing flags."""
     return base + (chunk & 1)
+
+
+def scale_rows(rows: int) -> int:
+    """Rows of the packed per-row scale buffer a quantized-wire kernel moves
+    beside its payload: one f32 scale per 128-lane payload row, packed
+    LANES scales per buffer row — ``ceil(rows / LANES)``."""
+    return -(-rows // LANES)
+
+
+def pack_row_scales(s: torch.Tensor, srows: int) -> torch.Tensor:
+    """[..., rows] per-row f32 scales → the [..., srows, LANES] wire buffer
+    (zero-padded tail; a zero scale dequantizes padding to exact zeros).
+    Pure layout: values are untouched."""
+    *lead, rows = s.shape
+    pad = srows * LANES - rows
+    if pad:
+        s = torch.nn.functional.pad(s, (0, pad))
+    return s.reshape(*lead, srows, LANES)
+
+
+def unpack_row_scales(sp: torch.Tensor, rows: int) -> torch.Tensor:
+    """Inverse of :func:`pack_row_scales`: [..., srows, LANES] → [..., rows]."""
+    *lead, srows, lanes = sp.shape
+    return sp.reshape(*lead, srows * lanes)[..., :rows]
 
 
 def pad_chunks(flat: torch.Tensor, parts: int) -> Tuple[torch.Tensor, int, int]:

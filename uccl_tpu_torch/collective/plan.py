@@ -19,13 +19,18 @@ Port of ``uccl_tpu/collective/plan.py``:
 * The alpha-beta-gamma cost model and :class:`CollectivePlanner`. Its
   constants default to the JAX package's values (fits to a TPU's ICI, not
   to an H100) so that ``algo="auto"`` decides as the JAX package does;
-  refitting them on the card is open work (ROADMAP). The quantized wire is
-  not ported yet: a ``wire_dtype`` raises (``dma.resolve_wire_dtype``).
+  refitting them on the card is open work (ROADMAP). With a ``wire_dtype``
+  every byte term is the actual wire size (``ops/quant.py``'s
+  ``wire_bytes_of``: 1-byte payload + f32 scale sidecar), the quiet budget
+  probes charge the quantized kernels' gates, and a winner that cannot
+  carry a quantized wire is re-labelled and re-priced at the full-precision
+  bytes it will ship, as in ``uccl_tpu/collective/plan.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -33,6 +38,7 @@ import torch
 
 from uccl_tpu_torch.collective import dma as _dma
 from uccl_tpu_torch.obs import counters as _obsc
+from uccl_tpu_torch.ops import quant as _quant
 from uccl_tpu_torch.utils import config as _config
 from uccl_tpu_torch.utils.topology import bcast_tree_rounds
 
@@ -646,6 +652,15 @@ def _elems(payload_shape) -> int:
     return math.prod(int(s) for s in payload_shape)
 
 
+# the algos of each verb that can carry a quantized wire (the ring kernels)
+_QUANT_CARRIERS = {
+    "all_reduce": ("pallas", "bidir"),
+    "all_gather": ("ring", "bidir"),
+    "reduce_scatter": ("ring",),
+    "broadcast": ("scatter_ag",),
+}
+
+
 class CollectivePlanner:
     """Cost-model-driven algorithm selection for the collective verbs.
     Every decision — modeled, forced via ``UCCL_TPU_AR_ALGO``, or named by
@@ -661,9 +676,11 @@ class CollectivePlanner:
 
     @staticmethod
     def wire_bytes(payload_shape, dtype: torch.dtype, wire_dtype=None) -> int:
-        """Bytes one exchange of the payload moves on the full-precision wire."""
-        _dma.resolve_wire_dtype(wire_dtype, "collective planner")
-        return _elems(payload_shape) * dtype.itemsize
+        """Bytes one exchange of the payload moves on the wire: quantized
+        payload + scale sidecar under a ``wire_dtype``, element bytes
+        otherwise."""
+        return _quant.wire_bytes_of(tuple(payload_shape), dtype,
+                                    _quant.resolve_wire_dtype(wire_dtype))
 
     def _best(self, verb, candidates, world, wire_bytes, n_axes, worlds):
         m = self.model
@@ -674,12 +691,19 @@ class CollectivePlanner:
                 best, best_cost = algo, cost
         return best, best_cost
 
-    def _final(self, verb, algo, world, wire_bytes, cost, outcome, n_axes, worlds,
-               emit) -> Plan:
+    def _final(self, verb, algo, payload_shape, dtype, wire_dtype, world, cost, outcome,
+               n_axes, worlds, emit) -> Plan:
+        """The decision as a Plan. Selection was priced at wire bytes; a
+        winner that cannot carry a quantized wire ships full precision, so
+        it is re-labelled and re-priced at those bytes (the caller counts
+        the quant downgrade)."""
+        if wire_dtype is not None and algo not in _QUANT_CARRIERS[verb]:
+            wire_dtype, cost = None, None
+        wire_bytes = self.wire_bytes(payload_shape, dtype, wire_dtype)
         if cost is None:
             cost = self.model.predict_verb(verb, algo, world, wire_bytes, n_axes, worlds)
         chunks = 2 if algo == "bidir" or (verb == "broadcast" and algo == "scatter_ag") else 1
-        plan_ = Plan(algo, chunks, None, world, wire_bytes, cost, outcome, verb)
+        plan_ = Plan(algo, chunks, wire_dtype, world, wire_bytes, cost, outcome, verb)
         return self._emit(plan_) if emit else plan_
 
     def plan_all_reduce(self, payload_shape, dtype, world: int, *, n_axes: int = 1,
@@ -690,118 +714,115 @@ class CollectivePlanner:
         asserts its mesh is kernel-addressable; the planner also asks the
         arena budget quietly, so auto never picks a kernel that would
         immediately fall back."""
+        wire_dtype = _quant.resolve_wire_dtype(wire_dtype)
         wire_bytes = self.wire_bytes(payload_shape, dtype, wire_dtype)
+        final = (payload_shape, dtype, wire_dtype, world)
         forced = _AR_FORCE_ALGO.get()
         if forced:
-            return self._final("all_reduce", forced, world, wire_bytes, None, "forced",
-                               n_axes, worlds, emit)
+            return self._final("all_reduce", forced, *final, None, "forced", n_axes, worlds,
+                               emit)
         if world <= 1:
-            return self._final("all_reduce", "xla", world, wire_bytes, 0.0, "model",
-                               n_axes, worlds, emit)
+            return self._final("all_reduce", "xla", *final, 0.0, "model", n_axes, worlds, emit)
         candidates = ["xla"]
         if world & (world - 1) == 0 and wire_bytes <= _AR_SMALL_BYTES.get():
             candidates.append("hd")
         if n_axes == 2:
             candidates.append("torus")
-        if pallas_ok and n_axes == 1 and self._bidir_budget_ok(payload_shape, dtype, world):
+        if pallas_ok and n_axes == 1 and self._bidir_budget_ok(payload_shape, dtype,
+                                                               wire_dtype, world):
             candidates.append("bidir")
         best, cost = self._best("all_reduce", candidates, world, wire_bytes, n_axes, worlds)
-        return self._final("all_reduce", best, world, wire_bytes, cost, "model",
-                           n_axes, worlds, emit)
+        return self._final("all_reduce", best, *final, cost, "model", n_axes, worlds, emit)
 
     def plan_explicit(self, algo: str, payload_shape, dtype, world: int, *,
                       n_axes: int = 1, worlds=None, wire_dtype=None, emit: bool = True,
                       outcome: str = "explicit", verb: str = "all_reduce") -> Plan:
         """Record a caller-named algorithm as a plan, with the model's
         predicted cost beside it (0 for an algo the model does not price)."""
+        wire_dtype = _quant.resolve_wire_dtype(wire_dtype)
         wire_bytes = self.wire_bytes(payload_shape, dtype, wire_dtype)
         try:
             pred = self.model.predict_verb(verb, algo, world, wire_bytes, n_axes, worlds)
         except ValueError:
             pred = 0.0
-        plan_ = Plan(algo, 2 if algo in ("bidir", "scatter_ag") else 1, None, world,
+        plan_ = Plan(algo, 2 if algo in ("bidir", "scatter_ag") else 1, wire_dtype, world,
                      wire_bytes, pred, outcome, verb)
         return self._emit(plan_) if emit else plan_
+
+    def _plan_verb(self, verb, kernel_candidates, payload_shape, dtype, world, n_axes,
+                   worlds, wire_dtype, pallas_ok, emit) -> Plan:
+        """The decision of a non-allreduce verb: ``xla`` (and ``tree`` for a
+        broadcast), plus each kernel candidate whose quiet budget probe
+        passes."""
+        wire_dtype = _quant.resolve_wire_dtype(wire_dtype)
+        wire_bytes = self.wire_bytes(payload_shape, dtype, wire_dtype)
+        final = (payload_shape, dtype, wire_dtype, world)
+        if world <= 1:
+            return self._final(verb, "xla", *final, 0.0, "model", n_axes, worlds, emit)
+        candidates = ["xla", "tree"] if verb == "broadcast" else ["xla"]
+        if pallas_ok and n_axes == 1:
+            candidates += [algo for algo, probe in kernel_candidates
+                           if probe(payload_shape, dtype, wire_dtype, world)]
+        best, cost = self._best(verb, candidates, world, wire_bytes, n_axes, worlds)
+        return self._final(verb, best, *final, cost, "model", n_axes, worlds, emit)
 
     def plan_broadcast(self, payload_shape, dtype, world: int, *, n_axes: int = 1,
                        worlds=None, wire_dtype=None, pallas_ok: bool = False,
                        emit: bool = True) -> Plan:
         """Pick the broadcast algorithm: ``xla``, ``tree`` or ``scatter_ag``."""
-        wire_bytes = self.wire_bytes(payload_shape, dtype, wire_dtype)
-        if world <= 1:
-            return self._final("broadcast", "xla", world, wire_bytes, 0.0, "model",
-                               n_axes, worlds, emit)
-        candidates = ["xla", "tree"]
-        if pallas_ok and n_axes == 1 and self._bcast_budget_ok(payload_shape, dtype, world):
-            candidates.append("scatter_ag")
-        best, cost = self._best("broadcast", candidates, world, wire_bytes, n_axes, worlds)
-        return self._final("broadcast", best, world, wire_bytes, cost, "model",
-                           n_axes, worlds, emit)
+        return self._plan_verb("broadcast", [("scatter_ag", self._bcast_budget_ok)],
+                               payload_shape, dtype, world, n_axes, worlds, wire_dtype,
+                               pallas_ok, emit)
 
     def plan_all_gather(self, payload_shape, dtype, world: int, *, n_axes: int = 1,
                         worlds=None, wire_dtype=None, pallas_ok: bool = False,
                         emit: bool = True) -> Plan:
         """Pick the all-gather algorithm for one member's CONTRIBUTED
         payload: ``xla``, ``ring`` or ``bidir``."""
-        wire_bytes = self.wire_bytes(payload_shape, dtype, wire_dtype)
-        if world <= 1:
-            return self._final("all_gather", "xla", world, wire_bytes, 0.0, "model",
-                               n_axes, worlds, emit)
-        candidates = ["xla"]
-        if pallas_ok and n_axes == 1:
-            if self._ag_budget_ok(payload_shape, dtype, world, pair=False):
-                candidates.append("ring")
-            if self._ag_budget_ok(payload_shape, dtype, world, pair=True):
-                candidates.append("bidir")
-        best, cost = self._best("all_gather", candidates, world, wire_bytes, n_axes, worlds)
-        return self._final("all_gather", best, world, wire_bytes, cost, "model",
-                           n_axes, worlds, emit)
+        probes = [("ring", functools.partial(self._ag_budget_ok, pair=False)),
+                  ("bidir", functools.partial(self._ag_budget_ok, pair=True))]
+        return self._plan_verb("all_gather", probes, payload_shape, dtype, world, n_axes,
+                               worlds, wire_dtype, pallas_ok, emit)
 
     def plan_reduce_scatter(self, payload_shape, dtype, world: int, *, n_axes: int = 1,
                             worlds=None, wire_dtype=None, pallas_ok: bool = False,
                             emit: bool = True) -> Plan:
         """Pick the reduce-scatter algorithm for one member's FULL
         ``[world*k, ...]`` input: ``xla`` or ``ring``."""
-        wire_bytes = self.wire_bytes(payload_shape, dtype, wire_dtype)
-        if world <= 1:
-            return self._final("reduce_scatter", "xla", world, wire_bytes, 0.0, "model",
-                               n_axes, worlds, emit)
-        candidates = ["xla"]
-        if pallas_ok and n_axes == 1 and self._rs_budget_ok(payload_shape, dtype, world):
-            candidates.append("ring")
-        best, cost = self._best("reduce_scatter", candidates, world, wire_bytes, n_axes,
-                                worlds)
-        return self._final("reduce_scatter", best, world, wire_bytes, cost, "model",
-                           n_axes, worlds, emit)
+        return self._plan_verb("reduce_scatter", [("ring", self._rs_budget_ok)],
+                               payload_shape, dtype, world, n_axes, worlds, wire_dtype,
+                               pallas_ok, emit)
 
     # -- quiet budget probes: each charges exactly what its kernel's gate
-    # charges (ring_ccl's charge functions), against the same limit
+    # charges (ring_ccl's charge functions, at the wire dtype), against the
+    # same limit
 
     @staticmethod
-    def _probe(charge_fn, payload_shape, dtype, world) -> bool:
-        charge = charge_fn(_elems(payload_shape), dtype.itemsize, world)
+    def _probe(charge_fn, payload_shape, dtype, wire_dtype, world) -> bool:
+        charge = charge_fn(_elems(payload_shape), dtype.itemsize, world, wire_dtype)
         return _dma.check_budget(charge, "planner_probe", quiet=True)
 
-    def _rs_budget_ok(self, payload_shape, dtype, world: int) -> bool:
+    def _rs_budget_ok(self, payload_shape, dtype, wire_dtype, world: int) -> bool:
         from uccl_tpu_torch.collective import ring_ccl
 
-        return self._probe(ring_ccl.rs_charge, payload_shape, dtype, world)
+        return self._probe(ring_ccl.rs_charge, payload_shape, dtype, wire_dtype, world)
 
-    def _bidir_budget_ok(self, payload_shape, dtype, world: int) -> bool:
+    def _bidir_budget_ok(self, payload_shape, dtype, wire_dtype, world: int) -> bool:
         from uccl_tpu_torch.collective import ring_ccl
 
-        return self._probe(ring_ccl.bidir_pair_charge, payload_shape, dtype, world)
+        return self._probe(ring_ccl.bidir_pair_charge, payload_shape, dtype, wire_dtype, world)
 
-    def _ag_budget_ok(self, payload_shape, dtype, world: int, *, pair: bool) -> bool:
+    def _ag_budget_ok(self, payload_shape, dtype, wire_dtype, world: int, *,
+                      pair: bool) -> bool:
         from uccl_tpu_torch.collective import ring_ccl
 
         fn = ring_ccl.ag_pair_charge if pair else ring_ccl.ag_charge
-        return self._probe(fn, payload_shape, dtype, world)
+        return self._probe(fn, payload_shape, dtype, wire_dtype, world)
 
-    def _bcast_budget_ok(self, payload_shape, dtype, world: int) -> bool:
+    def _bcast_budget_ok(self, payload_shape, dtype, wire_dtype, world: int) -> bool:
         from uccl_tpu_torch.collective import ring_ccl
 
-        return self._probe(ring_ccl.bcast_pair_charge, payload_shape, dtype, world)
+        return self._probe(ring_ccl.bcast_pair_charge, payload_shape, dtype, wire_dtype, world)
 
     def _emit(self, plan_: Plan) -> Plan:
         # allreduce keeps its label set without a verb label, as in the JAX
