@@ -13,8 +13,11 @@ the kernels' autograd path, on layer 0's q/k/v, to the plain backward, and
 the first two losses to the same steps through plain attention. Then the
 collective plane at the model's gradient bucket over a 4-member world: the
 ring kernels and the Communicator verbs, first on the full-precision wire,
-then on the quantized one (fp8 and int8). Every phase raises on failure;
-nothing is caught. Each phase prints one JSON line; the
+then on the quantized one (fp8 and int8). Then the EP plane over a 4-member
+world: the all-to-all kernels against their plain versions and the
+transpose, their timing at the MoE layer's dispatch buffer, and the
+DeepEP-shaped Buffer verbs through layer 0 of the bench config on every
+wire. Every phase raises on failure; nothing is caught. Each phase prints one JSON line; the
 last three lines are the card's name and power limit (nvidia-smi), the
 per-kernel JSON summary and
 
@@ -37,6 +40,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -45,6 +49,10 @@ if not torch.cuda.is_available():
 
 from uccl_tpu_torch.collective import Communicator, dma, plan  # noqa: E402
 from uccl_tpu_torch.collective import ring_ccl as rc  # noqa: E402
+from uccl_tpu_torch.ep import Buffer, a2a_sched  # noqa: E402
+from uccl_tpu_torch.ep import ll as ep_ll  # noqa: E402
+from uccl_tpu_torch.ep import ops as ep_ops  # noqa: E402
+from uccl_tpu_torch.ep import pallas_a2a as pa  # noqa: E402
 from uccl_tpu_torch.models import flagship  # noqa: E402
 from uccl_tpu_torch.parallel.mesh import AXIS, MeshConfig, make_mesh  # noqa: E402
 from uccl_tpu_torch.models.layers import rms_norm, rope  # noqa: E402
@@ -126,7 +134,7 @@ def ptxas_report(source: str, short) -> list:
     return ptxas
 
 def build_kernels() -> None:
-    """Both CUDA sources, one nvcc each, started together."""
+    """The three CUDA sources, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     def timed(name):
@@ -134,16 +142,20 @@ def build_kernels() -> None:
         return build.build(name), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        fa_job, ring_job = pool.submit(timed, "flash_attention"), pool.submit(timed, "ring_ccl")
-        (lib, seconds), (ring_lib, ring_seconds) = fa_job.result(), ring_job.result()
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(timed, name) for name in ("flash_attention", "ring_ccl", "ep_a2a")]
+        (lib, seconds), (ring_lib, ring_seconds), (ep_lib, ep_seconds) = \
+            [j.result() for j in jobs]
     root = build.PACKAGE_DIR.parent
     emit("build", library=str(lib.relative_to(root)), seconds=round(seconds, 3),
          ptxas=ptxas_report("flash_attention",
                            lambda n: n[n.find("flash_"):n.find("EEEv") + 3]))
     emit("ring_ccl_build", library=str(ring_lib.relative_to(root)),
-         seconds=round(ring_seconds, 3), both_seconds=round(time.perf_counter() - t0, 3),
+         seconds=round(ring_seconds, 3), all_seconds=round(time.perf_counter() - t0, 3),
          ptxas=ptxas_report("ring_ccl", lambda n: n[n.find("ring_"):]))
+    emit("ep_a2a_build", library=str(ep_lib.relative_to(root)), seconds=round(ep_seconds, 3),
+         ptxas=ptxas_report("ep_a2a", lambda n: "sched_round_kernel" if "sched_round" in n
+                            else "a2a_kernel"))
 
 # ---------------------------------------------------------------------------
 # 3. Kernels against their plain versions
@@ -1214,6 +1226,490 @@ def quant_path(x, refs) -> tuple:
          peak_mem_gib=torch.cuda.max_memory_allocated(DEV) / 2**30)
     return launches, max(r["max_abs_err_vs_plain"] for r in held_plain)
 
+# ---------------------------------------------------------------------------
+# 8. The EP plane: the all-to-all kernels B9, B10 and the Buffer verbs
+
+# The bench config's MoE layer (flagship.bench_config(): dim 1024, 8 experts
+# top-2, ffn 2816, capacity factor 1.25, bf16) at EP world 4, E_local = 2,
+# each member carrying one bench batch (B=8 x S=1024 = 8192 tokens), so C =
+# 2560 and the dispatch buffer is [W, E_local, C, H] per member. The
+# low-latency verbs run at a decode batch of 128 tokens per member.
+EP_WORLD, EP_TOKENS, EP_LL_TOKENS = 4, BATCH * SEQ, 128
+EP_SOURCE = "uccl_tpu_torch/csrc/ep_a2a.cu"
+EP_REPLACES = {"a2a": "uccl_tpu/ep/pallas_a2a.py:83",
+               "sched_round": "uccl_tpu/ep/pallas_a2a.py:318"}
+ZIPF_ALPHA = 1.2  # the largest alpha benchmarks/ep_bench.py gives as an example
+
+def ep_rule(got, plain, x) -> dict:
+    """The check an exchange passes: bit for bit equal to its plain version
+    and to ``x.transpose(0, 1)`` (compared as bytes, any dtype)."""
+    def raw(t):
+        return t.contiguous().view(torch.uint8)
+
+    want = x.transpose(0, 1)
+    r = {"bit_identical_to_plain": got.shape == plain.shape and torch.equal(raw(got), raw(plain)),
+         "bit_identical_to_transpose": got.shape == want.shape
+         and torch.equal(raw(got), raw(want))}
+    r["ok"] = r["bit_identical_to_plain"] and r["bit_identical_to_transpose"]
+    return r
+
+def ep_inputs(n, shape, dtype, seed):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    if dtype == torch.int32:
+        return torch.randint(-2 ** 30, 2 ** 30, (n, n) + shape, generator=g, device=DEV,
+                             dtype=dtype)
+    x = torch.randn((n, n) + shape, generator=g, device=DEV)
+    return (x * 40).to(dtype) if dtype.itemsize == 1 else x.to(dtype)
+
+def zipf_schedule(n, seed):
+    idx = a2a_sched.zipf_topk(np.random.default_rng(seed), n, 256, 2, 2 * n, ZIPF_ALPHA)
+    return a2a_sched.wire_schedule(a2a_sched.traffic_from_topk(idx, 2 * n, 64, n), n)
+
+EP_CASES = [  # (W, trailing shape per member, dtype); sizes that need padding
+    (2, (3, 1_000_003), torch.float32),
+    (3, (2, 2560, 96), torch.bfloat16),
+    (4, (2, 640, 1024), torch.bfloat16),
+    (5, (7, 33_333), torch.int32),
+    (8, (2, 320, 1024), torch.float8_e4m3fn),
+    (8, (1, 40, 8), torch.float32),  # a chunk of scales
+    (16, (3, 12_345), torch.bfloat16),
+]
+
+def ep_a2a_vs_plain() -> dict:
+    """B9 and B10 against their plain versions and the transpose, bit for
+    bit: worlds 2-16, bf16/f32/int32/fp8 payloads and the scales' f32,
+    padded sizes; B9 unchunked and in 2 and 3 chunks, B10 over a uniform and
+    a Zipf schedule, chunked too. Then planted faults that must fail the
+    same rule. Returns the largest difference from a plain version."""
+    pa.reset_launch_counts()
+    readings, worst = [], 0.0
+    for n, shape, dtype in EP_CASES:
+        x = ep_inputs(n, shape, dtype, seed=n)
+        xb, _ = pa._as_bytes(x)
+        view, k, _ = pa._view(xb)
+        out = torch.empty_like(view)
+        pa.launch_a2a(view, out, dma.CID_A2A).check("a2a")
+        got, plain = pa._unview(out, k, xb), pa._unview(pa.a2a_plain(view), k, xb)
+        if dtype.is_floating_point and dtype.itemsize > 1:
+            worst = max(worst, (got.double() - plain.double()).abs().max().item())
+        cases = [("a2a", 1, ep_rule(got, plain, xb))]
+        for nc in (2, 3):
+            got = pa.all_to_all(x, n_chunks=nc, chunk_axis=1)
+            cases.append(("a2a", nc, ep_rule(got, x.transpose(0, 1), x)))
+        for kind, sched in (("uniform", a2a_sched.wire_schedule(np.ones((n, n)), n)),
+                            ("zipf", zipf_schedule(n, seed=n))):
+            for r_ in sched[0]:  # every round on its own
+                slot = view.new_empty(view[:, 0].shape)
+                pa.launch_sched_round(view, slot, r_.perm, dma.CID_SCHED).check("sched_round")
+                if not torch.equal(slot, pa.sched_round_plain(view, r_.perm)):
+                    fail(f"sched_round W={n} {dtype} round {r_.perm} differs from its plain "
+                         "version")
+            for nc in (1, 2):
+                got = pa.scheduled_all_to_all(x, sched, n_chunks=nc, chunk_axis=1)
+                cases.append((f"sched_round {kind} R={len(sched[0])}", nc,
+                              ep_rule(got, x.transpose(0, 1), x)))
+        for name, nc, r in cases:
+            readings.append({"kernel": name, "W": n, "shape": list(shape), "dtype": str(dtype),
+                             "n_chunks": nc, **r})
+            if not r["ok"]:
+                fail(f"{name} W={n} {shape} {dtype} n_chunks={nc}: {r}")
+    ep_planted_faults()
+    emit("ep_a2a_vs_plain", readings=readings, launches=dict(pa.launch_counts),
+         rule="bit-identical to the plain version and to x.transpose(0, 1), as bytes")
+    return {"max_abs_err_vs_plain": worst}
+
+def ep_planted_faults() -> None:
+    """Faults made from the kernels' own results must fail the rule they
+    pass: one pair's chunk zeroed, every slot one off, a round's output
+    missing from the assembly, and a pair designated to the wrong round."""
+    n = 4
+    x = ep_inputs(n, (2, 640, 1024), torch.bfloat16, seed=50)
+    view, k, _ = pa._view(x)
+    out = torch.empty_like(view)
+    pa.launch_a2a(view, out, dma.CID_A2A).check("a2a")
+    plain = pa._unview(pa.a2a_plain(view), k, x)
+    ok = pa._unview(out, k, x)
+    faults = {}
+    zeroed = ok.clone()
+    zeroed[2, 1] = 0
+    faults["a2a: pair (1, 2) zeroed"] = ep_rule(zeroed, plain, x)
+    faults["a2a: slots one off"] = ep_rule(ok.roll(1, dims=1), plain, x)
+    sched = zipf_schedule(n, seed=51)
+    rounds, k_mat = sched
+    outs = []
+    for r in rounds:
+        slot = view.new_empty(view[:, 0].shape)
+        pa.launch_sched_round(view, slot, r.perm, dma.CID_SCHED).check("sched_round")
+        outs.append(slot)
+    missing = [o.clone() for o in outs]
+    missing[0].zero_()
+    faults["sched: round 0 missing"] = ep_rule(
+        pa._unview(pa._assemble_rounds(view, missing, k_mat), k, x), plain, x)
+    wrong = np.array(k_mat)
+    s, d = next((s, d) for s in range(n) for d in range(n) if s != d)
+    wrong[s, d] = (wrong[s, d] + 1) % len(rounds)
+    faults["sched: pair mis-designated"] = ep_rule(
+        pa._unview(pa._assemble_rounds(view, outs, wrong), k, x), plain, x)
+    passed = [name for name, r in faults.items() if r["ok"]]
+    if passed:
+        fail(f"planted EP faults pass the check: {passed}")
+    emit("ep_planted_faults", W=n, readings=faults)
+
+def ep_bound_ms(nbytes_in: int) -> float:
+    """The exchange reads its input once and writes its output once."""
+    return 2 * nbytes_in / PEAK_BYTES * 1e3
+
+def ep_launchers(x, sched):
+    """Preallocated operands for ``x`` [W, W, ...]: B9 on the whole view,
+    the B9 pair on the two halves of per-member axis 2 (chunk kernels on
+    parity-twin ids), and B10's schedule with its assembly; each beside
+    its plain version."""
+    view, _, _ = pa._view(x)
+    out = torch.empty_like(view)
+    halves = [pa._view(h.contiguous())[0] for h in x.chunk(2, dim=3)]
+    houts = [torch.empty_like(h) for h in halves]
+    slots = [view.new_empty(view[:, 0].shape) for _ in sched[0]]
+    lanes = []
+
+    def b9():
+        lanes.append(pa.launch_a2a(view, out, dma.CID_A2A))
+
+    def b9_pair():
+        for c, (h, o) in enumerate(zip(halves, houts)):
+            lanes.append(pa.launch_a2a(h, o, dma.chunk_collective_id(dma.CID_EP_DISPATCH, c)))
+
+    def b10_rounds():
+        for i, (r, slot) in enumerate(zip(sched[0], slots)):
+            lanes.append(pa.launch_sched_round(view, slot, r.perm,
+                                               dma.chunk_collective_id(dma.CID_SCHED, i)))
+
+    def b10():
+        b10_rounds()
+        return pa._assemble_rounds(view, slots, sched[1])
+
+    def b10_rounds_plain():
+        return [pa.sched_round_plain(view, r.perm) for r in sched[0]]
+
+    def b10_plain():
+        return pa._assemble_rounds(view, [pa.sched_round_plain(view, r.perm)
+                                          for r in sched[0]], sched[1])
+
+    runs = {"a2a": (b9, lambda: pa.a2a_plain(view)),
+            "a2a chunk pair": (b9_pair, lambda: [pa.a2a_plain(h) for h in halves]),
+            "sched_round schedule + assembly": (b10, b10_plain),
+            "sched_round rounds alone": (b10_rounds, b10_rounds_plain)}
+    return runs, lanes
+
+def ep_a2a_timing() -> dict:
+    """CUDA-event medians (L2 flushed, median of 10) at the MoE layer's
+    dispatch buffer, [W, E_local, C, H] bf16 per member: B9, the B9 chunk
+    pair, and B10's whole Zipf schedule with its assembly (and its rounds
+    alone), each beside the bound, its plain version and the library call
+    ``x.transpose(0, 1).contiguous()``; then a 1/16/256 MiB-per-member sweep."""
+    cap = int(1.25 * EP_TOKENS * 2 / 8)
+    x = ep_inputs(EP_WORLD, (2, cap, 1024), torch.bfloat16, seed=60)
+    sched = ep_zipf_routing()[2]
+    res = {}
+    runs, lanes = ep_launchers(x, sched)
+    lib_ms = time_ms(lambda: x.transpose(0, 1).contiguous(), 10)
+    bnd = ep_bound_ms(x.numel() * x.element_size())
+    for name, (kernel, plain) in runs.items():
+        ms = time_ms(kernel, 10)
+        res[name] = dict(ms=ms, bound_ms=bnd, bound_by="bytes", share_of_bound=bnd / ms,
+                         plain_ms=time_ms(plain, 3), library_ms=lib_ms,
+                         library_call="x.transpose(0, 1).contiguous()")
+    for lane in lanes:
+        lane.check("ep timing")
+    for name in ("sched_round schedule + assembly", "sched_round rounds alone"):
+        res[name]["rounds"] = len(sched[0])
+    del runs, lanes
+    sweep = []
+    for mib in SWEEP_MIB:
+        per_chunk = mib * 2 ** 20 // 2 // EP_WORLD  # bf16 elements per destination chunk
+        xs = ep_inputs(EP_WORLD, (per_chunk,), torch.bfloat16, seed=61)
+        runs, lanes = ep_launchers(xs.reshape(EP_WORLD, EP_WORLD, 1, 2, -1), sched)
+        bnd = ep_bound_ms(xs.numel() * 2)
+        lib = time_ms(lambda: xs.transpose(0, 1).contiguous(), 20)
+        for name, (kernel, _) in runs.items():
+            ms = time_ms(kernel, 20)
+            sweep.append(dict(kernel=name, mib_per_member=mib, ms=ms, bound_ms=bnd,
+                              share_of_bound=bnd / ms, library_ms=lib))
+        for lane in lanes:
+            lane.check("ep sweep")
+    emit("ep_a2a_timing", W=EP_WORLD, dispatch_buffer_per_member=[EP_WORLD, 2, cap, 1024],
+         dtype="bfloat16", bytes_per_member=x[0].numel() * 2, kernels=res, sweep=sweep,
+         note="one card: every copy is HBM to HBM; no NVLink or contention claim")
+    return res
+
+def ep_zipf_routing():
+    """The scheduled arms' routing: a2a_sched.zipf_topk(rng(0), 4, T, 2, 8,
+    alpha=1.2), its [W, W] traffic at capacity C, and that matrix's wire
+    schedule."""
+    cap = int(1.25 * EP_TOKENS * 2 / 8)
+    idx = a2a_sched.zipf_topk(np.random.default_rng(0), EP_WORLD, EP_TOKENS, 2, 8, ZIPF_ALPHA)
+    mat = a2a_sched.traffic_from_topk(idx, 8, cap, EP_WORLD)
+    return idx, mat, a2a_sched.wire_schedule(mat, EP_WORLD)
+
+def ep_layer_inputs():
+    """Layer 0 of the bench config (seed-0 weights) on each member's own
+    batch: the MoE input ``rms_norm(x + attention(x), ln2)`` [W, T, H] bf16,
+    the router's logits [W, T, E] f32, and the expert weights sharded
+    [W, E_local, ...] bf16."""
+    cfg = flagship.bench_config()
+    params = flagship.init_params(cfg, torch.Generator().manual_seed(0), DEV)
+    lp = {k: params["blocks"][k][0] for k in flagship._BLOCK_KEYS}
+    xs = []
+    with torch.no_grad():
+        for r in range(EP_WORLD):
+            tokens = torch.as_tensor(_batch_for_step(200 + r, BATCH, SEQ, cfg.vocab)[0],
+                                     device=DEV)
+            x = params["embed"][tokens.long()].to(cfg.dtype)
+            x = x + flagship._attention(rms_norm(x, lp["ln1"], cfg.norm_eps), lp, cfg)
+            xs.append(rms_norm(x, lp["ln2"], cfg.norm_eps).reshape(-1, cfg.dim))
+    x = torch.stack(xs)
+    logits = x.float() @ lp["router"]
+    e_local = cfg.moe_experts // EP_WORLD
+    experts = [lp[k].to(cfg.dtype).reshape(EP_WORLD, e_local, *lp[k].shape[1:]).contiguous()
+               for k in ("we_gate", "we_up", "we_down")]
+    del params
+    torch.cuda.empty_cache()
+    return cfg, x, logits, experts
+
+_EP_SPLIT = (("ep_kernels", re.compile(r"a2a_kernel|sched_round_kernel")),
+             ("gemm", re.compile(r"gemm|nvjet|sm90|cutlass|xmma|matmul", re.I)),
+             ("gather_scatter", re.compile(r"index|gather|scatter", re.I)),
+             ("copy_fill", re.compile(r"copy|memcpy|memset|fill|cat", re.I)),
+             ("sort", re.compile(r"sort|radix", re.I)))
+
+def ep_profile(run) -> dict:
+    """One profiled warm call's device ms by class (EP kernels, GEMMs,
+    gathers, copies and fills, sorts; ``other`` holds the elementwise and
+    reduce passes, the codec's among them) and the device's busy time."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    split, spans = {name: 0.0 for name, _ in _EP_SPLIT}, []
+    split["other"] = 0.0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((ev.time_range.start, ev.time_range.end))
+        cls = next((name for name, pat in _EP_SPLIT if pat.search(ev.name)), "other")
+        split[cls] += (ev.time_range.end - ev.time_range.start) / 1e3
+    return {"device_ms": split, "device_busy_ms": _union_ms(spans)}
+
+def ep_path() -> dict:
+    """The EP plane end to end at the configuration: get_dispatch_layout →
+    dispatch → SwiGLU expert GEMMs → combine through the Buffer, on every
+    arm (wire lax/pallas, n_chunks 1/2/0, a2a_sched off/on/auto on the Zipf
+    routing, dispatch wire_dtype None/fp8/int8 with combine at full
+    precision), the low-latency verbs at 128 tokens per member, and
+    moe_ffn at W = 4 against world 1 per member. Launch counts per verb
+    exact, pallas arms bit-identical to the lax arm, quantized arms within
+    the codec's round trip, zero fallbacks. Counts are set to 0 just before
+    and read just after."""
+    cfg, x, logits, (wg, wu, wd) = ep_layer_inputs()
+    w, t, h = x.shape
+    mesh = make_mesh(MeshConfig(dp=w))
+    vals, idx = ep_ops._per_member(ep_ops._gate_topk, logits, cfg.moe_topk, True)[:2]
+    z_idx, z_mat, z_sched = ep_zipf_routing()
+    z_idx = torch.as_tensor(z_idx, device=DEV)
+    combine_cfg = Buffer.get_combine_config(w)
+    cap = int(cfg.capacity_factor * t * cfg.moe_topk / cfg.moe_experts)
+    # (name, Buffer kwargs, routing, dispatch wire_dtype, per-verb launches)
+    r_d, r_c = len(z_sched[0]), len(a2a_sched.wire_schedule(z_mat.T, w)[0])
+    # n_chunks=0: the planner's depth for one exchange of the dispatch buffer
+    depth = plan.get_planner().ep_auto_depth(w * (cfg.moe_experts // w) * cap * h * 2, cap)
+    arms = [
+        ("lax", dict(), "router", None, (0, 0, 0, 0)),
+        ("pallas", dict(wire="pallas"), "router", None, (1, 0, 1, 0)),
+        ("pallas n_chunks=2", dict(wire="pallas", n_chunks=2), "router", None, (2, 0, 2, 0)),
+        ("pallas n_chunks=0", dict(wire="pallas", n_chunks=0), "router", None,
+         (depth, 0, depth, 0)),
+        ("pallas fp8", dict(wire="pallas"), "router", "fp8", (2, 0, 1, 0)),
+        ("pallas int8", dict(wire="pallas"), "router", "int8", (2, 0, 1, 0)),
+        ("lax zipf", dict(), "zipf", None, (0, 0, 0, 0)),
+        ("pallas zipf a2a_sched=off", dict(wire="pallas", a2a_traffic=z_mat), "zipf", None,
+         (1, 0, 1, 0)),
+        ("pallas zipf a2a_sched=on", dict(wire="pallas", a2a_sched="on", a2a_traffic=z_mat),
+         "zipf", None, (0, r_d, 0, r_c)),
+        ("pallas zipf a2a_sched=on n_chunks=2",
+         dict(wire="pallas", a2a_sched="on", a2a_traffic=z_mat, n_chunks=2), "zipf", None,
+         (0, 2 * r_d, 0, 2 * r_c)),
+        ("pallas zipf a2a_sched=auto", dict(wire="pallas", a2a_sched="auto", a2a_traffic=z_mat),
+         "zipf", None, None),
+    ]
+    fb0 = dma.WIRE_FALLBACK.total()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    pa.reset_launch_counts()
+    calls, refs, runs = [], {}, {}
+    for name, kw, routing, wdt, want in arms:
+        buf = Buffer(mesh, "dp", num_experts=cfg.moe_experts, num_selected=cfg.moe_topk,
+                     capacity_factor=cfg.capacity_factor, **kw)
+        ridx, rw = (idx, vals) if routing == "router" else (z_idx, None)
+
+        def run(buf=buf, ridx=ridx, rw=rw, wdt=wdt, timed=None):
+            laid = buf.get_dispatch_layout(ridx)
+            marks = [time.perf_counter()]
+            recv, handle = buf.dispatch(x, ridx, rw, wire_dtype=wdt)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            ye = ep_ops._member_gemms(recv, wg, wu, wd)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            out = buf.combine(ye, handle, config=combine_cfg)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if timed is not None:
+                timed.append([(b - a) * 1e3 for a, b in zip(marks, marks[1:])])
+            return laid, recv, handle, out
+
+        before = dict(pa.launch_counts)
+        laid, recv, handle, out = run()
+        mid = dict(pa.launch_counts)
+        counts = (mid["a2a"] - before["a2a"], mid["sched_round"] - before["sched_round"])
+        # the launches of dispatch alone: rerun it and count
+        d0 = dict(pa.launch_counts)
+        buf.dispatch(x, idx if routing == "router" else z_idx,
+                     vals if routing == "router" else None, wire_dtype=wdt)
+        d_counts = (pa.launch_counts["a2a"] - d0["a2a"],
+                    pa.launch_counts["sched_round"] - d0["sched_round"])
+        got = (d_counts[0], d_counts[1], counts[0] - d_counts[0], counts[1] - d_counts[1])
+        if want is None:  # auto: the planner's pick decides the launches
+            want = (0, r_d, 0, r_c) if handle.a2a_sched else (1, 0, 1, 0)
+        if got != want:
+            fail(f"EP arm {name}: launches (dispatch B9, B10, combine B9, B10) {got}, "
+                 f"expected {want}")
+        if not torch.isfinite(out.float()).all() or out.shape != (w, t, h):
+            fail(f"EP arm {name}: combine {tuple(out.shape)} or non-finite")
+        base = "lax" if routing == "router" else "lax zipf"
+        reading = dict(arm=name, launches=dict(zip(("dispatch_a2a", "dispatch_sched_round",
+                                                    "combine_a2a", "combine_sched_round"), got)),
+                       n_chunks=handle.n_chunks, a2a_sched=handle.a2a_sched,
+                       wire_dtype=handle.wire_dtype)
+        if name == base:
+            refs[routing] = (recv, out, laid)
+            stats = buf.stats()["dispatch"]
+            reading["stats"] = stats
+            reading["layout_tokens_per_rank"] = laid[0].tolist()
+        elif wdt is None:
+            ref_recv, ref_out, ref_laid = refs[routing]
+            same = (torch.equal(recv, ref_recv) and torch.equal(out, ref_out)
+                    and all(torch.equal(a, b) for a, b in zip(laid, ref_laid)))
+            if not same:
+                fail(f"EP arm {name}: differs from the lax arm "
+                     f"(recv max abs {(recv.float() - ref_recv.float()).abs().max().item()})")
+            reading["bit_identical_to_lax"] = True
+        else:
+            ref_recv, ref_out, _ = refs[routing]
+            r = recv.float().reshape(*recv.shape[:-1], -1, 128)
+            ref = ref_recv.float().reshape(r.shape)
+            amax = ref.abs().amax(-1, keepdim=True)
+            div = quant.ROUND_TRIP_DIVISOR[wdt]
+            bound = amax / div + 2.0 ** -8 * (ref.abs() + amax / div)
+            err = (r - ref).abs()
+            over = (err / bound.clamp_min(1e-30)).max().item()
+            if not bool((err <= bound).all()):
+                fail(f"EP arm {name}: dispatch {over} of the round-trip budget")
+            reading.update(worst_over_bound=over, dispatch_max_abs_err=err.max().item(),
+                           combine_rel_err=((out.float() - ref_out.float()).norm()
+                                            / ref_out.float().norm()).item())
+        runs[name] = run
+        calls.append(reading)
+        del recv, handle, out, laid
+    launches = dict(pa.launch_counts)
+    # warm host ms per verb (median of 3), one profiled call per arm kind
+    for reading in calls:
+        if reading["arm"] in ("lax", "pallas", "pallas n_chunks=0", "pallas fp8",
+                              "pallas zipf a2a_sched=on"):
+            timed = []
+            for _ in range(3):
+                runs[reading["arm"]](timed=timed)
+            reading["warm_host_ms"] = dict(zip(("dispatch", "expert_gemms", "combine"),
+                                               [statistics.median(c) for c in zip(*timed)]))
+            reading["profile"] = ep_profile(runs[reading["arm"]])
+    ll_readings = ep_low_latency(cfg, x, logits, (wg, wu, wd), mesh)
+    moe = ep_moe_ffn(cfg, x, logits, (wg, wu, wd), depth)
+    fallbacks = dma.WIRE_FALLBACK.total() - fb0
+    if fallbacks:
+        fail(f"the EP path fell back {fallbacks} times")
+    path_launches = dict(pa.launch_counts)
+    emit("ep_path", W=w, tokens_per_member=t, capacity=cap, hidden=h,
+         dispatch_bytes_per_member=w * (cfg.moe_experts // w) * cap * h * 2,
+         zipf_rounds={"dispatch": r_d, "combine": r_c}, zipf_skew=a2a_sched.skew(z_mat),
+         auto_depth=depth,
+         calls=calls, low_latency=ll_readings, moe_ffn=moe, launches_buffer_arms=launches,
+         launches=path_launches, fallbacks=fallbacks,
+         peak_mem_gib=torch.cuda.max_memory_allocated(DEV) / 2 ** 30)
+    return path_launches
+
+def ep_low_latency(cfg, x, logits, experts, mesh) -> list:
+    """The low-latency verbs at 128 tokens per member (num_max 128), the
+    wire's default fp8: dispatch → grouped GEMMs → combine on the pallas,
+    dense and ragged wires. The pallas wire launches B9 twice per verb
+    (payload and scales); every wire gives the dense wire's bits."""
+    tl = EP_LL_TOKENS
+    xl, ll_logits = x[:, :tl].contiguous(), logits[:, :tl].contiguous()
+    vals, idx = ep_ops._per_member(ep_ops._gate_topk, ll_logits, cfg.moe_topk, True)[:2]
+    out, ref = [], None
+    for wire, want in (("dense", 0), ("pallas", 2), ("ragged", 0)):
+        buf = Buffer(mesh, "dp", num_experts=cfg.moe_experts, num_selected=cfg.moe_topk)
+        a0 = pa.launch_counts["a2a"]
+        t0 = time.perf_counter()
+        recv_x, counts, handle = buf.low_latency_dispatch(xl, idx, tl, vals, wire=wire)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        d_launch = pa.launch_counts["a2a"] - a0
+        y = ep_ll.grouped_ffn(recv_x, counts, *experts)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        combined = buf.low_latency_combine(y, handle)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        c_launch = pa.launch_counts["a2a"] - a0 - d_launch
+        if (d_launch, c_launch) != (want, want):
+            fail(f"low-latency {wire}: B9 launches {d_launch}/{c_launch}, expected {want}")
+        if ref is None:
+            ref = (recv_x, counts, combined)
+        elif not (torch.equal(recv_x, ref[0]) and torch.equal(counts, ref[1])
+                  and torch.equal(combined, ref[2])):
+            fail(f"low-latency {wire}: differs from the dense wire")
+        if not torch.isfinite(combined.float()).all():
+            fail(f"low-latency {wire}: non-finite combine")
+        out.append(dict(wire=wire, wire_dtype=handle.wire_dtype, r_max=recv_x.shape[1],
+                        recv_rows=int(counts.sum()), launches={"dispatch": d_launch,
+                                                               "combine": c_launch},
+                        host_ms={"dispatch": (t1 - t0) * 1e3, "grouped_ffn": (t2 - t1) * 1e3,
+                                 "combine": (t3 - t2) * 1e3},
+                        stats=buf.stats()["low_latency"]))
+    return out
+
+def ep_moe_ffn(cfg, x, logits, experts, depth) -> dict:
+    """moe_ffn at W = 4 on the pallas wire, phased and at the auto chunk
+    depth, against world 1 on each member's tokens with all experts: the
+    same routing and drops, so the same rows through GEMMs of other shapes
+    (bf16, so held to 2^-7 of the output's norm)."""
+    kw = dict(num_selected=cfg.moe_topk, capacity_factor=cfg.capacity_factor)
+    a0 = pa.launch_counts["a2a"]
+    phased = ep_ops.moe_ffn(x, logits, *experts, "dp", wire="pallas", **kw)[0]
+    auto = ep_ops.moe_ffn(x, logits, *experts, "dp", wire="pallas", n_chunks=0, **kw)[0]
+    launches = pa.launch_counts["a2a"] - a0
+    if launches != 2 + 2 * depth:
+        fail(f"moe_ffn: {launches} B9 launches, expected 2 phased + {2 * depth} at auto depth "
+             f"{depth}")
+    full = [e.reshape(cfg.moe_experts, *e.shape[2:]) for e in experts]
+    worst = {"phased": 0.0, "auto_depth": 0.0}
+    for r in range(x.shape[0]):
+        want = ep_ops.moe_ffn(x[r], logits[r], *full, **kw)[0].float()
+        for name, got in (("phased", phased[r]), ("auto_depth", auto[r])):
+            rel = ((got.float() - want).norm() / want.norm()).item()
+            worst[name] = max(worst[name], rel)
+    if not max(worst.values()) <= 2.0 ** -7:
+        fail(f"moe_ffn at W=4 against world 1 per member: relative norm errors {worst}")
+    return {"launches_a2a": launches, "rel_norm_err_vs_world1": worst,
+            "auto_depth_equals_phased": bool(torch.equal(phased, auto))}
+
 def main() -> None:
     t_start = time.perf_counter()
     toolchain()
@@ -1244,6 +1740,14 @@ def main() -> None:
     q_launches, q_err_bucket = quant_path(bucket, refs)
     q_err = max(q_err, q_err_bucket)
     del bucket, refs
+    torch.cuda.empty_cache()
+    ep_fb0 = dma.WIRE_FALLBACK.total()
+    ep_err = ep_a2a_vs_plain()["max_abs_err_vs_plain"]
+    ep_time = ep_a2a_timing()
+    torch.cuda.empty_cache()
+    ep_launches = ep_path()
+    if dma.WIRE_FALLBACK.total() != ep_fb0:
+        fail(f"the EP phases fell back {dma.WIRE_FALLBACK.total() - ep_fb0} times")
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": errs[name],
@@ -1271,6 +1775,16 @@ def main() -> None:
          "library_ms": None,
          "library_call": f"none computes a per-hop quantized sum; see {twin}'s"}
         for name, twin in QUANTIZED.items()
+    ] + [
+        # B10's time is its whole schedule (one launch per round) with the
+        # torch assembly, at the Zipf routing's rounds: the exchange's cost
+        {"name": name, "route": "cuda", "source": EP_SOURCE, "replaces": EP_REPLACES[name],
+         "launches": ep_launches[name], "max_abs_err": ep_err,
+         "ms": ep_time[timed]["ms"], "plain_ms": ep_time[timed]["plain_ms"],
+         "bound_ms": ep_time[timed]["bound_ms"], "bound_by": "bytes",
+         "library_ms": ep_time[timed]["library_ms"],
+         "library_call": ep_time[timed]["library_call"], "timed": timed}
+        for name, timed in (("a2a", "a2a"), ("sched_round", "sched_round schedule + assembly"))
     ]
     for k in kernels:
         if not k["launches"]:

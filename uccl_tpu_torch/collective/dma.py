@@ -22,6 +22,14 @@ What changed on the way from the TPU:
 * The scale sidecar's layout (``scale_rows``, ``pack_row_scales``,
   ``unpack_row_scales``) is carried over as it is: one f32 scale per
   128-lane payload row, 128 scales per sidecar row, zero tail.
+* The chunk pipeline's helpers (``pad_capacity``, ``chunk_budget``,
+  ``tie_chunk``) serve the EP all-to-all (``ep/pallas_a2a.py``).
+  ``chunk_budget`` charges what the JAX package charges on a TPU (every
+  resident chunk kernel's send and receive slots), not its interpreter's
+  single-buffer ceiling; like every gate here it decides for CPU tensors
+  only. ``tie_chunk`` is the identity: the EP wrappers launch every chunk
+  kernel on the caller's current CUDA stream, whose order already puts
+  chunk c after chunk c-2.
 """
 
 from __future__ import annotations
@@ -135,6 +143,40 @@ def pad_chunks(flat: torch.Tensor, parts: int) -> Tuple[torch.Tensor, int, int]:
     if rem:
         out[..., full, :rem] = flat[..., full * k:]
     return out.reshape(*lead, parts, m // LANES, LANES), k, m
+
+
+def pad_capacity(cap: int, n_chunks: int) -> int:
+    """Round a capacity/slot count up to a multiple of ``n_chunks``: the one
+    rounding rule of every chunked EP pipeline, so chunking pads the wire
+    with empty slots and never changes which tokens drop."""
+    n_chunks = max(1, int(n_chunks))
+    if cap % n_chunks:
+        cap += n_chunks - cap % n_chunks
+    return cap
+
+
+def tie_chunk(x, prev):
+    """The chunk pipeline's launch-granularity credit: chunk c's kernel must
+    not start before chunk c-2's (its collective-id parity twin) has
+    finished. The JAX package ties the two with a dataflow edge. Here every
+    chunk kernel goes to the caller's current CUDA stream, which runs
+    launches in order, so the tie holds already and ``x`` is returned as it
+    is; a caller that moves chunk launches to a second stream must order
+    them with CUDA events instead. ``prev`` is chunk c-2's result (or None)."""
+    del prev
+    return x
+
+
+def chunk_budget(world: int, chunk_elems_per_peer: int, itemsize: int, what: str,
+                 resident_kernels: int = 2, quiet: bool = False) -> bool:
+    """Budget gate of the double-buffered chunk pipeline: ``resident_kernels``
+    chunk kernels at once, each holding a send and a receive buffer of
+    ``[world, m]`` padded slots (2 for one chunked exchange, 4 for the
+    pipelined MoE layer: two per dispatch and combine family). Charged up
+    front, so that a pipeline over budget falls back to the unchunked wire
+    as a whole (counted, as :func:`check_budget` does)."""
+    m = padded_chunk_elems(chunk_elems_per_peer)
+    return check_budget(resident_kernels * 2 * world * m * itemsize, what, quiet=quiet)
 
 
 def padded_chunk_elems(elems_per_peer: int) -> int:

@@ -824,6 +824,83 @@ class CollectivePlanner:
 
         return self._probe(ring_ccl.bcast_pair_charge, payload_shape, dtype, wire_dtype, world)
 
+    # -- the EP all-to-all's wire order and chunk depth
+
+    def plan_ep_a2a(self, payload_shape, dtype, world: int, *, skew: float = 1.0,
+                    n_rounds=None, wire_dtype=None, n_chunks: int = 1,
+                    chunk_elems_per_peer=None, emit: bool = True) -> Plan:
+        """Arbitrate the EP all-to-all's wire order: ``ep_streams`` (B9, the
+        fixed counter-rotating schedule) or ``ep_sched`` (B10, one launch per
+        contention-free round of ``ep/a2a_sched.py``). ``payload_shape`` is
+        one member's ``[W, ...]`` exchange buffer and ``skew`` is
+        ``a2a_sched.skew`` of the traffic matrix. The streams serialize
+        behind the hottest port (skew x the mean volume), the schedule pays
+        gamma per round: skewed routing flips to the schedule where
+        (skew - 1) x beta x bytes outgrows (rounds - 1) x gamma, if the
+        round kernels' budget probe passes. ``chunk_elems_per_peer`` is the
+        chunked schedule's per-chunk per-peer elements, so the probe charges
+        what the chunked gate will."""
+        m = self.model
+        wire_bytes = self.wire_bytes(payload_shape, dtype, wire_dtype)
+        if world <= 1:
+            plan_ = Plan("ep_streams", 1, wire_dtype, world, wire_bytes, 0.0, "model", "ep_a2a")
+            return self._emit(plan_) if emit else plan_
+        rounds = int(n_rounds) if n_rounds else world - 1
+        skew = max(1.0, float(skew))
+        mean_bytes = (world - 1) / float(world) * wire_bytes  # what leaves home
+        streams_us = (m.alpha_us * (world - 1) + m.beta_us_per_byte * skew * mean_bytes
+                      + m.gamma_us)
+        sched_us = m.alpha_us * rounds + m.beta_us_per_byte * mean_bytes + m.gamma_us * rounds
+        if sched_us < streams_us and self._ep_sched_budget_ok(
+                payload_shape, dtype, wire_dtype, world, n_chunks=n_chunks,
+                chunk_elems_per_peer=chunk_elems_per_peer):
+            algo, cost, chunks = "ep_sched", sched_us, rounds
+        else:
+            algo, cost, chunks = "ep_streams", streams_us, 1
+        plan_ = Plan(algo, chunks, wire_dtype, world, wire_bytes, cost, "model", "ep_a2a")
+        return self._emit(plan_) if emit else plan_
+
+    def _ep_sched_budget_ok(self, payload_shape, dtype, wire_dtype, world: int,
+                            n_chunks: int = 1, chunk_elems_per_peer=None) -> bool:
+        """Quiet probe of the round kernels' budget, charging what
+        ``pallas_a2a.scheduled_all_to_all``'s gate charges: the ``[W, ...]``
+        send view and one round slot, two kernels in flight; chunked, the
+        per-chunk footprint (``dma.chunk_budget``), estimated as
+        ceil(elems / (world x n_chunks)) when the caller does not know it."""
+        elems = _elems(payload_shape)
+        itemsize = 1 if wire_dtype else dtype.itemsize
+        if n_chunks > 1:
+            per_peer = chunk_elems_per_peer
+            if per_peer is None:
+                per_peer = -(-elems // (world * int(n_chunks)))
+            return _dma.chunk_budget(world, int(per_peer), itemsize, "ep_a2a_sched", quiet=True)
+        m = _dma.padded_chunk_elems(-(-elems // world))
+        return _dma.check_budget(2 * (world + 1) * m * itemsize, "ep_a2a_sched", quiet=True)
+
+    def ep_auto_depth(self, exchange_bytes: int, capacity: int) -> int:
+        """Auto chunk depth of the pipelined EP layer: 2, the least that
+        overlaps dispatch, compute and combine, growing to 4 and 8 once the
+        modeled wire time reaches 64x and 256x gamma; never past the
+        capacity. The budget gate still arbitrates the final depth."""
+        m = self.model
+        wire_us = m.beta_us_per_byte * exchange_bytes
+        depth = 2
+        if wire_us >= 256 * m.gamma_us:
+            depth = 8
+        elif wire_us >= 64 * m.gamma_us:
+            depth = 4
+        return max(1, min(depth, capacity))
+
+    def record_ep_chunks(self, resolved: int, *, wire: str, wire_dtype=None,
+                         auto: bool = False) -> int:
+        """Emit an EP chunk-depth resolution on the plan counter (algo
+        ``ep_a2a``): outcome ``model`` for an ``n_chunks=0`` request (the
+        cost model chose), ``explicit`` for a caller's depth."""
+        del wire  # the resolution, not the wire kind, decides the outcome
+        PLAN_TOTAL.inc(algo="ep_a2a", chunks=resolved, wire_dtype=wire_dtype or "none",
+                       outcome="model" if auto else "explicit")
+        return resolved
+
     def _emit(self, plan_: Plan) -> Plan:
         # allreduce keeps its label set without a verb label, as in the JAX
         # package; the other verbs carry verb=

@@ -1,0 +1,20 @@
+"""Expert-parallel engine: MoE dispatch and combine over a W-member EP world.
+
+Port of ``uccl_tpu/ep/__init__.py``:
+
+* :mod:`uccl_tpu_torch.ep.ops` — routing, dispatch and combine, at world 1
+  and member-stacked at world W, and the MoE layer ``moe_ffn``.
+* :mod:`uccl_tpu_torch.ep.ll` — the packed low-latency path.
+* :mod:`uccl_tpu_torch.ep.pallas_a2a` — the member-major exchange on the
+  hand-written kernels B9 (all-to-all) and B10 (one scheduled round).
+* :class:`Buffer` — the DeepEP-shaped host API, with :class:`EventOverlap`,
+  :class:`Config` and the handles.
+
+``CrossPodMoE``, ``ElasticBuffer``, ``ElasticKVCache`` and ``EngramTable``
+are not ported yet.
+"""
+
+from uccl_tpu_torch.ep import ll, ops, pallas_a2a
+from uccl_tpu_torch.ep.buffer import Buffer, Config, EventOverlap, LowLatencyHandle
+
+__all__ = ["ops", "ll", "pallas_a2a", "Buffer", "Config", "EventOverlap", "LowLatencyHandle"]

@@ -1,32 +1,52 @@
-"""MoE routing, dispatch and combine at expert-parallel world 1.
+"""MoE routing, dispatch and combine: world 1 and expert-parallel world W.
 
-Port of the world-1 pieces of ``uccl_tpu/ep/ops.py``: top-k gating with
-per-expert capacity, the dense one-hot oracle (``route_topk``,
-``masks_from_topk``, ``dispatch``, ``combine``), the sorted path
-(``sorted_from_topk``, ``SlotPlan``, ``plan_slots``, ``route_topk_sorted``,
-``dispatch_sorted``, ``combine_sorted``), the SwiGLU expert GEMMs and
-``moe_ffn(impl="sort" | "dense")``.
+Port of ``uccl_tpu/ep/ops.py``: top-k gating with per-expert capacity, the
+dense one-hot oracle (``route_topk``, ``masks_from_topk``, ``dispatch``,
+``combine``), the sorted path (``sorted_from_topk``, ``SlotPlan``,
+``plan_slots``, ``route_topk_sorted``, ``dispatch_sorted``,
+``combine_sorted``), the SwiGLU expert GEMMs, the chunk pipeline and
+``moe_ffn(impl="sort" | "dense" | "ll")``.
 
-At world 1 the EP wire moves nothing (the JAX all-to-all over a size-1 axis
-is the identity), so dispatch and combine here are the local gathers and
-einsums alone. Drop priority is the reference's: earlier k-slots fill expert
-queues first, then token order, and gate ties resolve to the lower expert
-index (``lax.top_k``'s order; ``torch.topk`` promises none, so the top-k here
-is a stable descending sort). The sorted and dense paths therefore make the
-same routing decision, including which tokens drop; their outputs differ
-only by summation order (a float32 ulp).
+Two forms of each verb. With no ``axis`` (the flagship's world-1 call) a
+tensor is one member's: x ``[T, H]``, and the EP wire moves nothing (the
+JAX all-to-all over a size-1 axis is the identity), so dispatch and
+combine are the local gathers and einsums alone. With an ``axis`` (any
+name: the world is the leading dim) a tensor is member-stacked, row r
+being member r's shard: x ``[W, T, H]``, expert weights ``[W, E_local,
+...]``, and each member-major exchange ``[W, W, ...]`` rides the selected
+wire: ``"lax"``, the stock wire (XLA's ``all_to_all`` in JAX, a transpose
+of the member axes here), or ``"pallas"``, the hand-written kernels of
+``ep/pallas_a2a.py`` (B9; B10 with a round ``schedule``). ``wire_dtype``
+("fp8" | "int8") block-quantizes the payload with ``ops/quant.py`` and
+moves the scales on ``collective_id + CID_SCALE_OFFSET``.
 
-The expert GEMMs stay ``torch.einsum``: XLA computed them outside any Pallas
-kernel. The packed low-latency path (``impl="ll"``, ``ep/ll.py``), the
-quantized wires and the multi-member wires are not ported yet.
+Drop priority is the reference's: earlier k-slots fill expert queues
+first, then token order, and gate ties resolve to the lower expert index
+(``lax.top_k``'s order; ``torch.topk`` promises none, so the top-k here is
+a stable descending sort). Routing runs per member (one stable argsort
+each), so every member's integers equal the JAX shard's. The sorted and
+dense paths make the same routing decision, including which tokens drop;
+their outputs differ only by summation order (a float32 ulp).
+
+The expert GEMMs stay ``torch.einsum``: XLA computed them outside any
+Pallas kernel.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from uccl_tpu_torch.collective import dma as _dma
+from uccl_tpu_torch.obs import counters as _obsc
+from uccl_tpu_torch.ops import quant as _quant
+
+Axis = Union[str, Tuple[str, ...], None]
+
+_CHUNK_DEPTH = _obsc.gauge(
+    "ep_chunk_depth", "resolved chunk-pipeline depth of the last EP layer")
 
 
 class Routing(NamedTuple):
@@ -57,6 +77,27 @@ class SlotPlan(NamedTuple):
     token_for_slot: torch.Tensor  # [E*C] source token per slot (T = empty)
     slot: torch.Tensor  # [T, K] slot per assignment (E*C = dropped)
     kept: torch.Tensor  # [E] tokens kept per expert
+
+    def chunk_token_for_slot(self, num_experts: int, n_chunks: int,
+                             empty_sentinel: int) -> torch.Tensor:
+        """Per-chunk gather indices of the pipelined layer: the slot axis of
+        each expert padded with empty slots (``dma.pad_capacity``) and cut
+        into ``n_chunks``: ``[n_chunks, (W,) E, C_pad / n_chunks]``. The
+        padding lives on the wire only; it never changes which tokens drop."""
+        *lead, ec = self.token_for_slot.shape
+        cap = ec // num_experts
+        cap_p = _dma.pad_capacity(cap, n_chunks)
+        tfs = self.token_for_slot.reshape(*lead, num_experts, cap)
+        if cap_p != cap:
+            tfs = F.pad(tfs, (0, cap_p - cap), value=empty_sentinel)
+        cs = cap_p // n_chunks
+        return tfs.reshape(*lead, num_experts, n_chunks, cs).movedim(-2, 0)
+
+
+def _per_member(fn, first: torch.Tensor, *args, **kwargs):
+    """``fn`` on each member's row of ``first`` ``[W, ...]`` (the other
+    arguments shared), its tuple of results stacked along a new dim 0."""
+    return tuple(torch.stack(t) for t in zip(*(fn(row, *args, **kwargs) for row in first)))
 
 
 def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -118,7 +159,11 @@ def route_topk(
     router_logits: torch.Tensor, num_selected: int, capacity: int, *,
     renormalize: bool = True,
 ) -> Routing:
-    """Top-k gating with per-expert capacity (dense [T,E,C] form)."""
+    """Top-k gating with per-expert capacity (dense [T,E,C] form); for
+    member-stacked logits ``[W, T, E]`` per member, stacked."""
+    if router_logits.ndim == 3:
+        return Routing(*_per_member(route_topk, router_logits, num_selected, capacity,
+                                    renormalize=renormalize))
     e = router_logits.shape[-1]
     vals, idx, aux, z = _gate_topk(router_logits, num_selected, renormalize)
     dispatch_mask, combine_w, counts = masks_from_topk(idx, vals, e, capacity)
@@ -167,7 +212,10 @@ def sorted_from_topk(
 
 
 def plan_slots(topk_idx: torch.Tensor, num_experts: int, capacity: int) -> SlotPlan:
-    """One argsort -> the :class:`SlotPlan` of a routing decision."""
+    """One argsort -> the :class:`SlotPlan` of a routing decision; for
+    member-stacked ``topk_idx`` ``[W, T, K]``, one per member, stacked."""
+    if topk_idx.ndim == 3:
+        return SlotPlan(*_per_member(sorted_from_topk, topk_idx, num_experts, capacity))
     return SlotPlan(*sorted_from_topk(topk_idx, num_experts, capacity))
 
 
@@ -176,7 +224,11 @@ def route_topk_sorted(
     renormalize: bool = True,
 ) -> SortedRouting:
     """Top-k gating in sorted form: the math and losses of
-    :func:`route_topk`, without [T,E,C] masks."""
+    :func:`route_topk`, without [T,E,C] masks; for member-stacked logits
+    ``[W, T, E]`` per member, stacked."""
+    if router_logits.ndim == 3:
+        return SortedRouting(*_per_member(route_topk_sorted, router_logits, num_selected,
+                                          capacity, renormalize=renormalize))
     e = router_logits.shape[-1]
     vals, idx, aux, z = _gate_topk(router_logits, num_selected, renormalize)
     token_for_slot, slot, kept = sorted_from_topk(idx, e, capacity)
@@ -190,34 +242,252 @@ def _take_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     return padded[index.long()]
 
 
-def dispatch_sorted(x: torch.Tensor, token_for_slot, num_experts: int,
-                    capacity: int) -> torch.Tensor:
-    """Ragged dispatch: one gather packs the [E*C, H] slot payloads; empty
-    slots read zeros. ``token_for_slot`` may be a :class:`SlotPlan`.
-    Returns [E, C, H] (the world-1 [E_local, W*C, H])."""
+def _take_member_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """Member-stacked :func:`_take_rows`: member r's rows ``x[r][index[r]]``
+    (``x`` ``[W, N, ...]``, ``index`` ``[W, ...]``), the index N reading a
+    row of zeros."""
+    w = x.shape[0]
+    padded = torch.cat([x, x.new_zeros((w, 1) + tuple(x.shape[2:]))], dim=1)
+    r = torch.arange(w, device=x.device).reshape((w,) + (1,) * (index.ndim - 1))
+    return padded[r, index.long()]
+
+
+def _weighted_sum(weights: torch.Tensor, yk: torch.Tensor) -> torch.Tensor:
+    """Each member's ``tk,tkh->th`` weighted sum (``[W, T, K]`` and ``[W, T,
+    K, H]``), member by member, so a member's result is the world-1
+    combine's on the same rows."""
+    return torch.stack([torch.einsum("tk,tkh->th", wt.to(y.dtype), y)
+                        for wt, y in zip(weights, yk)])
+
+
+def _members_to_wire(expert_out: torch.Tensor, w: int) -> torch.Tensor:
+    """``[W, E_local, W*C, H]`` expert view → the member-major wire buffer
+    ``[W, W, E_local, C, H]`` (slot s of member r: the rows of source s)."""
+    _, e_local, wc, h = expert_out.shape
+    return expert_out.reshape(w, e_local, w, wc // w, h).transpose(1, 2)
+
+
+def _wire_to_members(buf: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_members_to_wire`: ``[W, W, E_local, C, H]`` →
+    ``[W, E_local, W*C, H]``, source-major slots per local expert."""
+    w, _, e_local, c, h = buf.shape
+    return buf.transpose(1, 2).reshape(w, e_local, w * c, h)
+
+
+def dispatch_sorted(x: torch.Tensor, token_for_slot, num_experts: int, capacity: int,
+                    axis: Axis = None, *, wire_fp8: bool = False, quant_group: int = 128,
+                    wire: str = "lax", n_chunks: int = 1, wire_dtype=None,
+                    schedule=None) -> torch.Tensor:
+    """Ragged dispatch: one gather packs the [E*C, H] slot payloads (empty
+    slots read zeros), then the member-major all-to-all. ``token_for_slot``
+    may be a :class:`SlotPlan`. World 1 (no ``axis``): x ``[T, H]`` →
+    ``[E, C, H]``. Member-stacked: x ``[W, T, H]``, ``token_for_slot`` ``[W,
+    E*C]`` → ``[W, E_local, W*C, H]``. ``n_chunks`` splits the pallas wire's
+    capacity axis into that many launches; ``wire_dtype`` quantizes the
+    wire payload; ``schedule`` runs the pallas wire one contention-free
+    round at a time (``a2a_sched.wire_schedule``). The same bits on every
+    wire."""
     if isinstance(token_for_slot, SlotPlan):
         token_for_slot = token_for_slot.token_for_slot
-    return _take_rows(x, token_for_slot).reshape(num_experts, capacity, x.shape[-1])
+    if axis is None:
+        return _take_rows(x, token_for_slot).reshape(num_experts, capacity, x.shape[-1])
+    w, _, h = x.shape
+    if num_experts % w:
+        raise ValueError(f"experts {num_experts} not divisible by EP world {w}")
+    buf = _take_member_rows(x, token_for_slot).reshape(w, w, num_experts // w, capacity, h)
+    cid = _dma.CID_SCHED if schedule is not None else _dma.CID_EP_DISPATCH
+    buf = _wire_all_to_all(buf, wire_fp8, quant_group, x.dtype, wire, n_chunks=n_chunks,
+                           chunk_axis=2, collective_id=cid, wire_dtype=wire_dtype,
+                           schedule=schedule)
+    return _wire_to_members(buf)
 
 
-def combine_sorted(expert_out: torch.Tensor, slot, weights: torch.Tensor) -> torch.Tensor:
-    """Ragged combine: one [T, K]-row gather and a weighted sum; dropped
-    assignments read zeros. expert_out: [E, C, H] -> [T, H]."""
+def combine_sorted(expert_out: torch.Tensor, slot, weights: torch.Tensor, axis: Axis = None,
+                   *, wire_fp8: bool = False, quant_group: int = 128, wire: str = "lax",
+                   n_chunks: int = 1, wire_dtype=None, schedule=None) -> torch.Tensor:
+    """Ragged combine: the expert outputs go home over the wire, then one
+    [T, K]-row gather and a weighted sum; dropped assignments read zeros.
+    World 1: expert_out ``[E, C, H]`` → ``[T, H]``. Member-stacked:
+    ``[W, E_local, W*C, H]`` → ``[W, T, H]``; ``schedule`` is the combine
+    direction's (the dispatch matrix transposed: traffic flows home)."""
     if isinstance(slot, SlotPlan):
         slot = slot.slot
-    y = expert_out.reshape(-1, expert_out.shape[-1])  # [E*C, H], expert-major
-    yk = _take_rows(y, slot)  # [T, K, H]
-    return torch.einsum("tk,tkh->th", weights.to(yk.dtype), yk)
+    if axis is None:
+        y = expert_out.reshape(-1, expert_out.shape[-1])  # [E*C, H], expert-major
+        yk = _take_rows(y, slot)  # [T, K, H]
+        return torch.einsum("tk,tkh->th", weights.to(yk.dtype), yk)
+    w, h = expert_out.shape[0], expert_out.shape[-1]
+    cid = _dma.CID_SCHED_COMBINE if schedule is not None else _dma.CID_EP_COMBINE
+    buf = _wire_all_to_all(_members_to_wire(expert_out, w), wire_fp8, quant_group,
+                           expert_out.dtype, wire, n_chunks=n_chunks, chunk_axis=2,
+                           collective_id=cid, wire_dtype=wire_dtype, schedule=schedule)
+    y = buf.reshape(w, -1, h)  # [W, E*C, H], expert-major
+    return _weighted_sum(weights, _take_member_rows(y, slot))
 
 
-def dispatch(x: torch.Tensor, dispatch_mask: torch.Tensor) -> torch.Tensor:
-    """Dense dispatch: [T, H] tokens into [E, C, H] expert buffers."""
-    return torch.einsum("tec,th->ech", dispatch_mask.to(x.dtype), x)
+def dispatch(x: torch.Tensor, dispatch_mask: torch.Tensor, axis: Axis = None, *,
+             wire_fp8: bool = False, quant_group: int = 128, wire: str = "lax",
+             wire_dtype=None) -> torch.Tensor:
+    """Dense dispatch: [T, H] tokens into [E, C, H] expert buffers; member-
+    stacked, ``[W, T, H]`` → ``[W, E_local, W*C, H]`` over the wire."""
+    if axis is None:
+        return torch.einsum("tec,th->ech", dispatch_mask.to(x.dtype), x)
+    w, _, e, c = dispatch_mask.shape
+    if e % w:
+        raise ValueError(f"experts {e} not divisible by EP world {w}")
+    buf = torch.stack([dispatch(xr, mr) for xr, mr in zip(x, dispatch_mask)])
+    buf = _wire_all_to_all(buf.reshape(w, w, e // w, c, x.shape[-1]), wire_fp8, quant_group,
+                           x.dtype, wire, collective_id=_dma.CID_EP_DISPATCH,
+                           wire_dtype=wire_dtype)
+    return _wire_to_members(buf)
 
 
-def combine(expert_out: torch.Tensor, combine_weights: torch.Tensor) -> torch.Tensor:
-    """Dense combine: [E, C, H] expert outputs weighted back to [T, H]."""
-    return torch.einsum("tec,ech->th", combine_weights.to(expert_out.dtype), expert_out)
+def combine(expert_out: torch.Tensor, combine_weights: torch.Tensor, axis: Axis = None, *,
+            wire_fp8: bool = False, quant_group: int = 128, wire: str = "lax",
+            wire_dtype=None) -> torch.Tensor:
+    """Dense combine: [E, C, H] expert outputs weighted back to [T, H];
+    member-stacked, ``[W, E_local, W*C, H]`` → ``[W, T, H]``."""
+    if axis is None:
+        return torch.einsum("tec,ech->th", combine_weights.to(expert_out.dtype), expert_out)
+    w, _, e, c = combine_weights.shape
+    buf = _wire_all_to_all(_members_to_wire(expert_out, w), wire_fp8, quant_group,
+                           expert_out.dtype, wire, collective_id=_dma.CID_EP_COMBINE,
+                           wire_dtype=wire_dtype)
+    return torch.stack([combine(yr, cr) for yr, cr in zip(buf.reshape(w, e, c, -1),
+                                                          combine_weights)])
+
+
+def counts_exchange(mat: torch.Tensor) -> torch.Tensor:
+    """Member-stacked ``[W, W, ...]`` per-destination rows → per-source rows
+    (row s of member r's result is what source s computed for r): the
+    receive bookkeeping of both dispatch paths. A transpose of the member
+    axes (XLA's ``all_to_all`` in JAX)."""
+    return mat.transpose(0, 1).contiguous()
+
+
+def _member_all_to_all(buf: torch.Tensor, wire: str, *, n_chunks: int = 1, chunk_axis: int = 1,
+                       collective_id=None, schedule=None) -> torch.Tensor:
+    """One member-major ``[W, W, ...]`` exchange on the selected wire:
+    ``"lax"``, the stock wire (the transpose of the member axes), or
+    ``"pallas"``, B9 (``ep/pallas_a2a.all_to_all``) or, with a
+    ``schedule``, B10 per round. The same tiled contract and bits;
+    ``n_chunks``/``chunk_axis``/``collective_id``/``schedule`` reach the
+    pallas wire only."""
+    if wire == "pallas":
+        from uccl_tpu_torch.ep import pallas_a2a
+
+        if schedule is not None:
+            return pallas_a2a.scheduled_all_to_all(buf, schedule, n_chunks=n_chunks,
+                                                   chunk_axis=chunk_axis,
+                                                   collective_id=collective_id)
+        return pallas_a2a.all_to_all(buf, n_chunks=n_chunks, chunk_axis=chunk_axis,
+                                     collective_id=collective_id)
+    if wire != "lax":
+        raise ValueError(f"unknown EP wire {wire!r} (want 'lax' or 'pallas')")
+    return buf.transpose(0, 1).contiguous()
+
+
+def resolve_wire_dtype(wire_fp8: bool, wire_dtype=None):
+    """The EP knob rule: an explicit ``wire_dtype`` wins; the legacy
+    ``wire_fp8`` bool maps to "fp8"; otherwise full precision."""
+    wire_dtype = _quant.resolve_wire_dtype(wire_dtype)
+    if wire_dtype is None and wire_fp8:
+        wire_dtype = "fp8"
+    return wire_dtype
+
+
+def wire_itemsize(wire_fp8: bool, hidden: int, dtype: torch.dtype, quant_group: int = 128,
+                  wire_dtype=None) -> int:
+    """Bytes per element the wire moves, what the budget gates charge: 1
+    when the block-scaled packing applies, else the element width."""
+    wire_dtype = resolve_wire_dtype(wire_fp8, wire_dtype)
+    if (wire_dtype is not None and dtype.is_floating_point
+            and _quant.paying_block(hidden, quant_group)):
+        return 1
+    return dtype.itemsize
+
+
+# the one wire-byte arithmetic (the codec's), under the EP name
+wire_bytes_of = _quant.wire_bytes_of
+
+
+def _wire_all_to_all(buf: torch.Tensor, wire_fp8: bool, quant_group: int, dtype: torch.dtype,
+                     wire: str = "lax", *, n_chunks: int = 1, chunk_axis: int = 1,
+                     collective_id=None, wire_dtype=None, schedule=None) -> torch.Tensor:
+    """Member-major all-to-all of a ``[W, W, ...]`` buffer, block-quantized
+    on the wire under a ``wire_dtype``: payload, then scales on
+    ``collective_id + CID_SCALE_OFFSET`` over the same wire and schedule,
+    then the dequantize. A non-float payload, or a hidden dim that admits
+    no paying block, ships full precision, counted on
+    ``ep_wire_fallback_total``."""
+
+    def xchg(rows, cid_off=0):
+        cid = None if collective_id is None else collective_id + cid_off
+        return _member_all_to_all(rows, wire, n_chunks=n_chunks, chunk_axis=chunk_axis,
+                                  collective_id=cid, schedule=schedule)
+
+    wire_dtype = resolve_wire_dtype(wire_fp8, wire_dtype)
+    if wire_dtype is not None and not buf.dtype.is_floating_point:
+        name = str(buf.dtype).removeprefix("torch.")
+        _dma.record_fallback(
+            "ep_wire_quant", "quant_dtype", detail=name,
+            msg=f"ep wire_dtype={wire_dtype!r} needs a float payload, got {name}; "
+                "shipping full precision")
+        wire_dtype = None
+    if wire_dtype is None:
+        return xchg(buf)
+    group = _quant.paying_block(buf.shape[-1], quant_group)
+    if group is None:
+        _dma.record_fallback(
+            "ep_wire_quant", "block_too_small", detail=(buf.shape[-1], quant_group),
+            msg=f"ep wire_dtype={wire_dtype!r}: hidden {buf.shape[-1]} only admits blocks < 8 "
+                f"(requested {quant_group}); shipping full precision")
+        return xchg(buf)
+    q, scale = _quant.quantize_block(buf, wire_dtype, group)
+    return _quant.dequantize_block(xchg(q), xchg(scale, _dma.CID_SCALE_OFFSET), group,
+                                   dtype=dtype)
+
+
+def resolve_chunks(n_chunks: int, wire: str, world: int, capacity: int, e_local: int,
+                   hidden: int, itemsize: int, wire_dtype=None, device=None) -> int:
+    """Effective chunk depth of the pipelined EP layer. ``0`` is auto: the
+    planner's depth (``plan.ep_auto_depth``) on the pallas wire when the
+    world and capacity can chunk. Any request is 1 off the pallas wire or at
+    world 1 (an explicit depth > 1 on the pallas wire then counts on
+    ``ep_wire_fallback_total``), and 1 for a CPU tensor (``device`` not
+    CUDA) whose pipeline footprint (4 resident send+recv chunk pairs) is
+    over budget. The result lands on the ``ep_chunk_depth`` gauge and the
+    plan counter (``collective_plan_total{algo="ep_a2a"}``)."""
+    n = _resolve_chunks_value(n_chunks, wire, world, capacity, e_local, hidden, itemsize,
+                              device)
+    from uccl_tpu_torch.collective import plan as _plan
+
+    _CHUNK_DEPTH.set(n, what="moe_layer")
+    _plan.get_planner().record_ep_chunks(n, wire=wire, wire_dtype=wire_dtype,
+                                         auto=(n_chunks == 0))
+    return n
+
+
+def _resolve_chunks_value(n_chunks, wire, world, capacity, e_local, hidden, itemsize,
+                          device) -> int:
+    requested = n_chunks > 1 and wire == "pallas"
+    if wire != "pallas" or world <= 1 or capacity < 2:
+        if requested:
+            _dma.record_fallback("ep_moe_chunked", "world_size" if world <= 1 else "capacity",
+                                 detail=(world, capacity))
+        return 1
+    if n_chunks == 0:
+        from uccl_tpu_torch.collective import plan as _plan
+
+        n_chunks = _plan.get_planner().ep_auto_depth(
+            world * e_local * capacity * hidden * itemsize, capacity)
+    n_chunks = max(1, min(int(n_chunks), capacity))
+    if n_chunks > 1 and (device is None or torch.device(device).type != "cuda"):
+        cs = _dma.pad_capacity(capacity, n_chunks) // n_chunks
+        if not _dma.chunk_budget(world, e_local * cs * hidden, itemsize, "ep_moe_chunked",
+                                 resident_kernels=4):
+            n_chunks = 1  # chunk_budget counted and logged it
+    return n_chunks
 
 
 def _expert_gemms(xe, w_gate, w_up, w_down):
@@ -228,41 +498,139 @@ def _expert_gemms(xe, w_gate, w_up, w_down):
     return torch.einsum("ebf,efh->ebh", act, w_down)
 
 
+def _member_gemms(xe, w_gate, w_up, w_down):
+    """:func:`_expert_gemms` on each member's local experts: ``[W, E_local,
+    W*C, H]`` with weights ``[W, E_local, ...]``."""
+    return torch.stack([_expert_gemms(*a) for a in zip(xe, w_gate, w_up, w_down)])
+
+
+def _moe_ffn_sort_chunked(x, plan: SlotPlan, weights, w_gate, w_up, w_down, num_experts: int,
+                          capacity: int, n_chunks: int, wire_dtype=None) -> torch.Tensor:
+    """The chunk-pipelined sorted MoE step on the pallas wire, member-
+    stacked. The capacity axis is cut into ``n_chunks`` (padded with empty
+    slots by ``dma.pad_capacity``, so the drops are the unchunked layer's)
+    and each chunk runs dispatch → expert GEMMs → combine on its own, its
+    exchanges on 2-parity rotated ids (dispatch {2,3}, combine {4,5}). Slot
+    rows are independent through the GEMMs and the exchange keeps
+    positions, so the result equals the unchunked layer's; the token gather
+    and weighted sum run once on the reassembled buffer. All launches go to
+    the current CUDA stream, in chunk order (``dma.tie_chunk``)."""
+    w, t, h = x.shape
+    e_local = num_experts // w
+    tfs_chunks = plan.chunk_token_for_slot(num_experts, n_chunks, t)  # [n, W, E, cs]
+    cs = tfs_chunks.shape[-1]
+    recv_chunks, y_chunks = [], []
+    for c in range(n_chunks):
+        buf = _take_member_rows(x, tfs_chunks[c].reshape(w, -1)).reshape(w, w, e_local, cs, h)
+        buf = _dma.tie_chunk(buf, recv_chunks[c - 2] if c >= 2 else None)
+        buf = _wire_all_to_all(buf, False, 128, x.dtype, "pallas",
+                               collective_id=_dma.chunk_collective_id(_dma.CID_EP_DISPATCH, c),
+                               wire_dtype=wire_dtype)
+        xe = _wire_to_members(buf)
+        recv_chunks.append(xe)
+        ye = _member_gemms(xe, w_gate, w_up, w_down)
+        back = _dma.tie_chunk(_members_to_wire(ye, w), y_chunks[c - 2] if c >= 2 else None)
+        back = _wire_all_to_all(back, False, 128, ye.dtype, "pallas",
+                                collective_id=_dma.chunk_collective_id(_dma.CID_EP_COMBINE, c),
+                                wire_dtype=wire_dtype)
+        y_chunks.append(back.reshape(w, num_experts, cs, h))
+    y = torch.cat(y_chunks, dim=2)[:, :, :capacity].reshape(w, num_experts * capacity, h)
+    return _weighted_sum(weights, _take_member_rows(y, plan.slot))
+
+
 def moe_ffn(
     x: torch.Tensor,
     router_logits: torch.Tensor,
     w_gate: torch.Tensor,
     w_up: torch.Tensor,
     w_down: torch.Tensor,
+    axis: Axis = None,
     *,
     num_selected: int = 2,
     capacity_factor: float = 1.25,
+    wire_fp8: bool = False,
     impl: str = "sort",
+    wire: str = "lax",
+    n_chunks: int = 1,
+    wire_dtype=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """MoE layer at world 1: route -> dispatch -> SwiGLU experts -> combine.
+    """The MoE layer: route -> dispatch -> SwiGLU experts -> combine.
 
-    x: [T, H]; router_logits: [T, E]; w_gate/w_up: [E, H, F];
-    w_down: [E, F, H]. impl: "sort" (ragged gathers) or "dense" (mask-einsum
-    oracle); the two route identically. Returns (out [T, H] in x's dtype,
-    aux_loss, z_loss)."""
-    t, _ = x.shape
+    World 1 (no ``axis``): x ``[T, H]``, router_logits ``[T, E]``,
+    w_gate/w_up ``[E, H, F]``, w_down ``[E, F, H]``; returns (out ``[T, H]``
+    in x's dtype, aux_loss, z_loss). Member-stacked: x ``[W, T, H]``,
+    router_logits ``[W, T, E]``, weights the members' local experts ``[W,
+    E_local, ...]``; returns (``[W, T, H]``, aux ``[W]``, z ``[W]``).
+
+    impl: "sort" (ragged gathers), "dense" (mask-einsum oracle; the two
+    route identically) or "ll" (the packed low-latency path, ``ep/ll.py``:
+    grouped GEMMs over receive counts, ``capacity_factor`` its
+    ``pair_capacity_factor``). wire: "lax" or "pallas" (for "ll",
+    "pallas" selects its dense-chunk layout on the kernel, anything else
+    its auto wire). n_chunks: the pallas wire's pipeline depth (0 = auto);
+    with "sort" and a depth > 1 the layer runs the chunk pipeline.
+    wire_dtype: "fp8" | "int8" quantizes the dispatch and combine payloads
+    (``wire_fp8=True`` is the legacy "fp8")."""
+    wire_dtype = resolve_wire_dtype(wire_fp8, wire_dtype)
+    if axis is None and (impl == "ll" or wire_dtype is not None):
+        # one member of a member-stacked world (the quantized wire round-
+        # trips even where nothing moves, as in the JAX package)
+        out, aux, z = moe_ffn(x[None], router_logits[None], w_gate[None], w_up[None],
+                              w_down[None], "ep", num_selected=num_selected,
+                              capacity_factor=capacity_factor, impl=impl, wire=wire,
+                              n_chunks=n_chunks, wire_dtype=wire_dtype)
+        return out[0], aux[0], z[0]
+    if axis is None:
+        # world 1 on the full-precision wire: the wire moves nothing
+        t, _ = x.shape
+        e = router_logits.shape[-1]
+        capacity = max(1, int(capacity_factor * t * num_selected / e))
+        if impl == "sort":
+            rs = route_topk_sorted(router_logits, num_selected, capacity)
+            xe = dispatch_sorted(x, rs.token_for_slot, e, capacity)
+            ye = _expert_gemms(xe, w_gate, w_up, w_down)
+            out = combine_sorted(ye, rs.slot, rs.weights)
+            aux_loss, z_loss = rs.aux_loss, rs.z_loss
+        elif impl == "dense":
+            r = route_topk(router_logits, num_selected, capacity)
+            ye = _expert_gemms(dispatch(x, r.dispatch_mask), w_gate, w_up, w_down)
+            out = combine(ye, r.combine_weights)
+            aux_loss, z_loss = r.aux_loss, r.z_loss
+        else:
+            raise ValueError(f"unknown moe impl {impl!r} (want 'sort', 'dense', or 'll')")
+        return out.to(x.dtype), aux_loss, z_loss
+    w, t, h = x.shape
     e = router_logits.shape[-1]
     capacity = max(1, int(capacity_factor * t * num_selected / e))
+    if impl == "ll":
+        from uccl_tpu_torch.ep.ll import ll_moe_ffn
+
+        return ll_moe_ffn(x, router_logits, w_gate, w_up, w_down, num_selected=num_selected,
+                          pair_capacity_factor=capacity_factor,
+                          wire="pallas" if wire == "pallas" else "auto",
+                          wire_dtype=wire_dtype, n_chunks=n_chunks)
     if impl == "sort":
         rs = route_topk_sorted(router_logits, num_selected, capacity)
-        xe = dispatch_sorted(x, rs.token_for_slot, e, capacity)
-        ye = _expert_gemms(xe, w_gate, w_up, w_down)
-        out = combine_sorted(ye, rs.slot, rs.weights)
+        n_chunks = resolve_chunks(n_chunks, wire, w, capacity, e // w, h,
+                                  wire_itemsize(False, h, x.dtype, wire_dtype=wire_dtype),
+                                  wire_dtype=wire_dtype, device=x.device)
+        if n_chunks > 1:
+            plan = SlotPlan(rs.token_for_slot, rs.slot, rs.counts)
+            out = _moe_ffn_sort_chunked(x, plan, rs.weights, w_gate, w_up, w_down, e, capacity,
+                                        n_chunks, wire_dtype=wire_dtype)
+            return out.to(x.dtype), rs.aux_loss, rs.z_loss
+        xe = dispatch_sorted(x, rs.token_for_slot, e, capacity, axis, wire=wire,
+                             wire_dtype=wire_dtype)
         aux_loss, z_loss = rs.aux_loss, rs.z_loss
     elif impl == "dense":
         r = route_topk(router_logits, num_selected, capacity)
-        ye = _expert_gemms(dispatch(x, r.dispatch_mask), w_gate, w_up, w_down)
-        out = combine(ye, r.combine_weights)
+        xe = dispatch(x, r.dispatch_mask, axis, wire=wire, wire_dtype=wire_dtype)
         aux_loss, z_loss = r.aux_loss, r.z_loss
-    elif impl == "ll":
-        raise NotImplementedError(
-            "moe impl 'll' (packed grouped-GEMM path, ep/ll.py) is not ported yet"
-        )
     else:
-        raise ValueError(f"unknown moe impl {impl!r} (want 'sort' or 'dense')")
+        raise ValueError(f"unknown moe impl {impl!r} (want 'sort', 'dense', or 'll')")
+    ye = _member_gemms(xe, w_gate, w_up, w_down)
+    if impl == "sort":
+        out = combine_sorted(ye, rs.slot, rs.weights, axis, wire=wire, wire_dtype=wire_dtype)
+    else:
+        out = combine(ye, r.combine_weights, axis, wire=wire, wire_dtype=wire_dtype)
     return out.to(x.dtype), aux_loss, z_loss
