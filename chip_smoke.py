@@ -47,6 +47,7 @@ from torch.profiler import ProfilerActivity, profile
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: torch.cuda.is_available() is False; this script needs a GPU")
 
+from uccl_tpu_torch import profile_ep  # noqa: E402
 from uccl_tpu_torch.collective import Communicator, dma, plan  # noqa: E402
 from uccl_tpu_torch.collective import ring_ccl as rc  # noqa: E402
 from uccl_tpu_torch.ep import Buffer, a2a_sched  # noqa: E402
@@ -742,16 +743,8 @@ def verb_breakdown(verbs) -> list:
         warm_ms = statistics.median(warm)
         out.append(dict(verb=verb, algo=algo, first_call_host_ms=cold_ms, warm_host_ms=warm_ms,
                         first_use_ms=cold_ms - warm_ms, profiled_host_ms=wall_ms,
-                        device_ms=split, device_busy_ms=_union_ms(spans)))
+                        device_ms=split, device_busy_ms=profile_ep.union_ms(spans)))
     return out
-
-def _union_ms(spans) -> float:
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(spans):
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total / 1e3
 
 def collective_path(x) -> tuple:
     """The Communicator verbs at the gradient bucket ``x`` [W, BUCKET], W = 4,
@@ -1280,9 +1273,16 @@ def ep_a2a_vs_plain() -> dict:
     bit: worlds 2-16, bf16/f32/int32/fp8 payloads and the scales' f32,
     padded sizes; B9 unchunked and in 2 and 3 chunks, B10 over a uniform and
     a Zipf schedule, chunked too. Then planted faults that must fail the
-    same rule. Returns the largest difference from a plain version."""
+    same rule. Returns each kernel's largest difference from its plain
+    version (float payloads of 2 and 4 bytes)."""
     pa.reset_launch_counts()
-    readings, worst = [], 0.0
+    readings, worst = [], {"a2a": 0.0, "sched_round": 0.0}
+
+    def diff(got, plain):  # 1-byte payloads move as uint8, int32 is exact
+        if got.dtype.is_floating_point:
+            return (got.double() - plain.double()).abs().max().item()
+        return 0.0
+
     for n, shape, dtype in EP_CASES:
         x = ep_inputs(n, shape, dtype, seed=n)
         xb, _ = pa._as_bytes(x)
@@ -1290,8 +1290,7 @@ def ep_a2a_vs_plain() -> dict:
         out = torch.empty_like(view)
         pa.launch_a2a(view, out, dma.CID_A2A).check("a2a")
         got, plain = pa._unview(out, k, xb), pa._unview(pa.a2a_plain(view), k, xb)
-        if dtype.is_floating_point and dtype.itemsize > 1:
-            worst = max(worst, (got.double() - plain.double()).abs().max().item())
+        worst["a2a"] = max(worst["a2a"], diff(got, plain))
         cases = [("a2a", 1, ep_rule(got, plain, xb))]
         for nc in (2, 3):
             got = pa.all_to_all(x, n_chunks=nc, chunk_axis=1)
@@ -1301,7 +1300,9 @@ def ep_a2a_vs_plain() -> dict:
             for r_ in sched[0]:  # every round on its own
                 slot = view.new_empty(view[:, 0].shape)
                 pa.launch_sched_round(view, slot, r_.perm, dma.CID_SCHED).check("sched_round")
-                if not torch.equal(slot, pa.sched_round_plain(view, r_.perm)):
+                plain_slot = pa.sched_round_plain(view, r_.perm)
+                worst["sched_round"] = max(worst["sched_round"], diff(slot, plain_slot))
+                if not torch.equal(slot, plain_slot):
                     fail(f"sched_round W={n} {dtype} round {r_.perm} differs from its plain "
                          "version")
             for nc in (1, 2):
@@ -1452,28 +1453,11 @@ def ep_zipf_routing():
 
 def ep_layer_inputs():
     """Layer 0 of the bench config (seed-0 weights) on each member's own
-    batch: the MoE input ``rms_norm(x + attention(x), ln2)`` [W, T, H] bf16,
-    the router's logits [W, T, E] f32, and the expert weights sharded
-    [W, E_local, ...] bf16."""
-    cfg = flagship.bench_config()
-    params = flagship.init_params(cfg, torch.Generator().manual_seed(0), DEV)
-    lp = {k: params["blocks"][k][0] for k in flagship._BLOCK_KEYS}
-    xs = []
-    with torch.no_grad():
-        for r in range(EP_WORLD):
-            tokens = torch.as_tensor(_batch_for_step(200 + r, BATCH, SEQ, cfg.vocab)[0],
-                                     device=DEV)
-            x = params["embed"][tokens.long()].to(cfg.dtype)
-            x = x + flagship._attention(rms_norm(x, lp["ln1"], cfg.norm_eps), lp, cfg)
-            xs.append(rms_norm(x, lp["ln2"], cfg.norm_eps).reshape(-1, cfg.dim))
-    x = torch.stack(xs)
-    logits = x.float() @ lp["router"]
-    e_local = cfg.moe_experts // EP_WORLD
-    experts = [lp[k].to(cfg.dtype).reshape(EP_WORLD, e_local, *lp[k].shape[1:]).contiguous()
-               for k in ("we_gate", "we_up", "we_down")]
-    del params
+    batch: ``profile_ep.layer_inputs``, the one construction of the EP
+    cell's inputs."""
+    out = profile_ep.layer_inputs(DEV, BATCH, SEQ)
     torch.cuda.empty_cache()
-    return cfg, x, logits, experts
+    return out
 
 _EP_SPLIT = (("ep_kernels", re.compile(r"a2a_kernel|sched_round_kernel")),
              ("gemm", re.compile(r"gemm|nvjet|sm90|cutlass|xmma|matmul", re.I)),
@@ -1496,7 +1480,7 @@ def ep_profile(run) -> dict:
         spans.append((ev.time_range.start, ev.time_range.end))
         cls = next((name for name, pat in _EP_SPLIT if pat.search(ev.name)), "other")
         split[cls] += (ev.time_range.end - ev.time_range.start) / 1e3
-    return {"device_ms": split, "device_busy_ms": _union_ms(spans)}
+    return {"device_ms": split, "device_busy_ms": profile_ep.union_ms(spans)}
 
 def ep_path() -> dict:
     """The EP plane end to end at the configuration: get_dispatch_layout →
@@ -1619,10 +1603,11 @@ def ep_path() -> dict:
         calls.append(reading)
         del recv, handle, out, laid
     launches = dict(pa.launch_counts)
-    # warm host ms per verb (median of 3), one profiled call per arm kind
+    # warm host ms per verb (median of 3), one profiled call per arm kind;
+    # the layer timed with one wait is python -m uccl_tpu_torch.profile_ep's
     for reading in calls:
-        if reading["arm"] in ("lax", "pallas", "pallas n_chunks=0", "pallas fp8",
-                              "pallas zipf a2a_sched=on"):
+        if reading["arm"] in ("lax", "pallas", "pallas n_chunks=2", "pallas n_chunks=0",
+                              "pallas fp8", "pallas zipf a2a_sched=on"):
             timed = []
             for _ in range(3):
                 runs[reading["arm"]](timed=timed)
@@ -1707,6 +1692,7 @@ def ep_moe_ffn(cfg, x, logits, experts, depth) -> dict:
             worst[name] = max(worst[name], rel)
     if not max(worst.values()) <= 2.0 ** -7:
         fail(f"moe_ffn at W=4 against world 1 per member: relative norm errors {worst}")
+
     return {"launches_a2a": launches, "rel_norm_err_vs_world1": worst,
             "auto_depth_equals_phased": bool(torch.equal(phased, auto))}
 
@@ -1742,7 +1728,7 @@ def main() -> None:
     del bucket, refs
     torch.cuda.empty_cache()
     ep_fb0 = dma.WIRE_FALLBACK.total()
-    ep_err = ep_a2a_vs_plain()["max_abs_err_vs_plain"]
+    ep_errs = ep_a2a_vs_plain()["max_abs_err_vs_plain"]
     ep_time = ep_a2a_timing()
     torch.cuda.empty_cache()
     ep_launches = ep_path()
@@ -1779,7 +1765,7 @@ def main() -> None:
         # B10's time is its whole schedule (one launch per round) with the
         # torch assembly, at the Zipf routing's rounds: the exchange's cost
         {"name": name, "route": "cuda", "source": EP_SOURCE, "replaces": EP_REPLACES[name],
-         "launches": ep_launches[name], "max_abs_err": ep_err,
+         "launches": ep_launches[name], "max_abs_err": ep_errs[name],
          "ms": ep_time[timed]["ms"], "plain_ms": ep_time[timed]["plain_ms"],
          "bound_ms": ep_time[timed]["bound_ms"], "bound_by": "bytes",
          "library_ms": ep_time[timed]["library_ms"],

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from uccl_tpu_torch.collective import Communicator, dma, ring_ccl
+from uccl_tpu_torch.collective import Communicator, dma, lanes, ring_ccl
 from uccl_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 
 pytestmark = pytest.mark.cuda
@@ -126,14 +126,14 @@ def _launch_all_but_last(name, x, buf, stage, out, streams, dirs, cid, slot_byte
                          wire_dtype=None, sstage=None, qbuf=None, sbuf=None):
     """``ring_ccl._launch`` with the last member left out of the grid: the
     C entry launches members [0, n-1) only."""
-    n, t = x.shape[0], ring_ccl._table
+    n, t = x.shape[0], lanes.table
     lane = ring_ccl._lane(x.device, cid)
     rc = ring_ccl._lib().uccl_ring_launch(
         ring_ccl._KERNEL_ID[name], ring_ccl._ADD_DTYPES.get(x.dtype, 0),
         ring_ccl._WIRE_ID.get(wire_dtype, 0), n, n - 1, streams, dirs[0], dirs[-1], slot_bytes,
         t(x, n), t(buf, n), t(stage, n), t(out, n), t(sstage, n), t(qbuf, n), t(sbuf, n),
         t(lane.flags, n), ctypes.c_void_p(lane.err.data_ptr()), cid, lane.next_epoch(),
-        ring_ccl.SPIN_TIMEOUT_MS.get() * 1_000_000,
+        lanes.SPIN_TIMEOUT_MS.get() * 1_000_000,
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     assert rc == 0
     return lane
@@ -150,7 +150,7 @@ def test_missing_member_raises_instead_of_hanging(dev):
     view = x.reshape(n, n, 1, m)
     qstage, sstage = ring_ccl._wire_buffers(x, n, 2)
     _, *ar_q = ring_ccl._ar_operands(view, "fp8")
-    ring_ccl.SPIN_TIMEOUT_MS.set(200)
+    lanes.SPIN_TIMEOUT_MS.set(200)
     try:
         for args, kw in (
                 (("ring_reduce_scatter", x, e(x), x.new_empty((n, 2, m)), x.new_empty((n, m)),
@@ -167,7 +167,7 @@ def test_missing_member_raises_instead_of_hanging(dev):
             with pytest.raises(RuntimeError, match="timed out"):
                 lane.check("test")
     finally:
-        ring_ccl.SPIN_TIMEOUT_MS.set(None)
+        lanes.SPIN_TIMEOUT_MS.set(None)
     lane, got = ring_ccl._rs_kernel(x, 1, 5)
     lane.check("test")
     assert torch.equal(got, ring_ccl.rs_plain(x, 1))

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from uccl_tpu_torch.collective import dma
+from uccl_tpu_torch.collective import dma, lanes
 from uccl_tpu_torch.ep import Buffer, a2a_sched, ops, pallas_a2a
 from uccl_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 
@@ -131,6 +131,29 @@ def test_buffer_verbs_on_the_card_equal_the_cpu(dev):
     torch.testing.assert_close(a[1].float(), b[1].float(), rtol=1e-2, atol=1e-2)
 
 
+def test_async_finish_leaves_the_check_to_the_event(dev):
+    """With ``async_finish`` a verb does not wait for its error words: its
+    EventOverlap carries the read, and ``synchronize()`` resolves it. The
+    results equal the waiting verbs' bit for bit."""
+    rng = np.random.default_rng(1)
+    w, t, h, e, k = 4, 64, 256, 8, 2
+    x = torch.tensor(rng.standard_normal((w, t, h)), dtype=torch.bfloat16, device=dev)
+    idx = torch.tensor(np.argsort(rng.random((w, t, e)), -1)[..., :k].astype(np.int32),
+                       device=dev)
+    buf = Buffer(make_mesh(MeshConfig(dp=w), device="cuda"), "dp", num_experts=e,
+                 wire="pallas", n_chunks=2)
+    recv, handle = buf.dispatch(x, idx)
+    want = buf.combine(recv, handle)
+    recv2, handle2, ev = buf.dispatch(x, idx, async_finish=True)
+    assert ev.pending is not None
+    ev.current_stream_wait()
+    out, ev2 = buf.combine(recv2, handle2, previous_event=ev, async_finish=True)
+    ev2.synchronize()
+    ev.synchronize()
+    assert not lanes._pending
+    assert torch.equal(recv2, recv) and torch.equal(out, want)
+
+
 def test_cuda_tensors_ignore_the_budget(dev):
     x = _x(dev, (4, 4, 3, 3000), torch.float32, seed=6)
     dma.MAX_ARENA_BYTES.set(64)
@@ -151,13 +174,13 @@ def test_cuda_tensors_ignore_the_budget(dev):
 def _launch_all_but_last(kernel, view, out, pi, cid):
     """``pallas_a2a._launch`` with the last member left out of the grid: the
     C entry launches members [0, n-1) only."""
-    n, t = view.shape[0], pallas_a2a._table
+    n, t = view.shape[0], lanes.table
     lane = pallas_a2a._lane(view.device, cid)
     perm = None if pi is None else (ctypes.c_int * n)(*pi)
     rc = pallas_a2a._lib().uccl_a2a_launch(
         kernel, n, n - 1, view[0, 0].numel() * view.element_size(), t(view, n), t(out, n),
         t(lane.flags, n), ctypes.c_void_p(lane.err.data_ptr()), perm, cid, lane.next_epoch(),
-        pallas_a2a.SPIN_TIMEOUT_MS.get() * 1_000_000,
+        lanes.SPIN_TIMEOUT_MS.get() * 1_000_000,
         ctypes.c_void_p(torch.cuda.current_stream(view.device).cuda_stream))
     assert rc == 0
     return lane
@@ -170,7 +193,7 @@ def test_missing_member_raises_instead_of_hanging(dev):
     n = 4
     x = _x(dev, (n, n, 4096), torch.float32, seed=2)
     view = x.reshape(n, n, 32, 128)
-    pallas_a2a.SPIN_TIMEOUT_MS.set(200)
+    lanes.SPIN_TIMEOUT_MS.set(200)
     try:
         lane = _launch_all_but_last(0, view, torch.empty_like(view), None, 7)
         with pytest.raises(RuntimeError, match="timed out"):
@@ -179,8 +202,38 @@ def test_missing_member_raises_instead_of_hanging(dev):
         with pytest.raises(RuntimeError, match="timed out"):
             lane.check("test")
     finally:
-        pallas_a2a.SPIN_TIMEOUT_MS.set(None)
+        lanes.SPIN_TIMEOUT_MS.set(None)
     assert torch.equal(pallas_a2a.all_to_all(x, collective_id=7), x.transpose(0, 1))
+
+
+def test_missing_member_raises_at_the_scope_end(dev):
+    """Inside ``lanes.one_check`` a timed-out launch raises when the scope
+    closes, after the launches that follow it; without a wait
+    (``blocking=False``) its ``Pending`` raises on ``resolve()``, and an
+    unresolved one raises at the next blocking check."""
+    n = 4
+    x = _x(dev, (n, n, 4096), torch.float32, seed=4)
+    view = x.reshape(n, n, 32, 128)
+    lanes.SPIN_TIMEOUT_MS.set(200)
+    try:
+        with pytest.raises(RuntimeError, match="timed out"):
+            with lanes.one_check():
+                _launch_all_but_last(0, view, torch.empty_like(view), None, 11).check("test")
+                assert torch.equal(pallas_a2a.all_to_all(x, collective_id=12),
+                                   x.transpose(0, 1))
+        with lanes.one_check(blocking=False) as scope:
+            _launch_all_but_last(0, view, torch.empty_like(view), None, 11).check("test")
+        with pytest.raises(RuntimeError, match="timed out"):
+            scope.pending.resolve()
+        with lanes.one_check(blocking=False) as scope:
+            _launch_all_but_last(1, view, view.new_empty(view[:, 0].shape), (1, 2, 3, 0),
+                                 11).check("test")
+        assert scope.pending is not None
+        with pytest.raises(RuntimeError, match="timed out"):
+            pallas_a2a.all_to_all(x, collective_id=12)  # a blocking check resolves it
+    finally:
+        lanes.SPIN_TIMEOUT_MS.set(None)
+    assert torch.equal(pallas_a2a.all_to_all(x, collective_id=11), x.transpose(0, 1))
 
 
 def test_bad_arguments_are_refused(dev):
@@ -188,7 +241,7 @@ def test_bad_arguments_are_refused(dev):
     n = 4
     view = _x(dev, (n, n, 8, 128), torch.float32, seed=3)
     lane = pallas_a2a._lane(view.device, 9)
-    tab = pallas_a2a._table
+    tab = lanes.table
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
     def call(kernel, nn, slot_bytes, pi):

@@ -58,9 +58,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from uccl_tpu_torch.collective import dma as _dma
+from uccl_tpu_torch.collective import lanes as _lanes
 from uccl_tpu_torch.obs import counters as _obsc
 from uccl_tpu_torch.ops import quant as _quant
-from uccl_tpu_torch.utils.config import param
 
 LANES = _dma.LANES
 
@@ -72,16 +72,11 @@ _KERNEL_ID = {name: i for i, name in enumerate(KERNELS)}
 # bytes of any dtype
 _ADD_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int32: 3}
 _WIRE_ID = {"fp8": 0, "int8": 1}
-MAX_MEMBERS = 16  # kMaxMembers in the source
-_MAX_CHANNELS = 64  # kMaxChannels
-_FLAG_WORDS = 4  # kFlagWords
-_WAITS = ("entry barrier", "credit", "receive", "phase barrier")
-
-SPIN_TIMEOUT_MS = param(
-    "RING_SPIN_TIMEOUT_MS", 10000, int,
-    "bound on any one spin-wait of the ring kernels; a wait past it writes "
-    "the kernel's error word and the wrapper raises",
-)
+MAX_MEMBERS = _lanes.MAX_MEMBERS
+_FLAG_WORDS = 4  # kFlagWords in the source
+# each member's flag words: [2 streams][channels][recv, ack, phase, entry]
+_REGIONS = _lanes.Lanes((MAX_MEMBERS, 2, _lanes.MAX_CHANNELS, _FLAG_WORDS), KERNELS,
+                        ("entry barrier", "credit", "receive", "phase barrier"), "stream")
 
 _WIRE_BYTES = _obsc.counter(
     "ep_bytes_total",
@@ -314,87 +309,30 @@ def ar_q_plain(view: torch.Tensor, dirs: Sequence[int], wire_dtype: str) -> torc
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    from uccl_tpu_torch.utils import build
-
-    lib = build.load("ring_ccl")
+    lib = _lanes.load_library("ring_ccl", "uccl_ring", _FLAG_WORDS)
     i, p = ctypes.c_int, ctypes.c_void_p
     tab = ctypes.POINTER(ctypes.c_void_p)
     lib.uccl_ring_launch.argtypes = [i, i, i, i, i, i, i, i, ctypes.c_longlong,
                                      tab, tab, tab, tab, tab, tab, tab, tab, p, i,
                                      ctypes.c_ulonglong, ctypes.c_ulonglong, p]
     lib.uccl_ring_launch.restype = i
-    for name in ("uccl_ring_max_members", "uccl_ring_max_channels", "uccl_ring_flag_words"):
-        getattr(lib, name).restype = i
-    limits = (lib.uccl_ring_max_members(), lib.uccl_ring_max_channels(),
-              lib.uccl_ring_flag_words())
-    if limits != (MAX_MEMBERS, _MAX_CHANNELS, _FLAG_WORDS):
-        raise RuntimeError(f"csrc/ring_ccl.cu limits {limits} disagree with ring_ccl.py")
     return lib
 
 
-class _Lane:
-    """The flag region of one collective id on one device: each member's
-    flag words and the region's error word, both zeroed once, and the epoch
-    counter that makes every launch's flag values larger than any earlier
-    launch's."""
-
-    def __init__(self, device: torch.device, cid: int):
-        self.cid = cid
-        self.flags = torch.zeros((MAX_MEMBERS, 2, _MAX_CHANNELS, _FLAG_WORDS),
-                                 dtype=torch.int64, device=device)
-        self.err = torch.zeros(8, dtype=torch.int32, device=device)
-        self.epoch = 0
-
-    def next_epoch(self) -> int:
-        self.epoch += 1
-        if self.epoch >= 1 << 31:
-            raise RuntimeError(f"collective id {self.cid}: epoch counter exhausted")
-        return self.epoch
-
-    def check(self, what: str) -> None:
-        """Raise if a launch on this region reported a spin-wait timeout
-        (reads the error word: waits for the current stream)."""
-        word = self.err.tolist()
-        if word[0]:
-            self.err.zero_()
-            kernel = KERNELS[word[1]] if 0 <= word[1] < len(KERNELS) else word[1]
-            wait = _WAITS[word[7]] if 0 <= word[7] < len(_WAITS) else word[7]
-            raise RuntimeError(
-                f"{what}: kernel {kernel} timed out after {SPIN_TIMEOUT_MS.get()} ms in its "
-                f"{wait} wait (member {word[2]}, step {word[3]}, collective id {word[4]}, "
-                f"stream {word[5]}, channel {word[6]}); a peer never signalled"
-            )
-
-
-_lanes: Dict[Tuple[int, int], _Lane] = {}
 _side_streams: Dict[int, torch.cuda.Stream] = {}
-_arena_lock = threading.Lock()
+_stream_lock = threading.Lock()
 
 
-def _lane(device: torch.device, cid: int) -> _Lane:
-    with _arena_lock:
-        key = (device.index, cid)
-        lane = _lanes.get(key)
-        if lane is None:
-            lane = _lanes[key] = _Lane(device, cid)
-        return lane
+def _lane(device: torch.device, cid: int) -> _lanes.Lane:
+    return _REGIONS.get(device, cid)
 
 
 def _side_stream(device: torch.device) -> torch.cuda.Stream:
-    with _arena_lock:
+    with _stream_lock:
         s = _side_streams.get(device.index)
         if s is None:
             s = _side_streams[device.index] = torch.cuda.Stream(device)
         return s
-
-
-def _table(t: Optional[torch.Tensor], n: int):
-    arr = (ctypes.c_void_p * n)()
-    if t is not None:
-        step = t.stride(0) * t.element_size()
-        for r in range(n):
-            arr[r] = t.data_ptr() + r * step
-    return arr
 
 
 def _check_operands(name: str, dtype: torch.dtype, *ts: torch.Tensor) -> None:
@@ -414,7 +352,7 @@ def _launch(name: str, x: torch.Tensor, buf: torch.Tensor, stage: Optional[torch
             out: Optional[torch.Tensor], streams: int, dirs: Sequence[int], cid: int,
             slot_bytes: int, *, wire_dtype: Optional[str] = None,
             sstage: Optional[torch.Tensor] = None, qbuf: Optional[torch.Tensor] = None,
-            sbuf: Optional[torch.Tensor] = None) -> _Lane:
+            sbuf: Optional[torch.Tensor] = None) -> _lanes.Lane:
     """Launch one kernel on the current stream; no sync and no error check
     (the caller checks the returned lane). ``slot_bytes`` is one chunk slot
     in ``x``'s dtype."""
@@ -423,28 +361,26 @@ def _launch(name: str, x: torch.Tensor, buf: torch.Tensor, stage: Optional[torch
     n = x.shape[0]
     lane = _lane(x.device, cid)
     stream = torch.cuda.current_stream(x.device)
+    t = _lanes.table
     rc = _lib().uccl_ring_launch(
         _KERNEL_ID[name], _ADD_DTYPES.get(x.dtype, 0), _WIRE_ID.get(wire_dtype, 0), n,
-        n, streams, dirs[0], dirs[-1], slot_bytes, _table(x, n),
-        _table(buf, n), _table(stage, n), _table(out, n), _table(sstage, n), _table(qbuf, n),
-        _table(sbuf, n), _table(lane.flags, n), ctypes.c_void_p(lane.err.data_ptr()), cid,
-        lane.next_epoch(), SPIN_TIMEOUT_MS.get() * 1_000_000,
-        ctypes.c_void_p(stream.cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"{name}: launch failed with code {rc} on "
-                           f"{torch.cuda.get_device_name(x.device)}; the kernel did not run")
+        n, streams, dirs[0], dirs[-1], slot_bytes, t(x, n), t(buf, n), t(stage, n), t(out, n),
+        t(sstage, n), t(qbuf, n), t(sbuf, n), t(lane.flags, n),
+        ctypes.c_void_p(lane.err.data_ptr()), cid, lane.next_epoch(),
+        _lanes.SPIN_TIMEOUT_MS.get() * 1_000_000, ctypes.c_void_p(stream.cuda_stream))
+    _lanes.raise_on_launch(rc, name, x.device)
     launch_counts[name] += 1
     return lane
 
 
-def launch_ag(chunk: torch.Tensor, out: torch.Tensor, direction: int, cid: int) -> _Lane:
+def launch_ag(chunk: torch.Tensor, out: torch.Tensor, direction: int, cid: int) -> _lanes.Lane:
     """B4 on ``chunk`` ``[n, m]`` into ``out`` ``[n, n, m]``."""
     m_bytes = chunk[0].numel() * chunk.element_size()
     return _launch("ring_all_gather", chunk, out, None, None, 1, (direction,), cid, m_bytes)
 
 
 def launch_rs(chunks: torch.Tensor, buf: torch.Tensor, stage: torch.Tensor,
-              out: torch.Tensor, direction: int, cid: int) -> _Lane:
+              out: torch.Tensor, direction: int, cid: int) -> _lanes.Lane:
     """B5 on ``chunks`` ``[n, n, m]`` (scratch ``buf`` alike, ``stage``
     ``[n, 2, m]``) into ``out`` ``[n, m]``."""
     m_bytes = chunks.shape[2] * chunks.element_size()
@@ -453,7 +389,7 @@ def launch_rs(chunks: torch.Tensor, buf: torch.Tensor, stage: torch.Tensor,
 
 
 def launch_ar(view: torch.Tensor, out: torch.Tensor, stage: torch.Tensor,
-              dirs: Sequence[int], cid: int) -> _Lane:
+              dirs: Sequence[int], cid: int) -> _lanes.Lane:
     """B7 on ``view`` ``[n, n, S, m]`` into ``out`` alike (``stage``
     ``[n, S, 2, m]``)."""
     m_bytes = view.shape[3] * view.element_size()
@@ -467,7 +403,7 @@ def _scale_slot(m: int) -> int:
 
 def launch_rs_q(chunks: torch.Tensor, buf: torch.Tensor, qstage: torch.Tensor,
                 sstage: torch.Tensor, out: torch.Tensor, direction: int, cid: int,
-                wire_dtype: str) -> _Lane:
+                wire_dtype: str) -> _lanes.Lane:
     """B6 on ``chunks`` ``[n, n, m]`` (scratch ``buf`` alike) into ``out``
     ``[n, m]``; the wire's staging is ``qstage`` ``[n, 2, m]`` bytes and
     ``sstage`` ``[n, 2, scale slot]`` f32."""
@@ -478,7 +414,7 @@ def launch_rs_q(chunks: torch.Tensor, buf: torch.Tensor, qstage: torch.Tensor,
 
 def launch_ar_q(view: torch.Tensor, out: torch.Tensor, qstage: torch.Tensor,
                 sstage: torch.Tensor, qbuf: torch.Tensor, sbuf: torch.Tensor,
-                dirs: Sequence[int], cid: int, wire_dtype: str) -> _Lane:
+                dirs: Sequence[int], cid: int, wire_dtype: str) -> _lanes.Lane:
     """B8 on ``view`` ``[n, n, S, m]`` into ``out`` alike; staging
     ``qstage`` ``[n, S, 2, m]`` bytes and ``sstage`` ``[n, S, 2, scale
     slot]`` f32, gather buffers ``qbuf`` ``[n, n, S, m]`` bytes and ``sbuf``
@@ -533,7 +469,7 @@ def _ar_kernel(view, dirs, cid, wire_dtype=None, operands=None):
     return launch_ar_q(view, out, *scratch, dirs, cid, wire_dtype), out
 
 
-def _run_pair(what: str, starts: Sequence[Callable[[], Tuple[List[_Lane], object]]],
+def _run_pair(what: str, starts: Sequence[Callable[[], Tuple[List[_lanes.Lane], object]]],
               side_operands: Sequence[torch.Tensor], device: torch.device) -> list:
     """Two groups of launches in flight together: the first on the current
     stream, the second on a side stream, joined before returning. Each start
@@ -548,8 +484,7 @@ def _run_pair(what: str, starts: Sequence[Callable[[], Tuple[List[_Lane], object
     main.wait_stream(side)
     for t in side_operands:
         t.record_stream(side)
-    for lane in (*lanes_a, *lanes_b):
-        lane.check(what)
+    _lanes.check_all([(lane, what) for lane in (*lanes_a, *lanes_b)])
     return [out_a, out_b]
 
 
@@ -635,8 +570,7 @@ def ring_all_gather(x: torch.Tensor, *, direction: int = 1, collective_id: int =
             out = ring.finish(ring.plain(direction))
         else:
             lanes, gathered = ring.start(direction, collective_id)
-            for lane in lanes:
-                lane.check("ring_all_gather")
+            _lanes.check_all([(lane, "ring_all_gather") for lane in lanes])
             out = ring.finish(gathered)
         return out.reshape((n, n * k) + tuple(x.shape[2:]))
     if wire == "lax":

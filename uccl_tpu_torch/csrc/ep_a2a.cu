@@ -49,27 +49,27 @@
 // launch per round; the wrapper rotates collective ids over the global launch
 // sequence and gathers each source's slot from its designated round.
 //
-// Deadlock and faults: as in ring_ccl.cu. A member spins on other members'
-// flags, so every block must be resident: the launch is cooperative on at
-// most half the card (two chunk kernels, collective-id parity twins, can
-// both be resident). Every spin is bounded by %globaltimer; a wait that
-// times out writes the error word (kernel, member, step, collective id, the
-// peer awaited, channel, which wait) and returns, other blocks see the word
-// and return too, and the host wrapper raises on it.
+// Deadlock and faults, as csrc/collective.cuh sets out for every collective
+// kernel (the flag primitives, the bounded spin, the vector copy and the
+// cooperative launch are that header's, shared with ring_ccl.cu): the
+// launch takes at most half the card, so two chunk kernels on
+// collective-id parity twins can both be resident, and a wait that times out
+// writes the error word (kernel, member, step, collective id, the peer
+// awaited, channel, which wait) that the host wrapper raises on.
 //
 // Bound: HBM bandwidth. Each kernel reads every byte it sends once and
 // writes it once; B9's compulsory traffic at the EP dispatch buffer is
-// 2 x 167.8 MB (0.100 ms at 3.35 TB/s). Copies use 16-byte vector loads and
-// stores through L2 (ld.global.cg / st.global.cg), four in flight a thread.
+// 2 x 167.8 MB (0.100 ms at 3.35 TB/s).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "collective.cuh"
+
 namespace {
 
-constexpr int kMaxMembers = 16;
-constexpr int kMaxChannels = 64;
-constexpr int kThreads = 512;
+using namespace uccl;
+
 constexpr int kEntry = kMaxMembers;          // flag word of the entry barrier
 constexpr int kFlagWords = kMaxMembers + 1;  // one arrival word per source, then entry
 
@@ -90,22 +90,6 @@ struct A2AArgs {
   unsigned long long timeout_ns;
 };
 
-__device__ __forceinline__ unsigned long long ld_acquire(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 __device__ __forceinline__ unsigned long long* flag(const A2AArgs& a, int member, int c,
                                                     int word) {
   return a.flags[member] + (size_t)c * kFlagWords + word;
@@ -113,15 +97,6 @@ __device__ __forceinline__ unsigned long long* flag(const A2AArgs& a, int member
 
 __device__ __forceinline__ unsigned long long mark(const A2AArgs& a) {
   return (a.epoch << 32) | 1ull;
-}
-
-// All threads: the block's stores so far become visible before the flag.
-__device__ __forceinline__ void signal(unsigned long long* f, unsigned long long v) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    st_release(f, v);
-  }
 }
 
 // All threads: wait until this launch's mark is in the flags of member r's
@@ -137,21 +112,8 @@ __device__ bool wait_peers(const A2AArgs& a, int r, int c, int step, int what, i
   const bool mine = only >= 0 ? p == only : (p < a.n && p != r);
   if (mine) {
     const unsigned long long* f = what == kWaitEntry ? flag(a, p, c, kEntry) : flag(a, r, c, p);
-    const unsigned long long target = mark(a);
-    const unsigned long long t0 = globaltimer();
-    while (ld_acquire(f) < target) {
-      if (*(volatile int*)a.err != 0) { atomicOr(&bad, 1); break; }
-      if (globaltimer() - t0 > a.timeout_ns) {
-        if (atomicCAS(a.err, 0, 1) == 0) {
-          a.err[1] = a.kernel; a.err[2] = r; a.err[3] = step; a.err[4] = a.cid;
-          a.err[5] = p; a.err[6] = c; a.err[7] = what;
-          __threadfence();
-        }
-        atomicOr(&bad, 1);
-        break;
-      }
-      __nanosleep(64);
-    }
+    if (!spin_geq(f, mark(a), a.err, a.timeout_ns, {a.kernel, r, step, a.cid, p, c, what}))
+      atomicOr(&bad, 1);
   }
   __syncthreads();
   return bad == 0;
@@ -160,27 +122,6 @@ __device__ bool wait_peers(const A2AArgs& a, int r, int c, int step, int what, i
 __device__ __forceinline__ bool entry_barrier(const A2AArgs& a, int r, int c) {
   signal(flag(a, r, c, kEntry), mark(a));
   return wait_peers(a, r, c, -1, kWaitEntry, -1);
-}
-
-// This channel's range of 16-byte vectors within a slot.
-struct Range { long long lo, hi; };
-
-__device__ __forceinline__ Range channel_range(const A2AArgs& a, int c) {
-  const long long v = a.slot_bytes / 16;
-  return {v * c / a.C, v * (c + 1) / a.C};
-}
-
-__device__ __forceinline__ void copy16(char* dst, const char* src, Range rg) {
-  int4* d = reinterpret_cast<int4*>(dst);
-  const int4* s = reinterpret_cast<const int4*>(src);
-  long long i = rg.lo + threadIdx.x;
-  for (; i + 3 * kThreads < rg.hi; i += 4 * kThreads) {
-    int4 v0 = __ldcg(s + i), v1 = __ldcg(s + i + kThreads);
-    int4 v2 = __ldcg(s + i + 2 * kThreads), v3 = __ldcg(s + i + 3 * kThreads);
-    __stcg(d + i, v0); __stcg(d + i + kThreads, v1);
-    __stcg(d + i + 2 * kThreads, v2); __stcg(d + i + 3 * kThreads, v3);
-  }
-  for (; i < rg.hi; i += kThreads) __stcg(d + i, __ldcg(s + i));
 }
 
 // Member r sends its chunk ``dst`` into member dst's slot r, then raises
@@ -214,30 +155,6 @@ __global__ void __launch_bounds__(kThreads) sched_round_kernel(A2AArgs a) {
   copy16(a.out[dst], a.x[r] + (long long)dst * a.slot_bytes, rg);
   signal(flag(a, dst, c, r), mark(a));
   wait_peers(a, r, c, 0, kWaitRecv, a.inv[r]);
-}
-
-template <typename K>
-int launch(K kernel, A2AArgs& a, int live, void* stream) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  if (e != cudaSuccess) return (int)e;
-  // At most half the card's resident blocks, so two chunk kernels fit.
-  const long long vecs = a.slot_bytes / 16;
-  long long c = (long long)per_sm * sms / (2LL * a.n);
-  const long long by_size = (vecs + 4LL * kThreads - 1) / (4LL * kThreads);
-  if (c > by_size) c = by_size;
-  if (c > kMaxChannels) c = kMaxChannels;
-  if (c < 1) c = 1;
-  a.C = (int)c;
-  dim3 grid((unsigned)a.C, (unsigned)live), block(kThreads);
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)kernel, grid, block, args, 0,
-                                  (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

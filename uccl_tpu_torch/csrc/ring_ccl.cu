@@ -41,14 +41,11 @@
 // (its AG stores into the right neighbor's slots only after that neighbor's
 // RS phase, which reads and folds those slots, is done).
 //
-// Deadlock and faults. A member spins on another member's flag, so every
-// block of a launch must be resident at once: the launch is cooperative
-// (cudaLaunchCooperativeKernel refuses a grid that cannot be), and the grid
-// takes at most half the card so that the two kernels of a bidirectional
-// pair can both be resident. Every spin is bounded by %globaltimer; a wait
-// that times out writes an error word (kernel, member, step, collective id,
-// stream, channel, which wait) and returns, other blocks see the word and
-// return too, and the host wrapper raises on it.
+// Deadlock and faults, as csrc/collective.cuh sets out for every collective
+// kernel: cooperative launches on at most half the card (the two kernels of
+// a bidirectional pair can both be resident), and every spin bounded by
+// %globaltimer with an error word (kernel, member, step, collective id,
+// stream, channel, which wait) that the host wrapper raises on.
 //
 // Quantized wire (B6, B8; wire = fp8 e4m3fn or int8). Every RS hop crosses
 // block-quantized: the sender computes each 128-element row's amax and f32
@@ -81,11 +78,12 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "collective.cuh"
+
 namespace {
 
-constexpr int kMaxMembers = 16;
-constexpr int kMaxChannels = 64;
-constexpr int kThreads = 512;
+using namespace uccl;
+
 constexpr int kFlagWords = 4;  // recv, ack, phase, entry
 
 constexpr int kWarps = kThreads / 32;
@@ -123,22 +121,6 @@ struct RingArgs {
   unsigned long long timeout_ns;
 };
 
-__device__ __forceinline__ unsigned long long ld_acquire(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 __device__ __forceinline__ unsigned long long* flag(const RingArgs& a, int member, int h,
                                                     int c, int word) {
   return a.flags[member] + ((size_t)h * kMaxChannels + c) * kFlagWords + word;
@@ -148,15 +130,6 @@ __device__ __forceinline__ unsigned long long mark(const RingArgs& a, long long 
   return (a.epoch << 32) | (unsigned long long)count;
 }
 
-// All threads: the block's stores so far become visible before the flag.
-__device__ __forceinline__ void signal(unsigned long long* f, unsigned long long v) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    st_release(f, v);
-  }
-}
-
 // All threads: spin (thread 0) until *f >= target. False when the wait timed
 // out or another block of the launch already failed; the caller returns.
 __device__ bool wait_geq(const RingArgs& a, const unsigned long long* f,
@@ -164,49 +137,13 @@ __device__ bool wait_geq(const RingArgs& a, const unsigned long long* f,
                          int what) {
   __shared__ int ok;
   __syncthreads();  // every thread has read the previous wait's verdict
-  if (threadIdx.x == 0) {
-    ok = 1;
-    const unsigned long long t0 = globaltimer();
-    while (ld_acquire(f) < target) {
-      if (*(volatile int*)a.err != 0) { ok = 0; break; }
-      if (globaltimer() - t0 > a.timeout_ns) {
-        if (atomicCAS(a.err, 0, 1) == 0) {
-          a.err[1] = a.kernel; a.err[2] = member; a.err[3] = step; a.err[4] = a.cid;
-          a.err[5] = h; a.err[6] = c; a.err[7] = what;
-          __threadfence();
-        }
-        ok = 0;
-        break;
-      }
-      __nanosleep(64);
-    }
-  }
+  if (threadIdx.x == 0)
+    ok = spin_geq(f, target, a.err, a.timeout_ns, {a.kernel, member, step, a.cid, h, c, what});
   __syncthreads();
   return ok != 0;
 }
 
 __device__ __forceinline__ int mod(int v, int n) { return ((v % n) + n) % n; }
-
-// This channel's range of 16-byte vectors within a slot.
-struct Range { long long lo, hi; };
-
-__device__ __forceinline__ Range channel_range(const RingArgs& a, int c) {
-  const long long v = a.slot_bytes / 16;
-  return {v * c / a.C, v * (c + 1) / a.C};
-}
-
-__device__ __forceinline__ void copy16(char* dst, const char* src, Range rg) {
-  int4* d = reinterpret_cast<int4*>(dst);
-  const int4* s = reinterpret_cast<const int4*>(src);
-  long long i = rg.lo + threadIdx.x;
-  for (; i + 3 * kThreads < rg.hi; i += 4 * kThreads) {
-    int4 v0 = __ldcg(s + i), v1 = __ldcg(s + i + kThreads);
-    int4 v2 = __ldcg(s + i + 2 * kThreads), v3 = __ldcg(s + i + 3 * kThreads);
-    __stcg(d + i, v0); __stcg(d + i + kThreads, v1);
-    __stcg(d + i + 2 * kThreads, v2); __stcg(d + i + 3 * kThreads, v3);
-  }
-  for (; i < rg.hi; i += kThreads) __stcg(d + i, __ldcg(s + i));
-}
 
 // Element-wise a + b of two 16-byte vectors in T, correctly rounded once.
 template <typename T> __device__ __forceinline__ int4 add16(int4 a, int4 b);
@@ -644,30 +581,6 @@ __global__ void __launch_bounds__(kThreads, 2) ring_arq_kernel(RingArgs a) {
   }
 }
 
-template <typename K>
-int launch(K kernel, RingArgs& a, int live, void* stream) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  if (e != cudaSuccess) return (int)e;
-  // At most half the card's resident blocks, so both kernels of a pair fit.
-  const long long vecs = a.slot_bytes / 16;
-  long long c = (long long)per_sm * sms / (2LL * a.S * a.n);
-  const long long by_size = (vecs + 4LL * kThreads - 1) / (4LL * kThreads);
-  if (c > by_size) c = by_size;
-  if (c > kMaxChannels) c = kMaxChannels;
-  if (c < 1) c = 1;
-  a.C = (int)c;
-  dim3 grid((unsigned)(a.C * a.S), (unsigned)live), block(kThreads);
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)kernel, grid, block, args, 0,
-                                  (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -717,29 +630,29 @@ int uccl_ring_launch(int kernel, int dtype, int wire, int n, int live, int S, in
     a.rows = slot_bytes / row_bytes;
     a.srow = (a.rows + kLanes - 1) / kLanes * kLanes;
   }
-  if (kernel == kAG) return launch(ring_ag_kernel, a, live, stream);
+  if (kernel == kAG) return launch(ring_ag_kernel, a, live, stream, a.S);
   if (kernel == kRS) {
     switch (dtype) {
-      case 0: return launch(ring_rs_kernel<float>, a, live, stream);
-      case 1: return launch(ring_rs_kernel<__nv_bfloat16>, a, live, stream);
-      case 2: return launch(ring_rs_kernel<__half>, a, live, stream);
-      case 3: return launch(ring_rs_kernel<int>, a, live, stream);
+      case 0: return launch(ring_rs_kernel<float>, a, live, stream, a.S);
+      case 1: return launch(ring_rs_kernel<__nv_bfloat16>, a, live, stream, a.S);
+      case 2: return launch(ring_rs_kernel<__half>, a, live, stream, a.S);
+      case 3: return launch(ring_rs_kernel<int>, a, live, stream, a.S);
     }
     return -1;
   }
   if (kernel == kAR) {
     switch (dtype) {
-      case 0: return launch(ring_ar_kernel<float>, a, live, stream);
-      case 1: return launch(ring_ar_kernel<__nv_bfloat16>, a, live, stream);
-      case 2: return launch(ring_ar_kernel<__half>, a, live, stream);
-      case 3: return launch(ring_ar_kernel<int>, a, live, stream);
+      case 0: return launch(ring_ar_kernel<float>, a, live, stream, a.S);
+      case 1: return launch(ring_ar_kernel<__nv_bfloat16>, a, live, stream, a.S);
+      case 2: return launch(ring_ar_kernel<__half>, a, live, stream, a.S);
+      case 3: return launch(ring_ar_kernel<int>, a, live, stream, a.S);
     }
     return -1;
   }
 #define UCCL_QUANT_CASE(K, D, T)                                         \
   case D:                                                                \
-    return wire == kFp8 ? launch(K<T, kFp8>, a, live, stream)            \
-                        : launch(K<T, kInt8>, a, live, stream);
+    return wire == kFp8 ? launch(K<T, kFp8>, a, live, stream, a.S)       \
+                        : launch(K<T, kInt8>, a, live, stream, a.S);
   if (kernel == kRSQ) {
     switch (dtype) {
       UCCL_QUANT_CASE(ring_rsq_kernel, 0, float)

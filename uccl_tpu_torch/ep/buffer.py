@@ -21,6 +21,12 @@ tracer's ``wire`` track.
 verb's launches; ``current_stream_wait()`` makes the current stream wait on
 it, and a verb given it as ``previous_event`` waits on it before its first
 launch. On the CPU it only holds the verb's tensors.
+
+A verb reads its kernels' error words once, after its last launch
+(``collective/lanes.one_check``), and raises on a spin-wait timeout. With
+``async_finish`` it does not wait for that read: its :class:`EventOverlap`
+carries it, and ``synchronize()`` (the receive hook) or the next verb that
+waits raises.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from uccl_tpu_torch.collective import lanes as _lanes
 from uccl_tpu_torch.ep import ll as ep_ll
 from uccl_tpu_torch.ep import ops as ep_ops
 from uccl_tpu_torch.obs import counters as _obsc
@@ -51,13 +58,17 @@ EP_BYTES = _obsc.counter(
 
 
 def _observed_call(verb: str, fn, *, wire: str, n_chunks: int, payload: torch.Tensor,
-                   wire_dtype=None):
-    """Run one verb under the bytes counter and its host span on the wire track."""
+                   wire_dtype=None, async_finish: bool = False):
+    """Run one verb under the bytes counter and its host span on the wire
+    track, its launches' error words read once at its end: (result, the
+    read still pending under ``async_finish``, else None)."""
     nbytes = ep_ops.wire_bytes_of(payload.shape, payload.dtype, wire_dtype)
     EP_BYTES.inc(nbytes, verb=verb, wire=wire, wire_dtype=wire_dtype or "none")
     with _obst.span(f"ep.{verb}", track="wire", wire=wire, n_chunks=n_chunks, bytes=nbytes,
                     wire_dtype=wire_dtype or "none"):
-        return fn()
+        with _lanes.one_check(blocking=not async_finish) as scope:
+            out = fn()
+    return out, scope.pending
 
 
 class EventOverlap:
@@ -65,11 +76,13 @@ class EventOverlap:
     event recorded on the current stream after the verb's launches:
     ``current_stream_wait()`` makes the current stream wait on it (no host
     sync), and a verb given it as ``previous_event`` waits on it before its
-    first launch. On the CPU, where everything runs in order, it only holds
-    the verb's tensors."""
+    first launch. ``pending`` is the verb's error-word read
+    (``lanes.Pending``): ``synchronize()`` resolves it, and so does
+    ``current_stream_wait()`` once the verb has run. On the CPU, where
+    everything runs in order, it only holds the verb's tensors."""
 
-    def __init__(self, tensors):
-        self.tensors = tensors
+    def __init__(self, tensors, pending: Optional[_lanes.Pending] = None):
+        self.tensors, self.pending = tensors, pending
         first = tensors[0] if isinstance(tensors, (tuple, list)) else tensors
         self.event = None
         if first.device.type == "cuda":
@@ -79,13 +92,18 @@ class EventOverlap:
     def current_stream_wait(self) -> None:
         if self.event is not None:
             torch.cuda.current_stream().wait_event(self.event)
+        if self.pending is not None and self.pending.ready():
+            self.pending.resolve()
 
     wait = current_stream_wait
 
     def synchronize(self) -> None:
-        """Block the host until the verb's launches have run."""
+        """Block the host until the verb's launches have run; raise if one
+        timed out."""
         if self.event is not None:
             self.event.synchronize()
+        if self.pending is not None:
+            self.pending.resolve()
 
 
 def _wait_previous(previous_event: Optional[EventOverlap]) -> None:
@@ -452,14 +470,15 @@ class Buffer:
             rc = ep_ops.counts_exchange(plan.kept.reshape(w, w, self.num_local_experts))
             return recv, plan.slot, rc
 
-        recv, slot, recv_counts = _observed_call("dispatch", run, wire=wire, n_chunks=n_chunks,
-                                                 payload=x, wire_dtype=wire_dtype)
+        (recv, slot, recv_counts), pending = _observed_call(
+            "dispatch", run, wire=wire, n_chunks=n_chunks, payload=x, wire_dtype=wire_dtype,
+            async_finish=async_finish)
         self._op_counts["dispatch"] += 1
         self._last_dispatch = (topk_idx, cap)
         handle = DispatchHandle(slot, self._to(topk_weights), recv_counts, wire, n_chunks,
                                 wire_dtype, schedule is not None)
         if async_finish:
-            return recv, handle, EventOverlap((recv, slot, recv_counts))
+            return recv, handle, EventOverlap((recv, slot, recv_counts), pending)
         return recv, handle
 
     def combine(self, expert_out: torch.Tensor, handle: DispatchHandle, *,
@@ -489,10 +508,11 @@ class Buffer:
                                          schedule=schedule)
 
         self._op_counts["combine"] += 1
-        out = _observed_call("combine", run, wire=wire, n_chunks=n_chunks, payload=expert_out,
-                             wire_dtype=wire_dtype)
+        out, pending = _observed_call("combine", run, wire=wire, n_chunks=n_chunks,
+                                      payload=expert_out, wire_dtype=wire_dtype,
+                                      async_finish=async_finish)
         if async_finish:
-            return out, EventOverlap(out)
+            return out, EventOverlap(out, pending)
         return out
 
     # -- low-latency mode: packed payloads + receive counts -------------
@@ -543,8 +563,9 @@ class Buffer:
                 pair_capacity_factor=pair_capacity_factor, wire=wire, wire_fp8=False,
                 wire_dtype=wire_dtype, n_chunks=n_chunks)
 
-        r = _observed_call("low_latency_dispatch", run, wire=wire, n_chunks=n_chunks, payload=x,
-                           wire_dtype=wire_dtype)
+        r, pending = _observed_call("low_latency_dispatch", run, wire=wire, n_chunks=n_chunks,
+                                    payload=x, wire_dtype=wire_dtype,
+                                    async_finish=async_finish or return_recv_hook)
         s = r.state
         handle = LowLatencyHandle(s.send_slot, s.weights, s.send_mat, s.recv_mat, s.regroup,
                                   s.src_in_offsets, wire, wire_dtype == "fp8", n_chunks,
@@ -552,7 +573,7 @@ class Buffer:
         self._op_counts["low_latency_dispatch"] += 1
         self._last_ll = (r.group_sizes, r.recv_x.shape[1], h, wire_dtype is not None)
         if async_finish or return_recv_hook:
-            ev = EventOverlap((r.recv_x, r.group_sizes))
+            ev = EventOverlap((r.recv_x, r.group_sizes), pending)
             hook: Optional[Callable[[], None]] = ev.synchronize if return_recv_hook else None
             return r.recv_x, r.group_sizes, handle, ev if async_finish else None, hook
         return r.recv_x, r.group_sizes, handle
@@ -574,11 +595,12 @@ class Buffer:
             return ep_ll.ll_combine(expert_out, state, wire_fp8=False, wire_dtype=wire_dtype)
 
         self._op_counts["low_latency_combine"] += 1
-        out = _observed_call("low_latency_combine", run, wire=handle.wire,
-                             n_chunks=handle.n_chunks, payload=expert_out,
-                             wire_dtype=wire_dtype)
+        out, pending = _observed_call("low_latency_combine", run, wire=handle.wire,
+                                      n_chunks=handle.n_chunks, payload=expert_out,
+                                      wire_dtype=wire_dtype,
+                                      async_finish=async_finish or return_recv_hook)
         if async_finish or return_recv_hook:
-            ev = EventOverlap(out)
+            ev = EventOverlap(out, pending)
             hook: Optional[Callable[[], None]] = ev.synchronize if return_recv_hook else None
             return out, ev if async_finish else None, hook
         return out

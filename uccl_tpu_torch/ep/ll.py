@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from uccl_tpu_torch.collective import dma as _dma
+from uccl_tpu_torch.collective import lanes as _lanes
 from uccl_tpu_torch.ep.ops import (_gate_topk, _per_member, _take_member_rows, _weighted_sum,
                                    counts_exchange, resolve_wire_dtype)
 from uccl_tpu_torch.ops import quant as _quant
@@ -251,9 +252,10 @@ def _send_payload(send_rows: torch.Tensor, out_rows: int, w: int, spec, wire: st
         return exchange(send_rows)
     wire_dtype, group = quant_spec
     q, scale = _quant.quantize_block(send_rows, wire_dtype, group)
-    q = exchange(q.view(torch.uint8)).view(q.dtype)  # payload bytes
-    return _quant.dequantize_block(q, exchange(scale, _dma.CID_SCALE_OFFSET), group,
-                                   dtype=dtype)
+    with _lanes.one_check():  # payload and scales: one error read after both
+        q = exchange(q.view(torch.uint8)).view(q.dtype)  # payload bytes
+        scale = exchange(scale, _dma.CID_SCALE_OFFSET)
+    return _quant.dequantize_block(q, scale, group, dtype=dtype)
 
 
 def ll_dispatch(x: torch.Tensor, topk_idx: torch.Tensor, topk_weights: Optional[torch.Tensor],

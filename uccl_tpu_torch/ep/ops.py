@@ -18,7 +18,10 @@ wire: ``"lax"``, the stock wire (XLA's ``all_to_all`` in JAX, a transpose
 of the member axes here), or ``"pallas"``, the hand-written kernels of
 ``ep/pallas_a2a.py`` (B9; B10 with a round ``schedule``). ``wire_dtype``
 ("fp8" | "int8") block-quantizes the payload with ``ops/quant.py`` and
-moves the scales on ``collective_id + CID_SCALE_OFFSET``.
+moves the scales on ``collective_id + CID_SCALE_OFFSET``. ``moe_ffn`` has
+one body, the member-stacked one: a world-1 call runs it as a world of one
+member (views of its tensors, no copies), which is the same arithmetic, bit
+for bit, as the world-1 verbs.
 
 Drop priority is the reference's: earlier k-slots fill expert queues
 first, then token order, and gate ties resolve to the lower expert index
@@ -40,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from uccl_tpu_torch.collective import dma as _dma
+from uccl_tpu_torch.collective import lanes as _lanes
 from uccl_tpu_torch.obs import counters as _obsc
 from uccl_tpu_torch.ops import quant as _quant
 
@@ -94,10 +98,17 @@ class SlotPlan(NamedTuple):
         return tfs.reshape(*lead, num_experts, n_chunks, cs).movedim(-2, 0)
 
 
+def _stack(ts) -> torch.Tensor:
+    """``torch.stack`` along a new dim 0, but one tensor becomes a view: a
+    world of 1 runs the member-stacked path with no copy."""
+    ts = list(ts)
+    return ts[0][None] if len(ts) == 1 else torch.stack(ts)
+
+
 def _per_member(fn, first: torch.Tensor, *args, **kwargs):
     """``fn`` on each member's row of ``first`` ``[W, ...]`` (the other
     arguments shared), its tuple of results stacked along a new dim 0."""
-    return tuple(torch.stack(t) for t in zip(*(fn(row, *args, **kwargs) for row in first)))
+    return tuple(_stack(t) for t in zip(*(fn(row, *args, **kwargs) for row in first)))
 
 
 def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -247,6 +258,8 @@ def _take_member_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     (``x`` ``[W, N, ...]``, ``index`` ``[W, ...]``), the index N reading a
     row of zeros."""
     w = x.shape[0]
+    if w == 1:
+        return _take_rows(x[0], index[0])[None]
     padded = torch.cat([x, x.new_zeros((w, 1) + tuple(x.shape[2:]))], dim=1)
     r = torch.arange(w, device=x.device).reshape((w,) + (1,) * (index.ndim - 1))
     return padded[r, index.long()]
@@ -256,8 +269,7 @@ def _weighted_sum(weights: torch.Tensor, yk: torch.Tensor) -> torch.Tensor:
     """Each member's ``tk,tkh->th`` weighted sum (``[W, T, K]`` and ``[W, T,
     K, H]``), member by member, so a member's result is the world-1
     combine's on the same rows."""
-    return torch.stack([torch.einsum("tk,tkh->th", wt.to(y.dtype), y)
-                        for wt, y in zip(weights, yk)])
+    return _stack(torch.einsum("tk,tkh->th", wt.to(y.dtype), y) for wt, y in zip(weights, yk))
 
 
 def _members_to_wire(expert_out: torch.Tensor, w: int) -> torch.Tensor:
@@ -335,7 +347,7 @@ def dispatch(x: torch.Tensor, dispatch_mask: torch.Tensor, axis: Axis = None, *,
     w, _, e, c = dispatch_mask.shape
     if e % w:
         raise ValueError(f"experts {e} not divisible by EP world {w}")
-    buf = torch.stack([dispatch(xr, mr) for xr, mr in zip(x, dispatch_mask)])
+    buf = _stack(dispatch(xr, mr) for xr, mr in zip(x, dispatch_mask))
     buf = _wire_all_to_all(buf.reshape(w, w, e // w, c, x.shape[-1]), wire_fp8, quant_group,
                            x.dtype, wire, collective_id=_dma.CID_EP_DISPATCH,
                            wire_dtype=wire_dtype)
@@ -353,8 +365,7 @@ def combine(expert_out: torch.Tensor, combine_weights: torch.Tensor, axis: Axis 
     buf = _wire_all_to_all(_members_to_wire(expert_out, w), wire_fp8, quant_group,
                            expert_out.dtype, wire, collective_id=_dma.CID_EP_COMBINE,
                            wire_dtype=wire_dtype)
-    return torch.stack([combine(yr, cr) for yr, cr in zip(buf.reshape(w, e, c, -1),
-                                                          combine_weights)])
+    return _stack(combine(yr, cr) for yr, cr in zip(buf.reshape(w, e, c, -1), combine_weights))
 
 
 def counts_exchange(mat: torch.Tensor) -> torch.Tensor:
@@ -444,8 +455,9 @@ def _wire_all_to_all(buf: torch.Tensor, wire_fp8: bool, quant_group: int, dtype:
                 f"(requested {quant_group}); shipping full precision")
         return xchg(buf)
     q, scale = _quant.quantize_block(buf, wire_dtype, group)
-    return _quant.dequantize_block(xchg(q), xchg(scale, _dma.CID_SCALE_OFFSET), group,
-                                   dtype=dtype)
+    with _lanes.one_check():  # payload and scales: one error read after both
+        return _quant.dequantize_block(xchg(q), xchg(scale, _dma.CID_SCALE_OFFSET), group,
+                                       dtype=dtype)
 
 
 def resolve_chunks(n_chunks: int, wire: str, world: int, capacity: int, e_local: int,
@@ -501,7 +513,7 @@ def _expert_gemms(xe, w_gate, w_up, w_down):
 def _member_gemms(xe, w_gate, w_up, w_down):
     """:func:`_expert_gemms` on each member's local experts: ``[W, E_local,
     W*C, H]`` with weights ``[W, E_local, ...]``."""
-    return torch.stack([_expert_gemms(*a) for a in zip(xe, w_gate, w_up, w_down)])
+    return _stack(_expert_gemms(*a) for a in zip(xe, w_gate, w_up, w_down))
 
 
 def _moe_ffn_sort_chunked(x, plan: SlotPlan, weights, w_gate, w_up, w_down, num_experts: int,
@@ -514,28 +526,30 @@ def _moe_ffn_sort_chunked(x, plan: SlotPlan, weights, w_gate, w_up, w_down, num_
     rows are independent through the GEMMs and the exchange keeps
     positions, so the result equals the unchunked layer's; the token gather
     and weighted sum run once on the reassembled buffer. All launches go to
-    the current CUDA stream, in chunk order (``dma.tie_chunk``)."""
-    w, t, h = x.shape
-    e_local = num_experts // w
-    tfs_chunks = plan.chunk_token_for_slot(num_experts, n_chunks, t)  # [n, W, E, cs]
-    cs = tfs_chunks.shape[-1]
-    recv_chunks, y_chunks = [], []
-    for c in range(n_chunks):
-        buf = _take_member_rows(x, tfs_chunks[c].reshape(w, -1)).reshape(w, w, e_local, cs, h)
-        buf = _dma.tie_chunk(buf, recv_chunks[c - 2] if c >= 2 else None)
-        buf = _wire_all_to_all(buf, False, 128, x.dtype, "pallas",
-                               collective_id=_dma.chunk_collective_id(_dma.CID_EP_DISPATCH, c),
-                               wire_dtype=wire_dtype)
-        xe = _wire_to_members(buf)
-        recv_chunks.append(xe)
-        ye = _member_gemms(xe, w_gate, w_up, w_down)
-        back = _dma.tie_chunk(_members_to_wire(ye, w), y_chunks[c - 2] if c >= 2 else None)
-        back = _wire_all_to_all(back, False, 128, ye.dtype, "pallas",
-                                collective_id=_dma.chunk_collective_id(_dma.CID_EP_COMBINE, c),
-                                wire_dtype=wire_dtype)
-        y_chunks.append(back.reshape(w, num_experts, cs, h))
-    y = torch.cat(y_chunks, dim=2)[:, :, :capacity].reshape(w, num_experts * capacity, h)
-    return _weighted_sum(weights, _take_member_rows(y, plan.slot))
+    the current CUDA stream, in chunk order (``dma.tie_chunk``), and the
+    host reads their error words once, after the last."""
+    with _lanes.one_check():
+        w, t, h = x.shape
+        e_local = num_experts // w
+        tfs_chunks = plan.chunk_token_for_slot(num_experts, n_chunks, t)  # [n, W, E, cs]
+        cs = tfs_chunks.shape[-1]
+        recv_chunks, y_chunks = [], []
+        for c in range(n_chunks):
+            buf = _take_member_rows(x, tfs_chunks[c].reshape(w, -1)).reshape(w, w, e_local, cs, h)
+            buf = _dma.tie_chunk(buf, recv_chunks[c - 2] if c >= 2 else None)
+            buf = _wire_all_to_all(buf, False, 128, x.dtype, "pallas",
+                                   collective_id=_dma.chunk_collective_id(_dma.CID_EP_DISPATCH, c),
+                                   wire_dtype=wire_dtype)
+            xe = _wire_to_members(buf)
+            recv_chunks.append(xe)
+            ye = _member_gemms(xe, w_gate, w_up, w_down)
+            back = _dma.tie_chunk(_members_to_wire(ye, w), y_chunks[c - 2] if c >= 2 else None)
+            back = _wire_all_to_all(back, False, 128, ye.dtype, "pallas",
+                                    collective_id=_dma.chunk_collective_id(_dma.CID_EP_COMBINE, c),
+                                    wire_dtype=wire_dtype)
+            y_chunks.append(back.reshape(w, num_experts, cs, h))
+        y = torch.cat(y_chunks, dim=2)[:, :, :capacity].reshape(w, num_experts * capacity, h)
+        return _weighted_sum(weights, _take_member_rows(y, plan.slot))
 
 
 def moe_ffn(
@@ -572,65 +586,48 @@ def moe_ffn(
     wire_dtype: "fp8" | "int8" quantizes the dispatch and combine payloads
     (``wire_fp8=True`` is the legacy "fp8")."""
     wire_dtype = resolve_wire_dtype(wire_fp8, wire_dtype)
-    if axis is None and (impl == "ll" or wire_dtype is not None):
-        # one member of a member-stacked world (the quantized wire round-
-        # trips even where nothing moves, as in the JAX package)
+    if axis is None:
+        # world 1 is one member of a member-stacked world: views, no copies;
+        # the wire moves nothing (a quantized wire still round-trips, as in
+        # the JAX package)
         out, aux, z = moe_ffn(x[None], router_logits[None], w_gate[None], w_up[None],
                               w_down[None], "ep", num_selected=num_selected,
                               capacity_factor=capacity_factor, impl=impl, wire=wire,
                               n_chunks=n_chunks, wire_dtype=wire_dtype)
         return out[0], aux[0], z[0]
-    if axis is None:
-        # world 1 on the full-precision wire: the wire moves nothing
-        t, _ = x.shape
+    with _lanes.one_check():  # every exchange's error word, read once at the end
+        w, t, h = x.shape
         e = router_logits.shape[-1]
         capacity = max(1, int(capacity_factor * t * num_selected / e))
+        if impl == "ll":
+            from uccl_tpu_torch.ep.ll import ll_moe_ffn
+
+            return ll_moe_ffn(x, router_logits, w_gate, w_up, w_down, num_selected=num_selected,
+                              pair_capacity_factor=capacity_factor,
+                              wire="pallas" if wire == "pallas" else "auto",
+                              wire_dtype=wire_dtype, n_chunks=n_chunks)
         if impl == "sort":
             rs = route_topk_sorted(router_logits, num_selected, capacity)
-            xe = dispatch_sorted(x, rs.token_for_slot, e, capacity)
-            ye = _expert_gemms(xe, w_gate, w_up, w_down)
-            out = combine_sorted(ye, rs.slot, rs.weights)
+            n_chunks = resolve_chunks(n_chunks, wire, w, capacity, e // w, h,
+                                      wire_itemsize(False, h, x.dtype, wire_dtype=wire_dtype),
+                                      wire_dtype=wire_dtype, device=x.device)
+            if n_chunks > 1:
+                plan = SlotPlan(rs.token_for_slot, rs.slot, rs.counts)
+                out = _moe_ffn_sort_chunked(x, plan, rs.weights, w_gate, w_up, w_down, e, capacity,
+                                            n_chunks, wire_dtype=wire_dtype)
+                return out.to(x.dtype), rs.aux_loss, rs.z_loss
+            xe = dispatch_sorted(x, rs.token_for_slot, e, capacity, axis, wire=wire,
+                                 wire_dtype=wire_dtype)
             aux_loss, z_loss = rs.aux_loss, rs.z_loss
         elif impl == "dense":
             r = route_topk(router_logits, num_selected, capacity)
-            ye = _expert_gemms(dispatch(x, r.dispatch_mask), w_gate, w_up, w_down)
-            out = combine(ye, r.combine_weights)
+            xe = dispatch(x, r.dispatch_mask, axis, wire=wire, wire_dtype=wire_dtype)
             aux_loss, z_loss = r.aux_loss, r.z_loss
         else:
             raise ValueError(f"unknown moe impl {impl!r} (want 'sort', 'dense', or 'll')")
+        ye = _member_gemms(xe, w_gate, w_up, w_down)
+        if impl == "sort":
+            out = combine_sorted(ye, rs.slot, rs.weights, axis, wire=wire, wire_dtype=wire_dtype)
+        else:
+            out = combine(ye, r.combine_weights, axis, wire=wire, wire_dtype=wire_dtype)
         return out.to(x.dtype), aux_loss, z_loss
-    w, t, h = x.shape
-    e = router_logits.shape[-1]
-    capacity = max(1, int(capacity_factor * t * num_selected / e))
-    if impl == "ll":
-        from uccl_tpu_torch.ep.ll import ll_moe_ffn
-
-        return ll_moe_ffn(x, router_logits, w_gate, w_up, w_down, num_selected=num_selected,
-                          pair_capacity_factor=capacity_factor,
-                          wire="pallas" if wire == "pallas" else "auto",
-                          wire_dtype=wire_dtype, n_chunks=n_chunks)
-    if impl == "sort":
-        rs = route_topk_sorted(router_logits, num_selected, capacity)
-        n_chunks = resolve_chunks(n_chunks, wire, w, capacity, e // w, h,
-                                  wire_itemsize(False, h, x.dtype, wire_dtype=wire_dtype),
-                                  wire_dtype=wire_dtype, device=x.device)
-        if n_chunks > 1:
-            plan = SlotPlan(rs.token_for_slot, rs.slot, rs.counts)
-            out = _moe_ffn_sort_chunked(x, plan, rs.weights, w_gate, w_up, w_down, e, capacity,
-                                        n_chunks, wire_dtype=wire_dtype)
-            return out.to(x.dtype), rs.aux_loss, rs.z_loss
-        xe = dispatch_sorted(x, rs.token_for_slot, e, capacity, axis, wire=wire,
-                             wire_dtype=wire_dtype)
-        aux_loss, z_loss = rs.aux_loss, rs.z_loss
-    elif impl == "dense":
-        r = route_topk(router_logits, num_selected, capacity)
-        xe = dispatch(x, r.dispatch_mask, axis, wire=wire, wire_dtype=wire_dtype)
-        aux_loss, z_loss = r.aux_loss, r.z_loss
-    else:
-        raise ValueError(f"unknown moe impl {impl!r} (want 'sort', 'dense', or 'll')")
-    ye = _member_gemms(xe, w_gate, w_up, w_down)
-    if impl == "sort":
-        out = combine_sorted(ye, rs.slot, rs.weights, axis, wire=wire, wire_dtype=wire_dtype)
-    else:
-        out = combine(ye, r.combine_weights, axis, wire=wire, wire_dtype=wire_dtype)
-    return out.to(x.dtype), aux_loss, z_loss

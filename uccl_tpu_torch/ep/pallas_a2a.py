@@ -27,8 +27,9 @@ Beside each kernel is its plain version (:func:`a2a_plain`,
 :func:`sched_round_plain`): the same step or round on the member-stacked
 view, bit-identical to the transpose by construction. A wrapper runs it for
 CPU tensors; for a CUDA tensor it launches the kernel or raises, and raises
-if the kernel reports a spin-wait timeout. ``launch_counts`` counts kernel
-launches.
+if the kernel reports a spin-wait timeout: the error words are read once per
+call, after its last launch, or once per enclosing scope
+(``collective/lanes.py``). ``launch_counts`` counts kernel launches.
 
 Fallbacks, as in the JAX package, are for CPU tensors only: a payload over
 the arena budget (``dma.MAX_ARENA_BYTES``) takes the stock wire (the plain
@@ -42,29 +43,24 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from uccl_tpu_torch.collective import dma as _dma
-from uccl_tpu_torch.utils.config import param
+from uccl_tpu_torch.collective import lanes as _lanes
 
 LANES = _dma.LANES
 
 KERNELS = ("a2a", "sched_round")
 launch_counts = {name: 0 for name in KERNELS}
 _KERNEL_ID = {name: i for i, name in enumerate(KERNELS)}
-MAX_MEMBERS = 16  # kMaxMembers in the source
-_MAX_CHANNELS = 64  # kMaxChannels
-_FLAG_WORDS = MAX_MEMBERS + 1  # kFlagWords
-_WAITS = ("entry barrier", "receive")
-
-SPIN_TIMEOUT_MS = param(
-    "A2A_SPIN_TIMEOUT_MS", 10000, int,
-    "bound on any one spin-wait of the EP all-to-all kernels; a wait past it "
-    "writes the kernel's error word and the wrapper raises",
-)
+MAX_MEMBERS = _lanes.MAX_MEMBERS
+_FLAG_WORDS = MAX_MEMBERS + 1  # kFlagWords in the source
+# each member's flag words: [channels][one arrival word per source, entry]
+_REGIONS = _lanes.Lanes((MAX_MEMBERS, _lanes.MAX_CHANNELS, _FLAG_WORDS), KERNELS,
+                        ("entry barrier", "receive"), "waiting on member")
 
 
 def reset_launch_counts() -> None:
@@ -125,77 +121,21 @@ def sched_round_plain(view: torch.Tensor, pi) -> torch.Tensor:
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    from uccl_tpu_torch.utils import build
-
-    lib = build.load("ep_a2a")
+    lib = _lanes.load_library("ep_a2a", "uccl_a2a", _FLAG_WORDS)
     i, p = ctypes.c_int, ctypes.c_void_p
     tab = ctypes.POINTER(ctypes.c_void_p)
     lib.uccl_a2a_launch.argtypes = [i, i, i, ctypes.c_longlong, tab, tab, tab, p,
                                     ctypes.POINTER(ctypes.c_int), i, ctypes.c_ulonglong,
                                     ctypes.c_ulonglong, p]
     lib.uccl_a2a_launch.restype = i
-    for name in ("uccl_a2a_max_members", "uccl_a2a_max_channels", "uccl_a2a_flag_words"):
-        getattr(lib, name).restype = i
-    limits = (lib.uccl_a2a_max_members(), lib.uccl_a2a_max_channels(),
-              lib.uccl_a2a_flag_words())
-    if limits != (MAX_MEMBERS, _MAX_CHANNELS, _FLAG_WORDS):
-        raise RuntimeError(f"csrc/ep_a2a.cu limits {limits} disagree with pallas_a2a.py")
     return lib
 
 
-class _Lane:
-    """The flag region of one collective id on one device: each member's
-    arrival and entry words (zeroed once), the region's error word, and the
-    epoch counter that makes every launch's marks larger than any earlier
-    launch's."""
-
-    def __init__(self, device: torch.device, cid: int):
-        self.cid = cid
-        self.flags = torch.zeros((MAX_MEMBERS, _MAX_CHANNELS, _FLAG_WORDS), dtype=torch.int64,
-                                 device=device)
-        self.err = torch.zeros(8, dtype=torch.int32, device=device)
-        self.epoch = 0
-
-    def next_epoch(self) -> int:
-        self.epoch += 1
-        if self.epoch >= 1 << 31:
-            raise RuntimeError(f"collective id {self.cid}: epoch counter exhausted")
-        return self.epoch
-
-    def check(self, what: str) -> None:
-        """Raise if a launch on this region reported a spin-wait timeout
-        (reads the error word: waits for the current stream)."""
-        word = self.err.tolist()
-        if word[0]:
-            self.err.zero_()
-            kernel = KERNELS[word[1]] if 0 <= word[1] < len(KERNELS) else word[1]
-            wait = _WAITS[word[7]] if 0 <= word[7] < len(_WAITS) else word[7]
-            raise RuntimeError(
-                f"{what}: kernel {kernel} timed out after {SPIN_TIMEOUT_MS.get()} ms in its "
-                f"{wait} wait (member {word[2]}, step {word[3]}, collective id {word[4]}, "
-                f"waiting on member {word[5]}, channel {word[6]}); a peer never signalled")
+def _lane(device: torch.device, cid: int) -> _lanes.Lane:
+    return _REGIONS.get(device, cid)
 
 
-_lanes: Dict[Tuple[int, int], _Lane] = {}
-
-
-def _lane(device: torch.device, cid: int) -> _Lane:
-    key = (device.index, cid)
-    lane = _lanes.get(key)
-    if lane is None:
-        lane = _lanes[key] = _Lane(device, cid)
-    return lane
-
-
-def _table(t: torch.Tensor, n: int):
-    arr = (ctypes.c_void_p * n)()
-    step = t.stride(0) * t.element_size()
-    for r in range(n):
-        arr[r] = t.data_ptr() + r * step
-    return arr
-
-
-def _launch(name: str, view: torch.Tensor, out: torch.Tensor, cid: int, pi=None) -> _Lane:
+def _launch(name: str, view: torch.Tensor, out: torch.Tensor, cid: int, pi=None) -> _lanes.Lane:
     """Launch one kernel on the current stream; no sync and no error check
     (the caller checks the returned lane). ``view`` ``[n, n, ...]``; ``out``
     ``[n, n, ...]`` (B9) or ``[n, ...]`` (B10)."""
@@ -214,23 +154,22 @@ def _launch(name: str, view: torch.Tensor, out: torch.Tensor, cid: int, pi=None)
     lane = _lane(dev, cid)
     perm = None if pi is None else (ctypes.c_int * n)(*[int(d) for d in pi])
     stream = torch.cuda.current_stream(dev)
+    t = _lanes.table
     rc = _lib().uccl_a2a_launch(
-        _KERNEL_ID[name], n, n, slot_bytes, _table(view, n),
-        _table(out, n), _table(lane.flags, n), ctypes.c_void_p(lane.err.data_ptr()), perm, cid,
-        lane.next_epoch(), SPIN_TIMEOUT_MS.get() * 1_000_000, ctypes.c_void_p(stream.cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"{name}: launch failed with code {rc} on "
-                           f"{torch.cuda.get_device_name(dev)}; the kernel did not run")
+        _KERNEL_ID[name], n, n, slot_bytes, t(view, n), t(out, n), t(lane.flags, n),
+        ctypes.c_void_p(lane.err.data_ptr()), perm, cid, lane.next_epoch(),
+        _lanes.SPIN_TIMEOUT_MS.get() * 1_000_000, ctypes.c_void_p(stream.cuda_stream))
+    _lanes.raise_on_launch(rc, name, dev)
     launch_counts[name] += 1
     return lane
 
 
-def launch_a2a(view: torch.Tensor, out: torch.Tensor, cid: int) -> _Lane:
+def launch_a2a(view: torch.Tensor, out: torch.Tensor, cid: int) -> _lanes.Lane:
     """B9 on ``view`` ``[n, n, rows, LANES]`` into ``out`` alike."""
     return _launch("a2a", view, out, cid)
 
 
-def launch_sched_round(view: torch.Tensor, out: torch.Tensor, pi, cid: int) -> _Lane:
+def launch_sched_round(view: torch.Tensor, out: torch.Tensor, pi, cid: int) -> _lanes.Lane:
     """B10, round ``pi``, on ``view`` ``[n, n, rows, LANES]`` into the round
     slots ``out`` ``[n, rows, LANES]``."""
     return _launch("sched_round", view, out, cid, pi=pi)
@@ -314,7 +253,14 @@ def all_to_all(x: torch.Tensor, *, collective_id: Optional[int] = None, n_chunks
     launch: member r's chunk d lands in member d's slot r. A world of 1 is
     the identity. ``n_chunks > 1`` splits per-member axis ``chunk_axis`` (a
     slot axis, never 0, the destination axis) into that many launches on
-    rotated ids; the same bits either way."""
+    rotated ids; the same bits either way. The launches' error words are
+    read once, after the last (``lanes.one_check``)."""
+    with _lanes.one_check():
+        return _all_to_all(x, collective_id, n_chunks, chunk_axis)
+
+
+def _all_to_all(x: torch.Tensor, collective_id: Optional[int], n_chunks: int,
+                chunk_axis: int) -> torch.Tensor:
     n = _check_world(x)
     if n == 1:
         return x
@@ -337,7 +283,7 @@ def all_to_all(x: torch.Tensor, *, collective_id: Optional[int] = None, n_chunks
         buf = a2a_plain(view)
     else:
         buf = torch.empty_like(view)
-        launch_a2a(view, buf, collective_id).check("all_to_all")
+        launch_a2a(view, buf, collective_id).check("all_to_all")  # at the scope's end
     out = _unview(buf, k, xb)
     return out if fp is None else out.view(fp)
 
@@ -383,8 +329,8 @@ def _run_rounds(view: torch.Tensor, perms, base_cid: int, launch_seq: list) -> L
             out = sched_round_plain(v, pi)
         else:
             out = v.new_empty(v[:, 0].shape)
-            launch_sched_round(v, out, pi, _dma.chunk_collective_id(base_cid, i)) \
-                .check("scheduled_all_to_all")
+            lane = launch_sched_round(v, out, pi, _dma.chunk_collective_id(base_cid, i))
+            lane.check("scheduled_all_to_all")  # deferred to the caller's scope end
         launch_seq.append(out)
         outs.append(out)
     return outs
@@ -436,7 +382,14 @@ def scheduled_all_to_all(x: torch.Tensor, schedule, *, collective_id: Optional[i
     ``schedule`` is the ``(rounds, K)`` pair of
     ``a2a_sched.wire_schedule``. Composes with ``n_chunks`` as the
     unscheduled wire does. Past its budget a CPU tensor takes the
-    unscheduled exchange, counted."""
+    unscheduled exchange, counted. The rounds' error words are read once,
+    after the last launch."""
+    with _lanes.one_check():
+        return _scheduled_all_to_all(x, schedule, collective_id, n_chunks, chunk_axis)
+
+
+def _scheduled_all_to_all(x: torch.Tensor, schedule, collective_id: Optional[int],
+                          n_chunks: int, chunk_axis: int) -> torch.Tensor:
     n = _check_world(x)
     if n == 1:
         return x

@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface and loaded with :mod:`ctypes`. The
 library lands in ``build/uccl_tpu_torch/`` at the repository root, named by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once. ``nvcc``'s report (``-Xptxas -v``: registers,
-shared memory and spills per kernel) is kept beside the library as
-``<lib>.log``.
+hash of the source, the shared headers ``csrc/*.cuh`` and the flags, so an
+edited source or header rebuilds and an unchanged one loads at once.
+``nvcc``'s report (``-Xptxas -v``: registers, shared memory and spills per
+kernel) is kept beside the library as ``<lib>.log``.
 
 Nothing here runs at import: the CPU tests import every module of the port
 on machines with no ``nvcc``.
@@ -62,8 +62,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
+    """Where ``csrc/<name>.cu`` builds to, keyed by the source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
