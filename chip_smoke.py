@@ -59,7 +59,7 @@ from uccl_tpu_torch.parallel.mesh import AXIS, MeshConfig, make_mesh  # noqa: E4
 from uccl_tpu_torch.models.layers import rms_norm, rope  # noqa: E402
 from uccl_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from uccl_tpu_torch.ops import quant  # noqa: E402
-from uccl_tpu_torch.ops.attention import _NEG_INF, _repeat_kv  # noqa: E402
+from uccl_tpu_torch.ops.attention import _NEG_INF, HOPPER_TILES, _repeat_kv  # noqa: E402
 from uccl_tpu_torch.train import _batch_for_step  # noqa: E402
 from uccl_tpu_torch.utils import build  # noqa: E402
 
@@ -120,18 +120,23 @@ def toolchain() -> None:
 # 2. Build
 
 def ptxas_report(source: str, short) -> list:
-    """Registers per kernel from nvcc's -Xptxas -v report (``short`` cuts
-    the mangled name); fails on spills."""
-    ptxas, kernel = [], None
+    """Registers, spills and static shared memory per kernel from nvcc's
+    -Xptxas -v report (``short`` cuts the mangled name); fails on spills and
+    on wgmma serialized for want of registers (ptxas warning C7512)."""
+    ptxas, kernel, spills = [], None, 0
     for line in build.build_log(source).splitlines():
+        if "C7512" in line:
+            fail(f"ptxas: {line.strip()}")
         if "Compiling entry function" in line:
             kernel = short(line.split("'")[1])
-        elif "registers" in line and kernel:
-            ptxas.append({"kernel": kernel, "registers": int(line.split("Used ")[1].split()[0])})
         elif "spill stores" in line and kernel:
             spills = int(line.split("bytes spill stores")[0].split(",")[-1])
             if spills:
                 fail(f"{kernel} spills {spills} bytes")
+        elif "registers" in line and kernel:
+            smem = re.search(r"(\d+) bytes smem", line)
+            ptxas.append({"kernel": kernel, "registers": int(line.split("Used ")[1].split()[0]),
+                          "spill_bytes": spills, "static_smem": int(smem[1]) if smem else 0})
     return ptxas
 
 def build_kernels() -> None:
@@ -148,9 +153,13 @@ def build_kernels() -> None:
         (lib, seconds), (ring_lib, ring_seconds), (ep_lib, ep_seconds) = \
             [j.result() for j in jobs]
     root = build.PACKAGE_DIR.parent
-    emit("build", library=str(lib.relative_to(root)), seconds=round(seconds, 3),
-         ptxas=ptxas_report("flash_attention",
-                           lambda n: n[n.find("flash_"):n.find("EEEv") + 3]))
+    name = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)_kernelILi\d+ELi\d+E")
+    ptxas = ptxas_report("flash_attention", lambda n: name.search(n)[0])
+    for k in ptxas:  # B1's ring of K/V stages is dynamic shared memory
+        m = re.match(r"flash_fwd_kernelILi(\d+)ELi(\d+)E", k["kernel"])
+        if m:
+            k["dynamic_smem"] = fa._lib().uccl_flash_fwd_smem(int(m[1]), int(m[2]))
+    emit("build", library=str(lib.relative_to(root)), seconds=round(seconds, 3), ptxas=ptxas)
     emit("ring_ccl_build", library=str(ring_lib.relative_to(root)),
          seconds=round(ring_seconds, 3), all_seconds=round(time.perf_counter() - t0, 3),
          ptxas=ptxas_report("ring_ccl", lambda n: n[n.find("ring_"):]))
@@ -333,9 +342,22 @@ def time_kernels(b, s, h, hkv, d) -> dict:
         res[name]["library_ms"] = lib_bwd_ms
         res[name]["library_call"] = ("aten._scaled_dot_product_flash_attention_backward "
                                      "(dq, dk and dv in one call: B2 + B3)")
+    # B1's arms beside SDPA's: both q tiles, causal or not (twice the tiles
+    # per CTA, the same CTAs), and twice the batch (twice the CTAs)
+    arms = {}
+    for causal, bb in ((True, b), (False, b), (True, 2 * b)):
+        xa = x if bb == b else attn_inputs(bb, s, h, hkv, d, seed=3)
+        qa, ka, va = xa["q"], xa["k"], xa["v"]
+        for bq in HOPPER_TILES:
+            arms[f"B1 B={bb} causal={causal} block_q={bq}"] = time_ms(
+                lambda: fa.flash_fwd(qa, ka, va, causal, bq), 20)
+        qs, ks, vs = (t.repeat_interleave(rep, dim=2) if t is not qa else t for t in (qa, ka, va))
+        arms[f"SDPA B={bb} causal={causal}"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2), is_causal=causal), 20)
     emit("kernel_timing", shape=dict(B=b, S=s, H=h, Hkv=hkv, D=d, causal=True),
          kernels=res, ours_bwd_ms=res["flash_bwd_dq"]["ms"] + res["flash_bwd_dkv"]["ms"],
-         library_bwd_ms=lib_bwd_ms, library_dq_norm_ratio_vs_ours=lib_dq_norm_ratio)
+         library_bwd_ms=lib_bwd_ms, library_dq_norm_ratio_vs_ours=lib_dq_norm_ratio,
+         b1_arms=arms)
     return res
 
 # ---------------------------------------------------------------------------
@@ -724,26 +746,34 @@ def verb_breakdown(verbs) -> list:
             torch.cuda.synchronize()
             warm.append((time.perf_counter() - t) * 1e3)
             del got
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            got = run()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-        del got
-        split, spans = {name: 0.0 for name, _ in _SPLIT}, []
-        split["other"] = 0.0
-        for ev in prof.events():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            spans.append((ev.time_range.start, ev.time_range.end))
-            cls = next((name for name, pat in _SPLIT if pat.search(ev.name)), "other")
-            split[cls] += (ev.time_range.end - ev.time_range.start) / 1e3
-        if not split["ring_kernels"]:
-            fail(f"{verb} {algo}: the profiler saw no ring kernel")
+        # The verb's launches are counted by collective_path / quant_path; a
+        # trace with no ring kernel in it is a trace the profiler lost
+        # (seen on the card now and then), so the profiled call is taken
+        # again, up to three times in all, before the phase fails.
+        for attempt in range(1, 4):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                got = run()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t) * 1e3
+            del got
+            split, spans = {name: 0.0 for name, _ in _SPLIT}, []
+            split["other"] = 0.0
+            for ev in prof.events():
+                if ev.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                spans.append((ev.time_range.start, ev.time_range.end))
+                cls = next((name for name, pat in _SPLIT if pat.search(ev.name)), "other")
+                split[cls] += (ev.time_range.end - ev.time_range.start) / 1e3
+            if split["ring_kernels"]:
+                break
+        else:
+            fail(f"{verb} {algo}: the profiler saw no ring kernel in {attempt} traces")
         warm_ms = statistics.median(warm)
         out.append(dict(verb=verb, algo=algo, first_call_host_ms=cold_ms, warm_host_ms=warm_ms,
                         first_use_ms=cold_ms - warm_ms, profiled_host_ms=wall_ms,
-                        device_ms=split, device_busy_ms=profile_ep.union_ms(spans)))
+                        device_ms=split, device_busy_ms=profile_ep.union_ms(spans),
+                        profile_attempts=attempt))
     return out
 
 def collective_path(x) -> tuple:
@@ -1297,14 +1327,24 @@ def ep_a2a_vs_plain() -> dict:
             cases.append(("a2a", nc, ep_rule(got, x.transpose(0, 1), x)))
         for kind, sched in (("uniform", a2a_sched.wire_schedule(np.ones((n, n)), n)),
                             ("zipf", zipf_schedule(n, seed=n))):
-            for r_ in sched[0]:  # every round on its own
-                slot = view.new_empty(view[:, 0].shape)
-                pa.launch_sched_round(view, slot, r_.perm, dma.CID_SCHED).check("sched_round")
-                plain_slot = pa.sched_round_plain(view, r_.perm)
-                worst["sched_round"] = max(worst["sched_round"], diff(slot, plain_slot))
-                if not torch.equal(slot, plain_slot):
-                    fail(f"sched_round W={n} {dtype} round {r_.perm} differs from its plain "
+            # every round on its own, into one sentinel-filled receive buffer:
+            # after each round it equals the plain round's, so a pair is
+            # written in its designated round only and a shadow duplicate
+            # writes nothing
+            perms = [r_.perm for r_ in sched[0]]
+            got, plain = sched_out(view), sched_out(view)
+            for i, pi in enumerate(perms):
+                send, local = pa.round_bits(perms, sched[1], i)
+                pa.launch_sched_round(view, got, pi, send, local, dma.CID_SCHED).check(
+                    "sched_round")
+                pa.sched_round_plain(view, plain, pi, send, local)
+                if not torch.equal(got.view(torch.uint8), plain.view(torch.uint8)):
+                    fail(f"sched_round W={n} {dtype} round {i} {pi} differs from its plain "
                          "version")
+            worst["sched_round"] = max(worst["sched_round"], diff(got, plain))
+            if not torch.equal(got.view(torch.uint8), view.transpose(0, 1).contiguous().view(
+                    torch.uint8)):
+                fail(f"sched_round W={n} {dtype} {kind}: the rounds are not the transpose")
             for nc in (1, 2):
                 got = pa.scheduled_all_to_all(x, sched, n_chunks=nc, chunk_axis=1)
                 cases.append((f"sched_round {kind} R={len(sched[0])}", nc,
@@ -1319,10 +1359,25 @@ def ep_a2a_vs_plain() -> dict:
          rule="bit-identical to the plain version and to x.transpose(0, 1), as bytes")
     return {"max_abs_err_vs_plain": worst}
 
+def sched_out(view):
+    """A receive buffer for B10's rounds, every byte 0xFF (a NaN in every
+    float type): a slot no round writes stays so."""
+    return torch.full_like(view.view(torch.uint8), 0xFF).view(view.dtype)
+
+def run_schedule(view, perms, k_mat, out, rounds=None):
+    """B10's rounds ``rounds`` (all by default) of the schedule into ``out``."""
+    for i in range(len(perms)) if rounds is None else rounds:
+        send, local = pa.round_bits(perms, k_mat, i)
+        pa.launch_sched_round(view, out, perms[i], send, local,
+                              dma.chunk_collective_id(dma.CID_SCHED, i)).check("sched_round")
+    return out
+
 def ep_planted_faults() -> None:
     """Faults made from the kernels' own results must fail the rule they
-    pass: one pair's chunk zeroed, every slot one off, a round's output
-    missing from the assembly, and a pair designated to the wrong round."""
+    pass: one pair's chunk zeroed, every slot one off (B9), and B10's
+    schedule into a sentinel-filled buffer with round 0 left out (its pairs
+    and the diagonal keep the sentinel) or with one pair designated to a
+    round that does not carry it (that pair is never written)."""
     n = 4
     x = ep_inputs(n, (2, 640, 1024), torch.bfloat16, seed=50)
     view, k, _ = pa._view(x)
@@ -1335,22 +1390,19 @@ def ep_planted_faults() -> None:
     zeroed[2, 1] = 0
     faults["a2a: pair (1, 2) zeroed"] = ep_rule(zeroed, plain, x)
     faults["a2a: slots one off"] = ep_rule(ok.roll(1, dims=1), plain, x)
-    sched = zipf_schedule(n, seed=51)
-    rounds, k_mat = sched
-    outs = []
-    for r in rounds:
-        slot = view.new_empty(view[:, 0].shape)
-        pa.launch_sched_round(view, slot, r.perm, dma.CID_SCHED).check("sched_round")
-        outs.append(slot)
-    missing = [o.clone() for o in outs]
-    missing[0].zero_()
-    faults["sched: round 0 missing"] = ep_rule(
-        pa._unview(pa._assemble_rounds(view, missing, k_mat), k, x), plain, x)
+    rounds, k_mat = zipf_schedule(n, seed=51)
+    perms = [r.perm for r in rounds]
+    whole = pa._unview(run_schedule(view, perms, k_mat, sched_out(view)), k, x)
+    if not ep_rule(whole, plain, x)["ok"]:
+        fail("the planted faults' schedule is wrong itself")
+    faults["sched: round 0 missing"] = ep_rule(pa._unview(run_schedule(
+        view, perms, k_mat, sched_out(view), range(1, len(perms))), k, x), plain, x)
     wrong = np.array(k_mat)
-    s, d = next((s, d) for s in range(n) for d in range(n) if s != d)
-    wrong[s, d] = (wrong[s, d] + 1) % len(rounds)
+    s, d, r = next((s, d, r) for s in range(n) for d in range(n) for r in range(len(perms))
+                   if s != d and perms[r][s] != d)
+    wrong[s, d] = r
     faults["sched: pair mis-designated"] = ep_rule(
-        pa._unview(pa._assemble_rounds(view, outs, wrong), k, x), plain, x)
+        pa._unview(run_schedule(view, perms, wrong, sched_out(view)), k, x), plain, x)
     passed = [name for name, r in faults.items() if r["ok"]]
     if passed:
         fail(f"planted EP faults pass the check: {passed}")
@@ -1363,13 +1415,15 @@ def ep_bound_ms(nbytes_in: int) -> float:
 def ep_launchers(x, sched):
     """Preallocated operands for ``x`` [W, W, ...]: B9 on the whole view,
     the B9 pair on the two halves of per-member axis 2 (chunk kernels on
-    parity-twin ids), and B10's schedule with its assembly; each beside
-    its plain version."""
+    parity-twin ids), and B10's whole schedule, its rounds writing into one
+    receive buffer; each beside its plain version."""
     view, _, _ = pa._view(x)
     out = torch.empty_like(view)
     halves = [pa._view(h.contiguous())[0] for h in x.chunk(2, dim=3)]
     houts = [torch.empty_like(h) for h in halves]
-    slots = [view.new_empty(view[:, 0].shape) for _ in sched[0]]
+    perms, k_mat = [r.perm for r in sched[0]], sched[1]
+    bits = [pa.round_bits(perms, k_mat, i) for i in range(len(perms))]
+    sched_buf = torch.empty_like(view)
     lanes = []
 
     def b9():
@@ -1379,34 +1433,29 @@ def ep_launchers(x, sched):
         for c, (h, o) in enumerate(zip(halves, houts)):
             lanes.append(pa.launch_a2a(h, o, dma.chunk_collective_id(dma.CID_EP_DISPATCH, c)))
 
-    def b10_rounds():
-        for i, (r, slot) in enumerate(zip(sched[0], slots)):
-            lanes.append(pa.launch_sched_round(view, slot, r.perm,
+    def b10():
+        for i, (pi, (send, local)) in enumerate(zip(perms, bits)):
+            lanes.append(pa.launch_sched_round(view, sched_buf, pi, send, local,
                                                dma.chunk_collective_id(dma.CID_SCHED, i)))
 
-    def b10():
-        b10_rounds()
-        return pa._assemble_rounds(view, slots, sched[1])
-
-    def b10_rounds_plain():
-        return [pa.sched_round_plain(view, r.perm) for r in sched[0]]
-
     def b10_plain():
-        return pa._assemble_rounds(view, [pa.sched_round_plain(view, r.perm)
-                                          for r in sched[0]], sched[1])
+        buf = torch.empty_like(view)
+        for pi, (send, local) in zip(perms, bits):
+            pa.sched_round_plain(view, buf, pi, send, local)
+        return buf
 
     runs = {"a2a": (b9, lambda: pa.a2a_plain(view)),
             "a2a chunk pair": (b9_pair, lambda: [pa.a2a_plain(h) for h in halves]),
-            "sched_round schedule + assembly": (b10, b10_plain),
-            "sched_round rounds alone": (b10_rounds, b10_rounds_plain)}
+            "sched_round schedule": (b10, b10_plain)}
     return runs, lanes
 
 def ep_a2a_timing() -> dict:
     """CUDA-event medians (L2 flushed, median of 10) at the MoE layer's
     dispatch buffer, [W, E_local, C, H] bf16 per member: B9, the B9 chunk
-    pair, and B10's whole Zipf schedule with its assembly (and its rounds
-    alone), each beside the bound, its plain version and the library call
-    ``x.transpose(0, 1).contiguous()``; then a 1/16/256 MiB-per-member sweep."""
+    pair, and B10's whole Zipf schedule (its rounds write the receive buffer
+    itself: nothing to assemble), each beside the bound, its plain version
+    and the library call ``x.transpose(0, 1).contiguous()``; then a
+    1/16/256 MiB-per-member sweep."""
     cap = int(1.25 * EP_TOKENS * 2 / 8)
     x = ep_inputs(EP_WORLD, (2, cap, 1024), torch.bfloat16, seed=60)
     sched = ep_zipf_routing()[2]
@@ -1421,8 +1470,7 @@ def ep_a2a_timing() -> dict:
                          library_call="x.transpose(0, 1).contiguous()")
     for lane in lanes:
         lane.check("ep timing")
-    for name in ("sched_round schedule + assembly", "sched_round rounds alone"):
-        res[name]["rounds"] = len(sched[0])
+    res["sched_round schedule"]["rounds"] = len(sched[0])
     del runs, lanes
     sweep = []
     for mib in SWEEP_MIB:
@@ -1762,15 +1810,15 @@ def main() -> None:
          "library_call": f"none computes a per-hop quantized sum; see {twin}'s"}
         for name, twin in QUANTIZED.items()
     ] + [
-        # B10's time is its whole schedule (one launch per round) with the
-        # torch assembly, at the Zipf routing's rounds: the exchange's cost
+        # B10's time is its whole schedule (one launch per round) at the Zipf
+        # routing's rounds: the exchange's cost
         {"name": name, "route": "cuda", "source": EP_SOURCE, "replaces": EP_REPLACES[name],
          "launches": ep_launches[name], "max_abs_err": ep_errs[name],
          "ms": ep_time[timed]["ms"], "plain_ms": ep_time[timed]["plain_ms"],
          "bound_ms": ep_time[timed]["bound_ms"], "bound_by": "bytes",
          "library_ms": ep_time[timed]["library_ms"],
          "library_call": ep_time[timed]["library_call"], "timed": timed}
-        for name, timed in (("a2a", "a2a"), ("sched_round", "sched_round schedule + assembly"))
+        for name, timed in (("a2a", "a2a"), ("sched_round", "sched_round schedule"))
     ]
     for k in kernels:
         if not k["launches"]:

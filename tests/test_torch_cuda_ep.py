@@ -73,16 +73,49 @@ def test_kernels_equal_plain_and_transpose(dev, n, shape, dtype):
     pallas_a2a.launch_a2a(view, out, 6).check("test")
     assert torch.equal(out, pallas_a2a.a2a_plain(view))
     assert _bytes_equal(pallas_a2a.all_to_all(x), want)
-    # B10, every round of a uniform and a skewed schedule
+    # B10, every round of a uniform and a skewed schedule, into one
+    # sentinel-filled receive buffer: after each round it equals the plain
+    # round on the same buffer, so each pair is written in its designated
+    # round only, and a shadow duplicate leaves its slot alone
+    sentinel = torch.full_like(view, 0x5A)
     for mat in (np.ones((n, n)), a2a_sched.traffic_from_topk(
             a2a_sched.zipf_topk(np.random.default_rng(n), n, 64, 2, 2 * n, 1.2), 2 * n, 9, n)):
         rounds, k_mat = a2a_sched.wire_schedule(mat, n)
-        for r in rounds:
-            slot = view.new_empty(view[:, 0].shape)
-            pallas_a2a.launch_sched_round(view, slot, r.perm, 22).check("test")
-            assert torch.equal(slot, pallas_a2a.sched_round_plain(view, r.perm))
+        perms = [r.perm for r in rounds]
+        got, plain = sentinel.clone(), sentinel.clone()
+        for k, pi in enumerate(perms):
+            send, local = pallas_a2a.round_bits(perms, k_mat, k)
+            pallas_a2a.launch_sched_round(view, got, pi, send, local, 22).check("test")
+            pallas_a2a.sched_round_plain(view, plain, pi, send, local)
+            assert torch.equal(got, plain), k
+        assert torch.equal(got, view.transpose(0, 1).contiguous())
         assert _bytes_equal(pallas_a2a.scheduled_all_to_all(x, (rounds, k_mat)), want)
     assert pallas_a2a.launch_counts["a2a"] == 2
+
+
+def test_round_with_a_wrong_send_bit_is_caught(dev):
+    """A round launched with one due pair's send bit cleared leaves that
+    slot as the sentinel, and one with a shadow duplicate's bit set writes a
+    slot the plain round leaves alone: both differ from the plain round."""
+    n = 4
+    view = _x(dev, (n, n, 8, 128), torch.float32, seed=5)
+    idx = a2a_sched.zipf_topk(np.random.default_rng(4), n, 64, 2, 2 * n, 1.2)
+    rounds, k_mat = a2a_sched.wire_schedule(a2a_sched.traffic_from_topk(idx, 2 * n, 12, n), n)
+    perms = [r.perm for r in rounds]
+    fill = torch.full_like(view, float("nan"))
+    checked = 0
+    for k, pi in enumerate(perms):
+        send, local = pallas_a2a.round_bits(perms, k_mat, k)
+        plain = pallas_a2a.sched_round_plain(view, fill.clone(), pi, send, local)
+        for r in range(n):
+            if pi[r] == r:
+                continue
+            wrong = tuple(due != (m == r) for m, due in enumerate(send))
+            got = fill.clone()
+            pallas_a2a.launch_sched_round(view, got, pi, wrong, local, 23).check("test")
+            assert not _bytes_equal(got, plain), (k, r, send[r])
+            checked += 1
+    assert checked >= 8
 
 
 @pytest.mark.parametrize("n_chunks", [2, 3, 8])
@@ -173,13 +206,16 @@ def test_cuda_tensors_ignore_the_budget(dev):
 
 def _launch_all_but_last(kernel, view, out, pi, cid):
     """``pallas_a2a._launch`` with the last member left out of the grid: the
-    C entry launches members [0, n-1) only."""
+    C entry launches members [0, n-1) only (B10 as round 0 with every pair
+    due)."""
     n, t = view.shape[0], lanes.table
     lane = pallas_a2a._lane(view.device, cid)
     perm = None if pi is None else (ctypes.c_int * n)(*pi)
+    send = 0 if pi is None else sum(1 << r for r, d in enumerate(pi) if d != r)
     rc = pallas_a2a._lib().uccl_a2a_launch(
         kernel, n, n - 1, view[0, 0].numel() * view.element_size(), t(view, n), t(out, n),
-        t(lane.flags, n), ctypes.c_void_p(lane.err.data_ptr()), perm, cid, lane.next_epoch(),
+        t(lane.flags, n), ctypes.c_void_p(lane.err.data_ptr()), perm, send, 1, cid,
+        lane.next_epoch(),
         lanes.SPIN_TIMEOUT_MS.get() * 1_000_000,
         ctypes.c_void_p(torch.cuda.current_stream(view.device).cuda_stream))
     assert rc == 0
@@ -198,7 +234,7 @@ def test_missing_member_raises_instead_of_hanging(dev):
         lane = _launch_all_but_last(0, view, torch.empty_like(view), None, 7)
         with pytest.raises(RuntimeError, match="timed out"):
             lane.check("test")
-        lane = _launch_all_but_last(1, view, view.new_empty(view[:, 0].shape), (1, 2, 3, 0), 7)
+        lane = _launch_all_but_last(1, view, torch.empty_like(view), (1, 2, 3, 0), 7)
         with pytest.raises(RuntimeError, match="timed out"):
             lane.check("test")
     finally:
@@ -226,7 +262,7 @@ def test_missing_member_raises_at_the_scope_end(dev):
         with pytest.raises(RuntimeError, match="timed out"):
             scope.pending.resolve()
         with lanes.one_check(blocking=False) as scope:
-            _launch_all_but_last(1, view, view.new_empty(view[:, 0].shape), (1, 2, 3, 0),
+            _launch_all_but_last(1, view, torch.empty_like(view), (1, 2, 3, 0),
                                  11).check("test")
         assert scope.pending is not None
         with pytest.raises(RuntimeError, match="timed out"):
@@ -244,17 +280,19 @@ def test_bad_arguments_are_refused(dev):
     tab = lanes.table
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
-    def call(kernel, nn, slot_bytes, pi):
+    def call(kernel, nn, slot_bytes, pi, send=0):
         perm = None if pi is None else (ctypes.c_int * nn)(*pi)
         return lib.uccl_a2a_launch(kernel, nn, nn, slot_bytes, tab(view, n),
                                    tab(torch.empty_like(view), n), tab(lane.flags, n),
-                                   ctypes.c_void_p(lane.err.data_ptr()), perm, 9, 1, 10 ** 9,
-                                   stream)
+                                   ctypes.c_void_p(lane.err.data_ptr()), perm, send, 0, 9, 1,
+                                   10 ** 9, stream)
 
     assert call(0, 1, 4096, None) == -1  # world 1
     assert call(0, 17, 4096, None) == -1  # past kMaxMembers
     assert call(0, 4, 4100, None) == -1  # not whole 16-byte vectors
     assert call(1, 4, 4096, None) == -1  # a round with no permutation
     assert call(1, 4, 4096, (0, 0, 1, 2)) == -1  # not a permutation
+    assert call(1, 4, 4096, (1, 0, 2, 3), send=0b0100) == -1  # a self-loop sent
+    assert call(1, 4, 4096, (1, 0, 3, 2), send=0b10000) == -1  # a send bit past the world
     with pytest.raises(ValueError):
         pallas_a2a.launch_a2a(view, torch.empty_like(view).float().double(), 9)

@@ -86,6 +86,25 @@ def test_kernels_match_plain(dev, shape):
     _assert_close(dv, dv_p, "dv")
 
 
+# Every forward variant the dispatch builds (D, block_q, causal), with GQA,
+# and for each a case whose KV length differs from Q's.
+FWD_VARIANTS = [(d, bq, causal) for d in (64, 128) for bq in (64, 128) for causal in (True, False)]
+
+
+@pytest.mark.parametrize("d,block_q,causal", FWD_VARIANTS, ids=lambda v: str(v))
+def test_forward_every_variant(dev, d, block_q, causal):
+    for b, sq, sk, h, hkv in ((2, 384, 384, 8, 2), (1, 256, 512, 4, 1), (1, 256, 192, 4, 4)):
+        q, k, v, _, _ = _inputs(dev, b, sq, sk, h, hkv, d, seed=d + block_q)
+        fa.reset_launch_counts()
+        out, lse = fa.flash_fwd(q, k, v, causal, block_q)
+        torch.cuda.synchronize()
+        assert fa.launch_counts["flash_fwd"] == 1
+        out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
+        _assert_close(out, out_p, f"out {(b, sq, sk, h, hkv)}")
+        assert (lse - lse_p).abs().max().item() <= LSE_ATOL
+        assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+
+
 def test_autograd_counts_and_grads(dev):
     q, k, v, dout, g_lse = _inputs(dev, 2, 256, 256, 8, 2, 64, seed=1)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]

@@ -117,18 +117,39 @@ def test_scheduled_matches_lax(devices, n, kind):
 
 @pytest.mark.parametrize("n", [2, 4, 5, 16])
 def test_plain_versions_are_the_transpose(n):
-    """a2a_plain's steps and sched_round_plain's rounds, on 1-byte payloads
-    too, land every chunk where the transpose puts it."""
+    """a2a_plain's steps, and sched_round_plain's rounds into one
+    sentinel-filled receive buffer, on 1-byte payloads too, land every chunk
+    where the transpose puts it. Round by round, each slot is written once,
+    in its designated round (round 0 for the diagonal); a shadow duplicate
+    (a pair an earlier round carries) leaves its slot untouched."""
     g = torch.Generator().manual_seed(n)
-    view = torch.randint(0, 256, (n, n, 3, 128), generator=g, dtype=torch.uint8)
+    sentinel = 255
+    view = torch.randint(0, sentinel, (n, n, 3, 128), generator=g, dtype=torch.uint8)
     assert torch.equal(tpa.a2a_plain(view), view.transpose(0, 1))
-    rounds, k_mat = tsched.wire_schedule(np.ones((n, n)) - np.eye(n), n)
-    outs = [tpa.sched_round_plain(view, r.perm) for r in rounds]
-    assert torch.equal(tpa._assemble_rounds(view, outs, k_mat), view.transpose(0, 1))
-    for r in rounds:  # member pi[s] holds s's chunk for it
-        got = tpa.sched_round_plain(view, r.perm)
-        for s, d in enumerate(r.perm):
-            assert torch.equal(got[d], view[s, d])
+    shadows = 0
+    for sched in (tsched.wire_schedule(np.ones((n, n)) - np.eye(n), n),
+                  _zipf_schedule(n, seed=n, mod=tsched)):
+        rounds, k_mat = sched
+        perms = [r.perm for r in rounds]
+        out = torch.full_like(view, sentinel)
+        written = np.full((n, n), -1)  # [receiver, source] -> the round that wrote it
+        for k, pi in enumerate(perms):
+            before = out.clone()
+            send, local = tpa.round_bits(perms, k_mat, k)
+            assert tpa.sched_round_plain(view, out, pi, send, local) is out
+            changed = (out != before).flatten(2).any(-1).numpy()
+            for d, s in zip(*np.nonzero(changed)):
+                assert written[d, s] == -1, f"slot ({d}, {s}) written twice"
+                written[d, s] = k
+            for s, d in enumerate(pi):
+                if s != d and k_mat[s][d] != k:  # a shadow duplicate
+                    shadows += 1
+                    assert torch.equal(out[d, s], before[d, s])
+        assert torch.equal(out, view.transpose(0, 1))
+        want = np.array(k_mat).T.copy()  # slot (d, s) in round K[s, d]
+        np.fill_diagonal(want, 0)
+        np.testing.assert_array_equal(written, want)
+    assert shadows > 0 or n == 2
 
 
 def test_fp8_payload_moves_its_bytes():

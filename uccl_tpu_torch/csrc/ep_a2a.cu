@@ -43,11 +43,23 @@
 // finding of B4 in ring_ccl.cu) and the per-step receive waits, which gated
 // those credits, all move to the end of the launch.
 //
-// B10 is one full-permutation round: member r copies its chunk x[r][pi[r]]
-// into member pi[r]'s single round slot, after the same entry barrier, and
-// returns once its one arrival (from the member that targets it) is in. One
-// launch per round; the wrapper rotates collective ids over the global launch
-// sequence and gathers each source's slot from its designated round.
+// B10 is one full-permutation round of a schedule (redesigned in PR 5). On
+// a TPU the round kernel's output had to be a fresh VMEM block, so each
+// round wrote every member's chunk for pi[r] into a single round slot and
+// the wrapper stacked the R rounds and gathered each pair from its
+// designated round: two more copies of the whole buffer, 0.93 of the
+// schedule's 1.11 ms on the H100 at the EP cell. A launch here can write at
+// any offset, so every round now writes straight into the one receive
+// buffer B9 writes (out[d][s] = x[s][d]): member r copies x[r][pi[r]] into
+// out[pi[r]][r] only when this round is that pair's designated round (its
+// bit of ``send_mask``, computed on the host from K), and round 0 (``local``) copies
+// every member's diagonal chunk. A shadow duplicate (a pair an earlier
+// round carries, kept so that each round stays a full permutation) copies
+// nothing but still raises its arrival word, so every member's one wait is
+// the same in every round. The whole schedule then moves B9's compulsory
+// bytes; what it adds over B9 is R - 1 launches and entry barriers. One
+// launch per round, as before; the wrapper rotates collective ids over the
+// global launch sequence.
 //
 // Deadlock and faults, as csrc/collective.cuh sets out for every collective
 // kernel (the flag primitives, the bounded spin, the vector copy and the
@@ -59,7 +71,7 @@
 //
 // Bound: HBM bandwidth. Each kernel reads every byte it sends once and
 // writes it once; B9's compulsory traffic at the EP dispatch buffer is
-// 2 x 167.8 MB (0.100 ms at 3.35 TB/s).
+// 2 x 167.8 MB (0.100 ms at 3.35 TB/s), and so is a whole B10 schedule's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,10 +90,12 @@ enum Wait { kWaitEntry = 0, kWaitRecv = 1 };
 
 struct A2AArgs {
   const char* x[kMaxMembers];              // member send views ([n][slot_bytes])
-  char* out[kMaxMembers];                  // B9: receive slots ([n][slot_bytes]); B10: round slot
+  char* out[kMaxMembers];                  // receive slots ([n][slot_bytes])
   unsigned long long* flags[kMaxMembers];  // member flags ([kMaxChannels][kFlagWords])
   int pi[kMaxMembers];                     // B10: destination of each member
   int inv[kMaxMembers];                    // B10: the member that targets each member
+  unsigned send_mask;                      // B10: bit r set when member r's pair is due
+  int local;                               // B10: this round copies the diagonal
   int* err;                                // error word of the flag region: 8 ints
   long long slot_bytes;                    // one chunk slot
   int n, C;                                // world, channels
@@ -149,10 +163,13 @@ __global__ void __launch_bounds__(kThreads) sched_round_kernel(A2AArgs a) {
   const int r = blockIdx.y, c = blockIdx.x;
   const Range rg = channel_range(a, c);
   if (!entry_barrier(a, r, c)) return;
+  if (a.local)
+    copy16(a.out[r] + (long long)r * a.slot_bytes, a.x[r] + (long long)r * a.slot_bytes, rg);
   const int dst = a.pi[r];
-  // the round slot is single: member r's arrives at offset 0 of dst's, and
-  // its arrival word is still r's (a self-loop raises its own)
-  copy16(a.out[dst], a.x[r] + (long long)dst * a.slot_bytes, rg);
+  // a shadow duplicate or a self-loop copies nothing; the arrival word is
+  // raised either way (a self-loop raises its own)
+  if ((a.send_mask >> r) & 1u)
+    copy16(a.out[dst] + (long long)r * a.slot_bytes, a.x[r] + (long long)dst * a.slot_bytes, rg);
   signal(flag(a, dst, c, r), mark(a));
   wait_peers(a, r, c, 0, kWaitRecv, a.inv[r]);
 }
@@ -163,14 +180,17 @@ extern "C" {
 
 // kernel: 0 = all-to-all (B9), 1 = one scheduled round (B10). Tables hold
 // one address per member: ``x`` the send views ([n][slot_bytes]), ``out``
-// the receive slots (B9, [n][slot_bytes]) or the round slot (B10,
-// [slot_bytes]), ``flags`` the flag words. ``pi`` (B10) is the round's
-// permutation, n destinations. ``live`` launches members [0, live) only
-// (live < n is a test of the spin bound: the missing members' peers time
-// out). Returns 0, a cudaError_t, or -1 for arguments out of range.
+// the receive slots ([n][slot_bytes]), ``flags`` the flag words. For B10,
+// ``pi`` is the round's permutation (n destinations), bit r of ``send_mask``
+// says member r copies its chunk for pi[r] (never for pi[r] == r), and
+// ``local`` that the round copies the diagonal. ``live`` launches members
+// [0, live) only (live < n is a test of the spin bound: the missing
+// members' peers time out). Returns 0, a cudaError_t, or -1 for arguments
+// out of range.
 int uccl_a2a_launch(int kernel, int n, int live, long long slot_bytes, const void* const* x,
-                    void* const* out, void* const* flags, void* err, const int* pi, int cid,
-                    unsigned long long epoch, unsigned long long timeout_ns, void* stream) {
+                    void* const* out, void* const* flags, void* err, const int* pi,
+                    unsigned send_mask, int local, int cid, unsigned long long epoch,
+                    unsigned long long timeout_ns, void* stream) {
   if (n < 2 || n > kMaxMembers || live < 1 || live > n || slot_bytes <= 0 || slot_bytes % 16 ||
       (kernel != kA2A && kernel != kRound))
     return -1;
@@ -182,12 +202,15 @@ int uccl_a2a_launch(int kernel, int n, int live, long long slot_bytes, const voi
     a.inv[r] = -1;
   }
   if (kernel == kRound) {
-    if (!pi) return -1;
+    if (!pi || (send_mask >> n) != 0) return -1;
     for (int r = 0; r < n; ++r) {
       if (pi[r] < 0 || pi[r] >= n || a.inv[pi[r]] >= 0) return -1;  // not a permutation
+      if (pi[r] == r && ((send_mask >> r) & 1u)) return -1;  // the diagonal is ``local``'s
       a.pi[r] = pi[r];
       a.inv[pi[r]] = r;
     }
+    a.send_mask = send_mask;
+    a.local = local != 0;
   }
   a.err = static_cast<int*>(err);
   a.slot_bytes = slot_bytes;

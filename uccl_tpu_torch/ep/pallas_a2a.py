@@ -10,8 +10,13 @@ become two CUDA kernels in ``csrc/ep_a2a.cu``, built with ``nvcc`` for
   :func:`all_to_all` and its chunk pipeline.
 * ``sched_round`` (B10, replaces ``_sched_round_kernel``): one
   contention-free permutation round of a schedule from
-  :func:`uccl_tpu_torch.ep.a2a_sched.wire_schedule`. Backs
-  :func:`scheduled_all_to_all`, one launch per round.
+  :func:`uccl_tpu_torch.ep.a2a_sched.wire_schedule`, writing each pair
+  whose designated round it is straight into the exchange's one receive
+  buffer (and, in round 0, the diagonal). Backs
+  :func:`scheduled_all_to_all`, one launch per round. The JAX kernel writes
+  fresh round slots that its wrapper reassembles by designated round (a
+  TPU kernel's output is a fresh VMEM block); the port writes each pair
+  once into its final slot, so no round buffers and no assembly.
 
 Buffer model: where the JAX function takes one shard's ``x`` ``[W, ...]``
 inside ``shard_map`` (``W`` destination chunks), its port takes the
@@ -24,8 +29,9 @@ the destination axis). The view a kernel moves is
 1024 elements, so its slot is a whole number of 16-byte vectors.
 
 Beside each kernel is its plain version (:func:`a2a_plain`,
-:func:`sched_round_plain`): the same step or round on the member-stacked
-view, bit-identical to the transpose by construction. A wrapper runs it for
+:func:`sched_round_plain`): the same steps, or the same round's writes, on
+the member-stacked view; B9's steps, and a whole schedule's rounds, give the
+transpose by construction. A wrapper runs it for
 CPU tensors; for a CUDA tensor it launches the kernel or raises, and raises
 if the kernel reports a spin-wait timeout: the error words are read once per
 call, after its last launch, or once per enclosing scope
@@ -103,15 +109,31 @@ def a2a_plain(view: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def sched_round_plain(view: torch.Tensor, pi) -> torch.Tensor:
-    """B10's function: one permutation round. ``view`` ``[n, n, ...]``,
-    ``pi`` the round's destinations; returns each member's single round slot
-    ``[n, ...]``: member ``pi[r]`` receives ``view[r, pi[r]]``."""
-    n = view.shape[0]
-    src = torch.arange(n, device=view.device)
-    dst = torch.as_tensor(pi, dtype=torch.long, device=view.device)
-    out = torch.empty_like(view[:, 0])
-    out[dst] = view[src, dst]
+def round_bits(perms, k_mat, k: int):
+    """B10's per-round arguments for round ``k`` of a schedule: the members
+    whose pair ``(r, perms[k][r])`` is due in this round (``K[r, pi[r]] ==
+    k``, off the diagonal) as a tuple of bools, and whether the round copies
+    the diagonal (round 0)."""
+    pi = perms[k]
+    return tuple(d != r and int(k_mat[r][d]) == k for r, d in enumerate(pi)), k == 0
+
+
+def sched_round_plain(view: torch.Tensor, out: torch.Tensor, pi, send, local: bool
+                      ) -> torch.Tensor:
+    """B10's function: one permutation round into the exchange's receive
+    buffer. ``view`` and ``out`` ``[n, n, ...]``, ``pi`` the round's
+    destinations, ``send`` / ``local`` as :func:`round_bits` gives them:
+    member r writes ``view[r, pi[r]]`` into ``out[pi[r], r]`` when
+    ``send[r]``, and ``local`` writes the diagonal. Nothing else of ``out``
+    is touched. Returns ``out``."""
+    src = [r for r, due in enumerate(send) if due]
+    if src:
+        s = torch.as_tensor(src, dtype=torch.long, device=view.device)
+        d = torch.as_tensor([int(pi[r]) for r in src], dtype=torch.long, device=view.device)
+        out[d, s] = view[s, d]
+    if local:
+        r = torch.arange(view.shape[0], device=view.device)
+        out[r, r] = view[r, r]
     return out
 
 
@@ -125,8 +147,8 @@ def _lib() -> ctypes.CDLL:
     i, p = ctypes.c_int, ctypes.c_void_p
     tab = ctypes.POINTER(ctypes.c_void_p)
     lib.uccl_a2a_launch.argtypes = [i, i, i, ctypes.c_longlong, tab, tab, tab, p,
-                                    ctypes.POINTER(ctypes.c_int), i, ctypes.c_ulonglong,
-                                    ctypes.c_ulonglong, p]
+                                    ctypes.POINTER(ctypes.c_int), ctypes.c_uint, i, i,
+                                    ctypes.c_ulonglong, ctypes.c_ulonglong, p]
     lib.uccl_a2a_launch.restype = i
     return lib
 
@@ -135,10 +157,11 @@ def _lane(device: torch.device, cid: int) -> _lanes.Lane:
     return _REGIONS.get(device, cid)
 
 
-def _launch(name: str, view: torch.Tensor, out: torch.Tensor, cid: int, pi=None) -> _lanes.Lane:
+def _launch(name: str, view: torch.Tensor, out: torch.Tensor, cid: int, pi=None, send=(),
+            local: bool = False) -> _lanes.Lane:
     """Launch one kernel on the current stream; no sync and no error check
-    (the caller checks the returned lane). ``view`` ``[n, n, ...]``; ``out``
-    ``[n, n, ...]`` (B9) or ``[n, ...]`` (B10)."""
+    (the caller checks the returned lane). ``view`` and ``out``
+    ``[n, n, ...]``."""
     n = view.shape[0]
     if not 2 <= n <= MAX_MEMBERS:
         raise ValueError(f"{name}: world {n} outside 2..{MAX_MEMBERS}")
@@ -148,16 +171,20 @@ def _launch(name: str, view: torch.Tensor, out: torch.Tensor, cid: int, pi=None)
         if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16 or t.dtype != view.dtype:
             raise ValueError(f"{name}: operands must be contiguous, 16-byte aligned, of one "
                              f"dtype, on {dev}")
+    if out.shape != view.shape:
+        raise ValueError(f"{name}: out {tuple(out.shape)} is not the view's {tuple(view.shape)}")
     if slot_bytes % 16:
         raise ValueError(f"{name}: a chunk slot of {slot_bytes} B is not a whole number of "
                          "16-byte vectors")
     lane = _lane(dev, cid)
     perm = None if pi is None else (ctypes.c_int * n)(*[int(d) for d in pi])
+    send_mask = sum(1 << r for r, due in enumerate(send) if due)
     stream = torch.cuda.current_stream(dev)
     t = _lanes.table
     rc = _lib().uccl_a2a_launch(
         _KERNEL_ID[name], n, n, slot_bytes, t(view, n), t(out, n), t(lane.flags, n),
-        ctypes.c_void_p(lane.err.data_ptr()), perm, cid, lane.next_epoch(),
+        ctypes.c_void_p(lane.err.data_ptr()), perm, send_mask, int(local), cid,
+        lane.next_epoch(),
         _lanes.SPIN_TIMEOUT_MS.get() * 1_000_000, ctypes.c_void_p(stream.cuda_stream))
     _lanes.raise_on_launch(rc, name, dev)
     launch_counts[name] += 1
@@ -169,10 +196,12 @@ def launch_a2a(view: torch.Tensor, out: torch.Tensor, cid: int) -> _lanes.Lane:
     return _launch("a2a", view, out, cid)
 
 
-def launch_sched_round(view: torch.Tensor, out: torch.Tensor, pi, cid: int) -> _lanes.Lane:
-    """B10, round ``pi``, on ``view`` ``[n, n, rows, LANES]`` into the round
-    slots ``out`` ``[n, rows, LANES]``."""
-    return _launch("sched_round", view, out, cid, pi=pi)
+def launch_sched_round(view: torch.Tensor, out: torch.Tensor, pi, send, local: bool,
+                       cid: int) -> _lanes.Lane:
+    """B10, round ``pi``, on ``view`` ``[n, n, rows, LANES]`` into the
+    exchange's receive buffer ``out`` alike: the pairs ``send`` marks, and
+    the diagonal when ``local`` (:func:`round_bits`)."""
+    return _launch("sched_round", view, out, cid, pi=pi, send=send, local=local)
 
 
 # ---------------------------------------------------------------------------
@@ -315,37 +344,26 @@ def _normalize_schedule(schedule, n: int):
     return perms, k_arr
 
 
-def _run_rounds(view: torch.Tensor, perms, base_cid: int, launch_seq: list) -> List[torch.Tensor]:
-    """One round per permutation over ``view`` ``[n, n, rows, LANES]``,
-    each into fresh round slots ``[n, rows, LANES]``. ``launch_seq`` is the
-    global launch list shared across chunks: launch i takes id parity i & 1
-    (``chunk_collective_id(base, i)``) and ties to launch i-2, so at most
-    two round kernels are ever in flight on the {base, base+1} pair."""
-    outs = []
-    for pi in perms:
+def _run_rounds(view: torch.Tensor, perms, k_mat, base_cid: int, launch_seq: list
+                ) -> torch.Tensor:
+    """One round per permutation over ``view`` ``[n, n, rows, LANES]``, all
+    into one receive buffer alike, each pair written once, in its designated
+    round. ``launch_seq`` is the global launch list shared across chunks:
+    launch i takes id parity i & 1 (``chunk_collective_id(base, i)``) and
+    ties to launch i-2, so at most two round kernels are ever in flight on
+    the {base, base+1} pair."""
+    out = torch.empty_like(view)
+    for k, pi in enumerate(perms):
+        send, local = round_bits(perms, k_mat, k)
         i = len(launch_seq)
         v = _dma.tie_chunk(view, launch_seq[i - 2] if i >= 2 else None)
         if _is_cpu(view):
-            out = sched_round_plain(v, pi)
+            sched_round_plain(v, out, pi, send, local)
         else:
-            out = v.new_empty(v[:, 0].shape)
-            lane = launch_sched_round(v, out, pi, _dma.chunk_collective_id(base_cid, i))
+            lane = launch_sched_round(v, out, pi, send, local,
+                                      _dma.chunk_collective_id(base_cid, i))
             lane.check("scheduled_all_to_all")  # deferred to the caller's scope end
         launch_seq.append(out)
-        outs.append(out)
-    return outs
-
-
-def _assemble_rounds(view: torch.Tensor, round_outs: List[torch.Tensor], k_mat) -> torch.Tensor:
-    """Member r's slot s is what arrived in pair (s, r)'s designated round
-    ``K[s, r]``; the diagonal is the local chunk."""
-    n = view.shape[0]
-    stacked = torch.stack(round_outs)  # [R, n, rows, LANES]
-    r = torch.arange(n, device=view.device)
-    col = torch.as_tensor(np.ascontiguousarray(np.asarray(k_mat).T), dtype=torch.long,
-                          device=view.device)  # col[r, s] = K[s, r]
-    out = stacked[col, r[:, None]]  # [n(member), n(source), rows, LANES]
-    out[r, r] = view[r, r]
     return out
 
 
@@ -369,16 +387,16 @@ def _scheduled_chunked(x: torch.Tensor, perms, k_mat, collective_id: int, n_chun
     for c in range(n_chunks):
         xc = xp.narrow(axis, c * cs, cs)
         view, kc, _ = _view(xc)
-        round_outs = _run_rounds(view, perms, collective_id, launch_seq)
-        outs.append(_unview(_assemble_rounds(view, round_outs, k_mat), kc, xc))
+        outs.append(_unview(_run_rounds(view, perms, k_mat, collective_id, launch_seq), kc, xc))
     return torch.cat(outs, dim=axis).narrow(axis, 0, size)
 
 
 def scheduled_all_to_all(x: torch.Tensor, schedule, *, collective_id: Optional[int] = None,
                          n_chunks: int = 1, chunk_axis: int = 1) -> torch.Tensor:
     """Member-stacked ``[W, W, ...]`` all-to-all driven one contention-free
-    permutation round at a time (one B10 launch per round), reassembled by
-    designated round: the same contract and bits as :func:`all_to_all`.
+    permutation round at a time (one B10 launch per round), each pair
+    written into its final slot in its designated round: the same contract
+    and bits as :func:`all_to_all`.
     ``schedule`` is the ``(rounds, K)`` pair of
     ``a2a_sched.wire_schedule``. Composes with ``n_chunks`` as the
     unscheduled wire does. Past its budget a CPU tensor takes the
@@ -407,10 +425,11 @@ def _scheduled_all_to_all(x: torch.Tensor, schedule, collective_id: Optional[int
         if out is not None:
             return out if fp is None else out.view(fp)
     view, k, m = _view(xb)
-    # the [n, ...] send view and one round slot, two round kernels in flight
+    # charged as the JAX kernel is (the [n, ...] send view and one round slot,
+    # two round kernels in flight), so a CPU tensor falls back where it does
     if _is_cpu(x) and not _dma.check_budget(2 * (n + 1) * m * x.element_size(), "ep_a2a_sched"):
         return all_to_all(x)
     launch_seq: list = []
-    buf = _assemble_rounds(view, _run_rounds(view, perms, collective_id, launch_seq), k_mat)
+    buf = _run_rounds(view, perms, k_mat, collective_id, launch_seq)
     out = _unview(buf, k, xb)
     return out if fp is None else out.view(fp)

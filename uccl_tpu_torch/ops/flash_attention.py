@@ -5,7 +5,9 @@ three CUDA kernels in ``csrc/flash_attention.cu``, built with ``nvcc`` for
 ``sm_90a`` at first use and called through ctypes:
 
 * ``flash_fwd``     (replaces ``_fwd_kernel``): out ``[B,S,H,D]`` and lse
-  ``[B,H,S]`` f32, online softmax, causal tiles past the diagonal skipped.
+  ``[B,H,S]`` f32, online softmax, causal tiles past the diagonal skipped;
+  on ``wgmma``, fed by a TMA ring of K/V tiles that one producer warp keeps
+  ahead of the consumer warpgroups.
 * ``flash_bwd_dq``  (replaces ``_bwd_dq_kernel``): dq, recomputing
   ``P = exp(S*scale - lse)`` from the saved lse.
 * ``flash_bwd_dkv`` (replaces ``_bwd_dkv_kernel``): dk and dv, with the GQA
@@ -73,7 +75,9 @@ def _lib() -> ctypes.CDLL:
     lib.uccl_flash_fwd.argtypes = [p] * 5 + [i] * 8 + [p]
     lib.uccl_flash_bwd_dq.argtypes = [p] * 7 + [i] * 8 + [p]
     lib.uccl_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 8 + [p]
-    for fn in (lib.uccl_flash_fwd, lib.uccl_flash_bwd_dq, lib.uccl_flash_bwd_dkv):
+    lib.uccl_flash_fwd_smem.argtypes = [i, i]
+    for fn in (lib.uccl_flash_fwd, lib.uccl_flash_bwd_dq, lib.uccl_flash_bwd_dkv,
+               lib.uccl_flash_fwd_smem):
         fn.restype = ctypes.c_int
     return lib
 
