@@ -160,9 +160,13 @@ def build_kernels() -> None:
         if m:
             k["dynamic_smem"] = fa._lib().uccl_flash_fwd_smem(int(m[1]), int(m[2]))
     emit("build", library=str(lib.relative_to(root)), seconds=round(seconds, 3), ptxas=ptxas)
+    ring_ptxas = ptxas_report("ring_ccl", lambda n: n[n.find("ring_"):])
+    for k in ring_ptxas:  # B5 is built for two blocks of 512 threads per SM
+        if k["kernel"].startswith("ring_rs_kernel") and k["registers"] > 64:
+            fail(f"{k['kernel']} uses {k['registers']} registers: under two blocks per SM")
     emit("ring_ccl_build", library=str(ring_lib.relative_to(root)),
          seconds=round(ring_seconds, 3), all_seconds=round(time.perf_counter() - t0, 3),
-         ptxas=ptxas_report("ring_ccl", lambda n: n[n.find("ring_"):]))
+         ptxas=ring_ptxas)
     emit("ep_a2a_build", library=str(ep_lib.relative_to(root)), seconds=round(ep_seconds, 3),
          ptxas=ptxas_report("ep_a2a", lambda n: "sched_round_kernel" if "sched_round" in n
                             else "a2a_kernel"))
@@ -487,7 +491,8 @@ FULL_PRECISION = ("ring_all_gather", "ring_reduce_scatter", "ring_all_reduce")
 QUANTIZED = {"ring_reduce_scatter_q": "ring_reduce_scatter",  # its full-precision twin
              "ring_all_reduce_q": "ring_all_reduce"}
 WIRES = ("fp8", "int8")
-UNIT_ROUNDOFF = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8}
+UNIT_ROUNDOFF = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11,
+                 torch.int32: 0.0}  # int32 sums of these inputs are exact
 
 def ring_rule(kind, got, plain, x, w, dtype) -> dict:
     """The check a ring kernel's output passes: bit-identical to its plain
@@ -522,12 +527,14 @@ def run_ring(kind, x, d, dirs=None):
         lane.check("ring_all_gather")
         plain = rc.ag_plain(chunk, d)
         return got[:, :, :size].reshape(w, -1), plain[:, :, :size].reshape(w, -1)
-    if kind == "scatter":
-        chunks, per, m = rc._dma.pad_chunks(x, w)
-        chunks = chunks.reshape(w, w, m)
-        lane, got = rc._rs_kernel(chunks, d, 0)
+    if kind == "scatter":  # B5 on the unpadded rows; its plain version equals the hops'
+        lane, got = rc._rs_kernel(x, d, 0)
         lane.check("ring_reduce_scatter")
-        return got[:, :per], rc.rs_plain(chunks, d)[:, :per]
+        plain = rc.rs_chain_plain(x, d)
+        chunks, per, m = rc._dma.pad_chunks(x, w)
+        if not torch.equal(plain, rc.rs_plain(chunks.reshape(w, w, m), d)[:, :per]):
+            fail(f"rs_chain_plain differs from rs_plain's hops at W={w}, {size} elements")
+        return got, plain
     view, k, _ = rc._ar_layout(x, len(dirs))
     lane, got = rc._ar_kernel(view, dirs, 0)
     lane.check("ring_all_reduce")
@@ -544,11 +551,27 @@ RING_CASES = [  # (W, elements per member, dtype, direction); odd sizes need pad
     (4, 4_194_309, torch.float32, -1),
     (8, 2_000_001, torch.bfloat16, 1),
 ]
+# B5 on contiguous payloads whose slot starts k·per·itemsize are off 16
+# bytes: (W, per, dtype, direction). Rows 16-byte aligned (vectors between a
+# ragged head and tail) except W = 2 f32, W = 3 bf16 and W = 5 int32 (the
+# terms offset differently: funnel-shifted vectors)
+RS_RAGGED = [
+    (4, 1_000_001, torch.float32, 1),
+    (8, 300_003, torch.bfloat16, -1),
+    (4, 777_777, torch.int32, 1),
+    (8, 123_457, torch.float16, -1),
+    (2, 500_001, torch.float32, -1),
+    (3, 333_335, torch.bfloat16, 1),
+    (5, 65_539, torch.int32, -1),
+]
 
 def ring_vs_plain() -> dict:
     """Each ring kernel against its plain version, bit for bit, and against
     the float64 sum; W in {2, 3, 4, 8}, f32 and bf16 (int32 for B4 too),
-    sizes that need padding, both directions, B7 with one and two streams."""
+    sizes that need padding, both directions, B7 with one and two streams;
+    B5 (against ``rs_chain_plain`` and ``rs_plain``) also on strided rows
+    and on slots whose starts are off 16 bytes, in f32, bf16, f16 and int32,
+    W 2-8."""
     rc.reset_launch_counts()
     readings = []
     for w, size, dtype, d in RING_CASES:
@@ -565,6 +588,14 @@ def ring_vs_plain() -> dict:
                              "dir": d, **r})
             if not r["ok"]:
                 fail(f"{name} W={w} size={size} {dtype} dir={d}: {r}")
+    for w, per, dtype, d in RS_RAGGED:
+        x = ring_inputs(w, w * per, dtype, seed=per)
+        got, plain = run_ring("scatter", x, d)
+        r = ring_rule("scatter", got, plain, x, w, dtype)
+        readings.append({"kernel": "ring_reduce_scatter ragged slots", "W": w, "per": per,
+                         "dtype": str(dtype), "dir": d, **r})
+        if not r["ok"]:
+            fail(f"ring_reduce_scatter W={w} per={per} {dtype} dir={d}: {r}")
     xi = ring_inputs(3, 1_234_567, torch.int32, seed=9)
     got, plain = run_ring("gather", xi, -1)
     r = ring_rule("gather", got, plain, xi, 3, torch.int32)
@@ -577,8 +608,10 @@ def ring_vs_plain() -> dict:
 
 def ring_planted_faults() -> None:
     """Faults made with the plain versions must fail the rule the kernels
-    pass: RS with its last hop dropped, AG with every slot off by one, and
-    B7 whose AG phase starts before its RS phase's last fold landed."""
+    pass: RS with its last hop dropped, AG with every slot off by one, B7
+    whose AG phase starts before its RS phase's last fold landed, and two of
+    B5's own: the members summed in ascending order instead of the chain's
+    (bf16), and slots whose misaligned starts are read one element off."""
     w, size, dtype = 4, 1_000_000, torch.float32
     x = ring_inputs(w, size, dtype, seed=11)
     r_idx = torch.arange(w, device=DEV)
@@ -609,6 +642,23 @@ def ring_planted_faults() -> None:
     rc._ag_hops(buf, 1)
     early = rc._ar_unlayout(buf.unsqueeze(2), k, x)
     faults["ar: no phase barrier data"] = ring_rule("reduce", early, ok_ar, x, w, dtype)
+    # B5 summing its members in ascending order, not the chain's
+    xb = ring_inputs(w, size, torch.bfloat16, seed=12)
+    ok_b, _ = run_ring("scatter", xb, 1)
+    slots = xb.reshape(w, w, -1)
+    ascending = slots[0, r_idx]
+    for j in range(1, w):
+        ascending = ascending + slots[j, r_idx]
+    faults["rs: members in ascending order (bf16)"] = ring_rule("scatter", ascending, ok_b, xb,
+                                                               w, torch.bfloat16)
+    # B5 reading slots k >= 1 (starts 4k bytes off 16) one element late
+    per = 250_001
+    xm = ring_inputs(w, w * per, dtype, seed=13)
+    ok_m, _ = run_ring("scatter", xm, 1)
+    late = rc.rs_chain_plain(xm, 1)
+    late[1:] = rc.rs_chain_plain(xm.roll(-1, 1), 1)[1:]
+    faults["rs: misaligned slots read one element off"] = ring_rule("scatter", late, ok_m, xm, w,
+                                                                   dtype)
     passed = [name for name, r in faults.items() if r["ok"]]
     if passed:
         fail(f"planted ring faults pass the check: {passed}")
@@ -632,10 +682,8 @@ def ring_launchers(w, p_elems):
     x = torch.randn((w, p_elems), generator=g, device=DEV)
     view, _, m_ar = rc._ar_layout(x, 2)
     ar_out, ar_stage = torch.empty_like(view), view.new_empty((w, 2, 2, m_ar))
-    chunks, _, m_rs = rc._dma.pad_chunks(x, w)
-    chunks = chunks.reshape(w, w, m_rs)
-    rs_buf, rs_stage = torch.empty_like(chunks), chunks.new_empty((w, 2, m_rs))
-    rs_out = chunks.new_empty((w, m_rs))
+    xs = x[:, : p_elems - p_elems % w]
+    rs_out = x.new_empty((w, xs.shape[1] // w))
     contrib = x[:, : p_elems // w].contiguous()
     chunk, _, m_ag = rc._dma.pad_chunks(contrib, 1)
     chunk = chunk.reshape(w, m_ag)
@@ -647,14 +695,14 @@ def ring_launchers(w, p_elems):
 
     red = torch.empty_like(x[0])
     ar_lib_out = torch.empty_like(x)
-    xv = x[:, : p_elems - p_elems % w].reshape(w, w, -1)
+    xv = xs.reshape(w, w, -1)
     runs = {
         "ring_all_reduce": (launch(rc.launch_ar, view, ar_out, ar_stage, (1, -1), 0),
                             lambda: rc.ar_plain(view, (1, -1)),
                             lambda: ar_lib_out.copy_(torch.sum(x, 0, out=red).expand_as(x)),
                             "torch.sum(x, 0, out=red) then out.copy_(red.expand_as(x))"),
-        "ring_reduce_scatter": (launch(rc.launch_rs, chunks, rs_buf, rs_stage, rs_out, 1, 0),
-                                lambda: rc.rs_plain(chunks, 1),
+        "ring_reduce_scatter": (launch(rc.launch_rs, xs, rs_out, 1, 0),
+                                lambda: rc.rs_chain_plain(xs, 1),
                                 lambda: xv.sum(0),
                                 "x.view(W, W, P/W).sum(0)"),
         "ring_all_gather": (launch(rc.launch_ag, chunk, ag_out, 1, 0),
@@ -664,10 +712,34 @@ def ring_launchers(w, p_elems):
     }
     return runs, lanes
 
+def rs_rows_off_16() -> dict:
+    """B5 on a bf16 bucket of the f32 bucket's bytes whose row length is no
+    multiple of 8 elements, so the rows lie alternately 0 and 8 bytes off 16
+    and every other term is read as funnel-shifted vectors: its time beside
+    its bound and the library call, and its bits against rs_chain_plain."""
+    p = 2 * BUCKET - WORLD  # a multiple of W, 4 mod 8
+    g = torch.Generator(device=DEV).manual_seed(6)
+    x = torch.randn((WORLD, p), generator=g, device=DEV, dtype=torch.bfloat16)
+    out = x.new_empty((WORLD, p // WORLD))
+    lanes = []
+    ms = time_ms(lambda: lanes.append(rc.launch_rs(x, out, 1, 0)), 10)
+    for lane in lanes:
+        lane.check("ring timing, rows off 16 bytes")
+    if not torch.equal(out, rc.rs_chain_plain(x, 1)):
+        fail("ring_reduce_scatter on bf16 rows off 16 bytes differs from rs_chain_plain")
+    bnd = ring_bound_ms("ring_reduce_scatter", WORLD, p, 2)
+    library_ms = time_ms(lambda: x.view(WORLD, WORLD, -1).sum(0), 10)
+    res = dict(dtype="bfloat16", elems_per_member=p, ms=ms, bound_ms=bnd,
+               share_of_bound=bnd / ms, library_ms=library_ms)
+    del x, out
+    torch.cuda.empty_cache()
+    return res
+
 def ring_timing() -> dict:
     """CUDA-event medians of each ring kernel at the gradient bucket, W = 4,
-    beside its bound, its plain version and the library call; and a sweep of
-    smaller payloads per member."""
+    beside its bound, its plain version and the library call; B5 also on a
+    bf16 bucket whose rows are offset differently mod 16 bytes; and a sweep
+    of smaller payloads per member."""
     res = {}
     runs, lanes = ring_launchers(WORLD, BUCKET)
     for name, (kernel, plain, library, call) in runs.items():
@@ -680,6 +752,7 @@ def ring_timing() -> dict:
         lane.check("ring timing")
     del runs, lanes
     torch.cuda.empty_cache()
+    res["ring_reduce_scatter"]["rows_off_16"] = rs_rows_off_16()
     sweep = []
     for mib in SWEEP_MIB:
         p = mib * 2 ** 20 // 4
@@ -935,7 +1008,7 @@ def run_ring_q(kind, x, d, wd, dirs=None):
     w = x.shape[0]
     if kind == "scatter":
         chunks = dma.pad_chunks(x, w)[0].reshape(w, w, -1)
-        lane, got = rc._rs_kernel(chunks, d, 0, wd)
+        lane, got = rc._rs_q_kernel(chunks, d, 0, wd)
         lane.check("ring_reduce_scatter_q")
         return got, rc.rs_q_plain(chunks, d, wd), chunks
     view, _, _ = rc._ar_layout(x, len(dirs))
@@ -1119,7 +1192,7 @@ def quant_held_at_bucket(x) -> list:
 
     for wd in WIRES:
         chunks = dma.pad_chunks(x, w)[0].reshape(w, w, -1)
-        lane, got = rc._rs_kernel(chunks, 1, 0, wd)
+        lane, got = rc._rs_q_kernel(chunks, 1, 0, wd)
         lane.check("ring_reduce_scatter_q")
         hold("ring_reduce_scatter_q", f"slots of {chunks.shape[2]}", wd,
              [(got, rc.rs_q_plain(chunks, 1, wd))])

@@ -9,7 +9,10 @@ past the suite's conftest:
 
 Tolerance: none. Each kernel runs the plain version's hop schedule with one
 correctly rounded add per hop in the input dtype, so the results must be
-bit-identical (``torch.equal``). The quantized kernels B6 and B8 carry the
+bit-identical (``torch.equal``). B5 is one pass, not a ring, and adds in the
+chain order the ring's hops make: it must equal both ``rs_chain_plain`` on
+the unpadded payload and ``rs_plain`` on the padded slots. The quantized
+kernels B6 and B8 carry the
 block codec's arithmetic in their bodies (the scale as amax * (1 / QMAX), an
 IEEE division by it, the dequantized value rounded to the input dtype before
 the add), so they too must equal their plain versions bit for bit, a nan
@@ -73,12 +76,13 @@ def test_kernels_equal_plain(dev, n, size, dtype, d):
     _, got = ring_ccl._ag_kernel(chunk, d, 0)
     torch.cuda.synchronize()
     assert torch.equal(got, ring_ccl.ag_plain(chunk, d))
-    # B5
-    chunks, _, m = dma.pad_chunks(x, n)
-    chunks = chunks.reshape(n, n, m)
-    _, got = ring_ccl._rs_kernel(chunks, d, 0)
+    # B5 on the unpadded rows (strided when n does not divide size)
+    xs = x[:, : size - size % n]
+    _, got = ring_ccl._rs_kernel(xs, d, 0)
     torch.cuda.synchronize()
-    assert torch.equal(got, ring_ccl.rs_plain(chunks, d))
+    assert torch.equal(got, ring_ccl.rs_chain_plain(xs, d))
+    chunks, per, m = dma.pad_chunks(xs, n)
+    assert torch.equal(got, ring_ccl.rs_plain(chunks.reshape(n, n, m), d)[:, :per])
     # B7, one stream in direction d and two counter-rotating streams
     for dirs in ((d,), (1, -1)):
         view, _, _ = ring_ccl._ar_layout(x, len(dirs))
@@ -86,6 +90,56 @@ def test_kernels_equal_plain(dev, n, size, dtype, d):
         lane.check("test")
         assert torch.equal(got, ring_ccl.ar_plain(view, dirs))
     assert _counts() == {"ring_all_gather": 1, "ring_reduce_scatter": 1, "ring_all_reduce": 2}
+
+
+RS_RAGGED = [  # (n, elements per slot, dtype, direction): slot starts off 16 bytes
+    (2, 1001, torch.bfloat16, 1),
+    (3, 4097, torch.float32, -1),
+    (4, 100_003, torch.float32, 1),
+    (4, 77_777, torch.int32, -1),
+    (5, 12_345, torch.float16, 1),
+    (8, 30_001, torch.bfloat16, -1),
+    (8, 3, torch.float32, 1),
+    (6, 50_001, torch.int32, 1),
+    (7, 9_999, torch.float16, -1),
+]
+
+
+@pytest.mark.parametrize("n,per,dtype,d", RS_RAGGED, ids=lambda v: str(v))
+def test_reduce_scatter_on_ragged_slots(dev, n, per, dtype, d):
+    """B5 where slot k starts k*per elements into each row, no multiple of
+    16 bytes: on the contiguous payload (vectors between a ragged head and
+    tail), on rows at a stride one element longer (every term offset
+    differently: funnel-shifted vectors) and on a payload starting one element
+    in. Each equal to rs_chain_plain and to rs_plain on padded slots."""
+    x = _x(dev, (n, n * per + 1), dtype, seed=per)
+    ring_ccl.reset_launch_counts()
+    for name, xs in (("contiguous", x[:, 1:].contiguous()), ("strided rows", x[:, 1:]),
+                     ("offset start", x.reshape(-1)[1: 1 + n * n * per].view(n, n * per))):
+        lane, got = ring_ccl._rs_kernel(xs, d, 0)
+        lane.check("test")
+        assert torch.equal(got, ring_ccl.rs_chain_plain(xs, d)), name
+        chunks, _, m = dma.pad_chunks(xs, n)
+        assert torch.equal(got, ring_ccl.rs_plain(chunks.reshape(n, n, m), d)[:, :per]), name
+    assert _counts() == {"ring_reduce_scatter": 3}
+
+
+def test_reduce_scatter_allocates_no_scratch(dev):
+    """The RS verb hands B5 the payload as it is: one call allocates its
+    [n, per] output and nothing of the [n, n, m] padded layout or the
+    ring's scratch."""
+    n, per = 4, 1 << 20
+    x = _x(dev, (n, n * per), torch.float32, seed=12)
+    ring_ccl.ring_reduce_scatter(x)  # the flag region exists from here on
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ring_ccl.reset_launch_counts()
+    got = ring_ccl.ring_reduce_scatter(x)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(dev) - base <= got.nbytes
+    assert _counts() == {"ring_reduce_scatter": 1}
+    assert torch.equal(got, ring_ccl.rs_chain_plain(x))
 
 
 def test_entry_points_against_plain_and_sum(dev):
@@ -123,7 +177,7 @@ def test_repeated_calls_on_one_flag_region(dev):
 
 
 def _launch_all_but_last(name, x, buf, stage, out, streams, dirs, cid, slot_bytes, *,
-                         wire_dtype=None, sstage=None, qbuf=None, sbuf=None):
+                         wire_dtype=None, sstage=None, qbuf=None, sbuf=None, row_elems=0):
     """``ring_ccl._launch`` with the last member left out of the grid: the
     C entry launches members [0, n-1) only."""
     n, t = x.shape[0], lanes.table
@@ -131,7 +185,7 @@ def _launch_all_but_last(name, x, buf, stage, out, streams, dirs, cid, slot_byte
     rc = ring_ccl._lib().uccl_ring_launch(
         ring_ccl._KERNEL_ID[name], ring_ccl._ADD_DTYPES.get(x.dtype, 0),
         ring_ccl._WIRE_ID.get(wire_dtype, 0), n, n - 1, streams, dirs[0], dirs[-1], slot_bytes,
-        t(x, n), t(buf, n), t(stage, n), t(out, n), t(sstage, n), t(qbuf, n), t(sbuf, n),
+        row_elems, t(x, n), t(buf, n), t(stage, n), t(out, n), t(sstage, n), t(qbuf, n), t(sbuf, n),
         t(lane.flags, n), ctypes.c_void_p(lane.err.data_ptr()), cid, lane.next_epoch(),
         lanes.SPIN_TIMEOUT_MS.get() * 1_000_000,
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
@@ -142,9 +196,12 @@ def _launch_all_but_last(name, x, buf, stage, out, streams, dirs, cid, slot_byte
 def test_missing_member_raises_instead_of_hanging(dev):
     """Launch all but the last member: its neighbors' waits time out, the
     kernel writes its error word and returns, and the check raises, for all
-    five kernels. The flag region works again afterwards."""
+    five kernels (B5: every member waits on every peer, at entry and at
+    exit, so all of them time out). The flag region works again
+    afterwards."""
     n, m = 4, 4096
     x = _x(dev, (n, n, m), torch.float32, seed=2)
+    rows = x.reshape(n, n * m)
     e = torch.empty_like
     slot = m * 4
     view = x.reshape(n, n, 1, m)
@@ -153,8 +210,8 @@ def test_missing_member_raises_instead_of_hanging(dev):
     lanes.SPIN_TIMEOUT_MS.set(200)
     try:
         for args, kw in (
-                (("ring_reduce_scatter", x, e(x), x.new_empty((n, 2, m)), x.new_empty((n, m)),
-                  1, (1,), 5, slot), {}),
+                (("ring_reduce_scatter", rows, None, None, x.new_empty((n, m)), 1, (1,), 5, slot),
+                 dict(row_elems=n * m)),
                 (("ring_all_gather", x[:, 0].contiguous(), e(x), None, None, 1, (1,), 5, slot),
                  {}),
                 (("ring_all_reduce", view, e(view), x.new_empty((n, 1, 2, m)), None, 1, (1,), 5,
@@ -168,7 +225,7 @@ def test_missing_member_raises_instead_of_hanging(dev):
                 lane.check("test")
     finally:
         lanes.SPIN_TIMEOUT_MS.set(None)
-    lane, got = ring_ccl._rs_kernel(x, 1, 5)
+    lane, got = ring_ccl._rs_kernel(rows, 1, 5)
     lane.check("test")
     assert torch.equal(got, ring_ccl.rs_plain(x, 1))
 
@@ -238,6 +295,22 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     # B4 moves bytes of any dtype
     x = torch.arange(4 * 3000, dtype=torch.int64, device=dev).reshape(4, 3000)
     assert torch.equal(ring_ccl.ring_all_gather(x.unsqueeze(1))[3], x)
+    # B5 takes the unpadded rows and no scratch: the C entry refuses a buf
+    # or a stage table, rows of other than W * per elements, and a slot of
+    # no whole number of elements; the wrapper refuses an output that does
+    # not split the rows
+    xs = torch.ones(4, 4 * 1000, device=dev)
+    out = xs.new_empty((4, 1000))
+    for kw in (dict(buf=torch.empty_like(xs)), dict(stage=torch.empty_like(xs)),
+               dict(row_elems=4 * 1000 + 1), dict(slot_bytes=999 * 4), dict(slot_bytes=3998)):
+        args = dict(buf=None, stage=None, slot_bytes=1000 * 4, row_elems=4 * 1000) | kw
+        with pytest.raises(RuntimeError, match="code -1"):
+            ring_ccl._enqueue("ring_reduce_scatter", xs, args["buf"], args["stage"], out, 1,
+                              (1,), 0, args["slot_bytes"], row_elems=args["row_elems"])
+    with pytest.raises(ValueError, match="not 4 slots"):
+        ring_ccl.launch_rs(xs, xs.new_empty((4, 999)), 1, 0)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        ring_ccl.launch_rs(xs[:, ::2], out[:, :500], 1, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -268,7 +341,7 @@ def test_quantized_kernels_equal_plain(dev, n, size, dtype, d, wd):
     x = _xq(dev, (n, size), dtype, seed=n)
     ring_ccl.reset_launch_counts()
     chunks = dma.pad_chunks(x[:, : size - size % n], n)[0].reshape(n, n, -1)
-    lane, got = ring_ccl._rs_kernel(chunks, d, 0, wd)
+    lane, got = ring_ccl._rs_q_kernel(chunks, d, 0, wd)
     lane.check("test")
     assert _same(got, ring_ccl.rs_q_plain(chunks, d, wd))
     for dirs in ((d,), (1, -1)):

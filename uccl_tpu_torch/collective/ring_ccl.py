@@ -7,8 +7,10 @@ become five CUDA kernels in ``csrc/ring_ccl.cu``, built with ``nvcc`` for
 * ``ring_all_gather`` (B4, replaces ``_ag_ring``): write-once ring
   all-gather; backs :func:`ring_all_gather`, :func:`bidir_all_gather` and
   :func:`scatter_ag_broadcast`.
-* ``ring_reduce_scatter`` (B5): partial sums circulate through 2-slot
-  staging; member r keeps slot r summed.
+* ``ring_reduce_scatter`` (B5): one pull pass, no ring: member k reads the
+  W members' slot k of the caller's unpadded payload and adds them in the
+  order the ring's hops would (:func:`rs_chain_plain`), storing slot k's
+  sum once. No padding, no staging, no scratch.
 * ``ring_all_reduce`` (B7): RS phase, phase barrier, AG phase in one
   launch, on one or two counter-rotating streams; backs
   :func:`ring_all_reduce` and, as a pair of directed launches on two CUDA
@@ -32,7 +34,9 @@ address table, flags and epochs). On one card a hop is an HBM-to-HBM store.
 Beside each kernel is its plain version (``*_plain``): the same hop schedule
 on the member-stacked tensor — the same slot order, the same per-hop add in
 the input dtype — so it is bit-identical to the kernel and to the JAX
-kernels. A wrapper runs it for tensors on the CPU; for a CUDA tensor it
+kernels. B5's own contract is :func:`rs_chain_plain` (the unpadded payload,
+the chain's adds), which equals :func:`rs_plain` on the padded slots. A
+wrapper runs the hop schedule for tensors on the CPU; for a CUDA tensor it
 launches the kernel or raises, and raises if a kernel reports a spin-wait
 timeout. ``launch_counts`` counts kernel launches.
 
@@ -76,7 +80,9 @@ MAX_MEMBERS = _lanes.MAX_MEMBERS
 _FLAG_WORDS = 4  # kFlagWords in the source
 # each member's flag words: [2 streams][channels][recv, ack, phase, entry]
 _REGIONS = _lanes.Lanes((MAX_MEMBERS, 2, _lanes.MAX_CHANNELS, _FLAG_WORDS), KERNELS,
-                        ("entry barrier", "credit", "receive", "phase barrier"), "stream")
+                        ("entry barrier", "credit", "receive", "phase barrier",
+                         "full-peer entry barrier (step: the peer awaited)",
+                         "full-peer exit barrier (step: the peer awaited)"), "stream")
 
 _WIRE_BYTES = _obsc.counter(
     "ep_bytes_total",
@@ -232,13 +238,27 @@ def _ag_hops(buf: torch.Tensor, direction: int) -> None:
 
 
 def rs_plain(chunks: torch.Tensor, direction: int = 1) -> torch.Tensor:
-    """B5's function. ``chunks`` ``[n, n, m]`` → ``[n, m]``: member r's
-    slot r, summed around the ring."""
+    """The ring reduce-scatter's hop schedule (the JAX kernel's). ``chunks``
+    ``[n, n, m]`` → ``[n, m]``: member r's slot r, summed around the ring."""
     n = chunks.shape[0]
     buf = chunks.clone()
     _rs_hops(buf, direction)
     r = torch.arange(n, device=chunks.device)
     return buf[r, r]
+
+
+def rs_chain_plain(x: torch.Tensor, direction: int = 1) -> torch.Tensor:
+    """B5's function. ``x`` ``[n, n*per]`` (member r's unpadded row) →
+    ``[n, per]``: member k's slot k summed along the ring's chain,
+    ``x[k][k] + (x[k-d][k] + (... + (x[k+2d][k] + x[k+d][k])))``, one add
+    in the input dtype per ``+`` (the order :func:`_rs_hops` folds in)."""
+    n = x.shape[0]
+    slots = x.reshape(n, n, -1)  # [member, slot, per]
+    k = torch.arange(n, device=x.device)
+    acc = slots[(k + direction) % n, k]
+    for j in range(2, n + 1):
+        acc = slots[(k + j * direction) % n, k] + acc
+    return acc
 
 
 def ar_plain(view: torch.Tensor, dirs: Sequence[int]) -> torch.Tensor:
@@ -312,7 +332,8 @@ def _lib() -> ctypes.CDLL:
     lib = _lanes.load_library("ring_ccl", "uccl_ring", _FLAG_WORDS)
     i, p = ctypes.c_int, ctypes.c_void_p
     tab = ctypes.POINTER(ctypes.c_void_p)
-    lib.uccl_ring_launch.argtypes = [i, i, i, i, i, i, i, i, ctypes.c_longlong,
+    ll = ctypes.c_longlong
+    lib.uccl_ring_launch.argtypes = [i, i, i, i, i, i, i, i, ll, ll,
                                      tab, tab, tab, tab, tab, tab, tab, tab, p, i,
                                      ctypes.c_ulonglong, ctypes.c_ulonglong, p]
     lib.uccl_ring_launch.restype = i
@@ -335,13 +356,17 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
         return s
 
 
-def _check_operands(name: str, dtype: torch.dtype, *ts: torch.Tensor) -> None:
-    n = ts[0].shape[0]
+def _check_world(name: str, dtype: torch.dtype, n: int) -> None:
+    """Refuse a world or an add dtype the kernels do not take."""
     if not 2 <= n <= MAX_MEMBERS:
         raise ValueError(f"{name}: world {n} outside 2..{MAX_MEMBERS}")
     takes = [t for t in _ADD_DTYPES if t.is_floating_point or not name.endswith("_q")]
     if name != "ring_all_gather" and dtype not in takes:
         raise TypeError(f"{name} on CUDA adds in {sorted(map(str, takes))}; got {dtype}")
+
+
+def _check_operands(name: str, dtype: torch.dtype, *ts: torch.Tensor) -> None:
+    _check_world(name, dtype, ts[0].shape[0])
     dev = ts[0].device
     for t in ts:
         if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
@@ -358,14 +383,26 @@ def _launch(name: str, x: torch.Tensor, buf: torch.Tensor, stage: Optional[torch
     in ``x``'s dtype."""
     operands = [t for t in (x, buf, stage, out, sstage, qbuf, sbuf) if t is not None]
     _check_operands(name, x.dtype, *operands)
+    return _enqueue(name, x, buf, stage, out, streams, dirs, cid, slot_bytes,
+                    wire_dtype=wire_dtype, sstage=sstage, qbuf=qbuf, sbuf=sbuf)
+
+
+def _enqueue(name: str, x: torch.Tensor, buf: Optional[torch.Tensor],
+             stage: Optional[torch.Tensor], out: Optional[torch.Tensor], streams: int,
+             dirs: Sequence[int], cid: int, slot_bytes: int, *, row_elems: int = 0,
+             wire_dtype: Optional[str] = None, sstage: Optional[torch.Tensor] = None,
+             qbuf: Optional[torch.Tensor] = None,
+             sbuf: Optional[torch.Tensor] = None) -> _lanes.Lane:
+    """The C entry on checked operands (``row_elems``: B5's row length, as
+    the entry sets out)."""
     n = x.shape[0]
     lane = _lane(x.device, cid)
     stream = torch.cuda.current_stream(x.device)
     t = _lanes.table
     rc = _lib().uccl_ring_launch(
         _KERNEL_ID[name], _ADD_DTYPES.get(x.dtype, 0), _WIRE_ID.get(wire_dtype, 0), n,
-        n, streams, dirs[0], dirs[-1], slot_bytes, t(x, n), t(buf, n), t(stage, n), t(out, n),
-        t(sstage, n), t(qbuf, n), t(sbuf, n), t(lane.flags, n),
+        n, streams, dirs[0], dirs[-1], slot_bytes, row_elems, t(x, n), t(buf, n), t(stage, n),
+        t(out, n), t(sstage, n), t(qbuf, n), t(sbuf, n), t(lane.flags, n),
         ctypes.c_void_p(lane.err.data_ptr()), cid, lane.next_epoch(),
         _lanes.SPIN_TIMEOUT_MS.get() * 1_000_000, ctypes.c_void_p(stream.cuda_stream))
     _lanes.raise_on_launch(rc, name, x.device)
@@ -379,13 +416,21 @@ def launch_ag(chunk: torch.Tensor, out: torch.Tensor, direction: int, cid: int) 
     return _launch("ring_all_gather", chunk, out, None, None, 1, (direction,), cid, m_bytes)
 
 
-def launch_rs(chunks: torch.Tensor, buf: torch.Tensor, stage: torch.Tensor,
-              out: torch.Tensor, direction: int, cid: int) -> _lanes.Lane:
-    """B5 on ``chunks`` ``[n, n, m]`` (scratch ``buf`` alike, ``stage``
-    ``[n, 2, m]``) into ``out`` ``[n, m]``."""
-    m_bytes = chunks.shape[2] * chunks.element_size()
-    return _launch("ring_reduce_scatter", chunks, buf, stage, out, 1, (direction,), cid,
-                   m_bytes)
+def launch_rs(x: torch.Tensor, out: torch.Tensor, direction: int, cid: int) -> _lanes.Lane:
+    """B5 on ``x`` ``[n, n*per]``, the members' unpadded rows (rows at any
+    stride, slots at any element offset), into ``out`` ``[n, per]``; no
+    scratch."""
+    name, (n, size), per = "ring_reduce_scatter", x.shape, out.shape[-1]
+    _check_world(name, x.dtype, n)
+    if size != n * per:
+        raise ValueError(f"{name}: rows of {size} are not {n} slots of {per}")
+    for t in (x, out):
+        if t.device != x.device or t.dtype != x.dtype or t.dim() != 2 or t.shape[0] != n \
+                or t.stride(1) != 1:
+            raise ValueError(f"{name}: operands must be [{n}, elements] of {x.dtype} with "
+                             f"contiguous rows, on {x.device}")
+    return _enqueue(name, x, None, None, out, 1, (direction,), cid, per * x.element_size(),
+                    row_elems=size)
 
 
 def launch_ar(view: torch.Tensor, out: torch.Tensor, stage: torch.Tensor,
@@ -449,12 +494,17 @@ def _ag_kernel(chunk, direction, cid):
     return launch_ag(chunk, out, direction, cid), out
 
 
-def _rs_kernel(chunks, direction, cid, wire_dtype=None):
-    """One B5 launch (B6 with a ``wire_dtype``) on ``chunks``; (lane, out)."""
+def _rs_kernel(x, direction, cid):
+    """One B5 launch on ``x`` ``[n, n*per]``; (lane, out ``[n, per]``)."""
+    n = x.shape[0]
+    out = x.new_empty((n, x.shape[1] // n))
+    return launch_rs(x, out, direction, cid), out
+
+
+def _rs_q_kernel(chunks, direction, cid, wire_dtype):
+    """One B6 launch on ``chunks`` ``[n, n, m]``; (lane, out)."""
     n, _, m = chunks.shape
     buf, out = chunks.new_empty(chunks.shape), chunks.new_empty((n, m))
-    if wire_dtype is None:
-        return launch_rs(chunks, buf, chunks.new_empty((n, 2, m)), out, direction, cid), out
     qstage, sstage = _wire_buffers(chunks, n, 2)
     return launch_rs_q(chunks, buf, qstage, sstage, out, direction, cid, wire_dtype), out
 
@@ -589,9 +639,11 @@ def ring_all_gather(x: torch.Tensor, *, direction: int = 1, collective_id: int =
 def ring_reduce_scatter(x: torch.Tensor, *, direction: int = 1, collective_id: int = 0,
                         wire_dtype=None) -> torch.Tensor:
     """``[n, n*k, ...]`` → ``[n, k, ...]``: member r keeps reduced slot r
-    (sum), by B5. ``wire_dtype``: by B6 — every hop's partial sum crosses
-    block-quantized and is dequantized before it is added in the input
-    precision, one quantize round trip of error per hop."""
+    (sum), by B5 on the payload as it is: no padding, no scratch, the
+    result a view of B5's output. ``wire_dtype``: by B6 — every hop's
+    partial sum crosses block-quantized and is dequantized before it is
+    added in the input precision, one quantize round trip of error per hop.
+    On the CPU both run their hop schedule on padded slots."""
     wire_dtype = _ring_wire_dtype(x, wire_dtype, "reduce_scatter")
     n = x.shape[0]
     if n == 1:
@@ -600,7 +652,8 @@ def ring_reduce_scatter(x: torch.Tensor, *, direction: int = 1, collective_id: i
         raise ValueError(f"leading dim {x.shape[1]} not divisible by {n}")
     k = x.shape[1] // n
     flat = x.reshape(n, -1)
-    chunks, per, m = _dma.pad_chunks(flat, n)  # [n, n, rows, 128]
+    per = flat.shape[1] // n
+    m = _dma.padded_chunk_elems(per)
     itemsize = x.element_size()
     wire = _lax_wire(x, rs_charge(flat.shape[1], itemsize, n, wire_dtype), "reduce_scatter")
     _count_wire_bytes("ring_reduce_scatter", wire, wire_dtype,
@@ -609,12 +662,17 @@ def ring_reduce_scatter(x: torch.Tensor, *, direction: int = 1, collective_id: i
         from uccl_tpu_torch.collective import plan
 
         return plan.ring_reduce_scatter(x)
-    chunks = chunks.reshape(n, n, m)
+    if wire_dtype is None and not _is_cpu(x):
+        lane, out = _rs_kernel(flat if flat.stride(1) == 1 else flat.contiguous(), direction,
+                               collective_id)
+        lane.check("ring_reduce_scatter")
+        return out.reshape((n, k) + tuple(x.shape[2:]))
+    chunks = _dma.pad_chunks(flat, n)[0].reshape(n, n, m)
     if _is_cpu(x):  # past the budget too: the quantized mirror is the plain version
         out = (rs_plain(chunks, direction) if wire_dtype is None
                else rs_q_plain(chunks, direction, wire_dtype))
     else:
-        lane, out = _rs_kernel(chunks, direction, collective_id, wire_dtype)
+        lane, out = _rs_q_kernel(chunks, direction, collective_id, wire_dtype)
         lane.check("ring_reduce_scatter")
     return out[:, :per].reshape((n, k) + tuple(x.shape[2:]))
 

@@ -17,14 +17,17 @@
 // move each member's bytes. On one card every address in the table lies in
 // the same HBM, so a "hop" is an HBM-to-HBM store; members on separate cards
 // need only another table (peer or IPC addresses) and the .sys memory scope.
+// B5 is no ring on this card: one pull pass per member, set out above
+// ring_rs_kernel.
 //
-// Schedule, exactly the JAX package's slot arithmetic (d = direction):
+// Schedule of the ring kernels, exactly the JAX package's slot arithmetic
+// (d = direction):
 //   AG step s sends slot (r - d*s) mod n straight into the right
 //     neighbor's slot of the same index (write-once slots);
-//   RS step s sends slot (r - d*(s+1)) mod n into the right neighbor's
-//     staging slot s%2, and folds the partial that arrives from the left
-//     into slot (r - d*(s+2)) mod n, in the input dtype, one rounding per
-//     hop (buf + stage, pallas_ccl.py:242);
+//   RS step s (B6, B7) sends slot (r - d*(s+1)) mod n into the right
+//     neighbor's staging slot s%2, and folds the partial that arrives from
+//     the left into slot (r - d*(s+2)) mod n, in the input dtype, one
+//     rounding per hop (buf + stage, pallas_ccl.py:242);
 //   B7 runs the RS phase, a phase barrier, then the AG phase, on a payload
 //     laid out slot-major, then by stream ([n][S][m], pallas_ccl.py:673-676).
 //
@@ -66,10 +69,10 @@
 // that no multiply and add contract into an fma, no fast-math.
 //
 // Bound. All five move bytes and do a handful of operations per element per
-// hop: HBM bandwidth bounds them (3.35 TB/s on an H100 SXM). Copies and
-// folds use 16-byte vector loads and stores through L2 (ld.global.cg /
-// st.global.cg), since staging slots are rewritten every other step by
-// another SM.
+// hop: HBM bandwidth bounds them (3.35 TB/s on an H100 SXM). The ring
+// kernels' copies and folds use 16-byte vector loads and stores through L2
+// (ld.global.cg / st.global.cg), since staging slots are rewritten every
+// other step by another SM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -84,7 +87,7 @@ namespace {
 
 using namespace uccl;
 
-constexpr int kFlagWords = 4;  // recv, ack, phase, entry
+constexpr int kFlagWords = 4;  // recv, ack, phase (B5: exit), entry
 
 constexpr int kWarps = kThreads / 32;
 // Rows a warp has in flight. The quantized kernels are built for two blocks
@@ -97,13 +100,18 @@ constexpr float kScaleTiny = 1.17549435e-38f;  // smallest normal f32
 
 enum Kernel { kAG = 0, kRS = 1, kAR = 2, kRSQ = 3, kARQ = 4 };
 enum Wire { kFp8 = 0, kInt8 = 1 };
-enum Wait { kWaitEntry = 0, kWaitCredit = 1, kWaitRecv = 2, kWaitPhase = 3 };
+// B5's full-peer barriers (kWaitPeers at entry, kWaitPeersExit at exit): the
+// error word's step is the peer awaited
+enum Wait {
+  kWaitEntry = 0, kWaitCredit = 1, kWaitRecv = 2, kWaitPhase = 3, kWaitPeers = 4,
+  kWaitPeersExit = 5
+};
 
 struct RingArgs {
   const char* x[kMaxMembers];        // member inputs
   char* buf[kMaxMembers];            // member data slots ([n][S][slot_bytes])
   char* stage[kMaxMembers];          // member staging ([S][2][slot_bytes])
-  char* out[kMaxMembers];            // B5: member output ([slot_bytes])
+  char* out[kMaxMembers];            // B5, B6: member output ([slot_bytes])
   unsigned long long* flags[kMaxMembers];  // member flags ([2][kMaxChannels][kFlagWords])
   // quantized wire: B6/B8 stage payload bytes in ``stage`` ([S][2][m]) and
   // row scales in ``sstage`` ([S][2][srow]); B8 gathers into ``qbuf``
@@ -204,13 +212,11 @@ __device__ bool entry_barrier(const RingArgs& a, int r, int h, int c, int right,
          wait_geq(a, flag(a, left, h, c, 3), mark(a, 1), r, h, c, -1, kWaitEntry);
 }
 
-// The reduce-scatter phase of one stream (pallas_ccl.py:206 _rs_phase).
-// Slots of x are never folded before they are read, so a fold reads x and
-// the arrived partial, and writes the member's data slot (B5 writes its own
-// slot r, the last one folded, to its output).
+// The reduce-scatter phase of one stream of B7 (pallas_ccl.py:206
+// _rs_phase). Slots of x are never folded before they are read, so a fold
+// reads x and the arrived partial, and writes the member's data slot.
 template <typename T>
-__device__ bool rs_phase(const RingArgs& a, int r, int h, int c, int d, Range rg,
-                         char* last_dst) {
+__device__ bool rs_phase(const RingArgs& a, int r, int h, int c, int d, Range rg) {
   const int n = a.n, right = mod(r + d, n), left = mod(r - d, n);
   const char* x = a.x[r];
   char* buf = a.buf[r];
@@ -223,8 +229,7 @@ __device__ bool rs_phase(const RingArgs& a, int r, int h, int c, int d, Range rg
     signal(flag(a, right, h, c, 0), mark(a, s + 1));
     if (!wait_geq(a, flag(a, r, h, c, 0), mark(a, s + 1), r, h, c, s, kWaitRecv)) return false;
     const int recv_slot = mod(r - d * (s + 2), n);
-    char* dst = (s == n - 2 && last_dst) ? last_dst : buf + slot_off(a, recv_slot, h);
-    fold16<T>(dst, x + slot_off(a, recv_slot, h),
+    fold16<T>(buf + slot_off(a, recv_slot, h), x + slot_off(a, recv_slot, h),
               a.stage[r] + ((long long)h * 2 + (s & 1)) * a.slot_bytes, rg);
     signal(flag(a, left, h, c, 1), mark(a, s + 1));
   }
@@ -261,12 +266,207 @@ __global__ void __launch_bounds__(kThreads) ring_ag_kernel(RingArgs a) {
   ag_phase(a, r, 0, c, d, rg, a.x[r], 0);
 }
 
+// ---------------------------------------------------------------------------
+// B5: the reduce-scatter as one pull pass (replaces ring_reduce_scatter's
+// full-precision kernel, pallas_ccl.py:546)
+//
+// What it computes, bit for bit as the JAX kernel and rs_plain: member k's
+// output is slot k summed along the chain the ring's hops make
+// (d = direction, member indices mod W):
+//   out[k] = x[k][k] + (x[k-d][k] + (... + (x[k+2d][k] + x[k+d][k])))
+// Each "+" is one correctly rounded add in the input dtype (f32, bf16, f16,
+// or wrapping int32), in that order, because that is the order rs_phase
+// folds in: step s of the ring adds the partial arriving from the left into
+// the member's own slot. Summing in f32 and rounding once would be more
+// accurate, and no longer bit-identical to the reference for bf16 and f16.
+//
+// Bound: HBM bytes. The function reads W·P (every member's row of P
+// elements) and writes P (P/W per member): (W+1)·P over 3.35 TB/s. The ring
+// schedule moved 3.75·P per member at W = 4 (each of W-1 hops a staging
+// copy, a read and a write, then a fold, two reads and a write, of P/W),
+// with a flag wait between hops and a credit window on top. On one card
+// every member's input is in the same HBM before the launch, so blockIdx.y
+// = k is the member that owns the output and its blocks stride over slot k:
+// for each 16-byte vector they load the W terms x[k+d][k], ..., x[k][k]
+// from the member table (peer addresses can fill it later), add them in the
+// chain's order and store the result once. That moves exactly the bound's
+// bytes, with no staging, no credits and no per-hop wait.
+//
+// Loads and stores. The inputs are read once and never written during the
+// launch: loads take the non-coherent path, skip L1 and mark their lines
+// first out of L2; the result is stored streaming. A thread has kRsVecs
+// vectors of kRsGroup members, 8 x 16 bytes, in flight at once; at two
+// blocks of 512 threads per SM that is 128 KB per SM, several times what
+// HBM's latency-bandwidth product needs. A member's blocks take turns over
+// runs of its slot, so the whole card reads a narrow window of each term at
+// a time: with one contiguous range per block (1,280 streams spread over
+// the 6.4 GB of the gradient bucket) the H100 reached 0.72 of the bound,
+// with the turns 0.87. That is past 0.8, so plain vector loads and no TMA
+// ring in shared memory: the bytes already stream straight from HBM into
+// the registers that add them, and a bulk copy would add a shared-memory
+// round trip.
+//
+// Ragged slots. The wrapper hands over the caller's payload as it is, so
+// slot k starts k·per elements into each row and need not be 16-byte
+// aligned, and the rows themselves are offset differently whenever their
+// length W·per·itemsize is no multiple of 16 (a bf16 bucket whose length is
+// no multiple of 8). The vectors are aligned on the output: its elements up
+// to the first 16-byte boundary and its ragged tail are summed one by one,
+// the vectors in between as above. A term that lies at another offset mod
+// 16 is read as the two aligned vectors around each of its vectors,
+// funnel-shifted into place: its HBM bytes stay the same (the second load
+// is the next thread's first, from L2), and such a launch keeps one vector
+// a thread so that both loads of every term stay in registers.
+//
+// Contract, as csrc/collective.cuh's: a full-peer entry barrier on the flag
+// words (a member reads every peer, not only its neighbors: B9's barrier),
+// each wait bounded by %globaltimer with the error word, new epochs per
+// launch. And a full-peer exit barrier: a member's launch ends only when
+// every member has read its share of that member's row, so that members on
+// separate cards cannot rewrite an input another member still reads. On
+// one card the stream already orders every writer after the launch, so the
+// exit barrier matters only there; it costs under 0.1% at the bucket
+// (measured on the H100). The grid is half the card, as every ring
+// kernel's: the whole card measured no faster on the H100 at the bucket.
+
+constexpr int kRsVecs = 2;   // vectors of a slot a thread sums at once
+constexpr int kRsGroup = 4;  // members whose loads go out together
+
+__device__ __forceinline__ unsigned long long l2_evict_first() {
+  unsigned long long policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
+  return policy;
+}
+
+// A 16-byte load of an input no one writes during the launch.
+__device__ __forceinline__ int4 ld_once(const int4* p, unsigned long long policy) {
+  int4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.L2::cache_hint.v4.s32 {%0, %1, %2, %3}, [%4], %5;"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p), "l"(policy));
+  return v;
+}
+
+// The 16 bytes that start ``sh`` bytes into the aligned vector ``lo``
+// (0 < sh < 16), the rest from the next vector ``hi``.
+__device__ __forceinline__ int4 shift16(int4 lo, int4 hi, int sh) {
+  unsigned t0, t1, t2, t3, t4;
+  switch (sh >> 2) {
+    case 0: t0 = lo.x; t1 = lo.y; t2 = lo.z; t3 = lo.w; t4 = hi.x; break;
+    case 1: t0 = lo.y; t1 = lo.z; t2 = lo.w; t3 = hi.x; t4 = hi.y; break;
+    case 2: t0 = lo.z; t1 = lo.w; t2 = hi.x; t3 = hi.y; t4 = hi.z; break;
+    default: t0 = lo.w; t1 = hi.x; t2 = hi.y; t3 = hi.z; t4 = hi.w; break;
+  }
+  const unsigned b = (sh & 3) * 8;
+  return make_int4(__funnelshift_r(t0, t1, b), __funnelshift_r(t1, t2, b),
+                   __funnelshift_r(t2, t3, b), __funnelshift_r(t3, t4, b));
+}
+
+// a + b in T by add16's rule (the one element in lane 0 of two vectors)
 template <typename T>
-__global__ void __launch_bounds__(kThreads) ring_rs_kernel(RingArgs a) {
-  const int r = blockIdx.y, c = blockIdx.x, d = a.dir[0];
-  const Range rg = channel_range(a, c);
-  if (!entry_barrier(a, r, 0, c, mod(r + d, a.n), mod(r - d, a.n))) return;
-  rs_phase<T>(a, r, 0, c, d, rg, a.out[r]);
+__device__ __forceinline__ T add1(T a, T b) {
+  int4 va = {}, vb = {};
+  *reinterpret_cast<T*>(&va) = a;
+  *reinterpret_cast<T*>(&vb) = b;
+  int4 s = add16<T>(va, vb);
+  return *reinterpret_cast<T*>(&s);
+}
+
+// All threads: a B5 barrier on channel c over flag ``word`` (3 at entry,
+// 2 at exit). Member k raises its word, and thread p waits for member p's:
+// every peer's, since k reads them all. False when a wait timed out or
+// another block already failed.
+__device__ bool peer_barrier(const RingArgs& a, int k, int c, int word, int what) {
+  __shared__ int bad;
+  signal(flag(a, k, 0, c, word), mark(a, 1));
+  if (threadIdx.x == 0) bad = 0;
+  __syncthreads();
+  const int p = threadIdx.x;
+  if (p < a.n && p != k &&
+      !spin_geq(flag(a, p, 0, c, word), mark(a, 1), a.err, a.timeout_ns,
+                {a.kernel, k, p, a.cid, 0, c, what}))
+    atomicOr(&bad, 1);
+  __syncthreads();
+  return bad == 0;
+}
+
+// dst[i] = the chain's sum of the terms' vectors i, for i < vecs;
+// ``term[j]`` is the (j+1)-th term's slot, ``off`` the bytes before vector 0
+// (dst + off is 16-byte aligned; with kShift a term need not be). The C
+// blocks of a member take turns over runs of kVecs·kThreads vectors, so
+// that the card reads a narrow window of each term at a time.
+template <typename T, bool kShift>
+__device__ __forceinline__ void chain_vectors(const char* const* term, int n, long long off,
+                                              char* dst, long long vecs, int c, int C) {
+  constexpr int kVecs = kShift ? 1 : kRsVecs;
+  const unsigned long long policy = l2_evict_first();
+  int4* out = reinterpret_cast<int4*>(dst + off);
+  for (long long i = (long long)c * kVecs * kThreads + threadIdx.x; i < vecs;
+       i += (long long)C * kVecs * kThreads) {
+    int4 acc[kVecs];
+    for (int j0 = 0; j0 < n; j0 += kRsGroup) {
+      int4 v[kRsGroup][kVecs], w[kRsGroup][kVecs];  // w: the next aligned vectors (kShift)
+      int sh[kRsGroup];
+#pragma unroll
+      for (int g = 0; g < kRsGroup; ++g) {
+        if (j0 + g >= n) break;
+        const char* p = term[j0 + g] + off;
+        sh[g] = kShift ? (int)(reinterpret_cast<uintptr_t>(p) & 15) : 0;
+        const int4* s = reinterpret_cast<const int4*>(p - sh[g]);
+#pragma unroll
+        for (int u = 0; u < kVecs; ++u) {
+          if (i + u * kThreads >= vecs) continue;
+          v[g][u] = ld_once(s + i + u * kThreads, policy);
+          if (kShift && sh[g]) w[g][u] = ld_once(s + i + u * kThreads + 1, policy);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < kRsGroup; ++g) {
+        if (j0 + g >= n) break;
+#pragma unroll
+        for (int u = 0; u < kVecs; ++u) {
+          const int4 t = kShift && sh[g] ? shift16(v[g][u], w[g][u], sh[g]) : v[g][u];
+          acc[u] = j0 + g == 0 ? t : add16<T>(t, acc[u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u)
+      if (i + u * kThreads < vecs) __stcs(out + i + u * kThreads, acc[u]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) ring_rs_kernel(RingArgs a) {
+  constexpr long long kElems = 16 / sizeof(T);  // elements of a vector
+  const int n = a.n, k = blockIdx.y, c = blockIdx.x, d = a.dir[0];
+  const long long per = a.slot_bytes / (long long)sizeof(T);
+  // term[j]: the chain's (j+1)-th term, slot k of member k + (j+1)·d
+  __shared__ const char* term[kMaxMembers];
+  if (threadIdx.x < n)
+    term[threadIdx.x] = a.x[mod(k + ((int)threadIdx.x + 1) * d, n)] + k * a.slot_bytes;
+  if (!peer_barrier(a, k, c, 3, kWaitPeers)) return;  // its __syncthreads publish term
+  char* dst = a.out[k];
+  // elements [0, head) and [rest, per) one by one, vectors in between
+  const long long to_vector = (16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15;
+  const long long head = min(per, to_vector / (long long)sizeof(T));
+  const long long vecs = (per - head) / kElems, off = head * (long long)sizeof(T);
+  bool shifted = false;
+  for (int j = 0; j < n; ++j) shifted |= ((reinterpret_cast<uintptr_t>(term[j]) + off) & 15) != 0;
+  if (shifted)
+    chain_vectors<T, true>(term, n, off, dst, vecs, c, a.C);
+  else
+    chain_vectors<T, false>(term, n, off, dst, vecs, c, a.C);
+  const long long rest = head + vecs * kElems, singles = head + per - rest;
+  for (long long t = (long long)c * kThreads + threadIdx.x; t < singles;
+       t += (long long)a.C * kThreads) {
+    const long long e = t < head ? t : rest + (t - head);
+    T acc = __ldcs(reinterpret_cast<const T*>(term[0]) + e);
+    for (int j = 1; j < n; ++j) acc = add1<T>(__ldcs(reinterpret_cast<const T*>(term[j]) + e), acc);
+    __stcs(reinterpret_cast<T*>(dst) + e, acc);
+  }
+  // channel c of every member has read its share of this member's row
+  peer_barrier(a, k, c, 2, kWaitPeersExit);
 }
 
 template <typename T>
@@ -275,7 +475,7 @@ __global__ void __launch_bounds__(kThreads) ring_ar_kernel(RingArgs a) {
   const int right = mod(r + d, a.n), left = mod(r - d, a.n);
   const Range rg = channel_range(a, c);
   if (!entry_barrier(a, r, h, c, right, left)) return;
-  if (!rs_phase<T>(a, r, h, c, d, rg, nullptr)) return;
+  if (!rs_phase<T>(a, r, h, c, d, rg)) return;
   // Phase barrier: my AG stores into the right neighbor's slots must land
   // after its RS phase has read and folded them (pallas_ccl.py:701-706).
   signal(flag(a, r, h, c, 2), mark(a, 1));
@@ -589,26 +789,40 @@ extern "C" {
 // 3 = quantized reduce-scatter (B6), 4 = quantized all-reduce (B8).
 // dtype (B5-B8): 0 float32, 1 bfloat16, 2 float16, 3 int32 (B5, B7 only); B4
 // moves bytes. wire (B6, B8): 0 fp8 e4m3fn, 1 int8. slot_bytes is one chunk
-// slot in the input dtype. Tables hold one address per member; B6 and B8
-// take their payload staging in ``stage`` and their scale staging in
-// ``sstage``, B8 its gather buffers in ``qbuf`` and ``sbuf``. ``live``
-// launches members [0, live) only (live < n is a test of the spin bound: the
-// missing members' peers time out). Returns 0, a cudaError_t, or -1 for
-// arguments out of range.
+// slot in the input dtype, a whole number of 16-byte vectors; B5 instead
+// takes the caller's unpadded rows: ``x`` holds each member's row of
+// row_elems = n * per elements (any element alignment), slot_bytes is
+// per * itemsize, ``out`` holds each member's per results, and ``buf`` and
+// ``stage`` are null. Every other kernel ignores row_elems.
+// Tables hold one address per member; B6 and B8 take their payload staging
+// in ``stage`` and their scale staging in ``sstage``, B8 its gather buffers
+// in ``qbuf`` and ``sbuf``. ``live`` launches members [0, live) only
+// (live < n is a test of the spin bound: the missing members' peers time
+// out). Returns 0, a cudaError_t, or -1 for arguments out of range.
 int uccl_ring_launch(int kernel, int dtype, int wire, int n, int live, int S, int dir0, int dir1,
-                     long long slot_bytes, const void* const* x, void* const* buf,
-                     void* const* stage, void* const* out, void* const* sstage,
-                     void* const* qbuf, void* const* sbuf, void* const* flags, void* err,
-                     int cid, unsigned long long epoch, unsigned long long timeout_ns,
-                     void* stream) {
+                     long long slot_bytes, long long row_elems, const void* const* x,
+                     void* const* buf, void* const* stage, void* const* out,
+                     void* const* sstage, void* const* qbuf, void* const* sbuf,
+                     void* const* flags, void* err, int cid, unsigned long long epoch,
+                     unsigned long long timeout_ns, void* stream) {
   const bool quant = kernel == kRSQ || kernel == kARQ;
   if (n < 2 || n > kMaxMembers || live < 1 || live > n || (S != 1 && S != 2) ||
-      (kernel != kAR && kernel != kARQ && S != 1) || slot_bytes <= 0 || slot_bytes % 16)
+      (kernel != kAR && kernel != kARQ && S != 1))
     return -1;
+  if (kernel == kRS) {
+    static const int kItem[] = {4, 2, 2, 4};
+    if (dtype < 0 || dtype > 3 || slot_bytes <= 0 || slot_bytes % kItem[dtype] ||
+        row_elems != n * (slot_bytes / kItem[dtype]) || !out)
+      return -1;
+    for (int r = 0; r < n; ++r)
+      if ((buf && buf[r]) || (stage && stage[r]) || !out[r]) return -1;
+  } else if (slot_bytes <= 0 || slot_bytes % 16) {
+    return -1;
+  }
   RingArgs a = {};
   for (int r = 0; r < n; ++r) {
     a.x[r] = static_cast<const char*>(x[r]);
-    a.buf[r] = static_cast<char*>(buf[r]);
+    a.buf[r] = buf ? static_cast<char*>(buf[r]) : nullptr;
     a.stage[r] = stage ? static_cast<char*>(stage[r]) : nullptr;
     a.out[r] = out ? static_cast<char*>(out[r]) : nullptr;
     a.sstage[r] = sstage ? static_cast<float*>(sstage[r]) : nullptr;
@@ -633,10 +847,10 @@ int uccl_ring_launch(int kernel, int dtype, int wire, int n, int live, int S, in
   if (kernel == kAG) return launch(ring_ag_kernel, a, live, stream, a.S);
   if (kernel == kRS) {
     switch (dtype) {
-      case 0: return launch(ring_rs_kernel<float>, a, live, stream, a.S);
-      case 1: return launch(ring_rs_kernel<__nv_bfloat16>, a, live, stream, a.S);
-      case 2: return launch(ring_rs_kernel<__half>, a, live, stream, a.S);
-      case 3: return launch(ring_rs_kernel<int>, a, live, stream, a.S);
+      case 0: return launch(ring_rs_kernel<float>, a, live, stream);
+      case 1: return launch(ring_rs_kernel<__nv_bfloat16>, a, live, stream);
+      case 2: return launch(ring_rs_kernel<__half>, a, live, stream);
+      case 3: return launch(ring_rs_kernel<int>, a, live, stream);
     }
     return -1;
   }
