@@ -155,10 +155,11 @@ def build_kernels() -> None:
     root = build.PACKAGE_DIR.parent
     name = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)_kernelILi\d+ELi\d+E")
     ptxas = ptxas_report("flash_attention", lambda n: name.search(n)[0])
-    for k in ptxas:  # B1's ring of K/V stages is dynamic shared memory
-        m = re.match(r"flash_fwd_kernelILi(\d+)ELi(\d+)E", k["kernel"])
-        if m:
-            k["dynamic_smem"] = fa._lib().uccl_flash_fwd_smem(int(m[1]), int(m[2]))
+    for k in ptxas:  # each kernel's resident tiles and ring of stages are dynamic shared memory
+        m = re.match(r"flash_(fwd|bwd_dq|bwd_dkv)_kernelILi(\d+)ELi(\d+)E", k["kernel"])
+        d, tile = int(m[2]), int(m[3])
+        k["dynamic_smem"] = (fa._lib().uccl_flash_fwd_smem(d, tile) if m[1] == "fwd" else
+                             fa._lib().uccl_flash_bwd_smem(int(m[1] == "bwd_dkv"), d, tile))
     emit("build", library=str(lib.relative_to(root)), seconds=round(seconds, 3), ptxas=ptxas)
     ring_ptxas = ptxas_report("ring_ccl", lambda n: n[n.find("ring_"):])
     for k in ring_ptxas:  # B5 is built for two blocks of 512 threads per SM
@@ -233,11 +234,19 @@ def out_without_kv_tile(q, k, v, tile, rows=64):
     p = torch.softmax(s.masked_fill(~keep, _NEG_INF), dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype)
 
+def dq_without_kv_tile(q, k, v, dout, lse, delta, tile, rows=64):
+    """The causal dQ had it skipped KV tile ``tile`` for every q row past
+    that tile."""
+    _, ds, n_rep = fa._plain_p_ds(q, k, v, dout, lse, delta, True)
+    ds[:, :, (tile + 1) * rows:, tile * rows:(tile + 1) * rows] = 0
+    return torch.einsum("bhqk,bkhd->bqhd", ds, _repeat_kv(k.float(), n_rep)).to(q.dtype)
+
 def planted_faults(x, plain) -> None:
-    """The readings of faults the check must reject, at the same inputs: a
-    forward that drops KV tile 1 and a dK/dV pass that drops q tile 1 (both
-    made with the plain version), and the dQ and dK/dV kernels run with the
-    lse cotangent left out of delta. Fails if any would pass."""
+    """The readings of faults the check must reject, at the same inputs
+    (made with the plain version): a forward and a dQ that drop KV tile 1, a
+    dK/dV pass that drops q tile 1, and one whose GQA sum drops query head 1
+    of each KV head's group; and the dQ and dK/dV kernels run with the lse
+    cotangent left out of delta. Fails if any would pass."""
     q, k, v, dout = x["q"], x["k"], x["v"], x["dout"]
     lse, delta = plain["lse"], plain["delta"]
     delta_no_glse = fa.flash_delta(plain["out"], dout)
@@ -245,11 +254,20 @@ def planted_faults(x, plain) -> None:
     dout_drop, delta_drop = dout.clone(), delta.clone()
     dout_drop[:, rows], delta_drop[:, :, rows] = 0, 0
     dk_drop, dv_drop = fa.flash_bwd_dkv_plain(q, k, v, dout_drop, lse, delta_drop, True)
+    n_rep = q.shape[2] // k.shape[2]
+    heads = torch.arange(q.shape[2], device=DEV) % n_rep == 1  # query head 1 of each group
+    dout_head, delta_head = dout.clone(), delta.clone()
+    dout_head[:, :, heads], delta_head[:, heads] = 0, 0
+    dk_head, dv_head = fa.flash_bwd_dkv_plain(q, k, v, dout_head, lse, delta_head, True)
     dk_glse, dv_glse = fa.flash_bwd_dkv(q, k, v, dout, lse, delta_no_glse, True)
     faults = {
         "out: KV tile 1 dropped": (out_without_kv_tile(q, k, v, 1), plain["out"]),
+        "dq: KV tile 1 dropped": (dq_without_kv_tile(q, k, v, dout, lse, delta, 1),
+                                  plain["dq"]),
         "dk: q tile 1 dropped": (dk_drop, plain["dk"]),
         "dv: q tile 1 dropped": (dv_drop, plain["dv"]),
+        "dk: GQA query head 1 dropped": (dk_head, plain["dk"]),
+        "dv: GQA query head 1 dropped": (dv_head, plain["dv"]),
         "dq: g_lse ignored": (fa.flash_bwd_dq(q, k, v, dout, lse, delta_no_glse, True),
                               plain["dq"]),
         "dk: g_lse ignored": (dk_glse, plain["dk"]),
@@ -346,22 +364,36 @@ def time_kernels(b, s, h, hkv, d) -> dict:
         res[name]["library_ms"] = lib_bwd_ms
         res[name]["library_call"] = ("aten._scaled_dot_product_flash_attention_backward "
                                      "(dq, dk and dv in one call: B2 + B3)")
-    # B1's arms beside SDPA's: both q tiles, causal or not (twice the tiles
-    # per CTA, the same CTAs), and twice the batch (twice the CTAs)
-    arms = {}
+    # The kernels' arms beside the library's: both CTA tiles, causal or not
+    # (twice the tiles per CTA, the same CTAs), and twice the batch (twice
+    # the CTAs). B1 beside SDPA; B2 and B3 beside the flash backward.
+    arms, bwd_arms = {}, {}
     for causal, bb in ((True, b), (False, b), (True, 2 * b)):
         xa = x if bb == b else attn_inputs(bb, s, h, hkv, d, seed=3)
-        qa, ka, va = xa["q"], xa["k"], xa["v"]
+        qa, ka, va, da = xa["q"], xa["k"], xa["v"], xa["dout"]
         for bq in HOPPER_TILES:
             arms[f"B1 B={bb} causal={causal} block_q={bq}"] = time_ms(
                 lambda: fa.flash_fwd(qa, ka, va, causal, bq), 20)
         qs, ks, vs = (t.repeat_interleave(rep, dim=2) if t is not qa else t for t in (qa, ka, va))
-        arms[f"SDPA B={bb} causal={causal}"] = time_ms(lambda: F.scaled_dot_product_attention(
-            qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2), is_causal=causal), 20)
+        qs, ks, vs, gs = (t.transpose(1, 2) for t in (qs, ks, vs, da))
+        arms[f"SDPA B={bb} causal={causal}"] = time_ms(
+            lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal), 20)
+        oa, la = fa.flash_fwd(qa, ka, va, causal)
+        dla = fa.flash_delta(oa, da)
+        for tile in HOPPER_TILES:
+            bwd_arms[f"B2 B={bb} causal={causal} block_q={tile}"] = time_ms(
+                lambda: fa.flash_bwd_dq(qa, ka, va, da, la, dla, causal, tile), 20)
+            bwd_arms[f"B3 B={bb} causal={causal} block_k={tile}"] = time_ms(
+                lambda: fa.flash_bwd_dkv(qa, ka, va, da, la, dla, causal, tile), 20)
+        o, lse_l, cq, ck, mq, mk, seed, offset, _ = \
+            torch.ops.aten._scaled_dot_product_flash_attention(qs, ks, vs, 0.0, causal)
+        bwd_arms[f"library bwd B={bb} causal={causal}"] = time_ms(
+            lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                gs, qs, ks, vs, o, lse_l, cq, ck, mq, mk, 0.0, causal, seed, offset), 20)
     emit("kernel_timing", shape=dict(B=b, S=s, H=h, Hkv=hkv, D=d, causal=True),
          kernels=res, ours_bwd_ms=res["flash_bwd_dq"]["ms"] + res["flash_bwd_dkv"]["ms"],
          library_bwd_ms=lib_bwd_ms, library_dq_norm_ratio_vs_ours=lib_dq_norm_ratio,
-         b1_arms=arms)
+         b1_arms=arms, bwd_arms=bwd_arms)
     return res
 
 # ---------------------------------------------------------------------------

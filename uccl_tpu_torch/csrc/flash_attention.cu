@@ -14,11 +14,20 @@
 // causal) each kernel does 2-4 S x S x D matrix products per (batch, head)
 // and moves only the O(S * D) tensors, so all three are bound by tensor-core
 // operations, not by bytes (see chip_smoke.py for the bound it computes).
-// The forward (redesigned in PR 5) runs on wgmma with a TMA-fed, multi-stage
-// K/V ring and a producer warp; its note below says how. The two backward
-// kernels are still PR 1's simple and right first version: mma.sync
-// m16n8k16 bf16 products with f32 accumulation, the backward row terms in
-// registers, and one synchronous shared-memory stage for the streamed tile.
+// All three run on wgmma, fed by a multi-stage ring of TMA loads that a
+// producer warp keeps ahead of the consumer warpgroups. The notes before
+// each kernel say how.
+//
+// The pipeline-wait rule. Every wait of these kernels is on an mbarrier of
+// its own CTA: a stage's data arriving, or a stage being released. Such a
+// wait can stall only on a fault of the kernel itself (a wrong byte count,
+// a missed arrival); no other member, process or card is involved. So each
+// wait is bounded by one constant for all three kernels (kWaitNs, 2 s) and
+// then traps: the launch ends with an error and the process's CUDA context
+// with it, instead of the card hanging. The ring kernels of ring_ccl.cu and
+// ep_a2a.cu wait on other members, which may be missing as an operating
+// condition; those waits write an error word that the wrapper raises on,
+// and the process lives on.
 //
 // Semantics kept from the Pallas kernels: the finite mask value -1e30 and the
 // row-sum floor 1e-20 (so no row becomes NaN), causal masking with aligned
@@ -26,8 +35,8 @@
 // q's type and dk/dv in k's type.
 //
 // Each C entry point launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError() (0 on success). The forward's tensor maps are
-// encoded on the host per call and passed by value.
+// returns cudaGetLastError() (0 on success). The tensor maps are encoded on
+// the host per call and passed by value.
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver call itself is fetched at run time
 #include <cuda_bf16.h>
@@ -39,8 +48,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;  // pallas_attention.py _NEG_INF
-constexpr int kPad = 8;            // bf16 padding per shared-memory row (B2, B3)
-constexpr int kTile = 64;          // rows of the streamed tile (B2, B3; B1's is 64 too)
 
 // ---------------------------------------------------------------------------
 // Small device helpers
@@ -48,86 +55,6 @@ constexpr int kTile = 64;          // rows of the streamed tile (B2, B3; B1's is
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D[16x8] += A[16x16] * B[16x8], bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices, transposed on the way into registers.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1,
-                                              uint32_t& r2, uint32_t& r3,
-                                              const bf16* p) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-// A operand (16 rows x 16 k) of a row-major shared tile: rows row0..row0+15,
-// k columns k0..k0+15. Lane (g = lane/4, t = lane%4) holds rows g and g+8,
-// columns 2t, 2t+1 and 2t+8, 2t+9.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int ld,
-                                       int row0, int k0, int g, int t) {
-  const bf16* p = s + (row0 + g) * ld + k0 + 2 * t;
-  a[0] = lds32(p);
-  a[1] = lds32(p + 8 * ld);
-  a[2] = lds32(p + 8);
-  a[3] = lds32(p + 8 * ld + 8);
-}
-
-// B operand (16 k x 8 n) whose n index runs over the ROWS of a row-major
-// shared tile and whose k index runs along the row (B = tile^T).
-__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1, const bf16* s,
-                                       int ld, int n0, int k0, int g, int t) {
-  const bf16* p = s + (n0 + g) * ld + k0 + 2 * t;
-  b0 = lds32(p);
-  b1 = lds32(p + 8);
-}
-
-// B operands for two n-tiles (n0, n0+8) whose k index runs over the ROWS of a
-// row-major shared tile (B = tile): k rows k0..k0+15, columns n0..n0+15.
-__device__ __forceinline__ void load_b_trans2(uint32_t (&b)[4], const bf16* s,
-                                              int ld, int k0, int n0, int lane) {
-  ldsm_x4_trans(b[0], b[1], b[2], b[3],
-                s + (k0 + (lane & 15)) * ld + n0 + ((lane >> 4) << 3));
-}
-
-// The accumulator of a 16 x 8n product, as the A operand of the next product
-// (k over the accumulator's columns 16*kc .. 16*kc+15), rounded to bf16.
-template <int N>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[N][4],
-                                         int kc) {
-  a[0] = pack_bf16(c[2 * kc][0], c[2 * kc][1]);
-  a[1] = pack_bf16(c[2 * kc][2], c[2 * kc][3]);
-  a[2] = pack_bf16(c[2 * kc + 1][0], c[2 * kc + 1][1]);
-  a[3] = pack_bf16(c[2 * kc + 1][2], c[2 * kc + 1][3]);
-}
-
-// Copy ROWS rows of D bf16 (row pitch gpitch elements) into a shared tile
-// with row stride D + kPad, 16 bytes per thread per step.
-template <int ROWS, int D, int NT>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, long long gpitch,
-                                          int tid) {
-  constexpr int CH = D / 8;
-  constexpr int LD = D + kPad;
-#pragma unroll
-  for (int i = tid; i < ROWS * CH; i += NT) {
-    const int r = i / CH, c = i % CH;
-    *reinterpret_cast<uint4*>(s + r * LD + c * 8) =
-        *reinterpret_cast<const uint4*>(g + r * gpitch + c * 8);
-  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -141,10 +68,10 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// Hopper primitives for B1: mbarriers, TMA, wgmma
+// Hopper primitives: mbarriers, TMA, wgmma
 
 constexpr int kChunkBytes = 64 * 128;  // one [64 rows][64 bf16] swizzled chunk
-constexpr int kStages = 4;             // K/V tiles in flight in B1's ring
+constexpr int kStages = 4;             // streamed tiles in flight in each kernel's ring
 constexpr unsigned long long kWaitNs = 2000000000ull;  // a pipeline wait past 2 s traps
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -183,8 +110,7 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
 }
 
 // Wait until the barrier's phase of parity ``parity`` has completed. A wait
-// past kWaitNs traps: a fault in the pipeline ends the launch with an error
-// instead of hanging the card.
+// past kWaitNs traps (the pipeline-wait rule in the note at the top).
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   if (mbar_try_wait(bar, parity)) return;
   const unsigned long long t0 = globaltimer();
@@ -280,7 +206,8 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4
 }
 
 // ---------------------------------------------------------------------------
-// B1's steps, for one consumer warpgroup and one KV tile of 64 columns
+// The steps of one consumer warpgroup on one 64-row tile: B1's, and B2 and
+// B3 reuse issue_qk, issue_pv, to_a_operand and release
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -581,266 +508,406 @@ __global__ void __launch_bounds__(BQ * 2 + 32)
 }
 
 // ---------------------------------------------------------------------------
-// B2. dQ. Replaces pallas_attention.py::_bwd_dq_kernel.
+// B2 and B3. The backward.
 //
-// One CTA per (batch*head, q tile); each warp owns 16 q rows and keeps its Q
-// and dO operands and the dQ accumulator in registers while it streams the
-// KV tiles. P = exp(S*scale - lse) is recomputed from the saved lse;
-// delta = rowsum(dO*O) - g_lse comes in precomputed (one torch expression, as
-// it was XLA code outside the Pallas kernels).
+// What bounds them: tensor-core operations (3 and 4 S x S x D products per
+// head, the causal half of them), then one exponential per score, as B1.
+// Their first versions ran mma.sync from 4 warps that loaded every streamed
+// tile through registers between two __syncthreads, so the tensor cores
+// idled during each load; they ran at 0.18 and 0.17 of their bounds.
+//
+// This design is B1's: a producer warp streams 64-row tiles with TMA
+// through a ring of kStages stages (full/empty mbarriers), and each
+// consumer warpgroup owns 64 rows of the CTA's tile and runs every product
+// on wgmma m64n64k16. Every product of the backward takes one of B1's two
+// forms, so one 128-byte-swizzled copy of each tile serves both of its
+// products:
+//
+//   B2  S = Q K^T, dP = dO V^T    wgmma_ss   (issue_qk)
+//       dQ += dS K                wgmma_rs_t (issue_pv; K through the transpose bit)
+//   B3  S^T = K Q^T, dP^T = V dO^T  wgmma_ss
+//       dV += P^T dO, dK += dS^T Q  wgmma_rs_t (dO and Q through the transpose bit)
+//
+// P = exp2(S * scale * log2 e - lse * log2 e) from the saved lse (natural-log
+// units, converted once per row in B2 and per column read in B3); masked
+// elements are set to exactly 0 on the causal diagonal tile only, so no
+// masked exponent reaches ex2. dS = P (dP - delta) scale is formed from the
+// f32 P, then both are rounded to bf16 A fragments (to_a_operand).
+//
+// Overlap. B2 does as B1: S and dP of tile j are issued together with
+// dQ += dS K of tile j - 1, and the elementwise work of j runs while the
+// latter is in flight; a stage is released once its last reader has
+// completed. B3 does not: it issues dV and dK of a step right after that
+// step's elementwise work and waits for them, and the other CTAs on the SM
+// fill the gap. Issuing them with the next step's products measured 1.9x
+// slower at 64-row tiles and 1.3x at 128 (PERF.md), where B2's overlap
+// gains 3%.
+//
+// The narrower design at D = 128: both kernels run 64-row CTAs whichever
+// tile is asked for (kBwdRows). A CTA of two consumer warpgroups and the
+// producer warp (288 threads) gets at most 168 registers a thread (each
+// quarter of the register file holds 16,384, and 9 warps put 3 in one
+// quarter); at D = 128 its accumulators do not fit (ptxas spilled and
+// serialized the wgmma, B3 holding dK and dV in 128 f32 a thread), and
+// setmaxnreg, with the producer a whole warpgroup, did not lift ptxas's
+// limit.
+//
+// B2: one CTA per (batch*head, q tile of BQ rows), heavier q tiles first.
+// Q and dO arrive once; the K and V tiles stream, up to the causal
+// diagonal. Each lane keeps its two rows' lse and delta in registers.
+//
+// B3: one CTA per (batch, KV head, KV tile of BKV rows), heavier (earlier)
+// KV tiles first. K and V arrive once; the producer walks the n_rep query
+// heads of the GQA group and, for each, the q tiles from the causal start,
+// streaming the Q tile, the dO tile and the tile's 64 lse and 64 delta
+// values (one 1-D bulk copy each) into one stage. The GQA sum stays in the
+// accumulators over the n_rep heads: no atomics and no f32 round trip
+// through device memory, so the result is the same from run to run. With
+// BKV = 128 the upper warpgroup's first q tile of each head lies wholly
+// above the diagonal: it waits for that stage and releases it unread.
+
+// The 1-D bulk copy of ``bytes`` contiguous bytes (a multiple of 16, both
+// addresses 16-byte aligned) into shared memory, completing on ``bar``.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// dS of one B2 tile from S (sc) and dP (dp), in place in sc. Register i is
+// row ``(i >> 1) & 1`` (0: row0, 1: row0 + 8) and KV column 8 (i / 4) + 2 t
+// + (i & 1); l0/l1 are the rows' lse in log2 units, d0/d1 their delta.
+// kMask (the diagonal tile) zeroes P past each row, ``diag`` being this
+// lane's first row less the tile's first column.
+template <bool kMask>
+__device__ __forceinline__ void dq_tile_ds(float (&sc)[32], const float (&dp)[32], float l0,
+                                           float l1, float d0, float d1, float scale,
+                                           float scale_log2, int diag, int t) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int hi = (i >> 1) & 1;
+    float p = ex2(fmaf(sc[i], scale_log2, -(hi ? l1 : l0)));
+    if (kMask && (i / 4) * 8 + 2 * t + (i & 1) > diag + 8 * hi) p = 0.f;
+    sc[i] = p * (dp[i] - (hi ? d1 : d0)) * scale;
+  }
+}
+
+// P^T (into sc) and dS^T (into dp) of one B3 step from S^T and dP^T.
+// Register i is KV row ``(i >> 1) & 1`` of the lane's two and q column c =
+// 8 (i / 4) + 2 t + (i & 1), whose lse and delta the stage holds at ld[c]
+// and ld[64 + c]. kMask (the diagonal step) zeroes P where the q position
+// precedes the KV row's, ``diag`` being this lane's first KV row less the
+// tile's first q position.
+template <bool kMask>
+__device__ __forceinline__ void dkv_tile_p_ds(float (&sc)[32], float (&dp)[32],
+                                              const float* __restrict__ ld, float scale,
+                                              float scale_log2, int diag, int t) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const float2 l = *reinterpret_cast<const float2*>(ld + 8 * n + 2 * t);
+    const float2 d = *reinterpret_cast<const float2*>(ld + 64 + 8 * n + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * n + e, c = 8 * n + 2 * t + (e & 1);
+      float p = ex2(fmaf(sc[i], scale_log2, -(e & 1 ? l.y : l.x) * kLog2e));
+      if (kMask && c < diag + 8 * (e >> 1)) p = 0.f;
+      sc[i] = p;
+      dp[i] = p * (dp[i] - (e & 1 ? d.y : d.x)) * scale;
+    }
+  }
+}
+
+// Store one warpgroup's 64 x D f32 accumulator as bf16 rows row0, row0 + 8
+// of a [.., pitch] tensor at ``base`` (this lane's first row, column 2 t).
+template <int NC>
+__device__ __forceinline__ void store_rows(bf16* base, long long pitch, const float (&acc)[NC][32]) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float* a = &acc[c][4 * n];
+      *reinterpret_cast<uint32_t*>(base + c * 64 + n * 8) = pack_bf16(a[0], a[1]);
+      *reinterpret_cast<uint32_t*>(base + 8 * pitch + c * 64 + n * 8) = pack_bf16(a[2], a[3]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// B2. dQ. Replaces pallas_attention.py::_bwd_dq_kernel.
+
+// One consumer warpgroup of B2: q rows wg_first .. wg_first + 63 of (b, h),
+// over the CTA's n_iter K/V tiles.
+template <int D>
+__device__ __forceinline__ void flash_dq_consumer(uint32_t q_tile, uint32_t o_tile, uint32_t bar_q,
+                                                  uint32_t sK, uint32_t sV, uint32_t bar_full,
+                                                  uint32_t bar_empty,
+                                                  const float* __restrict__ lse,
+                                                  const float* __restrict__ delta,
+                                                  bf16* __restrict__ dq, int b, int h,
+                                                  int wg_first, int n_iter, int Sq, int H,
+                                                  float scale, float scale_log2, int causal,
+                                                  int warp, int lane) {
+  constexpr int NC = D / 64;
+  const int g = lane >> 2, t = lane & 3;
+  // the lower warpgroup of a causal 128-row q tile ends one tile early
+  const int wg_iter = causal ? min(n_iter, wg_first / 64 + 1) : n_iter;
+  const int row0 = wg_first + (warp & 3) * 16 + g;
+  auto stage = [](int j) { return j % kStages; };
+  auto wait_tile = [&](int j) { mbar_wait(bar_full + 8 * stage(j), (j / kStages) & 1); };
+  auto k_tile = [&](int j) { return sK + stage(j) * NC * kChunkBytes; };
+  auto v_tile = [&](int j) { return sV + stage(j) * NC * kChunkBytes; };
+  const long long rows = ((long long)b * H + h) * Sq;
+  const float l0 = lse[rows + row0] * kLog2e, l1 = lse[rows + row0 + 8] * kLog2e;
+  const float d0 = delta[rows + row0], d1 = delta[rows + row0 + 8];
+
+  float acc[NC][32], sc[32], dp[32];
+  uint32_t da[4][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  mbar_wait(bar_q, 0);
+
+  wait_tile(0);
+  wgmma_fence();
+  issue_qk<NC>(sc, q_tile, k_tile(0));
+  issue_qk<NC>(dp, o_tile, v_tile(0));
+  wgmma_wait<0>();
+  reg_fence(sc);
+  reg_fence(dp);
+  if (causal && 63 > wg_first)
+    dq_tile_ds<true>(sc, dp, l0, l1, d0, d1, scale, scale_log2, row0, t);
+  else
+    dq_tile_ds<false>(sc, dp, l0, l1, d0, d1, scale, scale_log2, 0, t);
+  to_a_operand(da, sc);
+  for (int j = 1; j < wg_iter; ++j) {
+    wait_tile(j);
+    fence_all<NC>(acc, da);
+    wgmma_fence();
+    issue_qk<NC>(sc, q_tile, k_tile(j));
+    issue_qk<NC>(dp, o_tile, v_tile(j));
+    issue_pv<NC>(acc, da, k_tile(j - 1));  // dQ += dS K of tile j - 1
+    wgmma_wait<1>();  // S and dP of tile j are in; dQ of tile j - 1 may still run
+    reg_fence(sc);
+    reg_fence(dp);
+    if (causal && j * 64 + 63 > wg_first)
+      dq_tile_ds<true>(sc, dp, l0, l1, d0, d1, scale, scale_log2, row0 - j * 64, t);
+    else
+      dq_tile_ds<false>(sc, dp, l0, l1, d0, d1, scale, scale_log2, 0, t);
+    wgmma_wait<0>();
+    fence_all<NC>(acc, da);
+    release(bar_empty + 8 * stage(j - 1), lane);
+    to_a_operand(da, sc);
+  }
+  fence_all<NC>(acc, da);
+  wgmma_fence();
+  issue_pv<NC>(acc, da, k_tile(wg_iter - 1));
+  wgmma_wait<0>();
+  fence_all<NC>(acc, da);
+  release(bar_empty + 8 * stage(wg_iter - 1), lane);
+
+  const long long q_pitch = (long long)H * D;
+  store_rows<NC>(dq + ((long long)b * Sq + row0) * q_pitch + (long long)h * D + 2 * t, q_pitch,
+                 acc);
+}
 
 template <int D, int BQ>
-__global__ void __launch_bounds__(BQ * 2)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int Sq, int Sk, int H, int Hkv,
-                        float scale, int causal) {
-  constexpr int BK = kTile, NT = BQ * 2, LD = D + kPad;
-  constexpr int KC = D / 16, NS = BK / 8, NO = D / 8;
+__global__ void __launch_bounds__(BQ * 2 + 32, 1)
+    flash_bwd_dq_kernel(__grid_constant__ const CUtensorMap tq,
+                        __grid_constant__ const CUtensorMap tdo,
+                        __grid_constant__ const CUtensorMap tk,
+                        __grid_constant__ const CUtensorMap tv, const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Sk,
+                        int H, int Hkv, float scale, int causal) {
+  constexpr int NC = D / 64, NWG = BQ / 64;
+  constexpr uint32_t kv_stage_bytes = 2 * 64 * D * 2;  // one K and one V tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
-  bf16* sO = sQ + BQ * LD;                       // [BQ][LD] dO
-  bf16* sK = sO + BQ * LD;                       // [BK][LD]
-  bf16* sV = sK + BK * LD;                       // [BK][LD]
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];  // Q and dO, full[], empty[]
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;  // [NWG][NC] chunks
+  const uint32_t sO = sQ + NWG * NC * kChunkBytes;           // [NWG][NC] chunks (dO)
+  const uint32_t sK = sO + NWG * NC * kChunkBytes;           // [kStages][NC] chunks
+  const uint32_t sV = sK + kStages * NC * kChunkBytes;       // [kStages][NC] chunks
+  const uint32_t bar_q = smem_u32(&bars[0]);
+  const uint32_t bar_full = smem_u32(&bars[1]), bar_empty = smem_u32(&bars[1 + kStages]);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / (H / Hkv);
-  const int iq = gridDim.y - 1 - blockIdx.y;
-  const long long q_pitch = (long long)H * D, k_pitch = (long long)Hkv * D;
-  const int q_first = iq * BQ;
-  const long long q_off = ((long long)b * Sq + q_first) * q_pitch + (long long)h * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / (H / Hkv);
+  const int q_first = (gridDim.y - 1 - blockIdx.y) * BQ;  // heavier q tiles first
+  const int n_kv = Sk / 64;
+  const int n_iter = causal ? min(n_kv, (q_first + BQ - 1) / 64 + 1) : n_kv;
 
-  load_tile<BQ, D, NT>(sQ, q + q_off, q_pitch, tid);
-  load_tile<BQ, D, NT>(sO, dout + q_off, q_pitch, tid);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, NWG * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   __syncthreads();
-  uint32_t qf[KC][4], of[KC][4];
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    load_a(qf[kc], sQ, LD, warp * 16, kc * 16, g, t);
-    load_a(of[kc], sO, LD, warp * 16, kc * 16, g, t);
-  }
-  const int row0 = q_first + warp * 16 + g;
-  const float lse0 = lse[(long long)bh * Sq + row0], lse1 = lse[(long long)bh * Sq + row0 + 8];
-  const float dl0 = delta[(long long)bh * Sq + row0], dl1 = delta[(long long)bh * Sq + row0 + 8];
 
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const int n_kv = Sk / BK;
-  const int n_iter = causal ? min(n_kv, (q_first + BQ - 1) / BK + 1) : n_kv;
-  const bf16* kg = k + (long long)b * Sk * k_pitch + (long long)hk * D;
-  const bf16* vg = v + (long long)b * Sk * k_pitch + (long long)hk * D;
-
-  for (int j = 0; j < n_iter; ++j) {
-    __syncthreads();
-    load_tile<BK, D, NT>(sK, kg + (long long)j * BK * k_pitch, k_pitch, tid);
-    load_tile<BK, D, NT>(sV, vg + (long long)j * BK * k_pitch, k_pitch, tid);
-    __syncthreads();
-
-    float s[NS][4], dp[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        uint32_t b0, b1;
-        load_b(b0, b1, sK, LD, n * 8, kc * 16, g, t);
-        mma16816(s[n], qf[kc], b0, b1);
-        load_b(b0, b1, sV, LD, n * 8, kc * 16, g, t);
-        mma16816(dp[n], of[kc], b0, b1);
+  if (warp == NWG * 4) {  // the producer warp: one lane issues every copy
+    if (lane != 0) return;
+    mbar_expect_tx(bar_q, 2 * BQ * D * 2);
+    for (int wg = 0; wg < NWG; ++wg)
+      for (int c = 0; c < NC; ++c) {
+        const int row = q_first + wg * 64;
+        tma_load(sQ + (wg * NC + c) * kChunkBytes, &tq, bar_q, c * 64, h, row, b);
+        tma_load(sO + (wg * NC + c) * kChunkBytes, &tdo, bar_q, c * 64, h, row, b);
+      }
+    for (int j = 0; j < n_iter; ++j) {
+      const int s = j % kStages;
+      if (j >= kStages) mbar_wait(bar_empty + 8 * s, (j / kStages - 1) & 1);
+      mbar_expect_tx(bar_full + 8 * s, kv_stage_bytes);
+      for (int c = 0; c < NC; ++c) {
+        tma_load(sK + (s * NC + c) * kChunkBytes, &tk, bar_full + 8 * s, c * 64, hk, j * 64, b);
+        tma_load(sV + (s * NC + c) * kChunkBytes, &tv, bar_full + 8 * s, c * 64, hk, j * 64, b);
       }
     }
-    const bool masked = causal && (j * BK + BK - 1 > q_first);
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hi = e >> 1;
-        float p = __expf(s[n][e] * scale - (hi ? lse1 : lse0));
-        if (masked) {
-          const int col = j * BK + n * 8 + 2 * t + (e & 1);
-          if (col > row0 + (hi << 3)) p = 0.f;
-        }
-        s[n][e] = p * (dp[n][e] - (hi ? dl1 : dl0)) * scale;  // dS
-      }
-    }
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t a[4];
-      acc_to_a<NS>(a, s, kc);
-#pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        uint32_t bb[4];
-        load_b_trans2(bb, sK, LD, kc * 16, n * 8, lane);
-        mma16816(acc[n], a, bb[0], bb[1]);
-        mma16816(acc[n + 1], a, bb[2], bb[3]);
-      }
-    }
+    return;
   }
-
-  bf16* d0 = dq + ((long long)b * Sq + row0) * q_pitch + (long long)h * D + 2 * t;
-  bf16* d1 = d0 + 8 * q_pitch;
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    *reinterpret_cast<uint32_t*>(d0 + n * 8) = pack_bf16(acc[n][0], acc[n][1]);
-    *reinterpret_cast<uint32_t*>(d1 + n * 8) = pack_bf16(acc[n][2], acc[n][3]);
-  }
+  const int wg = warp >> 2;
+  flash_dq_consumer<D>(sQ + wg * NC * kChunkBytes, sO + wg * NC * kChunkBytes, bar_q, sK, sV,
+                       bar_full, bar_empty, lse, delta, dq, b, h, q_first + wg * 64, n_iter, Sq,
+                       H, scale, scale * kLog2e, causal, warp, lane);
 }
 
 // ---------------------------------------------------------------------------
 // B3. dK and dV. Replaces pallas_attention.py::_bwd_dkv_kernel.
-//
-// One CTA per (batch, KV head, KV tile of BKV rows); each warp owns 16 KV
-// rows and keeps its dK and dV accumulators in registers. The CTA loops over
-// the n_rep query heads of its GQA group and, for each, over the q tiles at
-// or after its KV tile (causal), so the GQA sum happens in registers: no
-// f32 [B*H, S, D] dk/dv round trip and no fold afterwards, and no atomics.
-// Heavier (earlier) KV tiles are scheduled first.
+
+// One consumer warpgroup of B3: KV rows wg_first .. wg_first + 63 of
+// (b, hk), over the CTA's n_steps (query head, q tile) steps, n_i q tiles
+// from tile i0 for each head. dV and dK of a step are issued right after
+// its elementwise work (see the note above).
+template <int D>
+__device__ __forceinline__ void flash_dkv_consumer(uint32_t k_tile, uint32_t v_tile,
+                                                   uint32_t bar_kv, uint32_t sQ, uint32_t sO,
+                                                   const float* sLD, uint32_t bar_full,
+                                                   uint32_t bar_empty, bf16* __restrict__ dk,
+                                                   bf16* __restrict__ dv, int b, int hk,
+                                                   int wg_first, int n_steps, int n_i, int i0,
+                                                   int Sk, int Hkv, float scale,
+                                                   float scale_log2, int causal, int warp,
+                                                   int lane) {
+  constexpr int NC = D / 64;
+  const int g = lane >> 2, t = lane & 3;
+  const int krow0 = wg_first + (warp & 3) * 16 + g;  // this lane's KV rows: krow0, krow0 + 8
+
+  float dka[NC][32], dva[NC][32], sc[32], dp[32];
+  uint32_t pa[4][4], da[4][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[c][i] = dva[c][i] = 0.f;
+  mbar_wait(bar_kv, 0);
+
+  for (int j = 0; j < n_steps; ++j) {
+    const int s = j % kStages, q_first = (i0 + j % n_i) * 64;
+    const uint32_t q_tile = sQ + s * NC * kChunkBytes, o_tile = sO + s * NC * kChunkBytes;
+    mbar_wait(bar_full + 8 * s, (j / kStages) & 1);
+    if (causal && q_first < wg_first) {  // wholly above the diagonal for these rows
+      release(bar_empty + 8 * s, lane);
+      continue;
+    }
+    wgmma_fence();
+    issue_qk<NC>(sc, k_tile, q_tile);  // S^T = K Q^T
+    issue_qk<NC>(dp, v_tile, o_tile);  // dP^T = V dO^T
+    wgmma_wait<0>();
+    reg_fence(sc);
+    reg_fence(dp);
+    if (causal && q_first == wg_first)
+      dkv_tile_p_ds<true>(sc, dp, sLD + s * 128, scale, scale_log2, krow0 - q_first, t);
+    else
+      dkv_tile_p_ds<false>(sc, dp, sLD + s * 128, scale, scale_log2, 0, t);
+    to_a_operand(pa, sc);
+    to_a_operand(da, dp);
+    fence_all<NC>(dka, pa);
+    fence_all<NC>(dva, da);
+    wgmma_fence();
+    issue_pv<NC>(dva, pa, o_tile);  // dV += P^T dO
+    issue_pv<NC>(dka, da, q_tile);  // dK += dS^T Q
+    wgmma_wait<0>();
+    fence_all<NC>(dka, pa);
+    fence_all<NC>(dva, da);
+    release(bar_empty + 8 * s, lane);
+  }
+
+  const long long k_pitch = (long long)Hkv * D;
+  const long long off = ((long long)b * Sk + krow0) * k_pitch + (long long)hk * D + 2 * t;
+  store_rows<NC>(dk + off, k_pitch, dka);
+  store_rows<NC>(dv + off, k_pitch, dva);
+}
 
 template <int D, int BKV>
-__global__ void __launch_bounds__(BKV * 2)
-    flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
-                         int H, int Hkv, float scale, int causal) {
-  constexpr int BQ = kTile, NT = BKV * 2, LD = D + kPad;
-  constexpr int KC = D / 16, NS = BQ / 8, NO = D / 8;
+__global__ void __launch_bounds__(BKV * 2 + 32, 1)
+    flash_bwd_dkv_kernel(__grid_constant__ const CUtensorMap tq,
+                         __grid_constant__ const CUtensorMap tdo,
+                         __grid_constant__ const CUtensorMap tk,
+                         __grid_constant__ const CUtensorMap tv, const float* __restrict__ lse,
+                         const float* __restrict__ delta, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, int Sq, int Sk, int H, int Hkv, float scale,
+                         int causal) {
+  constexpr int NC = D / 64, NWG = BKV / 64;
+  constexpr uint32_t qo_stage_bytes = 2 * 64 * D * 2 + 2 * 64 * 4;  // Q, dO, lse, delta
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // [BKV][LD]
-  bf16* sV = sK + BKV * LD;                      // [BKV][LD]
-  bf16* sQ = sV + BKV * LD;                      // [BQ][LD]
-  bf16* sO = sQ + BQ * LD;                       // [BQ][LD] dO
-  float* sL = reinterpret_cast<float*>(sO + BQ * LD);  // [BQ] lse
-  float* sD = sL + BQ;                                 // [BQ] delta
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];  // K and V, full[], empty[]
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sK = base;                              // [NWG][NC] chunks
+  const uint32_t sV = sK + NWG * NC * kChunkBytes;       // [NWG][NC] chunks
+  const uint32_t sQ = sV + NWG * NC * kChunkBytes;       // [kStages][NC] chunks
+  const uint32_t sO = sQ + kStages * NC * kChunkBytes;   // [kStages][NC] chunks (dO)
+  const uint32_t sLD = sO + kStages * NC * kChunkBytes;  // [kStages][lse 64, delta 64] f32
+  const float* ld = reinterpret_cast<const float*>(smem_raw + (sLD - smem_u32(smem_raw)));
+  const uint32_t bar_kv = smem_u32(&bars[0]);
+  const uint32_t bar_full = smem_u32(&bars[1]), bar_empty = smem_u32(&bars[1 + kStages]);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bhk = blockIdx.x, b = bhk / Hkv, hk = bhk % Hkv, n_rep = H / Hkv;
-  const int jk = blockIdx.y;
-  const long long q_pitch = (long long)H * D, k_pitch = (long long)Hkv * D;
-  const int k_first = jk * BKV, k_last = k_first + BKV - 1;
-  const long long k_off = ((long long)b * Sk + k_first) * k_pitch + (long long)hk * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv, n_rep = H / Hkv;
+  const int k_first = blockIdx.y * BKV;  // heavier (earlier) KV tiles first
+  const int n_q = Sq / 64, i0 = causal ? min(k_first / 64, n_q) : 0;
+  const int n_i = n_q - i0, n_steps = n_rep * n_i;
 
-  load_tile<BKV, D, NT>(sK, k + k_off, k_pitch, tid);
-  load_tile<BKV, D, NT>(sV, v + k_off, k_pitch, tid);
-
-  float dka[NO][4], dva[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
-  }
-  const int krow0 = k_first + warp * 16 + g;  // this lane's KV rows: krow0, krow0 + 8
-  const int n_q = Sq / BQ;
-  const int i0 = causal ? k_first / BQ : 0;
-
-  for (int r = 0; r < n_rep; ++r) {
-    const int h = hk * n_rep + r;
-    const float* lrow = lse + ((long long)b * H + h) * Sq;
-    const float* drow = delta + ((long long)b * H + h) * Sq;
-    for (int i = i0; i < n_q; ++i) {
-      const int q_first = i * BQ;
-      __syncthreads();
-      const long long q_off = ((long long)b * Sq + q_first) * q_pitch + (long long)h * D;
-      load_tile<BQ, D, NT>(sQ, q + q_off, q_pitch, tid);
-      load_tile<BQ, D, NT>(sO, dout + q_off, q_pitch, tid);
-      for (int x = tid; x < BQ; x += NT) {
-        sL[x] = lrow[q_first + x];
-        sD[x] = drow[q_first + x];
-      }
-      __syncthreads();
-
-      // S^T = K Q^T for this warp's 16 KV rows x BQ q columns.
-      float st[NS][4];
-#pragma unroll
-      for (int n = 0; n < NS; ++n) st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        uint32_t a[4];
-        load_a(a, sK, LD, warp * 16, kc * 16, g, t);
-#pragma unroll
-        for (int n = 0; n < NS; ++n) {
-          uint32_t b0, b1;
-          load_b(b0, b1, sQ, LD, n * 8, kc * 16, g, t);
-          mma16816(st[n], a, b0, b1);
-        }
-      }
-      const bool masked = causal && (q_first < k_last);
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = n * 8 + 2 * t + (e & 1);
-          float p = __expf(st[n][e] * scale - sL[c]);
-          if (masked && q_first + c < krow0 + ((e >> 1) << 3)) p = 0.f;
-          st[n][e] = p;  // P^T
-        }
-      }
-      // dV += P^T dO
-#pragma unroll
-      for (int kc = 0; kc < BQ / 16; ++kc) {
-        uint32_t a[4];
-        acc_to_a<NS>(a, st, kc);
-#pragma unroll
-        for (int n = 0; n < NO; n += 2) {
-          uint32_t bb[4];
-          load_b_trans2(bb, sO, LD, kc * 16, n * 8, lane);
-          mma16816(dva[n], a, bb[0], bb[1]);
-          mma16816(dva[n + 1], a, bb[2], bb[3]);
-        }
-      }
-      // dP^T = V dO^T, then dS^T = P^T (dP^T - delta) * scale
-      float dp[NS][4];
-#pragma unroll
-      for (int n = 0; n < NS; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        uint32_t a[4];
-        load_a(a, sV, LD, warp * 16, kc * 16, g, t);
-#pragma unroll
-        for (int n = 0; n < NS; ++n) {
-          uint32_t b0, b1;
-          load_b(b0, b1, sO, LD, n * 8, kc * 16, g, t);
-          mma16816(dp[n], a, b0, b1);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = n * 8 + 2 * t + (e & 1);
-          dp[n][e] = st[n][e] * (dp[n][e] - sD[c]) * scale;
-        }
-      }
-      // dK += dS^T Q
-#pragma unroll
-      for (int kc = 0; kc < BQ / 16; ++kc) {
-        uint32_t a[4];
-        acc_to_a<NS>(a, dp, kc);
-#pragma unroll
-        for (int n = 0; n < NO; n += 2) {
-          uint32_t bb[4];
-          load_b_trans2(bb, sQ, LD, kc * 16, n * 8, lane);
-          mma16816(dka[n], a, bb[0], bb[1]);
-          mma16816(dka[n + 1], a, bb[2], bb[3]);
-        }
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, NWG * 4);  // one arrival per consumer warp
     }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
 
-  const long long out0 = ((long long)b * Sk + krow0) * k_pitch + (long long)hk * D + 2 * t;
-  const long long out1 = out0 + 8 * k_pitch;
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    *reinterpret_cast<uint32_t*>(dk + out0 + n * 8) = pack_bf16(dka[n][0], dka[n][1]);
-    *reinterpret_cast<uint32_t*>(dk + out1 + n * 8) = pack_bf16(dka[n][2], dka[n][3]);
-    *reinterpret_cast<uint32_t*>(dv + out0 + n * 8) = pack_bf16(dva[n][0], dva[n][1]);
-    *reinterpret_cast<uint32_t*>(dv + out1 + n * 8) = pack_bf16(dva[n][2], dva[n][3]);
+  if (warp == NWG * 4) {  // the producer warp: one lane issues every copy
+    if (lane != 0) return;
+    mbar_expect_tx(bar_kv, 2 * BKV * D * 2);
+    for (int wg = 0; wg < NWG; ++wg)
+      for (int c = 0; c < NC; ++c) {
+        const int row = k_first + wg * 64;
+        tma_load(sK + (wg * NC + c) * kChunkBytes, &tk, bar_kv, c * 64, hk, row, b);
+        tma_load(sV + (wg * NC + c) * kChunkBytes, &tv, bar_kv, c * 64, hk, row, b);
+      }
+    for (int j = 0; j < n_steps; ++j) {
+      const int s = j % kStages, h = hk * n_rep + j / n_i, q_first = (i0 + j % n_i) * 64;
+      const float* rows = lse + ((long long)b * H + h) * Sq + q_first;
+      const float* drows = delta + ((long long)b * H + h) * Sq + q_first;
+      if (j >= kStages) mbar_wait(bar_empty + 8 * s, (j / kStages - 1) & 1);
+      mbar_expect_tx(bar_full + 8 * s, qo_stage_bytes);
+      for (int c = 0; c < NC; ++c) {
+        tma_load(sQ + (s * NC + c) * kChunkBytes, &tq, bar_full + 8 * s, c * 64, h, q_first, b);
+        tma_load(sO + (s * NC + c) * kChunkBytes, &tdo, bar_full + 8 * s, c * 64, h, q_first, b);
+      }
+      bulk_load(sLD + s * 512, rows, 256, bar_full + 8 * s);
+      bulk_load(sLD + s * 512 + 256, drows, 256, bar_full + 8 * s);
+    }
+    return;
   }
+  const int wg = warp >> 2;
+  flash_dkv_consumer<D>(sK + wg * NC * kChunkBytes, sV + wg * NC * kChunkBytes, bar_kv, sQ, sO,
+                        ld, bar_full, bar_empty, dk, dv, b, hk, k_first + wg * 64, n_steps, n_i,
+                        i0, Sk, Hkv, scale, scale * kLog2e, causal, warp, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -916,34 +983,58 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, 
   return (int)cudaGetLastError();
 }
 
-template <int D, int BQ>
+// B2's and B3's dynamic shared memory: the CTA's two resident tiles (Q and
+// dO, or K and V), the ring's two streamed tiles a stage, B3's lse and
+// delta (512 bytes a stage), and room to align the base to 1024 bytes.
+constexpr size_t dq_smem(int D, int BQ) {
+  return (size_t)(2 * (BQ / 64) + 2 * kStages) * (D / 64) * kChunkBytes + 1024;
+}
+constexpr size_t dkv_smem(int D, int BKV) {
+  return (size_t)(2 * (BKV / 64) + 2 * kStages) * (D / 64) * kChunkBytes + kStages * 512 + 1024;
+}
+
+// CTA rows of the backward kernels for a requested tile: at D = 128 always
+// 64 (see the note before B2 and B3).
+template <int D, int T>
+constexpr int kBwdRows = D == 128 ? 64 : T;
+
+template <int D, int T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int Sq, int Sk, int H,
               int Hkv, int causal, cudaStream_t st) {
-  const size_t smem = (size_t)(2 * BQ + 2 * kTile) * (D + kPad) * sizeof(bf16);
+  constexpr int BQ = kBwdRows<D, T>;
+  CUtensorMap tq, tdo, tk, tv;
+  if (int err = tensor_map(&tq, q, B, Sq, H, D, 64)) return err;
+  if (int err = tensor_map(&tdo, dout, B, Sq, H, D, 64)) return err;
+  if (int err = tensor_map(&tk, k, B, Sk, Hkv, D, 64)) return err;
+  if (int err = tensor_map(&tv, v, B, Sk, Hkv, D, 64)) return err;
+  const size_t smem = dq_smem(D, BQ);
   auto kern = flash_bwd_dq_kernel<D, BQ>;
   if (int err = prepare(kern, smem)) return err;
   dim3 grid(B * H, Sq / BQ);
-  kern<<<grid, BQ * 2, smem, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                   (const bf16*)dout, (const float*)lse,
-                                   (const float*)delta, (bf16*)dq, Sq, Sk, H, Hkv,
-                                   1.f / sqrtf((float)D), causal);
+  kern<<<grid, BQ * 2 + 32, smem, st>>>(
+      tq, tdo, tk, tv, (const float*)lse, (const float*)delta, (bf16*)dq, Sq, Sk, H, Hkv,
+      1.f / sqrtf((float)D), causal);
   return (int)cudaGetLastError();
 }
 
-template <int D, int BKV>
+template <int D, int T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
                int Sk, int H, int Hkv, int causal, cudaStream_t st) {
-  const size_t smem = (size_t)(2 * BKV + 2 * kTile) * (D + kPad) * sizeof(bf16) +
-                      2 * kTile * sizeof(float);
+  constexpr int BKV = kBwdRows<D, T>;
+  CUtensorMap tq, tdo, tk, tv;
+  if (int err = tensor_map(&tq, q, B, Sq, H, D, 64)) return err;
+  if (int err = tensor_map(&tdo, dout, B, Sq, H, D, 64)) return err;
+  if (int err = tensor_map(&tk, k, B, Sk, Hkv, D, 64)) return err;
+  if (int err = tensor_map(&tv, v, B, Sk, Hkv, D, 64)) return err;
+  const size_t smem = dkv_smem(D, BKV);
   auto kern = flash_bwd_dkv_kernel<D, BKV>;
   if (int err = prepare(kern, smem)) return err;
   dim3 grid(B * Hkv, Sk / BKV);
-  kern<<<grid, BKV * 2, smem, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                    (const bf16*)dout, (const float*)lse,
-                                    (const float*)delta, (bf16*)dk, (bf16*)dv, Sq, Sk, H,
-                                    Hkv, 1.f / sqrtf((float)D), causal);
+  kern<<<grid, BKV * 2 + 32, smem, st>>>(
+      tq, tdo, tk, tv, (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, Sq, Sk, H,
+      Hkv, 1.f / sqrtf((float)D), causal);
   return (int)cudaGetLastError();
 }
 
@@ -971,8 +1062,13 @@ extern "C" int uccl_flash_fwd(const void* q, const void* k, const void* v, void*
 #undef CALL
 }
 
-// B1's dynamic shared memory per CTA, in bytes (for the build report).
+// Dynamic shared memory per CTA, in bytes (for the build report): B1's, and
+// B2's (dkv = 0) or B3's (dkv = 1).
 extern "C" int uccl_flash_fwd_smem(int D, int block_q) { return (int)fwd_smem(D, block_q); }
+extern "C" int uccl_flash_bwd_smem(int dkv, int D, int tile) {
+  const int rows = D == 128 ? 64 : tile;
+  return (int)(dkv ? dkv_smem(D, rows) : dq_smem(D, rows));
+}
 
 extern "C" int uccl_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,

@@ -64,9 +64,11 @@ def auto_block(s: int) -> int:
     """CTA tile rows for a sequence of length ``s`` on Hopper, or 0 when no
     tile the kernels are built for divides ``s``.
 
-    64 rows (4 warps of 16 rows) is the default: at the flagship's S = 1024,
-    B = 8, H = 16 it gives 2048 CTAs per forward launch, about 15 waves over
-    the H100's 132 SMs, and the least masked work on the causal diagonal.
-    128-row tiles are built too and are selected with UCCL_TPU_FLASH_BLOCK_Q/K.
+    64 rows (one consumer warpgroup) is the default for every kernel: at the
+    flagship's S = 1024, B = 8, H = 16 it gives 2048 CTAs per forward launch,
+    about 15 waves over the H100's 132 SMs, and the least masked work on the
+    causal diagonal; the forward, dQ and dK/dV kernels each measured faster
+    at 64 rows than at 128 (PERF.md). 128-row tiles are built too and are
+    selected with UCCL_TPU_FLASH_BLOCK_Q/K.
     """
     return 64 if s % 64 == 0 else 0

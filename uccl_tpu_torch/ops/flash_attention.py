@@ -9,9 +9,13 @@ three CUDA kernels in ``csrc/flash_attention.cu``, built with ``nvcc`` for
   on ``wgmma``, fed by a TMA ring of K/V tiles that one producer warp keeps
   ahead of the consumer warpgroups.
 * ``flash_bwd_dq``  (replaces ``_bwd_dq_kernel``): dq, recomputing
-  ``P = exp(S*scale - lse)`` from the saved lse.
+  ``P = exp(S*scale - lse)`` from the saved lse; K/V tiles stream.
 * ``flash_bwd_dkv`` (replaces ``_bwd_dkv_kernel``): dk and dv, with the GQA
-  sum over the ``n_rep`` query heads done inside the kernel.
+  sum over the ``n_rep`` query heads done inside the kernel (no atomics: the
+  same inputs give the same bits); Q/dO tiles and their lse/delta stream.
+
+The backward kernels run on ``wgmma`` too, fed by TMA rings that one producer
+warp keeps ahead of the consumer warpgroups.
 
 Beside each kernel is its plain PyTorch version (``*_plain``): the same
 function, in float32, materialising ``[S, S]``. A wrapper runs the plain
@@ -43,7 +47,7 @@ KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 launch_counts = {name: 0 for name in KERNELS}
 
 _HEAD_DIMS = (64, 128)
-_STREAM_TILE = 64  # rows of the tile every kernel streams (kTile in the source)
+_STREAM_TILE = 64  # rows of the tile every kernel streams (one wgmma M or N of 64)
 
 
 def reset_launch_counts() -> None:
@@ -66,18 +70,23 @@ def _default_blocks() -> Tuple[int, int]:
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    """The built library, its C signatures declared (pointers and the stream
-    as c_void_p, so ctypes never cuts them to 32 bits)."""
+    """The built library, its C signatures declared."""
     from uccl_tpu_torch.utils import build
 
-    lib = build.load("flash_attention")
+    return declare(build.load("flash_attention"))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures on a loaded build of the source (pointers and
+    the stream as c_void_p, so ctypes never cuts them to 32 bits)."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.uccl_flash_fwd.argtypes = [p] * 5 + [i] * 8 + [p]
     lib.uccl_flash_bwd_dq.argtypes = [p] * 7 + [i] * 8 + [p]
     lib.uccl_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 8 + [p]
     lib.uccl_flash_fwd_smem.argtypes = [i, i]
+    lib.uccl_flash_bwd_smem.argtypes = [i, i, i]
     for fn in (lib.uccl_flash_fwd, lib.uccl_flash_bwd_dq, lib.uccl_flash_bwd_dkv,
-               lib.uccl_flash_fwd_smem):
+               lib.uccl_flash_fwd_smem, lib.uccl_flash_bwd_smem):
         fn.restype = ctypes.c_int
     return lib
 

@@ -90,6 +90,32 @@ def build(name: str) -> Path:
     return out
 
 
+def build_variant(name: str, tag: str, subs) -> Path:
+    """Compile a copy of ``csrc/<name>.cu`` with text substitutions into
+    ``build/uccl_tpu_torch/variants/<tag>/`` and return the library's path.
+    Each ``(old, new)`` pair of ``subs`` must match exactly once. For timing
+    a design change or planting a fault on the card without touching the
+    source; the package itself never loads a variant."""
+    src = (CSRC_DIR / f"{name}.cu").read_text()
+    for old, new in subs:
+        if src.count(old) != 1:
+            raise ValueError(f"variant {tag}: {old!r} occurs {src.count(old)} times in "
+                             f"csrc/{name}.cu, not once")
+        src = src.replace(old, new)
+    out_dir = BUILD_DIR / "variants" / tag
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"{name}.cu").write_text(src)
+    out = out_dir / f"lib{name}.so"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(out),
+           str(out_dir / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for variant {tag} of csrc/{name}.cu:\n"
+                           f"{proc.stdout + proc.stderr}")
+    return out
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     with _lock:
