@@ -139,6 +139,12 @@ def ptxas_report(source: str, short) -> list:
                           "spill_bytes": spills, "static_smem": int(smem[1]) if smem else 0})
     return ptxas
 
+def ring_kernel_name(mangled: str) -> str:
+    """A ring kernel's name and template arguments from its mangled name
+    (which names the source file, ``ring_ccl_cu``, first)."""
+    m = re.search(r"ring_[a-z]+_kernel\w*", mangled)
+    return m[0] if m else mangled
+
 def build_kernels() -> None:
     """The three CUDA sources, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -161,10 +167,10 @@ def build_kernels() -> None:
         k["dynamic_smem"] = (fa._lib().uccl_flash_fwd_smem(d, tile) if m[1] == "fwd" else
                              fa._lib().uccl_flash_bwd_smem(int(m[1] == "bwd_dkv"), d, tile))
     emit("build", library=str(lib.relative_to(root)), seconds=round(seconds, 3), ptxas=ptxas)
-    ring_ptxas = ptxas_report("ring_ccl", lambda n: n[n.find("ring_"):])
-    for k in ring_ptxas:  # B5 is built for two blocks of 512 threads per SM
-        if k["kernel"].startswith("ring_rs_kernel") and k["registers"] > 64:
-            fail(f"{k['kernel']} uses {k['registers']} registers: under two blocks per SM")
+    # every ring kernel is built for two blocks of 512 threads per SM
+    # (__launch_bounds__), so ptxas caps it at 64 registers and would spill
+    # past them: ptxas_report's spill check is what guards the occupancy
+    ring_ptxas = ptxas_report("ring_ccl", ring_kernel_name)
     emit("ring_ccl_build", library=str(ring_lib.relative_to(root)),
          seconds=round(ring_seconds, 3), all_seconds=round(time.perf_counter() - t0, 3),
          ptxas=ring_ptxas)
@@ -549,16 +555,19 @@ def ring_rule(kind, got, plain, x, w, dtype) -> dict:
     return r
 
 def run_ring(kind, x, d, dirs=None):
-    """One kernel launch and its plain version on ``x`` [W, N]; returns the
-    per-member results (kernel, plain) in the rule's layout."""
+    """One kernel launch and its plain version on ``x`` [W, N] (unpadded
+    rows, at any stride); returns the per-member results (kernel, plain) in
+    the rule's layout. B4's, B5's and B7's plain versions are their one-pass
+    contracts, each held here to the ring's hop schedule on padded slots."""
     w, size = x.shape
-    if kind == "gather":
-        chunk, _, m = rc._dma.pad_chunks(x, 1)
-        chunk = chunk.reshape(w, m)
-        lane, got = rc._ag_kernel(chunk, d, 0)
+    if kind == "gather":  # B4: member r contributes row r
+        lane, got = rc._ag_kernel(x, 0)
         lane.check("ring_all_gather")
-        plain = rc.ag_plain(chunk, d)
-        return got[:, :, :size].reshape(w, -1), plain[:, :, :size].reshape(w, -1)
+        plain = rc.ag_rows_plain(x)
+        chunk, _, m = rc._dma.pad_chunks(x, 1)
+        if not torch.equal(plain, rc.ag_plain(chunk.reshape(w, m), d)[:, :, :size]):
+            fail(f"ag_rows_plain differs from ag_plain's hops at W={w}, {size} elements")
+        return got.reshape(w, -1), plain.reshape(w, -1)
     if kind == "scatter":  # B5 on the unpadded rows; its plain version equals the hops'
         lane, got = rc._rs_kernel(x, d, 0)
         lane.check("ring_reduce_scatter")
@@ -567,10 +576,12 @@ def run_ring(kind, x, d, dirs=None):
         if not torch.equal(plain, rc.rs_plain(chunks.reshape(w, w, m), d)[:, :per]):
             fail(f"rs_chain_plain differs from rs_plain's hops at W={w}, {size} elements")
         return got, plain
-    view, k, _ = rc._ar_layout(x, len(dirs))
-    lane, got = rc._ar_kernel(view, dirs, 0)
+    lane, got = rc._ar_kernel(x, dirs, 0)  # B7
     lane.check("ring_all_reduce")
-    return rc._ar_unlayout(got, k, x), rc._ar_unlayout(rc.ar_plain(view, dirs), k, x)
+    plain = rc.ar_chain_plain(x, dirs)
+    if not torch.equal(plain, plain_all_reduce(x, dirs)):
+        fail(f"ar_chain_plain differs from ar_plain's hops at W={w}, {size} elements, {dirs}")
+    return got, plain
 
 def ring_inputs(w, size, dtype, seed):
     g = torch.Generator(device=DEV).manual_seed(seed)
@@ -596,14 +607,61 @@ RS_RAGGED = [
     (3, 333_335, torch.bfloat16, 1),
     (5, 65_539, torch.int32, -1),
 ]
+# B4 and B7 on payloads whose chunks start off 16 bytes: (W, elements per
+# member, dtype, direction), each on three views of one [W, size + 1]
+# tensor: contiguous rows, the same rows at a stride one element longer
+# (rows offset differently mod 16), and a payload starting one element in.
+# The W outputs of a B7 chunk or a B4 slot then lie at different offsets
+# mod 16 wherever size·itemsize is no multiple of 16. (8, 11) leaves chunks
+# empty; (16, 333) is the largest world.
+DIRECT_RAGGED = [
+    (2, 500_001, torch.float32, -1),
+    (3, 333_335, torch.bfloat16, 1),
+    (4, 1_000_001, torch.float32, 1),
+    (4, 777_777, torch.int32, -1),
+    (5, 65_539, torch.int32, 1),
+    (7, 9_999, torch.float16, 1),
+    (8, 123_457, torch.float16, -1),
+    (8, 300_003, torch.bfloat16, 1),
+    (8, 11, torch.bfloat16, -1),
+    (16, 333, torch.float32, -1),
+]
+
+def ragged_views(x):
+    """Three [W, size] views of ``x`` [W, size + 1] (DIRECT_RAGGED)."""
+    w, size = x.shape[0], x.shape[1] - 1
+    return (("contiguous", x[:, 1:].contiguous()), ("strided rows", x[:, 1:]),
+            ("offset start", x.reshape(-1)[1: 1 + w * size].view(w, size)))
+
+def bidir_halves(x, d):
+    """B7 (two one-stream launches, directions +1 and -1) and B4 (two
+    launches) on the halves of ``x`` [W, size], each pair writing one
+    output; the B4 pair's output is filled with 0xFF bytes first, so a
+    column it misses shows. Returns ((B7 out, plain), (B4 out, plain))."""
+    w, size = x.shape
+    half = size // 2
+    ar = x.new_empty((w, size))
+    ag = x.new_empty((w, w, size))
+    ag.view(torch.uint8).fill_(0xFF)
+    lanes = [rc.launch_ar(x[:, :half], ar[:, :half], (1,), 0),
+             rc.launch_ar(x[:, half:], ar[:, half:], (-1,), 1),
+             rc.launch_ag(x[:, :half], ag[:, :, :half], 2),
+             rc.launch_ag(x[:, half:], ag[:, :, half:], 3)]
+    for lane in lanes:
+        lane.check("bidir halves")
+    ar_plain = torch.cat([rc.ar_chain_plain(x[:, :half], (1,)),
+                          rc.ar_chain_plain(x[:, half:], (-1,))], 1)
+    return (ar, ar_plain), (ag.reshape(w, -1), rc.ag_rows_plain(x).reshape(w, -1))
 
 def ring_vs_plain() -> dict:
     """Each ring kernel against its plain version, bit for bit, and against
     the float64 sum; W in {2, 3, 4, 8}, f32 and bf16 (int32 for B4 too),
     sizes that need padding, both directions, B7 with one and two streams;
-    B5 (against ``rs_chain_plain`` and ``rs_plain``) also on strided rows
-    and on slots whose starts are off 16 bytes, in f32, bf16, f16 and int32,
-    W 2-8."""
+    B4 and B7 (against ``ag_rows_plain`` / ``ar_chain_plain``, each held to
+    its hop schedule) and B5 (against ``rs_chain_plain`` and ``rs_plain``)
+    also on strided rows and on chunks or slots whose starts are off 16
+    bytes, in f32, bf16, f16 and int32, W 2-16, and B4 and B7 on the halves
+    of one output, as the bidir pairs write them."""
     rc.reset_launch_counts()
     readings = []
     for w, size, dtype, d in RING_CASES:
@@ -628,6 +686,27 @@ def ring_vs_plain() -> dict:
                          "dtype": str(dtype), "dir": d, **r})
         if not r["ok"]:
             fail(f"ring_reduce_scatter W={w} per={per} {dtype} dir={d}: {r}")
+    for w, size, dtype, d in DIRECT_RAGGED:
+        x = ring_inputs(w, size + 1, dtype, seed=size)
+        for view, xs in ragged_views(x):
+            cases = [("ring_all_gather", "gather", dict()),
+                     ("ring_all_reduce S=1", "reduce", dict(dirs=(d,))),
+                     ("ring_all_reduce S=2", "reduce", dict(dirs=(1, -1)))]
+            for name, kind, kw in cases:
+                got, plain = run_ring(kind, xs, d, **kw)
+                r = ring_rule(kind, got, plain, xs, w, dtype)
+                readings.append({"kernel": f"{name} {view}", "W": w, "size": size,
+                                 "dtype": str(dtype), "dir": d, **r})
+                if not r["ok"]:
+                    fail(f"{name} {view} W={w} size={size} {dtype} dir={d}: {r}")
+        (ar, ar_plain), (ag, ag_plain) = bidir_halves(x[:, 1:], d)
+        for name, kind, got, plain in (("ring_all_reduce bidir halves", "reduce", ar, ar_plain),
+                                       ("ring_all_gather bidir halves", "gather", ag, ag_plain)):
+            r = ring_rule(kind, got, plain, x[:, 1:], w, dtype)
+            readings.append({"kernel": name, "W": w, "size": size, "dtype": str(dtype), **r})
+            if not r["ok"]:
+                fail(f"{name} W={w} size={size} {dtype}: {r}")
+        del x
     xi = ring_inputs(3, 1_234_567, torch.int32, seed=9)
     got, plain = run_ring("gather", xi, -1)
     r = ring_rule("gather", got, plain, xi, 3, torch.int32)
@@ -641,9 +720,12 @@ def ring_vs_plain() -> dict:
 def ring_planted_faults() -> None:
     """Faults made with the plain versions must fail the rule the kernels
     pass: RS with its last hop dropped, AG with every slot off by one, B7
-    whose AG phase starts before its RS phase's last fold landed, and two of
+    whose AG phase starts before its RS phase's last fold landed, two of
     B5's own: the members summed in ascending order instead of the chain's
-    (bf16), and slots whose misaligned starts are read one element off."""
+    (bf16), and slots whose misaligned starts are read one element off; and
+    three of the one-pass B7 and B4: B7's members summed in ascending order
+    (bf16), B7's stream 1 summed in direction +1, and B4's output with one
+    member's slot left as it was in a 0xFF-filled buffer."""
     w, size, dtype = 4, 1_000_000, torch.float32
     x = ring_inputs(w, size, dtype, seed=11)
     r_idx = torch.arange(w, device=DEV)
@@ -691,6 +773,24 @@ def ring_planted_faults() -> None:
     late[1:] = rc.rs_chain_plain(xm.roll(-1, 1), 1)[1:]
     faults["rs: misaligned slots read one element off"] = ring_rule("scatter", late, ok_m, xm, w,
                                                                    dtype)
+    # B7 summing its members in ascending order, and B7 summing stream 1 in
+    # direction +1 (bf16)
+    ok_ar2, _ = run_ring("reduce", xb, 1, dirs=(1, -1))
+    ascending = xb[0]
+    for j in range(1, w):
+        ascending = ascending + xb[j]
+    faults["ar: members in ascending order (bf16)"] = ring_rule(
+        "reduce", ascending.expand(w, -1), ok_ar2, xb, w, torch.bfloat16)
+    faults["ar: stream 1 summed in direction +1 (bf16)"] = ring_rule(
+        "reduce", rc.ar_chain_plain(xb, (1, 1)), ok_ar2, xb, w, torch.bfloat16)
+    # B4 with member 1's slot 2 as a 0xFF-filled output held it before
+    left = x.new_empty((w, w, size))
+    left.view(torch.uint8).fill_(0xFF)
+    rc.launch_ag(x, left, 0).check("ring_all_gather")
+    left[1, 2].view(torch.uint8).fill_(0xFF)
+    faults["ag: a slot left from a 0xFF-filled buffer"] = ring_rule(
+        "gather", left.reshape(w, -1), ok_ag, x, w, dtype)
+    del left
     passed = [name for name, r in faults.items() if r["ok"]]
     if passed:
         fail(f"planted ring faults pass the check: {passed}")
@@ -712,14 +812,11 @@ def ring_launchers(w, p_elems):
     after timing), plus the plain version and the library call beside each."""
     g = torch.Generator(device=DEV).manual_seed(5)
     x = torch.randn((w, p_elems), generator=g, device=DEV)
-    view, _, m_ar = rc._ar_layout(x, 2)
-    ar_out, ar_stage = torch.empty_like(view), view.new_empty((w, 2, 2, m_ar))
+    ar_out = torch.empty_like(x)
     xs = x[:, : p_elems - p_elems % w]
     rs_out = x.new_empty((w, xs.shape[1] // w))
     contrib = x[:, : p_elems // w].contiguous()
-    chunk, _, m_ag = rc._dma.pad_chunks(contrib, 1)
-    chunk = chunk.reshape(w, m_ag)
-    ag_out = chunk.new_empty((w, w, m_ag))
+    ag_out = contrib.new_empty((w, w, contrib.shape[1]))
     lanes = []
 
     def launch(fn, *args):
@@ -729,49 +826,60 @@ def ring_launchers(w, p_elems):
     ar_lib_out = torch.empty_like(x)
     xv = xs.reshape(w, w, -1)
     runs = {
-        "ring_all_reduce": (launch(rc.launch_ar, view, ar_out, ar_stage, (1, -1), 0),
-                            lambda: rc.ar_plain(view, (1, -1)),
+        "ring_all_reduce": (launch(rc.launch_ar, x, ar_out, (1, -1), 0),
+                            lambda: rc.ar_chain_plain(x, (1, -1)),
                             lambda: ar_lib_out.copy_(torch.sum(x, 0, out=red).expand_as(x)),
                             "torch.sum(x, 0, out=red) then out.copy_(red.expand_as(x))"),
         "ring_reduce_scatter": (launch(rc.launch_rs, xs, rs_out, 1, 0),
                                 lambda: rc.rs_chain_plain(xs, 1),
                                 lambda: xv.sum(0),
                                 "x.view(W, W, P/W).sum(0)"),
-        "ring_all_gather": (launch(rc.launch_ag, chunk, ag_out, 1, 0),
-                            lambda: rc.ag_plain(chunk, 1),
+        "ring_all_gather": (launch(rc.launch_ag, contrib, ag_out, 0),
+                            lambda: rc.ag_rows_plain(contrib),
                             lambda: contrib.reshape(1, -1).repeat(w, 1),
                             "x.reshape(1, P).repeat(W, 1)"),
     }
     return runs, lanes
 
-def rs_rows_off_16() -> dict:
-    """B5 on a bf16 bucket of the f32 bucket's bytes whose row length is no
-    multiple of 8 elements, so the rows lie alternately 0 and 8 bytes off 16
-    and every other term is read as funnel-shifted vectors: its time beside
-    its bound and the library call, and its bits against rs_chain_plain."""
+def rows_off_16(name) -> dict:
+    """B5 or B7 (two streams) on a bf16 bucket of the f32 bucket's bytes
+    whose row length is 4 mod 8 elements, so the rows lie alternately 0 and
+    8 bytes off 16: B5 reads every other term as funnel-shifted vectors, and
+    each B7 chunk's W outputs fall in two classes, whose vectors it computes
+    once each (the second time from L2). Its time beside its bound and the
+    library call, and its bits against its plain version."""
     p = 2 * BUCKET - WORLD  # a multiple of W, 4 mod 8
     g = torch.Generator(device=DEV).manual_seed(6)
     x = torch.randn((WORLD, p), generator=g, device=DEV, dtype=torch.bfloat16)
-    out = x.new_empty((WORLD, p // WORLD))
     lanes = []
-    ms = time_ms(lambda: lanes.append(rc.launch_rs(x, out, 1, 0)), 10)
+    if name == "ring_reduce_scatter":
+        out = x.new_empty((WORLD, p // WORLD))
+        ms = time_ms(lambda: lanes.append(rc.launch_rs(x, out, 1, 0)), 10)
+        plain = rc.rs_chain_plain(x, 1)
+        library = lambda: x.view(WORLD, WORLD, -1).sum(0)  # noqa: E731
+    else:
+        out, red, lib_out = torch.empty_like(x), torch.empty_like(x[0]), torch.empty_like(x)
+        ms = time_ms(lambda: lanes.append(rc.launch_ar(x, out, (1, -1), 0)), 10)
+        plain = rc.ar_chain_plain(x, (1, -1))
+        library = lambda: lib_out.copy_(torch.sum(x, 0, out=red).expand_as(x))  # noqa: E731
     for lane in lanes:
         lane.check("ring timing, rows off 16 bytes")
-    if not torch.equal(out, rc.rs_chain_plain(x, 1)):
-        fail("ring_reduce_scatter on bf16 rows off 16 bytes differs from rs_chain_plain")
-    bnd = ring_bound_ms("ring_reduce_scatter", WORLD, p, 2)
-    library_ms = time_ms(lambda: x.view(WORLD, WORLD, -1).sum(0), 10)
+    if not torch.equal(out, plain):
+        fail(f"{name} on bf16 rows off 16 bytes differs from its plain version")
+    del plain
+    bnd = ring_bound_ms(name, WORLD, p, 2)
+    library_ms = time_ms(library, 10)
     res = dict(dtype="bfloat16", elems_per_member=p, ms=ms, bound_ms=bnd,
                share_of_bound=bnd / ms, library_ms=library_ms)
-    del x, out
+    del x, out, library
     torch.cuda.empty_cache()
     return res
 
 def ring_timing() -> dict:
     """CUDA-event medians of each ring kernel at the gradient bucket, W = 4,
-    beside its bound, its plain version and the library call; B5 also on a
-    bf16 bucket whose rows are offset differently mod 16 bytes; and a sweep
-    of smaller payloads per member."""
+    beside its bound, its plain version and the library call; B5 and B7
+    also on a bf16 bucket whose rows are offset differently mod 16 bytes;
+    and a sweep of smaller payloads per member."""
     res = {}
     runs, lanes = ring_launchers(WORLD, BUCKET)
     for name, (kernel, plain, library, call) in runs.items():
@@ -784,7 +892,8 @@ def ring_timing() -> dict:
         lane.check("ring timing")
     del runs, lanes
     torch.cuda.empty_cache()
-    res["ring_reduce_scatter"]["rows_off_16"] = rs_rows_off_16()
+    res["ring_reduce_scatter"]["rows_off_16"] = rows_off_16("ring_reduce_scatter")
+    res["ring_all_reduce"]["rows_off_16"] = rows_off_16("ring_all_reduce")
     sweep = []
     for mib in SWEEP_MIB:
         p = mib * 2 ** 20 // 4
@@ -830,16 +939,18 @@ def plain_all_reduce(x, dirs):
     return rc._ar_unlayout(rc.ar_plain(view, dirs), k, x)
 
 _SPLIT = (("ring_kernels", re.compile(r"ring_(ag|rs|ar|rsq|arq)_kernel")),
+          ("readback", re.compile(r"DtoH|Device -> P", re.I)),
           ("fill", re.compile(r"fill|memset", re.I)),
           ("copy", re.compile(r"copy|memcpy|cat", re.I)))
 
 def verb_breakdown(verbs) -> list:
     """Where one verb call's time goes once its buffers exist: the host
     clock around warm calls (median of 3, ending in a sync), and one
-    profiled warm call's device time split into the ring kernels, zero
-    fills (``pad_chunks``' padded buffers), copies (into the padded layout,
-    the cut back out, ``cat``) and other kernels (for a quantized all-gather
-    or broadcast: the codec's torch passes), with the device's busy time
+    profiled warm call's device time split into the ring kernels, the
+    error words' read back to the host, zero fills (``pad_chunks``' padded
+    buffers), copies (into the padded layout, the cut back out, ``cat``) and
+    other kernels (for a quantized all-gather or broadcast: the codec's
+    torch passes), with the device's busy time
     (union of kernel intervals). The first call's excess over the warm
     median is first-use allocation."""
     out = []
@@ -953,6 +1064,12 @@ def collective_path(x) -> tuple:
         del got
     breakdown = verb_breakdown([(v, a, run, c["host_ms"])
                                 for (v, a, run, _, _), c in zip(verbs, calls)])
+    # B4, B5 and B7 take the payload as it is and write each result in its
+    # final place: no verb fills or copies (a pair's check stacks its two
+    # error words, a cat of a few microseconds)
+    for b in breakdown:
+        if b["device_ms"]["fill"] > 0 or b["device_ms"]["copy"] > 0.05:
+            fail(f"{b['verb']} {b['algo']}: fills or copies on the card {b['device_ms']}")
     planner = plan.get_planner()
     auto = {
         "all_reduce": planner.plan_all_reduce((BUCKET,), x.dtype, w, pallas_ok=True,
@@ -1044,7 +1161,7 @@ def run_ring_q(kind, x, d, wd, dirs=None):
         lane.check("ring_reduce_scatter_q")
         return got, rc.rs_q_plain(chunks, d, wd), chunks
     view, _, _ = rc._ar_layout(x, len(dirs))
-    lane, got = rc._ar_kernel(view, dirs, 0, wd)
+    lane, got = rc._ar_q_kernel(view, dirs, 0, wd)
     lane.check("ring_all_reduce_q")
     return got, rc.ar_q_plain(view, dirs, wd), view
 
@@ -1143,7 +1260,7 @@ def ring_q_launchers(w, p_elems):
     g = torch.Generator(device=DEV).manual_seed(5)
     x = torch.randn((w, p_elems), generator=g, device=DEV)
     view, _, _ = rc._ar_layout(x, 2)
-    ar_ops = rc._ar_operands(view, "fp8")
+    ar_ops = rc._ar_q_operands(view)
     chunks = dma.pad_chunks(x, w)[0].reshape(w, w, -1)
     m = chunks.shape[2]
     rs_buf, rs_out = torch.empty_like(chunks), chunks.new_empty((w, m))
@@ -1232,7 +1349,7 @@ def quant_held_at_bucket(x) -> list:
         for case, part, dirs in (("S=2", x, (1, -1)), ("S=1 first half +1", x[:, :half], (1,)),
                                  ("S=1 second half -1", x[:, half:], (-1,))):
             view, _, m = rc._ar_layout(part, len(dirs))
-            lane, got = rc._ar_kernel(view, dirs, 0, wd)
+            lane, got = rc._ar_q_kernel(view, dirs, 0, wd)
             lane.check("ring_all_reduce_q")
             hold("ring_all_reduce_q", f"{case}, slots of {m}", wd,
                  [(got, rc.ar_q_plain(view, dirs, wd))])
@@ -1241,7 +1358,7 @@ def quant_held_at_bucket(x) -> list:
                               ("first half +1", contrib[:, :chalf], 1),
                               ("second half -1", contrib[:, chalf:], -1)):
             ring = rc._AgQuant(part, wd)
-            lanes, gathered = ring.start(d, 0)
+            lanes, gathered = ring.start(0)
             for lane in lanes:
                 lane.check("ring_all_gather")
             hold("ring_all_gather", f"payload and packed scales, {case}, chunk of {ring.m}", wd,

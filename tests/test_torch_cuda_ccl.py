@@ -9,10 +9,12 @@ past the suite's conftest:
 
 Tolerance: none. Each kernel runs the plain version's hop schedule with one
 correctly rounded add per hop in the input dtype, so the results must be
-bit-identical (``torch.equal``). B5 is one pass, not a ring, and adds in the
-chain order the ring's hops make: it must equal both ``rs_chain_plain`` on
-the unpadded payload and ``rs_plain`` on the padded slots. The quantized
-kernels B6 and B8 carry the
+bit-identical (``torch.equal``). B4, B5 and B7 are one pass each, not a
+ring, and add in the chain order the ring's hops make: each must equal both
+its contract on the unpadded payload (``ag_rows_plain``,
+``rs_chain_plain``, ``ar_chain_plain``) and its hop schedule on the padded
+slots (``ag_plain``, ``rs_plain``, ``ar_plain``). The quantized kernels B6
+and B8 carry the
 block codec's arithmetic in their bodies (the scale as amax * (1 / QMAX), an
 IEEE division by it, the dequantized value rounded to the input dtype before
 the add), so they too must equal their plain versions bit for bit, a nan
@@ -66,16 +68,28 @@ CASES = [  # (n, per-member elements, dtype, direction)
 ]
 
 
+def _ag_hops(x, d):
+    """ag_plain on the padded slots, cut back to the payload."""
+    n, size = x.shape
+    chunk, _, m = dma.pad_chunks(x, 1)
+    return ring_ccl.ag_plain(chunk.reshape(n, m), d)[:, :, :size]
+
+
+def _ar_hops(x, dirs):
+    """ar_plain on the padded slot-major layout, cut back to the payload."""
+    view, k, _ = ring_ccl._ar_layout(x, len(dirs))
+    return ring_ccl._ar_unlayout(ring_ccl.ar_plain(view, dirs), k, x)
+
+
 @pytest.mark.parametrize("n,size,dtype,d", CASES, ids=lambda v: str(v))
 def test_kernels_equal_plain(dev, n, size, dtype, d):
     x = _x(dev, (n, size), dtype, seed=n)
     ring_ccl.reset_launch_counts()
-    # B4
-    chunk, _, m = dma.pad_chunks(x, 1)
-    chunk = chunk.reshape(n, m)
-    _, got = ring_ccl._ag_kernel(chunk, d, 0)
+    # B4 on the unpadded rows
+    _, got = ring_ccl._ag_kernel(x, 0)
     torch.cuda.synchronize()
-    assert torch.equal(got, ring_ccl.ag_plain(chunk, d))
+    assert torch.equal(got, ring_ccl.ag_rows_plain(x))
+    assert torch.equal(got, _ag_hops(x, d))
     # B5 on the unpadded rows (strided when n does not divide size)
     xs = x[:, : size - size % n]
     _, got = ring_ccl._rs_kernel(xs, d, 0)
@@ -83,12 +97,13 @@ def test_kernels_equal_plain(dev, n, size, dtype, d):
     assert torch.equal(got, ring_ccl.rs_chain_plain(xs, d))
     chunks, per, m = dma.pad_chunks(xs, n)
     assert torch.equal(got, ring_ccl.rs_plain(chunks.reshape(n, n, m), d)[:, :per])
-    # B7, one stream in direction d and two counter-rotating streams
+    # B7 on the unpadded rows, one stream in direction d and two
+    # counter-rotating streams
     for dirs in ((d,), (1, -1)):
-        view, _, _ = ring_ccl._ar_layout(x, len(dirs))
-        lane, got = ring_ccl._ar_kernel(view, dirs, 0)
+        lane, got = ring_ccl._ar_kernel(x, dirs, 0)
         lane.check("test")
-        assert torch.equal(got, ring_ccl.ar_plain(view, dirs))
+        assert torch.equal(got, ring_ccl.ar_chain_plain(x, dirs))
+        assert torch.equal(got, _ar_hops(x, dirs))
     assert _counts() == {"ring_all_gather": 1, "ring_reduce_scatter": 1, "ring_all_reduce": 2}
 
 
@@ -122,6 +137,93 @@ def test_reduce_scatter_on_ragged_slots(dev, n, per, dtype, d):
         chunks, _, m = dma.pad_chunks(xs, n)
         assert torch.equal(got, ring_ccl.rs_plain(chunks.reshape(n, n, m), d)[:, :per]), name
     assert _counts() == {"ring_reduce_scatter": 3}
+
+
+DIRECT_RAGGED = [  # (n, elements per member, dtype, direction): chunks off 16 bytes
+    (2, 1001, torch.bfloat16, 1),
+    (3, 4097, torch.float32, -1),
+    (4, 100_003, torch.float32, 1),
+    (4, 77_777, torch.int32, -1),
+    (5, 12_345, torch.float16, 1),
+    (8, 30_001, torch.bfloat16, -1),
+    (8, 11, torch.float32, 1),
+    (6, 50_001, torch.int32, 1),
+    (7, 9_999, torch.float16, -1),
+    (16, 333, torch.bfloat16, 1),
+]
+
+
+@pytest.mark.parametrize("n,size,dtype,d", DIRECT_RAGGED, ids=lambda v: str(v))
+def test_all_gather_and_all_reduce_on_ragged_rows(dev, n, size, dtype, d):
+    """B4 and B7 where chunks start off 16 bytes: on the contiguous
+    payload, on rows at a stride one element longer (terms and outputs
+    offset differently mod 16) and on a payload starting one element in;
+    B7 with one stream and two. Then both pairs' halves written into one
+    output (B4's filled with 0xFF bytes first). Each equal to its one-pass
+    contract and to its hop schedule."""
+    x = _x(dev, (n, size + 1), dtype, seed=size)
+    ring_ccl.reset_launch_counts()
+    for name, xs in (("contiguous", x[:, 1:].contiguous()), ("strided rows", x[:, 1:]),
+                     ("offset start", x.reshape(-1)[1: 1 + n * size].view(n, size))):
+        lane, got = ring_ccl._ag_kernel(xs, 0)
+        lane.check("test")
+        assert torch.equal(got, ring_ccl.ag_rows_plain(xs)), name
+        assert torch.equal(got, _ag_hops(xs, d)), name
+        for dirs in ((d,), (1, -1)):
+            lane, got = ring_ccl._ar_kernel(xs, dirs, 0)
+            lane.check("test")
+            assert torch.equal(got, ring_ccl.ar_chain_plain(xs, dirs)), (name, dirs)
+            assert torch.equal(got, _ar_hops(xs, dirs)), (name, dirs)
+    xs, half = x[:, 1:], size // 2
+    ar, ag = xs.new_empty((n, size)), xs.new_empty((n, n, size))
+    ag.view(torch.uint8).fill_(0xFF)
+    lanes_ = [ring_ccl.launch_ar(xs[:, :half], ar[:, :half], (1,), 0),
+              ring_ccl.launch_ar(xs[:, half:], ar[:, half:], (-1,), 1),
+              ring_ccl.launch_ag(xs[:, :half], ag[:, :, :half], 2),
+              ring_ccl.launch_ag(xs[:, half:], ag[:, :, half:], 3)]
+    for lane in lanes_:
+        lane.check("test")
+    assert torch.equal(ar, torch.cat([ring_ccl.ar_chain_plain(xs[:, :half], (1,)),
+                                      ring_ccl.ar_chain_plain(xs[:, half:], (-1,))], 1))
+    assert torch.equal(ag, ring_ccl.ag_rows_plain(xs))
+    assert _counts() == {"ring_all_gather": 5, "ring_all_reduce": 8}
+
+
+@pytest.mark.parametrize("verb", ["all_reduce", "all_reduce_1", "bidir_all_reduce",
+                                  "all_gather", "bidir_all_gather", "broadcast"])
+def test_all_gather_and_all_reduce_allocate_no_scratch(dev, verb):
+    """The AR and AG verbs and the broadcast hand B4 and B7 the payload as
+    it is: one call allocates its result and nothing else (no padded
+    layout, no staging, no halves to concatenate)."""
+    n, size = 4, 1 << 20
+    x = _x(dev, (n, size), torch.float32, seed=13)
+    fn = {"all_reduce": ring_ccl.ring_all_reduce,
+          "all_reduce_1": lambda t: ring_ccl.ring_all_reduce(t, bidirectional=False),
+          "bidir_all_reduce": ring_ccl.bidir_all_reduce,
+          "all_gather": lambda t: ring_ccl.ring_all_gather(t.unsqueeze(1)),
+          "bidir_all_gather": lambda t: ring_ccl.bidir_all_gather(t.unsqueeze(1)),
+          "broadcast": lambda t: ring_ccl.scatter_ag_broadcast(t, 1)}[verb]
+    fn(x)  # the flag regions exist from here on
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ring_ccl.reset_launch_counts()
+    got = fn(x)
+    torch.cuda.synchronize()
+    # a pair's two error words, stacked for one read, take one 512-byte block
+    assert torch.cuda.max_memory_allocated(dev) - base <= got.nbytes + 512
+    launches = 2 if verb.startswith(("bidir", "broadcast")) else 1
+    kernel = "ring_all_reduce" if "reduce" in verb else "ring_all_gather"
+    assert _counts() == {kernel: launches}
+    want = {"all_reduce": lambda: ring_ccl.ar_chain_plain(x, (1, -1)),
+            "all_reduce_1": lambda: ring_ccl.ar_chain_plain(x, (1,)),
+            "bidir_all_reduce": lambda: torch.cat(
+                [ring_ccl.ar_chain_plain(x[:, :size // 2], (1,)),
+                 ring_ccl.ar_chain_plain(x[:, size // 2:], (-1,))], 1),
+            "all_gather": lambda: ring_ccl.ag_rows_plain(x).reshape(n, -1),
+            "bidir_all_gather": lambda: ring_ccl.ag_rows_plain(x).reshape(n, -1),
+            "broadcast": lambda: x[1].expand(n, -1)}[verb]()
+    assert torch.equal(got.reshape(want.shape), want)
 
 
 def test_reduce_scatter_allocates_no_scratch(dev):
@@ -177,16 +279,18 @@ def test_repeated_calls_on_one_flag_region(dev):
 
 
 def _launch_all_but_last(name, x, buf, stage, out, streams, dirs, cid, slot_bytes, *,
-                         wire_dtype=None, sstage=None, qbuf=None, sbuf=None, row_elems=0):
-    """``ring_ccl._launch`` with the last member left out of the grid: the
+                         wire_dtype=None, sstage=None, qbuf=None, sbuf=None, row_elems=0,
+                         slot_stride=0, extent=0):
+    """``ring_ccl._enqueue`` with the last member left out of the grid: the
     C entry launches members [0, n-1) only."""
     n, t = x.shape[0], lanes.table
     lane = ring_ccl._lane(x.device, cid)
     rc = ring_ccl._lib().uccl_ring_launch(
         ring_ccl._KERNEL_ID[name], ring_ccl._ADD_DTYPES.get(x.dtype, 0),
         ring_ccl._WIRE_ID.get(wire_dtype, 0), n, n - 1, streams, dirs[0], dirs[-1], slot_bytes,
-        row_elems, t(x, n), t(buf, n), t(stage, n), t(out, n), t(sstage, n), t(qbuf, n), t(sbuf, n),
-        t(lane.flags, n), ctypes.c_void_p(lane.err.data_ptr()), cid, lane.next_epoch(),
+        row_elems, slot_stride, extent, t(x, n), t(buf, n), t(stage, n), t(out, n), t(sstage, n),
+        t(qbuf, n), t(sbuf, n), t(lane.flags, n), ctypes.c_void_p(lane.err.data_ptr()), cid,
+        lane.next_epoch(),
         lanes.SPIN_TIMEOUT_MS.get() * 1_000_000,
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     assert rc == 0
@@ -196,9 +300,9 @@ def _launch_all_but_last(name, x, buf, stage, out, streams, dirs, cid, slot_byte
 def test_missing_member_raises_instead_of_hanging(dev):
     """Launch all but the last member: its neighbors' waits time out, the
     kernel writes its error word and returns, and the check raises, for all
-    five kernels (B5: every member waits on every peer, at entry and at
-    exit, so all of them time out). The flag region works again
-    afterwards."""
+    five kernels (B4, B5, B7: every member waits on every peer, at entry and
+    at exit, so all of them time out; B7 on both streams). The flag region
+    works again afterwards."""
     n, m = 4, 4096
     x = _x(dev, (n, n, m), torch.float32, seed=2)
     rows = x.reshape(n, n * m)
@@ -206,16 +310,18 @@ def test_missing_member_raises_instead_of_hanging(dev):
     slot = m * 4
     view = x.reshape(n, n, 1, m)
     qstage, sstage = ring_ccl._wire_buffers(x, n, 2)
-    _, *ar_q = ring_ccl._ar_operands(view, "fp8")
+    _, *ar_q = ring_ccl._ar_q_operands(view)
     lanes.SPIN_TIMEOUT_MS.set(200)
     try:
         for args, kw in (
                 (("ring_reduce_scatter", rows, None, None, x.new_empty((n, m)), 1, (1,), 5, slot),
                  dict(row_elems=n * m)),
-                (("ring_all_gather", x[:, 0].contiguous(), e(x), None, None, 1, (1,), 5, slot),
-                 {}),
-                (("ring_all_reduce", view, e(view), x.new_empty((n, 1, 2, m)), None, 1, (1,), 5,
-                  slot), {}),
+                (("ring_all_gather", x[:, 0], None, None, e(x), 1, (1,), 5, slot),
+                 dict(slot_stride=slot, extent=n * slot)),
+                (("ring_all_reduce", rows, None, None, e(rows), 1, (1,), 5, slot),
+                 dict(row_elems=n * m)),
+                (("ring_all_reduce", rows, None, None, e(rows), 2, (1, -1), 5, slot // 2),
+                 dict(row_elems=n * m)),
                 (("ring_reduce_scatter_q", x, e(x), qstage, x.new_empty((n, m)), 1, (1,), 5,
                   slot), dict(wire_dtype="int8", sstage=sstage)),
                 (("ring_all_reduce_q", view, e(view), ar_q[0], None, 1, (1,), 5, slot),
@@ -228,6 +334,12 @@ def test_missing_member_raises_instead_of_hanging(dev):
     lane, got = ring_ccl._rs_kernel(rows, 1, 5)
     lane.check("test")
     assert torch.equal(got, ring_ccl.rs_plain(x, 1))
+    lane, got = ring_ccl._ar_kernel(rows, (1, -1), 5)
+    lane.check("test")
+    assert torch.equal(got, ring_ccl.ar_chain_plain(rows, (1, -1)))
+    lane, got = ring_ccl._ag_kernel(x[:, 0], 5)
+    lane.check("test")
+    assert torch.equal(got, ring_ccl.ag_rows_plain(x[:, 0]))
 
 
 def test_cuda_tensors_ignore_the_arena_budget(dev):
@@ -290,8 +402,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         ring_ccl.ring_all_reduce(torch.ones(4, 100, dtype=torch.float64, device=dev))
     with pytest.raises(ValueError):
         ring_ccl.ring_all_reduce(torch.ones(17, 100, device=dev))
-    with pytest.raises(ValueError):
-        ring_ccl._ag_kernel(torch.ones(4, 8, 1024, device=dev)[:, 0], 1, 0)
+    # B4 takes rows at any stride, but each row's elements contiguous, and
+    # an output of [n, n, per]
+    with pytest.raises(ValueError, match="contiguous rows"):
+        ring_ccl._ag_kernel(torch.ones(4, 8, 1024, device=dev)[:, :, 0], 0)
+    with pytest.raises(ValueError, match="is not"):
+        ring_ccl.launch_ag(torch.ones(4, 8, device=dev), torch.empty(4, 4, 9, device=dev), 0)
     # B4 moves bytes of any dtype
     x = torch.arange(4 * 3000, dtype=torch.int64, device=dev).reshape(4, 3000)
     assert torch.equal(ring_ccl.ring_all_gather(x.unsqueeze(1))[3], x)
@@ -346,7 +462,7 @@ def test_quantized_kernels_equal_plain(dev, n, size, dtype, d, wd):
     assert _same(got, ring_ccl.rs_q_plain(chunks, d, wd))
     for dirs in ((d,), (1, -1)):
         view, _, _ = ring_ccl._ar_layout(x, len(dirs))
-        lane, got = ring_ccl._ar_kernel(view, dirs, 0, wd)
+        lane, got = ring_ccl._ar_q_kernel(view, dirs, 0, wd)
         lane.check("test")
         assert _same(got, ring_ccl.ar_q_plain(view, dirs, wd))
         assert all(_same(got[i], got[0]) for i in range(1, n))
@@ -363,7 +479,7 @@ def test_quantized_kernels_keep_nonfinite_loud_and_zeros_exact(dev, wd):
     x[0, 5], x[1, 300] = float("inf"), float("nan")
     x[:, 1024:1152], x[3, 2048:2176] = 0.0, 1e-42
     view, k, _ = ring_ccl._ar_layout(x, 1)
-    lane, got = ring_ccl._ar_kernel(view, (1,), 0, wd)
+    lane, got = ring_ccl._ar_q_kernel(view, (1,), 0, wd)
     lane.check("test")
     assert _same(got, ring_ccl.ar_q_plain(view, (1,), wd))
     out = ring_ccl._ar_unlayout(got, k, x)

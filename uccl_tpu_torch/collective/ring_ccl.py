@@ -4,17 +4,22 @@ Port of ``uccl_tpu/collective/pallas_ccl.py``. Its Pallas remote-DMA kernels
 become five CUDA kernels in ``csrc/ring_ccl.cu``, built with ``nvcc`` for
 ``sm_90a`` at first use and called through ctypes:
 
-* ``ring_all_gather`` (B4, replaces ``_ag_ring``): write-once ring
-  all-gather; backs :func:`ring_all_gather`, :func:`bidir_all_gather` and
-  :func:`scatter_ag_broadcast`.
+* ``ring_all_gather`` (B4, replaces ``_ag_ring``): one push pass, no ring:
+  member j's blocks read its contribution once and store it into slot j of
+  every member's output row (:func:`ag_rows_plain`); backs
+  :func:`ring_all_gather`, :func:`bidir_all_gather` (both halves into one
+  output) and :func:`scatter_ag_broadcast` (contributions read straight
+  from the root's row, results written in their final place).
 * ``ring_reduce_scatter`` (B5): one pull pass, no ring: member k reads the
   W members' slot k of the caller's unpadded payload and adds them in the
   order the ring's hops would (:func:`rs_chain_plain`), storing slot k's
   sum once. No padding, no staging, no scratch.
-* ``ring_all_reduce`` (B7): RS phase, phase barrier, AG phase in one
-  launch, on one or two counter-rotating streams; backs
-  :func:`ring_all_reduce` and, as a pair of directed launches on two CUDA
-  streams, :func:`bidir_all_reduce`.
+* ``ring_all_reduce`` (B7): one pass, no ring: the blocks of chunk q's owner
+  read the W members' chunk q of the unpadded payload, add them in the
+  chain's order for the chunk's stream, and store the sum into every
+  member's output row (:func:`ar_chain_plain`); one or two streams, and
+  :func:`bidir_all_reduce` runs two directed launches on two CUDA streams
+  into one output.
 * ``ring_reduce_scatter_q`` (B6) and ``ring_all_reduce_q`` (B8): the same
   two schedules with a quantized wire (``wire_dtype="fp8"|"int8"``). Every
   RS hop crosses as a 1-byte payload plus one f32 scale per 128-lane row
@@ -34,11 +39,12 @@ address table, flags and epochs). On one card a hop is an HBM-to-HBM store.
 Beside each kernel is its plain version (``*_plain``): the same hop schedule
 on the member-stacked tensor — the same slot order, the same per-hop add in
 the input dtype — so it is bit-identical to the kernel and to the JAX
-kernels. B5's own contract is :func:`rs_chain_plain` (the unpadded payload,
-the chain's adds), which equals :func:`rs_plain` on the padded slots. A
-wrapper runs the hop schedule for tensors on the CPU; for a CUDA tensor it
-launches the kernel or raises, and raises if a kernel reports a spin-wait
-timeout. ``launch_counts`` counts kernel launches.
+kernels. The one-pass kernels' own contracts are on the unpadded payload:
+:func:`ag_rows_plain` (B4), :func:`rs_chain_plain` (B5) and
+:func:`ar_chain_plain` (B7), each equal to its hop schedule on the padded
+slots. A wrapper runs the hop schedule for tensors on the CPU; for a CUDA
+tensor it launches the kernel or raises, and raises if a kernel reports a
+spin-wait timeout. ``launch_counts`` counts kernel launches.
 
 On a CPU tensor over the arena budget (``dma.MAX_ARENA_BYTES``), a wrapper
 falls back to the plan lowering (``plan.py``), counted on
@@ -237,6 +243,15 @@ def _ag_hops(buf: torch.Tensor, direction: int) -> None:
         buf[right, send] = buf[r, send].clone()
 
 
+def ag_rows_plain(x: torch.Tensor) -> torch.Tensor:
+    """B4's function on unpadded rows. ``x`` ``[n, per]`` (member j's
+    contribution in row j) → ``[n, n, per]``: every member's row holds every
+    contribution, slot j member j's; what :func:`ag_plain` gives on padded
+    slots, in either direction."""
+    n = x.shape[0]
+    return x.unsqueeze(0).expand(n, *x.shape).clone()
+
+
 def rs_plain(chunks: torch.Tensor, direction: int = 1) -> torch.Tensor:
     """The ring reduce-scatter's hop schedule (the JAX kernel's). ``chunks``
     ``[n, n, m]`` → ``[n, m]``: member r's slot r, summed around the ring."""
@@ -259,6 +274,30 @@ def rs_chain_plain(x: torch.Tensor, direction: int = 1) -> torch.Tensor:
     for j in range(2, n + 1):
         acc = slots[(k + j * direction) % n, k] + acc
     return acc
+
+
+def ar_chain_plain(x: torch.Tensor, dirs: Sequence[int]) -> torch.Tensor:
+    """B7's function on unpadded rows. ``x`` ``[n, size]`` → ``[n, size]``,
+    every member's row the same. The row is cut into n·S chunks of
+    k = ceil(size / (n·S)) elements, as :func:`_dma.pad_chunks` cuts it (the
+    last short, any after it empty); chunk q, slot q // S of stream
+    h = q % S, is summed along the ring's chain in direction ``dirs[h]``, as
+    :func:`rs_chain_plain` sums a slot. What :func:`ar_plain` gives on the
+    padded slot-major layout."""
+    n, size = x.shape
+    streams = len(dirs)
+    k = -(-size // (n * streams))
+    out = x.new_empty((n, size))
+    for q in range(n * streams):
+        lo, hi = q * k, min(size, (q + 1) * k)
+        if lo >= hi:
+            break
+        o, d = q // streams, dirs[q % streams]
+        acc = x[(o + d) % n, lo:hi]
+        for j in range(2, n + 1):
+            acc = x[(o + j * d) % n, lo:hi] + acc
+        out[:, lo:hi] = acc
+    return out
 
 
 def ar_plain(view: torch.Tensor, dirs: Sequence[int]) -> torch.Tensor:
@@ -333,7 +372,7 @@ def _lib() -> ctypes.CDLL:
     i, p = ctypes.c_int, ctypes.c_void_p
     tab = ctypes.POINTER(ctypes.c_void_p)
     ll = ctypes.c_longlong
-    lib.uccl_ring_launch.argtypes = [i, i, i, i, i, i, i, i, ll, ll,
+    lib.uccl_ring_launch.argtypes = [i, i, i, i, i, i, i, i, ll, ll, ll, ll,
                                      tab, tab, tab, tab, tab, tab, tab, tab, p, i,
                                      ctypes.c_ulonglong, ctypes.c_ulonglong, p]
     lib.uccl_ring_launch.restype = i
@@ -378,9 +417,9 @@ def _launch(name: str, x: torch.Tensor, buf: torch.Tensor, stage: Optional[torch
             slot_bytes: int, *, wire_dtype: Optional[str] = None,
             sstage: Optional[torch.Tensor] = None, qbuf: Optional[torch.Tensor] = None,
             sbuf: Optional[torch.Tensor] = None) -> _lanes.Lane:
-    """Launch one kernel on the current stream; no sync and no error check
-    (the caller checks the returned lane). ``slot_bytes`` is one chunk slot
-    in ``x``'s dtype."""
+    """Launch one ring kernel (B6, B8) on the current stream; no sync and no
+    error check (the caller checks the returned lane). ``slot_bytes`` is one
+    chunk slot in ``x``'s dtype."""
     operands = [t for t in (x, buf, stage, out, sstage, qbuf, sbuf) if t is not None]
     _check_operands(name, x.dtype, *operands)
     return _enqueue(name, x, buf, stage, out, streams, dirs, cid, slot_bytes,
@@ -390,30 +429,74 @@ def _launch(name: str, x: torch.Tensor, buf: torch.Tensor, stage: Optional[torch
 def _enqueue(name: str, x: torch.Tensor, buf: Optional[torch.Tensor],
              stage: Optional[torch.Tensor], out: Optional[torch.Tensor], streams: int,
              dirs: Sequence[int], cid: int, slot_bytes: int, *, row_elems: int = 0,
-             wire_dtype: Optional[str] = None, sstage: Optional[torch.Tensor] = None,
-             qbuf: Optional[torch.Tensor] = None,
+             slot_stride: int = 0, extent: int = 0, x_ptrs: Optional[Sequence[int]] = None,
+             out_ptrs: Optional[Sequence[int]] = None, wire_dtype: Optional[str] = None,
+             sstage: Optional[torch.Tensor] = None, qbuf: Optional[torch.Tensor] = None,
              sbuf: Optional[torch.Tensor] = None) -> _lanes.Lane:
-    """The C entry on checked operands (``row_elems``: B5's row length, as
-    the entry sets out)."""
+    """The C entry on checked operands (``row_elems``, ``slot_stride``,
+    ``extent``: as the entry sets out). ``x_ptrs`` and ``out_ptrs`` give the
+    members' addresses where they are not the rows of ``x`` and ``out``."""
     n = x.shape[0]
     lane = _lane(x.device, cid)
     stream = torch.cuda.current_stream(x.device)
     t = _lanes.table
     rc = _lib().uccl_ring_launch(
         _KERNEL_ID[name], _ADD_DTYPES.get(x.dtype, 0), _WIRE_ID.get(wire_dtype, 0), n,
-        n, streams, dirs[0], dirs[-1], slot_bytes, row_elems, t(x, n), t(buf, n), t(stage, n),
-        t(out, n), t(sstage, n), t(qbuf, n), t(sbuf, n), t(lane.flags, n),
-        ctypes.c_void_p(lane.err.data_ptr()), cid, lane.next_epoch(),
-        _lanes.SPIN_TIMEOUT_MS.get() * 1_000_000, ctypes.c_void_p(stream.cuda_stream))
+        n, streams, dirs[0], dirs[-1], slot_bytes, row_elems, slot_stride, extent,
+        t(x, n) if x_ptrs is None else (ctypes.c_void_p * n)(*x_ptrs), t(buf, n), t(stage, n),
+        t(out, n) if out_ptrs is None else (ctypes.c_void_p * n)(*out_ptrs), t(sstage, n),
+        t(qbuf, n), t(sbuf, n), t(lane.flags, n), ctypes.c_void_p(lane.err.data_ptr()), cid,
+        lane.next_epoch(), _lanes.SPIN_TIMEOUT_MS.get() * 1_000_000,
+        ctypes.c_void_p(stream.cuda_stream))
     _lanes.raise_on_launch(rc, name, x.device)
     launch_counts[name] += 1
     return lane
 
 
-def launch_ag(chunk: torch.Tensor, out: torch.Tensor, direction: int, cid: int) -> _lanes.Lane:
-    """B4 on ``chunk`` ``[n, m]`` into ``out`` ``[n, n, m]``."""
-    m_bytes = chunk[0].numel() * chunk.element_size()
-    return _launch("ring_all_gather", chunk, out, None, None, 1, (direction,), cid, m_bytes)
+def _check_rows(name: str, x: torch.Tensor, *ts: torch.Tensor) -> None:
+    """``ts`` on ``x``'s device in its dtype, each row of elements
+    contiguous (rows at any stride)."""
+    for t in ts:
+        if t.device != x.device or t.dtype != x.dtype or (t.stride(-1) != 1 and t.shape[-1] > 1):
+            raise ValueError(f"{name}: operands must be of {x.dtype} with contiguous rows, "
+                             f"on {x.device}")
+
+
+def launch_ag(x: torch.Tensor, out: torch.Tensor, cid: int) -> _lanes.Lane:
+    """B4: member j's contribution ``x[j]`` (``x`` ``[n, per]``, rows at any
+    stride) into slot j of every member's row of ``out`` ``[n, n, per]``, a
+    view at any member and slot strides (the bidir pair's halves are column
+    ranges of one tensor). Any dtype: B4 moves bytes. No scratch."""
+    name, (n, per) = "ring_all_gather", x.shape
+    _check_world(name, x.dtype, n)
+    if tuple(out.shape) != (n, n, per):
+        raise ValueError(f"{name}: output {tuple(out.shape)} is not [{n}, {n}, {per}]")
+    _check_rows(name, x, x, out)
+    isz = x.element_size()
+    stride = out.stride(1) * isz
+    return _enqueue(name, x, None, None, out, 1, (1,), cid, per * isz, slot_stride=stride,
+                    extent=per * isz + (n - 1) * stride)
+
+
+def launch_ag_from_root(x: torch.Tensor, root: int, out: torch.Tensor, chunk: int, lo: int,
+                        width: int, cid: int) -> _lanes.Lane:
+    """B4 for the broadcast, on ``x`` ``[n, size]`` into ``out`` alike:
+    member j contributes elements [j·chunk + lo, j·chunk + lo + width) of
+    the root's row, and every member's row receives them in the same place;
+    contributions are cut at ``size``, so nothing past the row is read or
+    written."""
+    name, (n, size) = "ring_all_gather", x.shape
+    _check_world(name, x.dtype, n)
+    if tuple(out.shape) != (n, size) or not 0 < width <= chunk or lo + width > chunk:
+        raise ValueError(f"{name}: output {tuple(out.shape)} or chunk {chunk} [{lo}, "
+                         f"{lo + width}) does not fit [{n}, {size}]")
+    _check_rows(name, x, x, out)
+    isz = x.element_size()
+    row = x.data_ptr() + root * x.stride(0) * isz
+    return _enqueue(name, x, None, None, out, 1, (1,), cid, width * isz,
+                    slot_stride=chunk * isz, extent=(size - lo) * isz,
+                    x_ptrs=[row + (j * chunk + lo) * isz for j in range(n)],
+                    out_ptrs=[out.data_ptr() + (r * out.stride(0) + lo) * isz for r in range(n)])
 
 
 def launch_rs(x: torch.Tensor, out: torch.Tensor, direction: int, cid: int) -> _lanes.Lane:
@@ -422,23 +505,26 @@ def launch_rs(x: torch.Tensor, out: torch.Tensor, direction: int, cid: int) -> _
     scratch."""
     name, (n, size), per = "ring_reduce_scatter", x.shape, out.shape[-1]
     _check_world(name, x.dtype, n)
-    if size != n * per:
+    if size != n * per or tuple(out.shape) != (n, per):
         raise ValueError(f"{name}: rows of {size} are not {n} slots of {per}")
-    for t in (x, out):
-        if t.device != x.device or t.dtype != x.dtype or t.dim() != 2 or t.shape[0] != n \
-                or t.stride(1) != 1:
-            raise ValueError(f"{name}: operands must be [{n}, elements] of {x.dtype} with "
-                             f"contiguous rows, on {x.device}")
+    _check_rows(name, x, x, out)
     return _enqueue(name, x, None, None, out, 1, (direction,), cid, per * x.element_size(),
                     row_elems=size)
 
 
-def launch_ar(view: torch.Tensor, out: torch.Tensor, stage: torch.Tensor,
-              dirs: Sequence[int], cid: int) -> _lanes.Lane:
-    """B7 on ``view`` ``[n, n, S, m]`` into ``out`` alike (``stage``
-    ``[n, S, 2, m]``)."""
-    m_bytes = view.shape[3] * view.element_size()
-    return _launch("ring_all_reduce", view, out, stage, None, len(dirs), dirs, cid, m_bytes)
+def launch_ar(x: torch.Tensor, out: torch.Tensor, dirs: Sequence[int], cid: int) -> _lanes.Lane:
+    """B7 on ``x`` ``[n, size]``, the members' unpadded rows (rows at any
+    stride), into ``out`` alike (the bidir pair's halves are column ranges
+    of one tensor): every member's row receives :func:`ar_chain_plain`'s
+    sums; no scratch."""
+    name, (n, size) = "ring_all_reduce", x.shape
+    _check_world(name, x.dtype, n)
+    if tuple(out.shape) != (n, size) or size == 0:
+        raise ValueError(f"{name}: output {tuple(out.shape)} is not [{n}, {size}] or empty")
+    _check_rows(name, x, x, out)
+    k = -(-size // (n * len(dirs)))
+    return _enqueue(name, x, None, None, out, len(dirs), dirs, cid, k * x.element_size(),
+                    row_elems=size)
 
 
 def _scale_slot(m: int) -> int:
@@ -478,20 +564,18 @@ def _wire_buffers(like: torch.Tensor, *lead: int):
             torch.zeros((*lead, _scale_slot(m)), dtype=torch.float32, device=like.device))
 
 
-def _ar_operands(view, wire_dtype=None):
-    """The output and scratch of one all-reduce launch on ``view``
-    ``[n, n, S, m]``: (out, stage), or (out, qstage, sstage, qbuf, sbuf)."""
-    n, _, s, m = view.shape
-    out = view.new_empty(view.shape)
-    if wire_dtype is None:
-        return out, view.new_empty((n, s, 2, m))
-    return (out, *_wire_buffers(view, n, s, 2), *_wire_buffers(view, n, n, s))
+def _ar_q_operands(view):
+    """The output and scratch of one quantized all-reduce launch on ``view``
+    ``[n, n, S, m]``: (out, qstage, sstage, qbuf, sbuf)."""
+    n, _, s, _ = view.shape
+    return (view.new_empty(view.shape), *_wire_buffers(view, n, s, 2),
+            *_wire_buffers(view, n, n, s))
 
 
-def _ag_kernel(chunk, direction, cid):
-    """One B4 launch on ``chunk`` ``[n, m]``; (lane, out)."""
-    out = chunk.new_empty((chunk.shape[0],) + tuple(chunk.shape))
-    return launch_ag(chunk, out, direction, cid), out
+def _ag_kernel(x, cid):
+    """One B4 launch on ``x`` ``[n, per]``; (lane, out ``[n, n, per]``)."""
+    out = x.new_empty((x.shape[0],) + tuple(x.shape))
+    return launch_ag(x, out, cid), out
 
 
 def _rs_kernel(x, direction, cid):
@@ -509,13 +593,17 @@ def _rs_q_kernel(chunks, direction, cid, wire_dtype):
     return launch_rs_q(chunks, buf, qstage, sstage, out, direction, cid, wire_dtype), out
 
 
-def _ar_kernel(view, dirs, cid, wire_dtype=None, operands=None):
-    """One B7 launch (B8 with a ``wire_dtype``) on ``view``; (lane, out).
-    ``operands`` are :func:`_ar_operands`' buffers, allocated here unless a
-    caller made them beforehand (on another stream than the launch's)."""
-    out, *scratch = operands or _ar_operands(view, wire_dtype)
-    if wire_dtype is None:
-        return launch_ar(view, out, *scratch, dirs, cid), out
+def _ar_kernel(x, dirs, cid):
+    """One B7 launch on ``x`` ``[n, size]``; (lane, out ``[n, size]``)."""
+    out = x.new_empty(x.shape)
+    return launch_ar(x, out, dirs, cid), out
+
+
+def _ar_q_kernel(view, dirs, cid, wire_dtype, operands=None):
+    """One B8 launch on ``view``; (lane, out). ``operands`` are
+    :func:`_ar_q_operands`' buffers, allocated here unless a caller made
+    them beforehand (on another stream than the launch's)."""
+    out, *scratch = operands or _ar_q_operands(view)
     return launch_ar_q(view, out, *scratch, dirs, cid, wire_dtype), out
 
 
@@ -573,11 +661,11 @@ class _AgQuant:
         return self.q, self.sp, self.q.new_empty((n, *self.q.shape)), \
             self.sp.new_empty((n, *self.sp.shape))
 
-    def start(self, direction: int, cid: int, operands=None):
+    def start(self, cid: int, operands=None):
         """Both launches on the current stream; ([lanes], (payload, scales))."""
         q, sp, qbuf, sbuf = operands or self.operands()
-        return [launch_ag(q, qbuf, direction, cid),
-                launch_ag(sp, sbuf, direction, cid + _dma.CID_SCALE_OFFSET)], (qbuf, sbuf)
+        return [launch_ag(q, qbuf, cid),
+                launch_ag(sp, sbuf, cid + _dma.CID_SCALE_OFFSET)], (qbuf, sbuf)
 
     def plain(self, direction: int):
         return ag_plain(self.q, direction), ag_plain(self.sp, direction)
@@ -595,12 +683,13 @@ class _AgQuant:
 def ring_all_gather(x: torch.Tensor, *, direction: int = 1, collective_id: int = 0,
                     wire_dtype=None, count: bool = True) -> torch.Tensor:
     """``[n, k, ...]`` → ``[n, n*k, ...]``: every member gathers all
-    members' ``[k, ...]``, by B4 (n-1 neighbor hops). Falls back to the plan
-    lowering past the arena budget. ``wire_dtype``: the payload is quantized
-    once and circulates with its scale sidecar; every member dequantizes
-    the same wire bytes, so all copies are identical and one round trip
-    from the input. ``count=False`` leaves the wire bytes to a caller that
-    counts its whole schedule."""
+    members' ``[k, ...]``, by B4 on the payload as it is (one pass: no
+    padding, the result written in place); on the CPU by the ring's hops on
+    padded slots, and past the arena budget by the plan lowering.
+    ``wire_dtype``: the payload is quantized once and circulates with its
+    scale sidecar; every member dequantizes the same wire bytes, so all
+    copies are identical and one round trip from the input. ``count=False``
+    leaves the wire bytes to a caller that counts its whole schedule."""
     wire_dtype = _ring_wire_dtype(x, wire_dtype, "all_gather")
     n = x.shape[0]
     if n == 1:
@@ -619,7 +708,7 @@ def ring_all_gather(x: torch.Tensor, *, direction: int = 1, collective_id: int =
         if _is_cpu(x):  # in budget or past it: the same gather of the same wire bytes
             out = ring.finish(ring.plain(direction))
         else:
-            lanes, gathered = ring.start(direction, collective_id)
+            lanes, gathered = ring.start(collective_id)
             _lanes.check_all([(lane, "ring_all_gather") for lane in lanes])
             out = ring.finish(gathered)
         return out.reshape((n, n * k) + tuple(x.shape[2:]))
@@ -627,13 +716,12 @@ def ring_all_gather(x: torch.Tensor, *, direction: int = 1, collective_id: int =
         from uccl_tpu_torch.collective import plan
 
         return plan.ring_all_gather(x)
-    chunk = _dma.pad_chunks(flat, 1)[0].reshape(n, m)
-    if _is_cpu(x):
-        buf = ag_plain(chunk, direction)
-    else:
-        lane, buf = _ag_kernel(chunk, direction, collective_id)
+    if not _is_cpu(x):
+        lane, out = _ag_kernel(_unit_rows(flat), collective_id)
         lane.check("ring_all_gather")
-    return buf[:, :, :size].reshape((n, n * k) + tuple(x.shape[2:]))
+        return out.reshape((n, n * k) + tuple(x.shape[2:]))
+    chunk = _dma.pad_chunks(flat, 1)[0].reshape(n, m)
+    return ag_plain(chunk, direction)[:, :, :size].reshape((n, n * k) + tuple(x.shape[2:]))
 
 
 def ring_reduce_scatter(x: torch.Tensor, *, direction: int = 1, collective_id: int = 0,
@@ -663,8 +751,7 @@ def ring_reduce_scatter(x: torch.Tensor, *, direction: int = 1, collective_id: i
 
         return plan.ring_reduce_scatter(x)
     if wire_dtype is None and not _is_cpu(x):
-        lane, out = _rs_kernel(flat if flat.stride(1) == 1 else flat.contiguous(), direction,
-                               collective_id)
+        lane, out = _rs_kernel(_unit_rows(flat), direction, collective_id)
         lane.check("ring_reduce_scatter")
         return out.reshape((n, k) + tuple(x.shape[2:]))
     chunks = _dma.pad_chunks(flat, n)[0].reshape(n, n, m)
@@ -696,18 +783,20 @@ def _ar_wire_bytes(n: int, streams: int, m: int, itemsize: int, wire_dtype) -> i
 
 def ring_all_reduce(x: torch.Tensor, *, bidirectional: bool = True, direction: int = 1,
                     collective_id: int = 0, wire_dtype=None) -> torch.Tensor:
-    """Allreduce (sum) of member-stacked ``x`` as ONE B7 launch: RS phase,
-    phase barrier, AG phase. ``bidirectional`` splits the payload over two
+    """Allreduce (sum) of member-stacked ``x`` as ONE B7 launch on the
+    payload as it is (one pass: no padding, the sums written in place, in
+    the ring's chain order). ``bidirectional`` splits the payload over two
     counter-rotating streams; ``direction`` rotates the single ring
     otherwise. ``wire_dtype``: ONE B8 launch — the quantized RS phase, the
     reduced slot quantized once, wire bytes forwarded verbatim; the error is
-    n-1 per-hop round trips into the sum plus one on the gathered copy."""
+    n-1 per-hop round trips into the sum plus one on the gathered copy. On
+    the CPU the ring's hops on padded slots."""
     wire_dtype = _ring_wire_dtype(x, wire_dtype, "all_reduce")
     n = x.shape[0]
     if n == 1:
         return x
     dirs = (1, -1) if bidirectional else (direction,)
-    view, k, m = _ar_layout(x, len(dirs))
+    m = _dma.padded_chunk_elems(-(-x[0].numel() // (n * len(dirs))))
     itemsize = x.element_size()
     wire = _lax_wire(x, ar_charge(x[0].numel(), itemsize, n, len(dirs), wire_dtype),
                      "all_reduce")
@@ -717,16 +806,31 @@ def ring_all_reduce(x: torch.Tensor, *, bidirectional: bool = True, direction: i
         from uccl_tpu_torch.collective import plan
 
         return plan.ring_all_reduce(x, bidirectional=bidirectional, direction=direction)
+    if wire_dtype is None and not _is_cpu(x):
+        lane, out = _ar_kernel(_unit_rows(x.reshape(n, -1)), dirs, collective_id)
+        lane.check("ring_all_reduce")
+        return out.reshape(x.shape)
+    view, k, _ = _ar_layout(x, len(dirs))
     if _is_cpu(x):
         buf = ar_plain(view, dirs) if wire_dtype is None else ar_q_plain(view, dirs, wire_dtype)
     else:
-        lane, buf = _ar_kernel(view, dirs, collective_id, wire_dtype)
+        lane, buf = _ar_q_kernel(view, dirs, collective_id, wire_dtype)
         lane.check("ring_all_reduce")
     return _ar_unlayout(buf, k, x)
 
 
-def _start_ar(view, dirs, cid, wire_dtype, operands):
-    lane, out = _ar_kernel(view, dirs, cid, wire_dtype, operands)
+def _unit_rows(flat: torch.Tensor) -> torch.Tensor:
+    """``flat`` ``[n, size]`` itself when its rows are contiguous (rows at
+    any stride), else a contiguous copy."""
+    return flat if flat.stride(1) == 1 or flat.shape[1] <= 1 else flat.contiguous()
+
+
+def _start_ar(x, out, dirs, cid):
+    return [launch_ar(x, out, dirs, cid)], out
+
+
+def _start_ar_q(view, dirs, cid, wire_dtype, operands):
+    lane, out = _ar_q_kernel(view, dirs, cid, wire_dtype, operands)
     return [lane], out
 
 
@@ -735,9 +839,10 @@ def bidir_all_reduce(x: torch.Tensor, *, collective_id: Optional[int] = None,
     """Allreduce (sum) over TWO counter-rotating B7 launches (B8 with a
     ``wire_dtype``) on paired collective ids, in flight together on two CUDA
     streams: each member's flat payload is split in half, the first half
-    rings forward (+1), the second backward (-1). Past the arena budget both
-    halves ride their directed mirrors as a pair (the plan lowerings, or the
-    quantized schedule's plain version), counted on
+    rings forward (+1), the second backward (-1); B7 writes both halves'
+    sums into one output, each into its own columns. Past the arena budget
+    both halves ride their directed mirrors as a pair (the plan lowerings,
+    or the quantized schedule's plain version), counted on
     ``ep_wire_fallback_total`` and ``collective_plan_total{outcome="fallback"}``."""
     wire_dtype = _ring_wire_dtype(x, wire_dtype, "all_reduce_bidir")
     n = x.shape[0]
@@ -775,13 +880,23 @@ def bidir_all_reduce(x: torch.Tensor, *, collective_id: Optional[int] = None,
                                 collective_id=collective_id + i, wire_dtype=wire_dtype)
                 for i, (h, d) in enumerate(zip(halves, (1, -1)))]
         return torch.cat(outs, dim=1).reshape(x.shape)
-    layouts = []
     for h in halves:
-        view, k, m = _ar_layout(h, 1)
+        m = _dma.padded_chunk_elems(-(-h.shape[1] // n))
         _count_wire_bytes("ring_all_reduce", "pallas", wire_dtype,
                           _ar_wire_bytes(n, 1, m, itemsize, wire_dtype))
-        layouts.append((view, k, h, _ar_operands(view, wire_dtype)))
-    starts = [functools.partial(_start_ar, lay[0], (d,), collective_id + i, wire_dtype, lay[3])
+    if wire_dtype is None:  # both halves' sums straight into one output
+        src = _unit_rows(flat)
+        out = src.new_empty((n, size))
+        starts = [functools.partial(_start_ar, src[:, lo:hi], out[:, lo:hi], (d,),
+                                    collective_id + i)
+                  for i, (lo, hi, d) in enumerate(((0, half, 1), (half, size, -1)))]
+        _run_pair("bidir_all_reduce", starts, (src, out), x.device)
+        return out.reshape(x.shape)
+    layouts = []
+    for h in halves:
+        view, k, _ = _ar_layout(h, 1)
+        layouts.append((view, k, h, _ar_q_operands(view)))
+    starts = [functools.partial(_start_ar_q, lay[0], (d,), collective_id + i, wire_dtype, lay[3])
               for i, (lay, d) in enumerate(zip(layouts, (1, -1)))]
     bufs = _run_pair("bidir_all_reduce", starts, (layouts[1][0], *layouts[1][3]), x.device)
     outs = [_ar_unlayout(b, k, h) for b, (_, k, h, _) in zip(bufs, layouts)]
@@ -807,19 +922,21 @@ def _ag_pair_lax_mirror(flat: torch.Tensor, wire_dtype=None) -> torch.Tensor:
     return torch.cat(outs, dim=2)
 
 
-def _start_ag(chunk, out, direction, cid):
-    return [launch_ag(chunk, out, direction, cid)], out
+def _start_ag(x, out, cid):
+    return [launch_ag(x, out, cid)], out
 
 
 def bidir_all_gather(x: torch.Tensor, *, collective_id: Optional[int] = None,
                      wire_dtype=None, count: bool = True) -> torch.Tensor:
-    """``[n, k, ...]`` → ``[n, n*k, ...]`` over TWO counter-rotating B4
-    launches on paired collective ids, in flight together: each member's
-    flat payload is split in half, the first half rings forward, the second
-    backward. ``wire_dtype`` quantizes each half once at the source and
-    forwards wire bytes verbatim (two B4 launches per half: payload and
-    scales). Past the arena budget the pair rides its mirror, counted on
-    ``ep_wire_fallback_total`` and ``collective_plan_total``."""
+    """``[n, k, ...]`` → ``[n, n*k, ...]`` over TWO B4 launches on paired
+    collective ids, in flight together: each member's flat payload is split
+    in half, the JAX package's counter-rotating pair (on the CPU: the first
+    half rings forward, the second backward); on the card both halves land
+    in one output, each in its own columns. ``wire_dtype`` quantizes each
+    half once at the source and forwards wire bytes verbatim (two B4
+    launches per half: payload and scales). Past the arena budget the pair
+    rides its mirror, counted on ``ep_wire_fallback_total`` and
+    ``collective_plan_total``."""
     wire_dtype = _ring_wire_dtype(x, wire_dtype, "all_gather_bidir")
     n = x.shape[0]
     if n == 1:
@@ -858,20 +975,19 @@ def bidir_all_gather(x: torch.Tensor, *, collective_id: Optional[int] = None,
                     (n - 1) * _hop_wire_bytes(_dma.padded_chunk_elems(h.shape[1]), itemsize,
                                               wire_dtype))
         if wire_dtype is None:
-            chunks = [_dma.pad_chunks(h, 1)[0].reshape(n, -1) for h in halves]
-            outs = [c.new_empty((n, *c.shape)) for c in chunks]
-            starts = [functools.partial(_start_ag, c, o, d, collective_id + i)
-                      for i, (c, o, d) in enumerate(zip(chunks, outs, (1, -1)))]
-            bufs = _run_pair("bidir_all_gather", starts, (chunks[1], outs[1]), x.device)
-            outs = [b[:, :, : h.shape[1]] for b, h in zip(bufs, halves)]
+            src = _unit_rows(flat)
+            out = src.new_empty((n, n, size))
+            starts = [functools.partial(_start_ag, src[:, lo:hi], out[:, :, lo:hi],
+                                        collective_id + i)
+                      for i, (lo, hi) in enumerate(((0, half), (half, size)))]
+            _run_pair("bidir_all_gather", starts, (src, out), x.device)
         else:
             rings = [_AgQuant(h, wire_dtype) for h in halves]
             operands = [ring.operands() for ring in rings]
-            starts = [functools.partial(ring.start, d, collective_id + i, ops)
-                      for i, (ring, ops, d) in enumerate(zip(rings, operands, (1, -1)))]
+            starts = [functools.partial(ring.start, collective_id + i, ops)
+                      for i, (ring, ops) in enumerate(zip(rings, operands))]
             bufs = _run_pair("bidir_all_gather", starts, operands[1], x.device)
-            outs = [ring.finish(b) for ring, b in zip(rings, bufs)]
-        out = torch.cat(outs, dim=2)
+            out = torch.cat([ring.finish(b) for ring, b in zip(rings, bufs)], dim=2)
     return out.reshape((n, n * k) + tuple(x.shape[2:]))
 
 
@@ -886,21 +1002,22 @@ def _bcast_wire_bytes(n: int, m: int, itemsize: int, wire_dtype=None) -> int:
     return scatter + ag
 
 
-def _scatter_from_root(chunks: torch.Tensor, root: int) -> torch.Tensor:
-    """Rooted scatter on ``[n, n, m]``: member r ends holding ROOT's chunk
-    r (pure data movement; the JAX package's direct root→j ppermutes)."""
-    return chunks[root].clone()
+def _start_bcast(x, root, out, chunk, lo, width, cid):
+    return [launch_ag_from_root(x, root, out, chunk, lo, width, cid)], out
 
 
 def scatter_ag_broadcast(x: torch.Tensor, root: int = 0, *,
                          collective_id: Optional[int] = None, wire_dtype=None) -> torch.Tensor:
     """Rooted broadcast of member-stacked ``x``: every member returns the
     ROOT's row, as the scatter-allgather decomposition — the root scatters
-    S/n chunks, then the counter-rotating B4 pair completes every member's
-    copy. Full precision is bit-exact (pure data movement); ``wire_dtype``
-    quantizes the all-gather legs once per chunk — one round trip of error,
-    every member identical. Past the arena budget the pair's mirror,
-    counted."""
+    S/n chunks, then the B4 pair (each chunk split in half, as the JAX
+    package's counter-rotating pair splits it) completes every member's
+    copy. On the card B4 reads the chunks straight from the root's row and
+    writes them into every member's row in their final place: no scatter
+    copy, no padding, no cut. Full precision is bit-exact (pure data
+    movement); ``wire_dtype`` quantizes the all-gather legs once per chunk —
+    one round trip of error, every member identical. Past the arena budget
+    the pair's mirror, counted."""
     wire_dtype = _ring_wire_dtype(x, wire_dtype, "broadcast")
     n = x.shape[0]
     if n == 1:
@@ -908,10 +1025,12 @@ def scatter_ag_broadcast(x: torch.Tensor, root: int = 0, *,
     if collective_id is None:
         collective_id = _dma.CID_BCAST
     flat = x.reshape(n, -1)
-    chunks, kk, m = _dma.pad_chunks(flat, n)  # [n, n, rows, 128]
+    size = flat.shape[1]
+    kk = -(-size // n)  # elements of a scattered chunk; m with its padding
+    m = _dma.padded_chunk_elems(kk)
     itemsize = x.element_size()
     kernel_ok = not _over_budget(
-        x, bcast_pair_charge(flat.shape[1], itemsize, n, wire_dtype), "broadcast")
+        x, bcast_pair_charge(size, itemsize, n, wire_dtype), "broadcast")
     if not kernel_ok:
         from uccl_tpu_torch.collective import plan
 
@@ -919,13 +1038,27 @@ def scatter_ag_broadcast(x: torch.Tensor, root: int = 0, *,
                             outcome="fallback", verb="broadcast")
     _count_wire_bytes("bcast", "pallas" if kernel_ok else "lax", wire_dtype,
                       _bcast_wire_bytes(n, m, itemsize, wire_dtype))
-    my_chunk = _scatter_from_root(chunks.reshape(n, n, m), root)  # [n, m]
+    if kernel_ok and wire_dtype is None and not _is_cpu(x):
+        src = _unit_rows(flat)
+        out = src.new_empty((n, size))
+        h1 = kk // 2
+        parts = ((0, h1), (h1, kk - h1)) if h1 else ((0, kk),)
+        starts = [functools.partial(_start_bcast, src, root, out, kk, lo, width,
+                                    collective_id + i) for i, (lo, width) in enumerate(parts)]
+        if len(starts) == 2:
+            _run_pair("scatter_ag_broadcast", starts, (src, out), x.device)
+        else:
+            lanes, _ = starts[0]()
+            lanes[0].check("scatter_ag_broadcast")
+        return out.reshape(x.shape)
+    # member r holds the root's chunk r: a view of the root's padded row
+    my_chunk = _dma.pad_chunks(flat, n)[0].reshape(n, n, m)[root]
     if kernel_ok:
         gathered = bidir_all_gather(my_chunk, collective_id=collective_id,
                                     wire_dtype=wire_dtype, count=False)
     else:
         gathered = _ag_pair_lax_mirror(my_chunk, wire_dtype)
-    out = gathered.reshape(n, n, m)[:, :, :kk].reshape(n, -1)[:, : flat.shape[1]]
+    out = gathered.reshape(n, n, m)[:, :, :kk].reshape(n, -1)[:, :size]
     return out.reshape(x.shape)
 
 
@@ -943,7 +1076,7 @@ def scatter_gather_broadcast_lax(x: torch.Tensor, root: int = 0) -> torch.Tensor
     itemsize = x.element_size()
     scatter = -(-(n - 1) * m * itemsize // n)
     _count_wire_bytes("bcast", "xla", None, scatter + (n - 1) * m * itemsize)
-    my_chunk = _scatter_from_root(chunks.reshape(n, n, m), root)
+    my_chunk = chunks.reshape(n, n, m)[root]  # member r holds the root's chunk r
     gathered = plan.ring_all_gather(my_chunk)  # [n, n*m]
     out = gathered.reshape(n, n, m)[:, :, :kk].reshape(n, -1)[:, : flat.shape[1]]
     return out.reshape(x.shape)

@@ -1,6 +1,6 @@
 // Ring collectives over a W-member world: all-gather (B4), reduce-scatter
-// (B5) and the fused all-reduce (B7), and the two whose wire is quantized
-// (B6, B8), for Hopper (sm_90a).
+// (B5) and all-reduce (B7), and the two whose wire is quantized (B6, B8),
+// for Hopper (sm_90a).
 //
 // Replaces the Pallas remote-DMA kernels of uccl_tpu/collective/pallas_ccl.py:
 //   ring_ag_kernel        <- _ag_ring (pallas_ccl.py:434, call :450)
@@ -9,27 +9,28 @@
 //   ring_rsq_kernel<T,W>  <- ring_reduce_scatter's quantized kernel (:621, call :632)
 //   ring_arq_kernel<T,W>  <- ring_all_reduce's quantized kernel (:742, call :773)
 //
-// Members. Each kernel takes a table of per-member base addresses into a
-// symmetric arena: inputs, data slots, 2-slot staging and flag words. One
-// launch runs every member of the world: blockIdx.y is the member, and
-// blockIdx.x splits each chunk slot into independent channels (and, for B7,
-// the two counter-rotating streams), each with its own flags, so many SMs
-// move each member's bytes. On one card every address in the table lies in
-// the same HBM, so a "hop" is an HBM-to-HBM store; members on separate cards
-// need only another table (peer or IPC addresses) and the .sys memory scope.
-// B5 is no ring on this card: one pull pass per member, set out above
-// ring_rs_kernel.
+// Members. Each kernel takes a table of per-member base addresses: inputs,
+// outputs and, for the quantized ring, data slots, 2-slot staging and flag
+// words. One launch runs every member of the world: blockIdx.y is the
+// member, and blockIdx.x splits its work into independent channels (and,
+// for B7 and B8, the two counter-rotating streams), each with its own flags,
+// so many SMs move each member's bytes. On one card every address in the
+// table lies in the same HBM, so a "hop" is an HBM-to-HBM store; members on
+// separate cards need only another table (peer or IPC addresses) and the
+// .sys memory scope.
 //
-// Schedule of the ring kernels, exactly the JAX package's slot arithmetic
-// (d = direction):
-//   AG step s sends slot (r - d*s) mod n straight into the right
-//     neighbor's slot of the same index (write-once slots);
-//   RS step s (B6, B7) sends slot (r - d*(s+1)) mod n into the right
-//     neighbor's staging slot s%2, and folds the partial that arrives from
-//     the left into slot (r - d*(s+2)) mod n, in the input dtype, one
-//     rounding per hop (buf + stage, pallas_ccl.py:242);
-//   B7 runs the RS phase, a phase barrier, then the AG phase, on a payload
-//     laid out slot-major, then by stream ([n][S][m], pallas_ccl.py:673-676).
+// B4, B5 and B7 are no ring on this card: each is one pass that reads every
+// input byte once and writes every result byte once, in its final place
+// (set out above ring_rs_kernel). B6 and B8 keep the ring, exactly the JAX
+// package's slot arithmetic (d = direction):
+//   RS step s sends slot (r - d*(s+1)) mod n into the right neighbor's
+//     staging slot s%2, and folds the partial that arrives from the left
+//     into slot (r - d*(s+2)) mod n, in the input dtype, one rounding per hop
+//     (buf + stage, pallas_ccl.py:242);
+//   B8 runs the RS phase, a phase barrier, then the AG phase (step s sends
+//     slot (r - d*s) mod n straight into the right neighbor's slot of the
+//     same index), on a payload laid out slot-major, then by stream
+//     ([n][S][m], pallas_ccl.py:673-676).
 //
 // Synchronization. The TPU kernels' DMA, credit and barrier semaphores
 // become 64-bit flag words holding (epoch << 32) | count. A sender stores its
@@ -40,7 +41,7 @@
 // launch can never let a wait through (no signal/wait balance is needed).
 // Credit window as in pallas_ccl.py:172-197: two staging slots start free,
 // and from step 2 on a sender waits until its right neighbor has consumed
-// step s-2. Entry barrier with both neighbors; B7 keeps the phase barrier
+// step s-2. Entry barrier with both neighbors; B8 keeps the phase barrier
 // (its AG stores into the right neighbor's slots only after that neighbor's
 // RS phase, which reads and folds those slots, is done).
 //
@@ -68,9 +69,9 @@
 // arithmetic here: an IEEE division by the scale, __fmul_rn/__fadd_rn so
 // that no multiply and add contract into an fma, no fast-math.
 //
-// Bound. All five move bytes and do a handful of operations per element per
-// hop: HBM bandwidth bounds them (3.35 TB/s on an H100 SXM). The ring
-// kernels' copies and folds use 16-byte vector loads and stores through L2
+// Bound. All five move bytes and do a handful of operations per element:
+// HBM bandwidth bounds them (3.35 TB/s on an H100 SXM). The ring kernels'
+// copies and folds use 16-byte vector loads and stores through L2
 // (ld.global.cg / st.global.cg), since staging slots are rewritten every
 // other step by another SM.
 
@@ -80,6 +81,7 @@
 #include <cuda_fp8.h>
 #include <math_constants.h>
 #include <stdint.h>
+#include <type_traits>
 
 #include "collective.cuh"
 
@@ -87,7 +89,7 @@ namespace {
 
 using namespace uccl;
 
-constexpr int kFlagWords = 4;  // recv, ack, phase (B5: exit), entry
+constexpr int kFlagWords = 4;  // recv, ack, phase (B4, B5, B7: exit), entry
 
 constexpr int kWarps = kThreads / 32;
 // Rows a warp has in flight. The quantized kernels are built for two blocks
@@ -100,18 +102,18 @@ constexpr float kScaleTiny = 1.17549435e-38f;  // smallest normal f32
 
 enum Kernel { kAG = 0, kRS = 1, kAR = 2, kRSQ = 3, kARQ = 4 };
 enum Wire { kFp8 = 0, kInt8 = 1 };
-// B5's full-peer barriers (kWaitPeers at entry, kWaitPeersExit at exit): the
-// error word's step is the peer awaited
+// The full-peer barriers of B4, B5 and B7 (kWaitPeers at entry,
+// kWaitPeersExit at exit): the error word's step is the peer awaited
 enum Wait {
   kWaitEntry = 0, kWaitCredit = 1, kWaitRecv = 2, kWaitPhase = 3, kWaitPeers = 4,
   kWaitPeersExit = 5
 };
 
 struct RingArgs {
-  const char* x[kMaxMembers];        // member inputs
-  char* buf[kMaxMembers];            // member data slots ([n][S][slot_bytes])
-  char* stage[kMaxMembers];          // member staging ([S][2][slot_bytes])
-  char* out[kMaxMembers];            // B5, B6: member output ([slot_bytes])
+  const char* x[kMaxMembers];        // member inputs (B4: contributions)
+  char* buf[kMaxMembers];            // B6, B8: member data slots ([n][S][slot_bytes])
+  char* stage[kMaxMembers];          // B6, B8: member staging ([S][2][slot_bytes])
+  char* out[kMaxMembers];            // B4, B5, B7: member output rows; B6: member output
   unsigned long long* flags[kMaxMembers];  // member flags ([2][kMaxChannels][kFlagWords])
   // quantized wire: B6/B8 stage payload bytes in ``stage`` ([S][2][m]) and
   // row scales in ``sstage`` ([S][2][srow]); B8 gathers into ``qbuf``
@@ -121,7 +123,10 @@ struct RingArgs {
   float* sbuf[kMaxMembers];
   long long rows, srow;              // rows of a slot; f32 scales per scale slot
   int* err;                          // error word of the flag region: 8 ints
-  long long slot_bytes;              // bytes of one chunk slot of one stream
+  long long slot_bytes;              // one chunk slot of one stream (B4: one contribution)
+  long long row_elems;               // B5, B7: elements of a member's input row
+  long long slot_stride, extent;     // B4: bytes between an output row's slots, and
+                                     // bytes of an output row from its base that are written
   int n, S, C;                       // world, streams, channels
   int dir[2];                        // direction of each stream
   int cid, kernel;
@@ -185,152 +190,117 @@ template <> __device__ __forceinline__ int4 add16<__half>(int4 a, int4 b) {
   return a;
 }
 
-// dst = own + arrived (the fold of one hop)
-template <typename T>
-__device__ __forceinline__ void fold16(char* dst, const char* own, const char* arrived, Range rg) {
-  int4* d = reinterpret_cast<int4*>(dst);
-  const int4* o = reinterpret_cast<const int4*>(own);
-  const int4* s = reinterpret_cast<const int4*>(arrived);
-  long long i = rg.lo + threadIdx.x;
-  for (; i + kThreads < rg.hi; i += 2 * kThreads) {
-    int4 o0 = __ldcg(o + i), o1 = __ldcg(o + i + kThreads);
-    int4 s0 = __ldcg(s + i), s1 = __ldcg(s + i + kThreads);
-    __stcg(d + i, add16<T>(o0, s0));
-    __stcg(d + i + kThreads, add16<T>(o1, s1));
-  }
-  for (; i < rg.hi; i += kThreads) __stcg(d + i, add16<T>(__ldcg(o + i), __ldcg(s + i)));
-}
+// B4 runs the sums' pass on bytes (T = unsigned char) with one term: a copy,
+// which never names add16
+template <typename T> constexpr bool kAdds = !std::is_same<T, unsigned char>::value;
 
 __device__ __forceinline__ long long slot_off(const RingArgs& a, int slot, int h) {
   return ((long long)slot * a.S + h) * a.slot_bytes;
 }
 
-// Entry barrier with both ring neighbors (dma.py:292 ring_barrier).
+// Entry barrier with both ring neighbors (dma.py:292 ring_barrier): B6, B8.
 __device__ bool entry_barrier(const RingArgs& a, int r, int h, int c, int right, int left) {
   signal(flag(a, r, h, c, 3), mark(a, 1));
   return wait_geq(a, flag(a, right, h, c, 3), mark(a, 1), r, h, c, -1, kWaitEntry) &&
          wait_geq(a, flag(a, left, h, c, 3), mark(a, 1), r, h, c, -1, kWaitEntry);
 }
 
-// The reduce-scatter phase of one stream of B7 (pallas_ccl.py:206
-// _rs_phase). Slots of x are never folded before they are read, so a fold
-// reads x and the arrived partial, and writes the member's data slot.
-template <typename T>
-__device__ bool rs_phase(const RingArgs& a, int r, int h, int c, int d, Range rg) {
-  const int n = a.n, right = mod(r + d, n), left = mod(r - d, n);
-  const char* x = a.x[r];
-  char* buf = a.buf[r];
-  for (int s = 0; s < n - 1; ++s) {
-    const int send_slot = mod(r - d * (s + 1), n);
-    if (s >= 2 && !wait_geq(a, flag(a, r, h, c, 1), mark(a, s - 1), r, h, c, s, kWaitCredit))
-      return false;
-    const char* src = (s == 0 ? x : buf) + slot_off(a, send_slot, h);
-    copy16(a.stage[right] + ((long long)h * 2 + (s & 1)) * a.slot_bytes, src, rg);
-    signal(flag(a, right, h, c, 0), mark(a, s + 1));
-    if (!wait_geq(a, flag(a, r, h, c, 0), mark(a, s + 1), r, h, c, s, kWaitRecv)) return false;
-    const int recv_slot = mod(r - d * (s + 2), n);
-    fold16<T>(buf + slot_off(a, recv_slot, h), x + slot_off(a, recv_slot, h),
-              a.stage[r] + ((long long)h * 2 + (s & 1)) * a.slot_bytes, rg);
-    signal(flag(a, left, h, c, 1), mark(a, s + 1));
-  }
-  return true;
-}
-
-// The all-gather phase of one stream (pallas_ccl.py:153 _ag_phase): n-1
-// write-once hops from the member's slot into the right neighbor's slot of
-// the same index. ``first`` is where step 0's slot (the member's own) is
-// read from; ``t0`` numbers the steps after an earlier phase's.
-__device__ bool ag_phase(const RingArgs& a, int r, int h, int c, int d, Range rg,
-                         const char* first, int t0) {
-  const int n = a.n, right = mod(r + d, n), left = mod(r - d, n);
-  for (int s = 0; s < n - 1; ++s) {
-    const int t = t0 + s;
-    const int send_slot = mod(r - d * s, n);
-    if (s >= 2 && !wait_geq(a, flag(a, r, h, c, 1), mark(a, t - 1), r, h, c, t, kWaitCredit))
-      return false;
-    const long long off = slot_off(a, send_slot, h);
-    copy16(a.buf[right] + off, s == 0 ? first : a.buf[r] + off, rg);
-    signal(flag(a, right, h, c, 0), mark(a, t + 1));
-    if (!wait_geq(a, flag(a, r, h, c, 0), mark(a, t + 1), r, h, c, t, kWaitRecv)) return false;
-    signal(flag(a, left, h, c, 1), mark(a, t + 1));
-  }
-  return true;
-}
-
-__global__ void __launch_bounds__(kThreads) ring_ag_kernel(RingArgs a) {
-  const int r = blockIdx.y, c = blockIdx.x, d = a.dir[0];
-  const Range rg = channel_range(a, c);
-  // the member's own chunk lands in its slot r
-  copy16(a.buf[r] + slot_off(a, r, 0), a.x[r], rg);
-  if (!entry_barrier(a, r, 0, c, mod(r + d, a.n), mod(r - d, a.n))) return;
-  ag_phase(a, r, 0, c, d, rg, a.x[r], 0);
-}
-
 // ---------------------------------------------------------------------------
-// B5: the reduce-scatter as one pull pass (replaces ring_reduce_scatter's
-// full-precision kernel, pallas_ccl.py:546)
+// B4, B5 and B7: one pass each (replace _ag_ring, pallas_ccl.py:434, and the
+// full-precision kernels of ring_reduce_scatter, :546, and ring_all_reduce,
+// :645)
 //
-// What it computes, bit for bit as the JAX kernel and rs_plain: member k's
-// output is slot k summed along the chain the ring's hops make
-// (d = direction, member indices mod W):
-//   out[k] = x[k][k] + (x[k-d][k] + (... + (x[k+2d][k] + x[k+d][k])))
+// What they compute, bit for bit as the JAX kernels and the hop schedules
+// (ag_plain, rs_plain, ar_plain in collective/ring_ccl.py). Slot k summed
+// along the chain the ring's hops make (d = direction, member indices mod W):
+//   sum_k = x[k][k] + (x[k-d][k] + (... + (x[k+2d][k] + x[k+d][k])))
 // Each "+" is one correctly rounded add in the input dtype (f32, bf16, f16,
-// or wrapping int32), in that order, because that is the order rs_phase
-// folds in: step s of the ring adds the partial arriving from the left into
+// or wrapping int32), in that order, because that is the order the ring's
+// RS phase folds in: step s adds the partial arriving from the left into
 // the member's own slot. Summing in f32 and rounding once would be more
 // accurate, and no longer bit-identical to the reference for bf16 and f16.
+//   B5: member k's output is sum_k.
+//   B7: every member's output holds every sum, in its place in the payload
+//     (the ring's AG phase moves bits verbatim). A row of ``size`` elements
+//     is cut into W·S chunks of k = ceil(size / (W·S)) elements (pad_chunks'
+//     split: the last short, any after it empty); chunk q is slot q / S of
+//     stream h = q % S, summed in direction dir[h].
+//   B4: every member's output row holds every member's contribution in
+//     member order: slot j is member j's.
 //
-// Bound: HBM bytes. The function reads W·P (every member's row of P
-// elements) and writes P (P/W per member): (W+1)·P over 3.35 TB/s. The ring
-// schedule moved 3.75·P per member at W = 4 (each of W-1 hops a staging
-// copy, a read and a write, then a fold, two reads and a write, of P/W),
-// with a flag wait between hops and a credit window on top. On one card
-// every member's input is in the same HBM before the launch, so blockIdx.y
-// = k is the member that owns the output and its blocks stride over slot k:
-// for each 16-byte vector they load the W terms x[k+d][k], ..., x[k][k]
-// from the member table (peer addresses can fill it later), add them in the
-// chain's order and store the result once. That moves exactly the bound's
-// bytes, with no staging, no credits and no per-hop wait.
+// Bound: HBM bytes, each input read once, each output written once. B5
+// reads W·P (every member's row of P elements) and writes P; B7 reads W·P
+// and writes W·P; B4 reads P (P/W contributed per member) and writes W·P.
+// The ring moved 2-3x that (each hop a staging copy and a fold, or a copy,
+// through HBM), with a flag wait between hops and a credit window on top.
+// On one card every member's input is in the same HBM before the launch,
+// so a block works for one member (blockIdx.y) and strides over its share.
+// B5 and B7: for each 16-byte vector of the member's chunk, load its W
+// terms from the member table (peer addresses can fill it later), add them
+// in the chain's order and store the result once into each output that
+// holds it (B5: the member's own; B7: every member's). B4 (a push): load
+// each vector of the member's contribution once and store it into that
+// member's slot of every output row. (The pull, where member r's blocks
+// read all W contributions and write row r once, measured 0.3-1.4% slower
+// on the H100 at the gradient bucket, the L2 serving its W reads of each
+// contribution; PERF.md.) That moves exactly the bound's bytes, with no
+// staging, no padding, no credits and no per-hop wait.
 //
 // Loads and stores. The inputs are read once and never written during the
 // launch: loads take the non-coherent path, skip L1 and mark their lines
-// first out of L2; the result is stored streaming. A thread has kRsVecs
-// vectors of kRsGroup members, 8 x 16 bytes, in flight at once; at two
-// blocks of 512 threads per SM that is 128 KB per SM, several times what
-// HBM's latency-bandwidth product needs. A member's blocks take turns over
-// runs of its slot, so the whole card reads a narrow window of each term at
-// a time: with one contiguous range per block (1,280 streams spread over
-// the 6.4 GB of the gradient bucket) the H100 reached 0.72 of the bound,
-// with the turns 0.87. That is past 0.8, so plain vector loads and no TMA
-// ring in shared memory: the bytes already stream straight from HBM into
-// the registers that add them, and a bulk copy would add a shared-memory
-// round trip.
+// first out of L2; results are stored streaming. A thread has kVecs vectors
+// of up to kRsGroup terms in flight at once (B5, B7: 2 x 4; B4: 4 x 1); at
+// two blocks of 512 threads per SM that is 64-128 KB per SM, several times
+// what HBM's latency-bandwidth product needs. A member's blocks take turns
+// over runs of its range, so the whole card reads a narrow window of each
+// term at a time: with one contiguous range per block (1,280 streams spread
+// over the 6.4 GB of the gradient bucket) B5 reached 0.72 of the bound on
+// the H100, with the turns 0.87. That is past 0.8, so plain vector loads and
+// no TMA ring in shared memory: the bytes already stream straight from HBM
+// into the registers that add them, and a bulk copy would add a
+// shared-memory round trip.
 //
-// Ragged slots. The wrapper hands over the caller's payload as it is, so
-// slot k starts k·per elements into each row and need not be 16-byte
-// aligned, and the rows themselves are offset differently whenever their
-// length W·per·itemsize is no multiple of 16 (a bf16 bucket whose length is
-// no multiple of 8). The vectors are aligned on the output: its elements up
-// to the first 16-byte boundary and its ragged tail are summed one by one,
-// the vectors in between as above. A term that lies at another offset mod
-// 16 is read as the two aligned vectors around each of its vectors,
-// funnel-shifted into place: its HBM bytes stay the same (the second load
-// is the next thread's first, from L2), and such a launch keeps one vector
-// a thread so that both loads of every term stay in registers.
+// Ragged ranges. The wrappers hand over the caller's payload as it is: a
+// chunk or slot need not start on 16 bytes, rows need not lie at the same
+// offset mod 16 (a bf16 row whose length is no multiple of 8), and the W
+// outputs of one range (B4, B7) can lie at different offsets mod 16. The
+// outputs of a range are grouped by their offset mod 16 (Dests: one class
+// per offset), and each class's vectors are aligned on its outputs: the
+// elements up to its first 16-byte boundary and its ragged tail are summed
+// one by one, the vectors in between as above. A term that lies at another
+// offset mod 16 than the class is read as the two aligned vectors around
+// each of its vectors, funnel-shifted into place: its HBM bytes stay the
+// same (the second load is the next thread's first, from L2), and such a
+// pass keeps half the vectors a thread so that both loads of every term
+// stay in registers. With more than one class, each turn computes its
+// vectors once per class, the later classes reading the terms' lines again
+// from L2, where the first class's loads have just put them. On the H100,
+// B7 on bf16 rows 8 bytes off 16 (two classes) reached 0.61 of its bound,
+// against 0.83 on aligned rows; building the second class's vectors from
+// the first's by warp shuffles (each warp summing 32 vectors and storing
+// 31, the terms loaded and added once) measured 3.6% slower. No load
+// touches a 16-byte block that holds no byte of its range, so nothing past
+// a row's end is read.
 //
 // Contract, as csrc/collective.cuh's: a full-peer entry barrier on the flag
-// words (a member reads every peer, not only its neighbors: B9's barrier),
-// each wait bounded by %globaltimer with the error word, new epochs per
-// launch. And a full-peer exit barrier: a member's launch ends only when
-// every member has read its share of that member's row, so that members on
-// separate cards cannot rewrite an input another member still reads. On
-// one card the stream already orders every writer after the launch, so the
-// exit barrier matters only there; it costs under 0.1% at the bucket
+// words (a member reads or writes every peer's rows, not only its
+// neighbors': B9's barrier), each wait bounded by %globaltimer with the
+// error word, new epochs per launch. The entry barrier guards the start: no
+// member reads a peer's input or stores into a peer's output before that
+// peer's launch has begun, and so before the peer's own earlier work on
+// them is done. The exit barrier guards the end: a member's launch ends only
+// when every member has read its share of that member's input (B5, B7: the
+// member may rewrite its input once its launch ends) and written its share
+// of that member's output (B4, B7: every member writes into every member's
+// row, so a member's result is complete only then). On one card the stream
+// already orders every reader and writer around the launch, so both matter
+// only on separate cards; the exit barrier cost B5 under 0.1% at the bucket
 // (measured on the H100). The grid is half the card, as every ring
-// kernel's: the whole card measured no faster on the H100 at the bucket.
+// kernel's: the whole card measured no faster for B5 at the bucket.
 
-constexpr int kRsVecs = 2;   // vectors of a slot a thread sums at once
-constexpr int kRsGroup = 4;  // members whose loads go out together
+constexpr int kRsVecs = 2;   // vectors of a range a thread sums at once (B5, B7)
+constexpr int kRsGroup = 4;  // terms whose loads go out together
+constexpr int kAgVecs = 4;   // vectors of a range a thread moves at once (B4)
 
 __device__ __forceinline__ unsigned long long l2_evict_first() {
   unsigned long long policy;
@@ -372,115 +342,229 @@ __device__ __forceinline__ T add1(T a, T b) {
   return *reinterpret_cast<T*>(&s);
 }
 
-// All threads: a B5 barrier on channel c over flag ``word`` (3 at entry,
-// 2 at exit). Member k raises its word, and thread p waits for member p's:
-// every peer's, since k reads them all. False when a wait timed out or
-// another block already failed.
-__device__ bool peer_barrier(const RingArgs& a, int k, int c, int word, int what) {
+// All threads: a full-peer barrier of stream h, channel c, on flag ``word``
+// (3 at entry, 2 at exit). Member k raises its word, and thread p waits for
+// member p's: every peer's, since k reads or writes them all. False when a
+// wait timed out or another block already failed.
+__device__ bool peer_barrier(const RingArgs& a, int k, int h, int c, int word, int what) {
   __shared__ int bad;
-  signal(flag(a, k, 0, c, word), mark(a, 1));
+  signal(flag(a, k, h, c, word), mark(a, 1));
   if (threadIdx.x == 0) bad = 0;
   __syncthreads();
   const int p = threadIdx.x;
   if (p < a.n && p != k &&
-      !spin_geq(flag(a, p, 0, c, word), mark(a, 1), a.err, a.timeout_ns,
-                {a.kernel, k, p, a.cid, 0, c, what}))
+      !spin_geq(flag(a, p, h, c, word), mark(a, 1), a.err, a.timeout_ns,
+                {a.kernel, k, p, a.cid, h, c, what}))
     atomicOr(&bad, 1);
   __syncthreads();
   return bad == 0;
 }
 
-// dst[i] = the chain's sum of the terms' vectors i, for i < vecs;
-// ``term[j]`` is the (j+1)-th term's slot, ``off`` the bytes before vector 0
-// (dst + off is 16-byte aligned; with kShift a term need not be). The C
-// blocks of a member take turns over runs of kVecs·kThreads vectors, so
-// that the card reads a narrow window of each term at a time.
-template <typename T, bool kShift>
-__device__ __forceinline__ void chain_vectors(const char* const* term, int n, long long off,
-                                              char* dst, long long vecs, int c, int C) {
-  constexpr int kVecs = kShift ? 1 : kRsVecs;
-  const unsigned long long policy = l2_evict_first();
-  int4* out = reinterpret_cast<int4*>(dst + off);
-  for (long long i = (long long)c * kVecs * kThreads + threadIdx.x; i < vecs;
-       i += (long long)C * kVecs * kThreads) {
-    int4 acc[kVecs];
-    for (int j0 = 0; j0 < n; j0 += kRsGroup) {
-      int4 v[kRsGroup][kVecs], w[kRsGroup][kVecs];  // w: the next aligned vectors (kShift)
-      int sh[kRsGroup];
+// The outputs of one range grouped by their offset mod 16 bytes (a class),
+// in shared memory.
+struct Dests {
+  char* dst[kMaxMembers];      // the outputs, grouped by class
+  int first[kMaxMembers + 1];  // class g holds dst[first[g] .. first[g+1])
+  int offset[kMaxMembers];     // class g's offset mod 16
+  long long head[kMaxMembers]; // elements before class g's first 16-byte boundary
+  long long vecs[kMaxMembers]; // class g's whole vectors after them
+  long long len;               // elements of the range
+  int classes;
+  bool shifted;                // a term lies at another offset mod 16 than a class
+};
+
+__device__ __forceinline__ int mod16(const void* p) {
+  return (int)(reinterpret_cast<uintptr_t>(p) & 15);
+}
+
+// One thread: ``g`` for ``nd`` outputs (``dst(i)``: output i) of a range
+// of ``len`` elements of T whose ``nt`` terms start at ``term``.
+template <typename T, typename Dst>
+__device__ void group_dests(Dests& g, Dst dst, int nd, const char* const* term, int nt,
+                            long long len) {
+  constexpr long long kElems = 16 / sizeof(T);
+  g.len = len;
+  g.classes = 0;
+  g.shifted = false;
+  for (int i = 0; i < nd; ++i) {
+    int c = 0;
+    while (c < g.classes && g.offset[c] != mod16(dst(i))) ++c;
+    if (c == g.classes) g.offset[g.classes++] = mod16(dst(i));
+  }
+  int k = 0;
+  for (int c = 0; c < g.classes; ++c) {
+    g.first[c] = k;
+    for (int i = 0; i < nd; ++i)
+      if (mod16(dst(i)) == g.offset[c]) g.dst[k++] = dst(i);
+    const long long to_vector = ((16 - g.offset[c]) & 15) / (long long)sizeof(T);
+    g.head[c] = len < to_vector ? len : to_vector;
+    g.vecs[c] = (len - g.head[c]) / kElems;
+    for (int j = 0; j < nt; ++j) g.shifted |= mod16(term[j] + g.head[c] * sizeof(T)) != 0;
+  }
+  g.first[g.classes] = k;
+}
+
+// One turn of a thread: vectors i, i + kThreads, ... (kVecs of them, those
+// below ``vecs``) of the range ``off`` bytes into every term and output.
+// The chain's sum of the terms' vectors is stored into each of the ``nd``
+// outputs (dst + off is 16-byte aligned; with kShift a term need not be).
+// With one term it is a copy.
+template <typename T, bool kShift, int kVecs>
+__device__ __forceinline__ void chain_turn(const char* const* term, int n, long long off,
+                                           char* const* dst, int nd, long long i, long long vecs,
+                                           unsigned long long policy) {
+  int4 acc[kVecs];
+  for (int j0 = 0; j0 < n; j0 += kRsGroup) {
+    int4 v[kRsGroup][kVecs], w[kRsGroup][kVecs];  // w: the next aligned vectors (kShift)
+    int sh[kRsGroup];
 #pragma unroll
-      for (int g = 0; g < kRsGroup; ++g) {
-        if (j0 + g >= n) break;
-        const char* p = term[j0 + g] + off;
-        sh[g] = kShift ? (int)(reinterpret_cast<uintptr_t>(p) & 15) : 0;
-        const int4* s = reinterpret_cast<const int4*>(p - sh[g]);
+    for (int g = 0; g < kRsGroup; ++g) {
+      if (j0 + g >= n) break;
+      const char* p = term[j0 + g] + off;
+      sh[g] = kShift ? mod16(p) : 0;
+      const int4* s = reinterpret_cast<const int4*>(p - sh[g]);
 #pragma unroll
-        for (int u = 0; u < kVecs; ++u) {
-          if (i + u * kThreads >= vecs) continue;
-          v[g][u] = ld_once(s + i + u * kThreads, policy);
-          if (kShift && sh[g]) w[g][u] = ld_once(s + i + u * kThreads + 1, policy);
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < kRsGroup; ++g) {
-        if (j0 + g >= n) break;
-#pragma unroll
-        for (int u = 0; u < kVecs; ++u) {
-          const int4 t = kShift && sh[g] ? shift16(v[g][u], w[g][u], sh[g]) : v[g][u];
-          acc[u] = j0 + g == 0 ? t : add16<T>(t, acc[u]);
-        }
+      for (int u = 0; u < kVecs; ++u) {
+        if (i + u * kThreads >= vecs) continue;
+        v[g][u] = ld_once(s + i + u * kThreads, policy);
+        if (kShift && sh[g]) w[g][u] = ld_once(s + i + u * kThreads + 1, policy);
       }
     }
+#pragma unroll
+    for (int g = 0; g < kRsGroup; ++g) {
+      if (j0 + g >= n) break;
+#pragma unroll
+      for (int u = 0; u < kVecs; ++u) {
+        const int4 t = kShift && sh[g] ? shift16(v[g][u], w[g][u], sh[g]) : v[g][u];
+        if constexpr (kAdds<T>)
+          acc[u] = j0 + g == 0 ? t : add16<T>(t, acc[u]);
+        else
+          acc[u] = t;
+      }
+    }
+  }
+  for (int e = 0; e < nd; ++e) {
+    int4* out = reinterpret_cast<int4*>(dst[e] + off);
 #pragma unroll
     for (int u = 0; u < kVecs; ++u)
       if (i + u * kThreads < vecs) __stcs(out + i + u * kThreads, acc[u]);
   }
 }
 
+// The C blocks of a member take turns over runs of kVecs·kThreads vectors,
+// so that the card reads a narrow window of each term at a time.
+template <typename T, bool kShift, int kVecs>
+__device__ __forceinline__ void chain_vectors(const char* const* term, int n, long long off,
+                                              char* const* dst, int nd, long long vecs, int c,
+                                              int C, unsigned long long policy) {
+  for (long long i = (long long)c * kVecs * kThreads + threadIdx.x; i < vecs;
+       i += (long long)C * kVecs * kThreads)
+    chain_turn<T, kShift, kVecs>(term, n, off, dst, nd, i, vecs, policy);
+}
+
+// This block's share of the range of ``D``, as channel c of C (the block
+// index mod C, taken here so that it is not live across the entry
+// barrier): the chain's sum of the ``n`` terms, stored into every output
+// of ``D``.
+template <typename T, int kVecs>
+__device__ void chain_range(const char* const* term, int n, const Dests& D, int C,
+                            unsigned long long policy) {
+  constexpr long long kElems = 16 / sizeof(T), kSize = sizeof(T);
+  const int c = blockIdx.x % C;
+  if (D.classes == 1 && !D.shifted) {
+    chain_vectors<T, false, kVecs>(term, n, D.head[0] * kSize, D.dst, D.first[1], D.vecs[0], c,
+                                   C, policy);
+  } else if (D.classes == 1) {
+    chain_vectors<T, true, (kVecs + 1) / 2>(term, n, D.head[0] * kSize, D.dst, D.first[1],
+                                            D.vecs[0], c, C, policy);
+  } else {
+    long long most = 0;
+    for (int g = 0; g < D.classes; ++g) most = max(most, D.vecs[g]);
+    for (long long i = (long long)c * kThreads + threadIdx.x; i < most;
+         i += (long long)C * kThreads)
+      for (int g = 0; g < D.classes; ++g)
+        chain_turn<T, true, 1>(term, n, D.head[g] * kSize, D.dst + D.first[g],
+                               D.first[g + 1] - D.first[g], i, D.vecs[g], policy);
+  }
+  // each class's elements [0, head) and [head + vecs·kElems, len), one by one
+  for (int g = 0; g < D.classes; ++g) {
+    const long long head = D.head[g], rest = head + D.vecs[g] * kElems,
+                    singles = head + D.len - rest;
+    for (long long t = (long long)c * kThreads + threadIdx.x; t < singles;
+         t += (long long)C * kThreads) {
+      const long long e = t < head ? t : rest + (t - head);
+      T acc = __ldcs(reinterpret_cast<const T*>(term[0]) + e);
+      if constexpr (kAdds<T>)
+        for (int j = 1; j < n; ++j)
+          acc = add1<T>(__ldcs(reinterpret_cast<const T*>(term[j]) + e), acc);
+      for (int k = D.first[g]; k < D.first[g + 1]; ++k)
+        __stcs(reinterpret_cast<T*>(D.dst[k]) + e, acc);
+    }
+  }
+}
+
+// B5: member k's slot k. ``x`` holds the members' unpadded rows of W·per
+// elements; slot k starts k·per elements in.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2) ring_rs_kernel(RingArgs a) {
-  constexpr long long kElems = 16 / sizeof(T);  // elements of a vector
   const int n = a.n, k = blockIdx.y, c = blockIdx.x, d = a.dir[0];
   const long long per = a.slot_bytes / (long long)sizeof(T);
   // term[j]: the chain's (j+1)-th term, slot k of member k + (j+1)·d
   __shared__ const char* term[kMaxMembers];
+  __shared__ Dests dests;
   if (threadIdx.x < n)
     term[threadIdx.x] = a.x[mod(k + ((int)threadIdx.x + 1) * d, n)] + k * a.slot_bytes;
-  if (!peer_barrier(a, k, c, 3, kWaitPeers)) return;  // its __syncthreads publish term
-  char* dst = a.out[k];
-  // elements [0, head) and [rest, per) one by one, vectors in between
-  const long long to_vector = (16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15;
-  const long long head = min(per, to_vector / (long long)sizeof(T));
-  const long long vecs = (per - head) / kElems, off = head * (long long)sizeof(T);
-  bool shifted = false;
-  for (int j = 0; j < n; ++j) shifted |= ((reinterpret_cast<uintptr_t>(term[j]) + off) & 15) != 0;
-  if (shifted)
-    chain_vectors<T, true>(term, n, off, dst, vecs, c, a.C);
-  else
-    chain_vectors<T, false>(term, n, off, dst, vecs, c, a.C);
-  const long long rest = head + vecs * kElems, singles = head + per - rest;
-  for (long long t = (long long)c * kThreads + threadIdx.x; t < singles;
-       t += (long long)a.C * kThreads) {
-    const long long e = t < head ? t : rest + (t - head);
-    T acc = __ldcs(reinterpret_cast<const T*>(term[0]) + e);
-    for (int j = 1; j < n; ++j) acc = add1<T>(__ldcs(reinterpret_cast<const T*>(term[j]) + e), acc);
-    __stcs(reinterpret_cast<T*>(dst) + e, acc);
-  }
+  __syncthreads();
+  if (threadIdx.x == 0) group_dests<T>(dests, [&](int) { return a.out[k]; }, 1, term, n, per);
+  if (!peer_barrier(a, k, 0, c, 3, kWaitPeers)) return;  // its __syncthreads publish dests
+  chain_range<T, kRsVecs>(term, n, dests, a.C, l2_evict_first());
   // channel c of every member has read its share of this member's row
-  peer_barrier(a, k, c, 2, kWaitPeersExit);
+  peer_barrier(a, k, 0, c, 2, kWaitPeersExit);
 }
 
+// B7: member o's blocks of stream h sum chunk q = o·S + h of every row and
+// store it into every member's output row.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) ring_ar_kernel(RingArgs a) {
-  const int r = blockIdx.y, h = blockIdx.x / a.C, c = blockIdx.x % a.C, d = a.dir[h];
-  const int right = mod(r + d, a.n), left = mod(r - d, a.n);
-  const Range rg = channel_range(a, c);
-  if (!entry_barrier(a, r, h, c, right, left)) return;
-  if (!rs_phase<T>(a, r, h, c, d, rg)) return;
-  // Phase barrier: my AG stores into the right neighbor's slots must land
-  // after its RS phase has read and folded them (pallas_ccl.py:701-706).
-  signal(flag(a, r, h, c, 2), mark(a, 1));
-  if (!wait_geq(a, flag(a, right, h, c, 2), mark(a, 1), r, h, c, a.n - 1, kWaitPhase)) return;
-  ag_phase(a, r, h, c, d, rg, a.buf[r] + slot_off(a, r, h), a.n - 1);
+__global__ void __launch_bounds__(kThreads, 2) ring_ar_kernel(RingArgs a) {
+  const int n = a.n, o = blockIdx.y, h = blockIdx.x / a.C, c = blockIdx.x % a.C, d = a.dir[h];
+  const long long k = a.slot_bytes / (long long)sizeof(T);  // elements of a chunk
+  const long long lo = ((long long)o * a.S + h) * k;
+  const long long len = max(0LL, min(k, a.row_elems - lo));
+  // term[j]: the chain's (j+1)-th term, chunk q of member o + (j+1)·d
+  __shared__ const char* term[kMaxMembers];
+  __shared__ Dests dests;
+  if (threadIdx.x < n)
+    term[threadIdx.x] = a.x[mod(o + ((int)threadIdx.x + 1) * d, n)] + lo * (long long)sizeof(T);
+  __syncthreads();
+  if (threadIdx.x == 0)
+    group_dests<T>(dests, [&](int r) { return a.out[r] + lo * (long long)sizeof(T); }, n, term,
+                   n, len);
+  if (!peer_barrier(a, o, h, c, 3, kWaitPeers)) return;
+  chain_range<T, kRsVecs>(term, n, dests, a.C, l2_evict_first());
+  // channel (h, c) of every member has read this member's chunks and
+  // written its own into this member's row (the indices taken anew: fewer
+  // registers live across the sum)
+  peer_barrier(a, blockIdx.y, blockIdx.x / a.C, blockIdx.x % a.C, 2, kWaitPeersExit);
+}
+
+// B4: bytes. Contribution j (``slot_bytes`` from x[j], cut where it would
+// pass ``extent`` bytes of an output row) lands slot_stride·j bytes into
+// every member's output row.
+__global__ void __launch_bounds__(kThreads, 2) ring_ag_kernel(RingArgs a) {
+  const int n = a.n, m = blockIdx.y, c = blockIdx.x;
+  auto bytes = [&](int j) { return max(0LL, min(a.slot_bytes, a.extent - j * a.slot_stride)); };
+  __shared__ const char* src[1];
+  __shared__ Dests dests;
+  // member m's contribution into slot m of every row
+  if (threadIdx.x == 0) {
+    src[0] = a.x[m];
+    group_dests<unsigned char>(dests, [&](int r) { return a.out[r] + m * a.slot_stride; }, n,
+                               src, 1, bytes(m));
+  }
+  if (!peer_barrier(a, m, 0, c, 3, kWaitPeers)) return;
+  chain_range<unsigned char, kAgVecs>(src, 1, dests, a.C, l2_evict_first());
+  // channel c of every member has written its share into this member's row
+  peer_barrier(a, m, 0, c, 2, kWaitPeersExit);
 }
 
 // ---------------------------------------------------------------------------
@@ -701,9 +785,10 @@ __device__ __forceinline__ void dequantize_rows(char* dst, const char* own, cons
 }
 
 // The quantized reduce-scatter phase of one stream (pallas_ccl.py:262
-// _rs_phase_q): rs_phase's slots, credits and flags, with the send path
-// quantizing into the right neighbor's staging and the fold dequantizing
-// before it adds. Payload and scales of a hop share the receive flag.
+// _rs_phase_q): the RS step of the schedule at the top of this file, with
+// its credits and flags, the send path quantizing into the right neighbor's
+// staging and the fold dequantizing before it adds. Payload and scales of a
+// hop share the receive flag.
 template <typename T, int W>
 __device__ bool rs_phase_q(const RingArgs& a, int r, int h, int c, int d, Range rg,
                            char* last_dst) {
@@ -748,8 +833,9 @@ __global__ void __launch_bounds__(kThreads, 2) ring_arq_kernel(RingArgs a) {
   const long long m = a.rows * kLanes;
   if (!entry_barrier(a, r, h, c, right, left)) return;
   if (!rs_phase_q<T, W>(a, r, h, c, d, rg, nullptr)) return;
-  // Phase barrier, as in B7: the all-gather phase reuses the receive and
-  // credit flags, and starts once the right neighbor has left its RS loop.
+  // Phase barrier (pallas_ccl.py:701-706): the all-gather phase reuses the
+  // receive and credit flags, and its stores into the right neighbor's slots
+  // land only after that neighbor's RS phase has read and folded them.
   signal(flag(a, r, h, c, 2), mark(a, 1));
   if (!wait_geq(a, flag(a, right, h, c, 2), mark(a, 1), r, h, c, n - 1, kWaitPhase)) return;
   char* out = a.buf[r];
@@ -788,34 +874,49 @@ extern "C" {
 // kernel: 0 = all-gather (B4), 1 = reduce-scatter (B5), 2 = all-reduce (B7),
 // 3 = quantized reduce-scatter (B6), 4 = quantized all-reduce (B8).
 // dtype (B5-B8): 0 float32, 1 bfloat16, 2 float16, 3 int32 (B5, B7 only); B4
-// moves bytes. wire (B6, B8): 0 fp8 e4m3fn, 1 int8. slot_bytes is one chunk
-// slot in the input dtype, a whole number of 16-byte vectors; B5 instead
-// takes the caller's unpadded rows: ``x`` holds each member's row of
-// row_elems = n * per elements (any element alignment), slot_bytes is
-// per * itemsize, ``out`` holds each member's per results, and ``buf`` and
-// ``stage`` are null. Every other kernel ignores row_elems.
-// Tables hold one address per member; B6 and B8 take their payload staging
-// in ``stage`` and their scale staging in ``sstage``, B8 its gather buffers
-// in ``qbuf`` and ``sbuf``. ``live`` launches members [0, live) only
+// moves bytes. wire (B6, B8): 0 fp8 e4m3fn, 1 int8. Tables hold one address
+// per member. B4, B5 and B7 take the caller's unpadded rows and no scratch
+// (``buf`` and ``stage`` null), at any element alignment:
+//   B4: ``x`` holds each member's contribution of slot_bytes bytes, ``out``
+//     each member's output row; contribution j lands slot_stride·j bytes
+//     into every row, cut where it would pass ``extent`` bytes of the row.
+//   B5: ``x`` holds each member's row of row_elems = n * per elements,
+//     slot_bytes is per * itemsize, ``out`` each member's per results.
+//   B7: ``x`` and ``out`` hold each member's row of row_elems elements, and
+//     slot_bytes is one chunk, ceil(row_elems / (n * S)) * itemsize.
+// B6 and B8 take padded slots of slot_bytes, a whole number of 16-byte
+// vectors: ``x`` the members' [n][S][slot] payloads, B6 ``buf`` its data
+// slots, ``stage`` its payload staging, ``sstage`` its scale staging and
+// ``out`` its output; B8 ``buf`` its output and ``qbuf`` and ``sbuf`` its
+// gather buffers besides. ``live`` launches members [0, live) only
 // (live < n is a test of the spin bound: the missing members' peers time
 // out). Returns 0, a cudaError_t, or -1 for arguments out of range.
 int uccl_ring_launch(int kernel, int dtype, int wire, int n, int live, int S, int dir0, int dir1,
-                     long long slot_bytes, long long row_elems, const void* const* x,
-                     void* const* buf, void* const* stage, void* const* out,
-                     void* const* sstage, void* const* qbuf, void* const* sbuf,
-                     void* const* flags, void* err, int cid, unsigned long long epoch,
-                     unsigned long long timeout_ns, void* stream) {
+                     long long slot_bytes, long long row_elems, long long slot_stride,
+                     long long extent, const void* const* x, void* const* buf,
+                     void* const* stage, void* const* out, void* const* sstage,
+                     void* const* qbuf, void* const* sbuf, void* const* flags, void* err,
+                     int cid, unsigned long long epoch, unsigned long long timeout_ns,
+                     void* stream) {
+  static const int kItem[] = {4, 2, 2, 4};
   const bool quant = kernel == kRSQ || kernel == kARQ;
   if (n < 2 || n > kMaxMembers || live < 1 || live > n || (S != 1 && S != 2) ||
-      (kernel != kAR && kernel != kARQ && S != 1))
+      (kernel != kAR && kernel != kARQ && S != 1) || kernel < kAG || kernel > kARQ)
     return -1;
-  if (kernel == kRS) {
-    static const int kItem[] = {4, 2, 2, 4};
-    if (dtype < 0 || dtype > 3 || slot_bytes <= 0 || slot_bytes % kItem[dtype] ||
-        row_elems != n * (slot_bytes / kItem[dtype]) || !out)
-      return -1;
+  if (kernel == kAG || kernel == kRS || kernel == kAR) {
     for (int r = 0; r < n; ++r)
-      if ((buf && buf[r]) || (stage && stage[r]) || !out[r]) return -1;
+      if ((buf && buf[r]) || (stage && stage[r]) || !out || !out[r] || !x[r]) return -1;
+  }
+  if (kernel == kAG) {
+    if (slot_bytes <= 0 || slot_stride < slot_bytes || extent <= 0) return -1;
+  } else if (kernel == kRS) {
+    if (dtype < 0 || dtype > 3 || slot_bytes <= 0 || slot_bytes % kItem[dtype] ||
+        row_elems != n * (slot_bytes / kItem[dtype]))
+      return -1;
+  } else if (kernel == kAR) {
+    if (dtype < 0 || dtype > 3 || row_elems <= 0 ||
+        slot_bytes != (row_elems + n * S - 1) / (n * S) * kItem[dtype])
+      return -1;
   } else if (slot_bytes <= 0 || slot_bytes % 16) {
     return -1;
   }
@@ -832,6 +933,9 @@ int uccl_ring_launch(int kernel, int dtype, int wire, int n, int live, int S, in
   }
   a.err = static_cast<int*>(err);
   a.slot_bytes = slot_bytes;
+  a.row_elems = row_elems;
+  a.slot_stride = slot_stride;
+  a.extent = extent;
   a.n = n; a.S = S; a.C = 1;
   a.dir[0] = dir0; a.dir[1] = dir1;
   a.cid = cid; a.kernel = kernel; a.epoch = epoch; a.timeout_ns = timeout_ns;
@@ -844,7 +948,7 @@ int uccl_ring_launch(int kernel, int dtype, int wire, int n, int live, int S, in
     a.rows = slot_bytes / row_bytes;
     a.srow = (a.rows + kLanes - 1) / kLanes * kLanes;
   }
-  if (kernel == kAG) return launch(ring_ag_kernel, a, live, stream, a.S);
+  if (kernel == kAG) return launch(ring_ag_kernel, a, live, stream);
   if (kernel == kRS) {
     switch (dtype) {
       case 0: return launch(ring_rs_kernel<float>, a, live, stream);
