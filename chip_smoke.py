@@ -627,6 +627,21 @@ DIRECT_RAGGED = [
     (16, 333, torch.float32, -1),
 ]
 
+# B6 and B8 on slots, chunks and rows off 16 bytes: (W, elements per slot,
+# dtype, direction), each on ragged_views of one [W, W*per + 1] tensor, and
+# B8 on the two halves of one output at an odd split. Slot starts lie an
+# odd number of elements apart (16-bit types: single-element units), rows
+# at other offsets mod 16 in the strided and offset views; (16, 333) is the
+# largest world, its slots under three rows long.
+Q_RAGGED = [
+    (2, 500_001, torch.float32, -1),
+    (3, 333_335, torch.bfloat16, 1),
+    (4, 250_001, torch.float32, 1),
+    (5, 65_539, torch.float16, -1),
+    (8, 123_457, torch.bfloat16, -1),
+    (16, 333, torch.float32, 1),
+]
+
 def ragged_views(x):
     """Three [W, size] views of ``x`` [W, size + 1] (DIRECT_RAGGED)."""
     w, size = x.shape[0], x.shape[1] - 1
@@ -1094,14 +1109,14 @@ def same(a, b) -> bool:
     """Bit-identical, a nan equal to a nan (a poisoned block is nan in both)."""
     return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
 
-def row_max(a, parts, halves=False):
+def row_max(a, parts, split=None):
     """``a`` [..., N] → the max of each 128-lane row of the ring layout its
-    values ride in (``parts`` padded chunks per member; ``halves``: each
-    half of the payload laid out on its own, as the bidir pairs do), at
-    every element of the row."""
-    if halves:
-        h = a.shape[-1] // 2
-        return torch.cat([row_max(a[..., :h], parts), row_max(a[..., h:], parts)], -1)
+    values ride in (``parts`` padded chunks per member; with ``split``, the
+    payload's elements before it and after it each laid out on their own,
+    as the bidir pairs lay out their halves), at every element of the
+    row."""
+    if split is not None:
+        return torch.cat([row_max(a[..., :split], parts), row_max(a[..., split:], parts)], -1)
     view, k, m = dma.pad_chunks(a, parts)  # [..., parts, rows, 128]
     rm = view.amax(-1, keepdim=True).expand_as(view)
     return rm.reshape(*a.shape[:-1], parts, m)[..., :k].reshape(*a.shape[:-1], -1)[
@@ -1117,20 +1132,22 @@ def quant_bound(a_row, trips, wd, w, dtype):
     return a_row.double() * (trips / div * (1 + trips / div)
                              + (w + trips) * UNIT_ROUNDOFF[dtype])
 
-def ring_q_rule(kind, got, plain, view, w, dtype, wd) -> dict:
-    """The check a quantized ring kernel's output passes, in the kernel's
-    own layout (``view``: [W, W, m] for B6, [W, W, S, m] for B8): equal to
-    its plain version bit for bit; where the members' values are finite,
-    within the round-trip budget of the float64 sum (W-1 trips for B6, W
-    for B8); non-finite wherever the float64 sum is; and, for B8, every
-    member's copy the same."""
+def ring_q_rule(kind, got, plain, x, w, dtype, wd, parts, split=None) -> dict:
+    """The check a quantized ring kernel's output passes, on the members'
+    unpadded rows ``x`` [W, N]: equal to its plain version bit for bit;
+    where the members' values are finite, within the round-trip budget of
+    the float64 sum (W-1 trips for B6, W for B8), each element's amax that
+    of its 128-element row of the ring layout (``parts`` chunks a row, or
+    each side of ``split`` cut so on its own: see row_max); non-finite wherever the
+    float64 sum is; and, for B8, every member's copy the same. ``got`` and
+    ``plain`` are B6's [W, N/W] or B8's [W, N]."""
     r = {"bit_identical": same(got, plain)}
-    exact = view.double().sum(0)  # [W(slot), ...]
-    rows = view.abs().sum(0).reshape(*exact.shape[:-1], -1, rc.LANES).amax(-1, keepdim=True)
-    a_row = rows.expand(*rows.shape[:-1], rc.LANES).reshape(exact.shape)
+    exact = x.double().sum(0)
+    a_row = row_max(x.abs().double().sum(0), parts, split)
     trips = w - 1 if kind == "scatter" else w
     bound = quant_bound(a_row, trips, wd, w, dtype)
-    if kind == "scatter":  # member r holds slot r: the same [W, m]
+    if kind == "scatter":  # member r holds slot r
+        exact, bound, a_row = (t.reshape(w, -1) for t in (exact, bound, a_row))
         mine = got.double()
     else:
         mine = got.double()[0]
@@ -1152,26 +1169,50 @@ def ring_q_inputs(w, size, dtype, seed):
     return (x * mag.repeat_interleave(128, 1)[:, :size]).to(dtype)
 
 def run_ring_q(kind, x, d, wd, dirs=None):
-    """One B6 or B8 launch and its plain version on ``x`` [W, N], both in
-    the kernel's layout, with that layout's input."""
-    w = x.shape[0]
+    """One B6 or B8 launch on the unpadded rows ``x`` [W, N] (at any stride
+    and offset) and its plain version, the one-pass contract
+    (``rs_q_chain_plain`` / ``ar_q_chain_plain``), which is first held to
+    the ring's hop schedule on padded slots (``rs_q_plain`` /
+    ``ar_q_plain``). Returns (kernel, plain, parts: the chunks a row is cut
+    into)."""
+    w, size = x.shape
     if kind == "scatter":
-        chunks = dma.pad_chunks(x, w)[0].reshape(w, w, -1)
-        lane, got = rc._rs_q_kernel(chunks, d, 0, wd)
+        lane, got = rc._rs_kernel(x, d, 0, wd)
         lane.check("ring_reduce_scatter_q")
-        return got, rc.rs_q_plain(chunks, d, wd), chunks
-    view, _, _ = rc._ar_layout(x, len(dirs))
-    lane, got = rc._ar_q_kernel(view, dirs, 0, wd)
+        plain = rc.rs_q_chain_plain(x, d, wd)
+        chunks, per, m = dma.pad_chunks(x, w)
+        if not same(plain, rc.rs_q_plain(chunks.reshape(w, w, m), d, wd)[:, :per]):
+            fail(f"rs_q_chain_plain differs from rs_q_plain's hops at W={w}, {size}, {wd}")
+        return got, plain, w
+    lane, got = rc._ar_kernel(x, dirs, 0, wd)
     lane.check("ring_all_reduce_q")
-    return got, rc.ar_q_plain(view, dirs, wd), view
+    plain = rc.ar_q_chain_plain(x, dirs, wd)
+    view, k, _ = rc._ar_layout(x, len(dirs))
+    if not same(plain, rc._ar_unlayout(rc.ar_q_plain(view, dirs, wd), k, x)):
+        fail(f"ar_q_chain_plain differs from ar_q_plain's hops at W={w}, {size}, {dirs}, {wd}")
+    return got, plain, w * len(dirs)
 
 def ring_q_vs_plain() -> dict:
-    """B6 and B8 against their plain versions (bit for bit) and the float64
-    sum (within the round-trip budget): the ring cases' worlds, dtypes,
-    padded sizes and directions, fp8 and int8, B8 with one and two streams;
-    then a payload with an inf, a nan, an all-zero and a denormal block."""
+    """B6 and B8 on the members' unpadded rows against their one-pass
+    contracts (bit for bit; each contract held first to its hop schedule on
+    padded slots) and the float64 sum (within the round-trip budget): the
+    ring cases' worlds, dtypes, sizes and directions, fp8 and int8, B8 with
+    one and two streams; on slots, chunks and rows off 16 bytes (f32, bf16
+    and f16: contiguous, strided rows and an offset start); B8 on the two
+    halves of one output at an odd split, as the bidir pair writes them;
+    then a payload with an inf, a nan, an all-zero and a denormal row."""
     rc.reset_launch_counts()
     readings, worst = [], 0.0
+
+    def hold(name, kind, got, plain, xs, w, dtype, d, wd, parts, split=None):
+        nonlocal worst
+        r = ring_q_rule(kind, got, plain, xs, w, dtype, wd, parts, split)
+        readings.append({"kernel": name, "W": w, "size": xs.shape[1], "dtype": str(dtype),
+                         "dir": d, "wire": wd, "split": split, **r})
+        if not r["ok"]:
+            fail(f"{name} W={w} size={xs.shape[1]} {dtype} dir={d} {wd} split={split}: {r}")
+        worst = max(worst, torch.nan_to_num(got.double() - plain.double()).abs().max().item())
+
     for w, size, dtype, d in RING_CASES:
         x = ring_q_inputs(w, size, dtype, seed=20 + w)
         for wd in WIRES:
@@ -1179,75 +1220,110 @@ def ring_q_vs_plain() -> dict:
                                    ("ring_all_reduce_q S=1", "reduce", dict(dirs=(d,))),
                                    ("ring_all_reduce_q S=2", "reduce", dict(dirs=(1, -1)))):
                 xin = x[:, : size - size % w] if kind == "scatter" else x
-                got, plain, view = run_ring_q(kind, xin, d, wd, **kw)
-                r = ring_q_rule(kind, got, plain, view, w, dtype, wd)
-                readings.append({"kernel": name, "W": w, "size": size, "dtype": str(dtype),
-                                 "dir": d, "wire": wd, **r})
-                if not r["ok"]:
-                    fail(f"{name} W={w} size={size} {dtype} dir={d} {wd}: {r}")
-                worst = max(worst, torch.nan_to_num(got.double() - plain.double()).abs()
-                            .max().item())
+                got, plain, parts = run_ring_q(kind, xin, d, wd, **kw)
+                hold(name, kind, got, plain, xin, w, dtype, d, wd, parts)
+    for w, per, dtype, d in Q_RAGGED:
+        x = ring_q_inputs(w, w * per + 1, dtype, seed=per)
+        for view, xs in ragged_views(x):
+            for wd in WIRES:
+                for name, kind, kw in (("ring_reduce_scatter_q", "scatter", dict()),
+                                       ("ring_all_reduce_q S=1", "reduce", dict(dirs=(d,))),
+                                       ("ring_all_reduce_q S=2", "reduce", dict(dirs=(1, -1)))):
+                    got, plain, parts = run_ring_q(kind, xs, d, wd, **kw)
+                    hold(f"{name} {view}", kind, got, plain, xs, w, dtype, d, wd, parts)
+        xs, size = x[:, 1:], w * per
+        half = size // 2 + (size // 2) % 2 - 1  # odd
+        for wd in WIRES:
+            out = xs.new_empty((w, size))
+            lanes = [rc.launch_ar(xs[:, :half], out[:, :half], (1,), 0, wd),
+                     rc.launch_ar(xs[:, half:], out[:, half:], (-1,), 1, wd)]
+            for lane in lanes:
+                lane.check("bidir halves")
+            plain = torch.cat([rc.ar_q_chain_plain(xs[:, :half], (1,), wd),
+                               rc.ar_q_chain_plain(xs[:, half:], (-1,), wd)], 1)
+            hold("ring_all_reduce_q bidir halves", "reduce", out, plain, xs, w, dtype, 0, wd, w,
+                 split=half)
+        del x, xs
     x = ring_q_inputs(4, 1_000_000, torch.float32, seed=31)
     x[0, 5], x[1, 70_000] = float("inf"), float("nan")
     x[:, 1024:1152], x[2, 4096:4224] = 0.0, 1e-42
     for wd in WIRES:
-        got, plain, view = run_ring_q("reduce", x, 1, wd, dirs=(1,))
-        r = ring_q_rule("reduce", got, plain, view, 4, torch.float32, wd)
-        r["zero_block_exact"] = bool((rc._ar_unlayout(got, 250_000, x)[:, 1024:1152] == 0).all())
-        readings.append({"kernel": "ring_all_reduce_q S=1", "W": 4, "size": 1_000_000,
-                         "dtype": "torch.float32", "dir": 1, "wire": wd,
-                         "planted": "inf, nan, zero and denormal blocks", **r})
-        if not (r["ok"] and r["zero_block_exact"]):
-            fail(f"ring_all_reduce_q with non-finite and zero blocks, {wd}: {r}")
+        for name, kind, kw in (("ring_reduce_scatter_q", "scatter", dict()),
+                               ("ring_all_reduce_q S=1", "reduce", dict(dirs=(1,)))):
+            got, plain, parts = run_ring_q(kind, x, 1, wd, **kw)
+            r = ring_q_rule(kind, got, plain, x, 4, torch.float32, wd, parts)
+            r["zero_row_exact"] = bool((got.reshape(4, -1)[0, 1024:1152] == 0).all())
+            readings.append({"kernel": name, "W": 4, "size": 1_000_000, "dtype": "torch.float32",
+                             "dir": 1, "wire": wd, "planted": "inf, nan, zero and denormal rows",
+                             **r})
+            if not (r["ok"] and r["zero_row_exact"]):
+                fail(f"{name} with non-finite and zero rows, {wd}: {r}")
     emit("ring_q_vs_plain", readings=readings, launches=dict(rc.launch_counts),
-         rule="bit-identical to the plain version (nan equal to nan); within "
-              "trips * rowmax(sum|x|) / ROUND_TRIP_DIVISOR of the float64 sum "
-              "(see quant_bound); non-finite where the sum is; B8's members identical")
+         rule="bit-identical to the one-pass contract (nan equal to nan), itself equal to "
+              "the hop schedule on padded slots; within trips * rowmax(sum|x|) / "
+              "ROUND_TRIP_DIVISOR of the float64 sum (see quant_bound); non-finite where "
+              "the sum is; B8's members identical")
     return {"max_abs_err_vs_plain": worst}
 
+def _chain_q_faulty(x, d, wd, kind, fault):
+    """B6's (``kind`` "scatter") or B8's one-direction contract on ``x``
+    [W, N] with one planted fault: ``drop_link`` (link 2's term never
+    added), ``scale_shift`` (each row dequantized with the next row's
+    scale), ``nan_to_zero`` (a poisoned row's +inf scale read as 0: the row
+    arrives as zeros), ``no_final_trip`` (B8's sum stored without its last
+    round trip)."""
+    def rt(v):
+        q, sc = quant.quantize_block(v, wd, 128)
+        if fault == "nan_to_zero":
+            sc = torch.where(torch.isinf(sc), 0.0, sc)
+        if fault == "scale_shift":
+            sc = sc.roll(1, -1)
+        return quant.dequantize_block(q, sc, 128, v.dtype)
+
+    def chain(terms):  # terms[j]: the chain's (j+1)-th term
+        acc = terms[0]
+        for j in range(1, len(terms)):
+            acc = rt(acc) if fault == "drop_link" and j == 1 else terms[j] + rt(acc)
+        return acc
+
+    w, size = x.shape
+    r = torch.arange(w, device=x.device)
+    if kind == "scatter":
+        slots = x.reshape(w, w, -1)
+        return chain([slots[(r + j * d) % w, r] for j in range(1, w + 1)])
+    k = -(-size // w)
+    out = x.new_empty((w, size))
+    for o in range(w):
+        lo, hi = o * k, min(size, (o + 1) * k)
+        if lo < hi:
+            acc = chain([x[(o + j * d) % w, lo:hi] for j in range(1, w + 1)])
+            out[:, lo:hi] = acc if fault == "no_final_trip" else rt(acc)
+    return out
+
 def ring_q_planted_faults() -> None:
-    """Faults made with the plain versions must fail the rule the kernels
-    pass, on both wires: RS with its last hop dropped, scales applied one
-    row off, B8 whose owner keeps its reduced slot undequantized, and a nan
-    block that arrives as zeros."""
+    """Faults made on the one-pass contracts must fail the rule the kernels
+    pass, on both wires: a link dropped (B6, B8), scales applied one row off
+    (B6, B8), B8's final round trip skipped, and a nan row that arrives as
+    zeros (B6)."""
     w, size, dtype = 4, 1_000_000, torch.float32
     x = ring_q_inputs(w, size, dtype, seed=41)
     xn = x.clone()
     xn[1, 70_000] = float("nan")
-    r_idx = torch.arange(w, device=DEV)
-    right = (r_idx + 1) % w
     readings = {}
-
-    def hops(buf, n_hops, wd, scale_shift=0, nan_to_zero=False):
-        """rc._rs_q_hops (direction +1) in place, with the fault asked for."""
-        m = buf.shape[2]
-        for s in range(n_hops):
-            send = (r_idx - (s + 1)) % w
-            q, sc = quant.quantize_block(buf[r_idx, send].reshape(w, m // 128, 128), wd, 128)
-            if nan_to_zero:
-                sc = torch.where(torch.isinf(sc), 0.0, sc)
-            arrived = quant.dequantize_block(q, sc.roll(scale_shift, 1), 128, dtype)
-            buf[right, send] = buf[right, send] + arrived.reshape(w, m)
-        return buf
-
     for wd in WIRES:
         faults = readings[wd] = {}
-        ok_rs, _, chunks = run_ring_q("scatter", x, 1, wd)
-        faults["rs: last hop dropped"] = ring_q_rule(
-            "scatter", hops(chunks.clone(), w - 2, wd)[r_idx, r_idx], ok_rs, chunks, w, dtype,
-            wd)
-        faults["rs: scales one row off"] = ring_q_rule(
-            "scatter", hops(chunks.clone(), w - 1, wd, scale_shift=1)[r_idx, r_idx], ok_rs,
-            chunks, w, dtype, wd)
-        ok_ar, plain_ar, view = run_ring_q("reduce", x, 1, wd, dirs=(1,))
-        kept = plain_ar.clone()
-        kept[r_idx, r_idx, 0] = hops(view[:, :, 0].clone(), w - 1, wd)[r_idx, r_idx]
-        faults["ar: owner's slot not dequantized"] = ring_q_rule("reduce", kept, ok_ar, view, w,
-                                                                 dtype, wd)
-        ok_n, _, chunks_n = run_ring_q("scatter", xn, 1, wd)
-        faults["rs: nan block arrives as zeros"] = ring_q_rule(
-            "scatter", hops(chunks_n.clone(), w - 1, wd, nan_to_zero=True)[r_idx, r_idx], ok_n,
-            chunks_n, w, dtype, wd)
+        ok_rs, _, _ = run_ring_q("scatter", x, 1, wd)
+        ok_ar, _, _ = run_ring_q("reduce", x, 1, wd, dirs=(1,))
+        ok_n, _, _ = run_ring_q("scatter", xn, 1, wd)
+        for name, kind, fault, ok, xs in (
+                ("rs: link 2 dropped", "scatter", "drop_link", ok_rs, x),
+                ("rs: scales one row off", "scatter", "scale_shift", ok_rs, x),
+                ("rs: nan row arrives as zeros", "scatter", "nan_to_zero", ok_n, xn),
+                ("ar: link 2 dropped", "reduce", "drop_link", ok_ar, x),
+                ("ar: scales one row off", "reduce", "scale_shift", ok_ar, x),
+                ("ar: final round trip skipped", "reduce", "no_final_trip", ok_ar, x)):
+            faults[name] = ring_q_rule(kind, _chain_q_faulty(xs, 1, wd, kind, fault), ok, xs, w,
+                                       dtype, wd, w)
         passed = [name for name, r in faults.items() if r["ok"]]
         if passed:
             fail(f"planted quantized-ring faults pass the check on the {wd} wire: {passed}")
@@ -1259,30 +1335,56 @@ def ring_q_launchers(w, p_elems):
     and its plain version."""
     g = torch.Generator(device=DEV).manual_seed(5)
     x = torch.randn((w, p_elems), generator=g, device=DEV)
-    view, _, _ = rc._ar_layout(x, 2)
-    ar_ops = rc._ar_q_operands(view)
-    chunks = dma.pad_chunks(x, w)[0].reshape(w, w, -1)
-    m = chunks.shape[2]
-    rs_buf, rs_out = torch.empty_like(chunks), chunks.new_empty((w, m))
-    qstage, sstage = rc._wire_buffers(chunks, w, 2)
+    xs = x[:, : p_elems - p_elems % w]
+    ar_out, rs_out = torch.empty_like(x), x.new_empty((w, xs.shape[1] // w))
     lanes, runs = [], {}
     for wd in WIRES:
         runs["ring_reduce_scatter_q", wd] = (
-            lambda wd=wd: lanes.append(rc.launch_rs_q(chunks, rs_buf, qstage, sstage, rs_out,
-                                                      1, 0, wd)),
-            lambda wd=wd: rc.rs_q_plain(chunks, 1, wd))
+            lambda wd=wd: lanes.append(rc.launch_rs(xs, rs_out, 1, 0, wd)),
+            lambda wd=wd: rc.rs_q_chain_plain(xs, 1, wd))
         runs["ring_all_reduce_q", wd] = (
-            lambda wd=wd: lanes.append(rc.launch_ar_q(view, *ar_ops, (1, -1), 0, wd)),
-            lambda wd=wd: rc.ar_q_plain(view, (1, -1), wd))
+            lambda wd=wd: lanes.append(rc.launch_ar(x, ar_out, (1, -1), 0, wd)),
+            lambda wd=wd: rc.ar_q_chain_plain(x, (1, -1), wd))
     return runs, lanes
+
+def q_rows_off_16(name, wd) -> dict:
+    """B6 or B8 (two streams) on the bf16 bucket of rows_off_16 (rows 4 mod
+    8 elements long, so the rows lie alternately 0 and 8 bytes off 16): B8's
+    terms and outputs move in 4-byte units, and B6's slots, whose starts are
+    an odd number of elements apart, in single elements. Its time beside its
+    bound and its full-precision twin's on the same rows, and its bits
+    against its contract."""
+    p = 2 * BUCKET - WORLD
+    g = torch.Generator(device=DEV).manual_seed(6)
+    x = torch.randn((WORLD, p), generator=g, device=DEV, dtype=torch.bfloat16)
+    lanes = []
+    if name == "ring_reduce_scatter_q":
+        out = x.new_empty((WORLD, p // WORLD))
+        ms = time_ms(lambda: lanes.append(rc.launch_rs(x, out, 1, 0, wd)), 10)
+        plain = rc.rs_q_chain_plain(x, 1, wd)
+    else:
+        out = torch.empty_like(x)
+        ms = time_ms(lambda: lanes.append(rc.launch_ar(x, out, (1, -1), 0, wd)), 10)
+        plain = rc.ar_q_chain_plain(x, (1, -1), wd)
+    for lane in lanes:
+        lane.check("quantized ring timing, rows off 16 bytes")
+    if not same(out, plain):
+        fail(f"{name} {wd} on bf16 rows off 16 bytes differs from its contract")
+    bnd = ring_bound_ms(QUANTIZED[name], WORLD, p, 2)
+    del x, out, plain
+    torch.cuda.empty_cache()
+    return dict(dtype="bfloat16", elems_per_member=p, ms=ms, bound_ms=bnd,
+                share_of_bound=bnd / ms)
 
 def ring_q_timing(full) -> dict:
     """CUDA-event medians of B6 and B8, fp8 and int8, at the gradient bucket
     (W = 4) and the smaller payloads, beside B5's and B7's times from this
-    run (``full``). Their bound is the same compulsory traffic as B5's and
-    B7's: the quantized wire changes what a hop moves, not what the
-    function reads and writes. No single PyTorch call computes a per-hop
-    quantized sum, so there is no library time of their own."""
+    run (``full``), and on the bf16 bucket whose rows lie off 16 bytes
+    (beside B5's and B7's ``rows_off_16``). Their bound is the same
+    compulsory traffic as B5's and B7's: the quantized wire changes what a
+    hop moves, not what the function reads and writes. No single PyTorch
+    call computes a per-hop quantized sum, so there is no library time of
+    their own."""
     res = {}
     runs, lanes = ring_q_launchers(WORLD, BUCKET)
     for (name, wd), (kernel, plain) in runs.items():
@@ -1296,6 +1398,11 @@ def ring_q_timing(full) -> dict:
         lane.check("quantized ring timing")
     del runs, lanes
     torch.cuda.empty_cache()
+    for name, twin in QUANTIZED.items():
+        for wd in WIRES:
+            r = q_rows_off_16(name, wd)
+            r["full_precision_ms"] = full[twin]["rows_off_16"]["ms"]
+            res[name][wd]["rows_off_16"] = r
     sweep = []
     for mib in SWEEP_MIB:
         p = mib * 2 ** 20 // 4
@@ -1317,9 +1424,10 @@ def ring_q_timing(full) -> dict:
 def quant_held_at_bucket(x) -> list:
     """Each kernel launch of the quantized path once more, at the shapes the
     path gave it and on the bucket's own data, against its plain version:
-    bit for bit, for both wires. B6 on the W slots of the bucket; B8 with
+    bit for bit, for both wires. B6 on the bucket's unpadded rows; B8 with
     two streams on the bucket (``pallas``) and with one stream on each half
-    in its direction (``bidir``); B4 on the quantized payload and on the
+    in its direction, the halves' columns of one output (``bidir``), each
+    against its one-pass contract; B4 on the quantized payload and on the
     packed scales of a member's contribution (``ring``) and of its halves in
     their directions (``bidir``; the broadcast's pair gathers chunks of the
     same size). Returns one reading per case."""
@@ -1340,20 +1448,23 @@ def quant_held_at_bucket(x) -> list:
                  f"by up to {err}")
 
     for wd in WIRES:
-        chunks = dma.pad_chunks(x, w)[0].reshape(w, w, -1)
-        lane, got = rc._rs_q_kernel(chunks, 1, 0, wd)
+        lane, got = rc._rs_kernel(x, 1, 0, wd)
         lane.check("ring_reduce_scatter_q")
-        hold("ring_reduce_scatter_q", f"slots of {chunks.shape[2]}", wd,
-             [(got, rc.rs_q_plain(chunks, 1, wd))])
-        del chunks, got
-        for case, part, dirs in (("S=2", x, (1, -1)), ("S=1 first half +1", x[:, :half], (1,)),
-                                 ("S=1 second half -1", x[:, half:], (-1,))):
-            view, _, m = rc._ar_layout(part, len(dirs))
-            lane, got = rc._ar_q_kernel(view, dirs, 0, wd)
-            lane.check("ring_all_reduce_q")
-            hold("ring_all_reduce_q", f"{case}, slots of {m}", wd,
-                 [(got, rc.ar_q_plain(view, dirs, wd))])
-            del view, got
+        hold("ring_reduce_scatter_q", f"slots of {BUCKET // w}", wd,
+             [(got, rc.rs_q_chain_plain(x, 1, wd))])
+        del got
+        lane, got = rc._ar_kernel(x, (1, -1), 0, wd)
+        lane.check("ring_all_reduce_q")
+        hold("ring_all_reduce_q", f"S=2, chunks of {-(-BUCKET // (2 * w))}", wd,
+             [(got, rc.ar_q_chain_plain(x, (1, -1), wd))])
+        del got
+        out = torch.empty_like(x)
+        for i, (lo, hi, d) in enumerate(((0, half, 1), (half, BUCKET, -1))):
+            rc.launch_ar(x[:, lo:hi], out[:, lo:hi], (d,), i, wd).check("ring_all_reduce_q")
+        hold("ring_all_reduce_q", "S=1 on each half in its direction, into one output", wd,
+             [(out[:, :half], rc.ar_q_chain_plain(x[:, :half], (1,), wd)),
+              (out[:, half:], rc.ar_q_chain_plain(x[:, half:], (-1,), wd))])
+        del out
         for case, part, d in (("contribution +1", contrib, 1),
                               ("first half +1", contrib[:, :chalf], 1),
                               ("second half -1", contrib[:, chalf:], -1)):
@@ -1390,13 +1501,13 @@ def quant_path(x, refs) -> tuple:
          lambda: refs["all_reduce"], lambda: row_max(a_sum, 2 * w), w,
          {"ring_all_reduce_q": 1}),
         ("all_reduce", "bidir", lambda wd: comm.all_reduce(x, algo="bidir", wire_dtype=wd),
-         lambda: refs["all_reduce"], lambda: row_max(a_sum, w, halves=True), w,
+         lambda: refs["all_reduce"], lambda: row_max(a_sum, w, split=BUCKET // 2), w,
          {"ring_all_reduce_q": 2}),
         ("all_gather", "ring", lambda wd: comm.all_gather(contrib, algo="ring", wire_dtype=wd),
          lambda: contrib, lambda: row_max(contrib.abs(), 1), 1, {"ring_all_gather": 2}),
         ("all_gather", "bidir",
          lambda wd: comm.all_gather(contrib, algo="bidir", wire_dtype=wd),
-         lambda: contrib, lambda: row_max(contrib.abs(), 1, halves=True), 1,
+         lambda: contrib, lambda: row_max(contrib.abs(), 1, split=contrib.shape[1] // 2), 1,
          {"ring_all_gather": 4}),
         ("reduce_scatter", "ring",
          lambda wd: comm.reduce_scatter(x, algo="ring", wire_dtype=wd),
@@ -1453,6 +1564,13 @@ def quant_path(x, refs) -> tuple:
     cold = {(c["verb"], c["algo"]): c["host_ms"] for c in calls if c["wire"] == "fp8"}
     breakdown = verb_breakdown([(verb, f"{algo} fp8", functools.partial(run, "fp8"),
                                  cold[verb, algo]) for verb, algo, run, *_ in verbs])
+    # B6 and B8 take the payload as it is and write each result in its final
+    # place: the quantized AR and RS verbs fill and copy nothing (a pair's
+    # check stacks its two error words, a cat of a few microseconds)
+    for b in breakdown:
+        if b["verb"] in ("all_reduce", "reduce_scatter") and (
+                b["device_ms"]["fill"] > 0 or b["device_ms"]["copy"] > 0.05):
+            fail(f"{b['verb']} {b['algo']}: fills or copies on the card {b['device_ms']}")
     planner = plan.get_planner()
     auto = {wd: {
         "all_reduce": planner.plan_all_reduce((BUCKET,), x.dtype, w, wire_dtype=wd,

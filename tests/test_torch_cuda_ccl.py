@@ -14,10 +14,11 @@ ring, and add in the chain order the ring's hops make: each must equal both
 its contract on the unpadded payload (``ag_rows_plain``,
 ``rs_chain_plain``, ``ar_chain_plain``) and its hop schedule on the padded
 slots (``ag_plain``, ``rs_plain``, ``ar_plain``). The quantized kernels B6
-and B8 carry the
-block codec's arithmetic in their bodies (the scale as amax * (1 / QMAX), an
-IEEE division by it, the dequantized value rounded to the input dtype before
-the add), so they too must equal their plain versions bit for bit, a nan
+and B8 are the same one pass with the block codec's round trip at every
+link of the chain (the scale as amax * (1 / QMAX), an IEEE division by it,
+the dequantized value rounded to the input dtype before the add), so they
+too must equal their contracts (``rs_q_chain_plain``, ``ar_q_chain_plain``)
+and their hop schedules (``rs_q_plain``, ``ar_q_plain``) bit for bit, a nan
 counting as equal to a nan (a block poisoned by a non-finite input).
 """
 
@@ -278,9 +279,8 @@ def test_repeated_calls_on_one_flag_region(dev):
         assert torch.equal(got, want), i
 
 
-def _launch_all_but_last(name, x, buf, stage, out, streams, dirs, cid, slot_bytes, *,
-                         wire_dtype=None, sstage=None, qbuf=None, sbuf=None, row_elems=0,
-                         slot_stride=0, extent=0):
+def _launch_all_but_last(name, x, out, streams, dirs, cid, slot_bytes, *, wire_dtype=None,
+                         row_elems=0, slot_stride=0, extent=0):
     """``ring_ccl._enqueue`` with the last member left out of the grid: the
     C entry launches members [0, n-1) only."""
     n, t = x.shape[0], lanes.table
@@ -288,9 +288,8 @@ def _launch_all_but_last(name, x, buf, stage, out, streams, dirs, cid, slot_byte
     rc = ring_ccl._lib().uccl_ring_launch(
         ring_ccl._KERNEL_ID[name], ring_ccl._ADD_DTYPES.get(x.dtype, 0),
         ring_ccl._WIRE_ID.get(wire_dtype, 0), n, n - 1, streams, dirs[0], dirs[-1], slot_bytes,
-        row_elems, slot_stride, extent, t(x, n), t(buf, n), t(stage, n), t(out, n), t(sstage, n),
-        t(qbuf, n), t(sbuf, n), t(lane.flags, n), ctypes.c_void_p(lane.err.data_ptr()), cid,
-        lane.next_epoch(),
+        row_elems, slot_stride, extent, t(x, n), t(out, n), t(lane.flags, n),
+        ctypes.c_void_p(lane.err.data_ptr()), cid, lane.next_epoch(),
         lanes.SPIN_TIMEOUT_MS.get() * 1_000_000,
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     assert rc == 0
@@ -298,34 +297,33 @@ def _launch_all_but_last(name, x, buf, stage, out, streams, dirs, cid, slot_byte
 
 
 def test_missing_member_raises_instead_of_hanging(dev):
-    """Launch all but the last member: its neighbors' waits time out, the
+    """Launch all but the last member: its peers' waits time out, the
     kernel writes its error word and returns, and the check raises, for all
-    five kernels (B4, B5, B7: every member waits on every peer, at entry and
-    at exit, so all of them time out; B7 on both streams). The flag region
+    five kernels (every member waits on every peer, at entry and at exit,
+    so all of them time out; B7 and B8 on both streams). The flag region
     works again afterwards."""
     n, m = 4, 4096
     x = _x(dev, (n, n, m), torch.float32, seed=2)
     rows = x.reshape(n, n * m)
     e = torch.empty_like
     slot = m * 4
-    view = x.reshape(n, n, 1, m)
-    qstage, sstage = ring_ccl._wire_buffers(x, n, 2)
-    _, *ar_q = ring_ccl._ar_q_operands(view)
     lanes.SPIN_TIMEOUT_MS.set(200)
     try:
         for args, kw in (
-                (("ring_reduce_scatter", rows, None, None, x.new_empty((n, m)), 1, (1,), 5, slot),
+                (("ring_reduce_scatter", rows, x.new_empty((n, m)), 1, (1,), 5, slot),
                  dict(row_elems=n * m)),
-                (("ring_all_gather", x[:, 0], None, None, e(x), 1, (1,), 5, slot),
+                (("ring_all_gather", x[:, 0], e(x), 1, (1,), 5, slot),
                  dict(slot_stride=slot, extent=n * slot)),
-                (("ring_all_reduce", rows, None, None, e(rows), 1, (1,), 5, slot),
+                (("ring_all_reduce", rows, e(rows), 1, (1,), 5, slot),
                  dict(row_elems=n * m)),
-                (("ring_all_reduce", rows, None, None, e(rows), 2, (1, -1), 5, slot // 2),
+                (("ring_all_reduce", rows, e(rows), 2, (1, -1), 5, slot // 2),
                  dict(row_elems=n * m)),
-                (("ring_reduce_scatter_q", x, e(x), qstage, x.new_empty((n, m)), 1, (1,), 5,
-                  slot), dict(wire_dtype="int8", sstage=sstage)),
-                (("ring_all_reduce_q", view, e(view), ar_q[0], None, 1, (1,), 5, slot),
-                 dict(wire_dtype="fp8", sstage=ar_q[1], qbuf=ar_q[2], sbuf=ar_q[3]))):
+                (("ring_reduce_scatter_q", rows, x.new_empty((n, m)), 1, (1,), 5, slot),
+                 dict(wire_dtype="int8", row_elems=n * m)),
+                (("ring_all_reduce_q", rows, e(rows), 1, (1,), 5, slot),
+                 dict(wire_dtype="fp8", row_elems=n * m)),
+                (("ring_all_reduce_q", rows, e(rows), 2, (1, -1), 5, slot // 2),
+                 dict(wire_dtype="int8", row_elems=n * m))):
             lane = _launch_all_but_last(*args, **kw)
             with pytest.raises(RuntimeError, match="timed out"):
                 lane.check("test")
@@ -340,6 +338,9 @@ def test_missing_member_raises_instead_of_hanging(dev):
     lane, got = ring_ccl._ag_kernel(x[:, 0], 5)
     lane.check("test")
     assert torch.equal(got, ring_ccl.ag_rows_plain(x[:, 0]))
+    lane, got = ring_ccl._ar_kernel(rows, (1, -1), 5, "fp8")
+    lane.check("test")
+    assert _same(got, ring_ccl.ar_q_chain_plain(rows, (1, -1), "fp8"))
 
 
 def test_cuda_tensors_ignore_the_arena_budget(dev):
@@ -411,22 +412,33 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     # B4 moves bytes of any dtype
     x = torch.arange(4 * 3000, dtype=torch.int64, device=dev).reshape(4, 3000)
     assert torch.equal(ring_ccl.ring_all_gather(x.unsqueeze(1))[3], x)
-    # B5 takes the unpadded rows and no scratch: the C entry refuses a buf
-    # or a stage table, rows of other than W * per elements, and a slot of
-    # no whole number of elements; the wrapper refuses an output that does
-    # not split the rows
+    # B5 and B6 take the unpadded rows and no scratch: the C entry refuses
+    # rows of other than W * per elements and a slot of no whole number of
+    # elements, B6 an int32 payload too; B7 and B8 a chunk other than
+    # ceil(size / (W * S)) elements. The wrapper refuses an output that
+    # does not split the rows.
     xs = torch.ones(4, 4 * 1000, device=dev)
     out = xs.new_empty((4, 1000))
-    for kw in (dict(buf=torch.empty_like(xs)), dict(stage=torch.empty_like(xs)),
-               dict(row_elems=4 * 1000 + 1), dict(slot_bytes=999 * 4), dict(slot_bytes=3998)):
-        args = dict(buf=None, stage=None, slot_bytes=1000 * 4, row_elems=4 * 1000) | kw
-        with pytest.raises(RuntimeError, match="code -1"):
-            ring_ccl._enqueue("ring_reduce_scatter", xs, args["buf"], args["stage"], out, 1,
-                              (1,), 0, args["slot_bytes"], row_elems=args["row_elems"])
-    with pytest.raises(ValueError, match="not 4 slots"):
-        ring_ccl.launch_rs(xs, xs.new_empty((4, 999)), 1, 0)
-    with pytest.raises(ValueError, match="contiguous rows"):
-        ring_ccl.launch_rs(xs[:, ::2], out[:, :500], 1, 0)
+    for name, wd in (("ring_reduce_scatter", None), ("ring_reduce_scatter_q", "fp8")):
+        for kw in (dict(row_elems=4 * 1000 + 1), dict(slot_bytes=999 * 4),
+                   dict(slot_bytes=3998)):
+            args = dict(slot_bytes=1000 * 4, row_elems=4 * 1000) | kw
+            with pytest.raises(RuntimeError, match="code -1"):
+                ring_ccl._enqueue(name, xs, out, 1, (1,), 0, args["slot_bytes"],
+                                  row_elems=args["row_elems"], wire_dtype=wd)
+        with pytest.raises(ValueError, match="not 4 slots"):
+            ring_ccl.launch_rs(xs, xs.new_empty((4, 999)), 1, 0, wd)
+        with pytest.raises(ValueError, match="contiguous rows"):
+            ring_ccl.launch_rs(xs[:, ::2], out[:, :500], 1, 0, wd)
+    xi = torch.ones(4, 4 * 1000, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="code -1"):
+        ring_ccl._enqueue("ring_reduce_scatter_q", xi, xi[:, :1000], 1, (1,), 0, 4000,
+                          row_elems=4000, wire_dtype="int8")
+    for name, wd in (("ring_all_reduce", None), ("ring_all_reduce_q", "int8")):
+        for streams, slot in ((1, 1001 * 4), (2, 1000 * 4)):
+            with pytest.raises(RuntimeError, match="code -1"):
+                ring_ccl._enqueue(name, xs, torch.empty_like(xs), streams, (1, -1)[:streams], 0,
+                                  slot, row_elems=4 * 1000, wire_dtype=wd)
 
 
 # ---------------------------------------------------------------------------
@@ -451,22 +463,83 @@ QUANT_CASES = [  # (n, per-member elements, dtype, direction)
 ]
 
 
+def _rs_q_hops(x, d, wd):
+    """rs_q_plain on the padded slots, cut back to the payload's."""
+    n = x.shape[0]
+    chunks, per, m = dma.pad_chunks(x, n)
+    return ring_ccl.rs_q_plain(chunks.reshape(n, n, m), d, wd)[:, :per]
+
+
+def _ar_q_hops(x, dirs, wd):
+    """ar_q_plain on the padded slot-major layout, cut back to the payload."""
+    view, k, _ = ring_ccl._ar_layout(x, len(dirs))
+    return ring_ccl._ar_unlayout(ring_ccl.ar_q_plain(view, dirs, wd), k, x)
+
+
 @pytest.mark.parametrize("wd", ["fp8", "int8"])
 @pytest.mark.parametrize("n,size,dtype,d", QUANT_CASES, ids=lambda v: str(v))
 def test_quantized_kernels_equal_plain(dev, n, size, dtype, d, wd):
+    """B6 and B8 on the unpadded rows, equal to their contracts and to their
+    hop schedules on padded slots; B8's members identical."""
     x = _xq(dev, (n, size), dtype, seed=n)
     ring_ccl.reset_launch_counts()
-    chunks = dma.pad_chunks(x[:, : size - size % n], n)[0].reshape(n, n, -1)
-    lane, got = ring_ccl._rs_q_kernel(chunks, d, 0, wd)
+    xs = x[:, : size - size % n]
+    lane, got = ring_ccl._rs_kernel(xs, d, 0, wd)
     lane.check("test")
-    assert _same(got, ring_ccl.rs_q_plain(chunks, d, wd))
+    assert _same(got, ring_ccl.rs_q_chain_plain(xs, d, wd))
+    assert _same(got, _rs_q_hops(xs, d, wd))
     for dirs in ((d,), (1, -1)):
-        view, _, _ = ring_ccl._ar_layout(x, len(dirs))
-        lane, got = ring_ccl._ar_q_kernel(view, dirs, 0, wd)
+        lane, got = ring_ccl._ar_kernel(x, dirs, 0, wd)
         lane.check("test")
-        assert _same(got, ring_ccl.ar_q_plain(view, dirs, wd))
+        assert _same(got, ring_ccl.ar_q_chain_plain(x, dirs, wd))
+        assert _same(got, _ar_q_hops(x, dirs, wd))
         assert all(_same(got[i], got[0]) for i in range(1, n))
     assert _counts() == {"ring_reduce_scatter_q": 1, "ring_all_reduce_q": 2}
+
+
+QUANT_RAGGED = [  # (n, elements per slot, dtype, direction): rows off 16 bytes
+    (2, 1001, torch.bfloat16, 1),
+    (3, 4097, torch.float32, -1),
+    (4, 100_003, torch.float32, 1),
+    (5, 12_345, torch.float16, 1),
+    (8, 30_001, torch.bfloat16, -1),
+    (8, 3, torch.float32, 1),
+    (7, 9_999, torch.float16, -1),
+]
+
+
+@pytest.mark.parametrize("wd", ["fp8", "int8"])
+@pytest.mark.parametrize("n,per,dtype,d", QUANT_RAGGED, ids=lambda v: str(v))
+def test_quantized_kernels_on_ragged_rows(dev, n, per, dtype, d, wd):
+    """B6 and B8 where slots, chunks and rows start off 16 bytes: on the
+    contiguous payload, on rows at a stride one element longer (terms and
+    outputs at different offsets) and on a payload starting one element
+    in; B8 with one stream and two, and on the halves of one output as the
+    bidir pair writes them. Each equal to its contract and its hop
+    schedule."""
+    x = _xq(dev, (n, n * per + 1), dtype, seed=per)
+    size = n * per
+    ring_ccl.reset_launch_counts()
+    for name, xs in (("contiguous", x[:, 1:].contiguous()), ("strided rows", x[:, 1:]),
+                     ("offset start", x.reshape(-1)[1: 1 + n * size].view(n, size))):
+        lane, got = ring_ccl._rs_kernel(xs, d, 0, wd)
+        lane.check("test")
+        assert _same(got, ring_ccl.rs_q_chain_plain(xs, d, wd)), name
+        assert _same(got, _rs_q_hops(xs, d, wd)), name
+        for dirs in ((d,), (1, -1)):
+            lane, got = ring_ccl._ar_kernel(xs, dirs, 0, wd)
+            lane.check("test")
+            assert _same(got, ring_ccl.ar_q_chain_plain(xs, dirs, wd)), (name, dirs)
+            assert _same(got, _ar_q_hops(xs, dirs, wd)), (name, dirs)
+    xs, half = x[:, 1:], (size - 1) // 2  # an odd split of the rows
+    ar = xs.new_empty((n, size))
+    lanes_ = [ring_ccl.launch_ar(xs[:, :half], ar[:, :half], (1,), 0, wd),
+              ring_ccl.launch_ar(xs[:, half:], ar[:, half:], (-1,), 1, wd)]
+    for lane in lanes_:
+        lane.check("test")
+    assert _same(ar, torch.cat([ring_ccl.ar_q_chain_plain(xs[:, :half], (1,), wd),
+                                ring_ccl.ar_q_chain_plain(xs[:, half:], (-1,), wd)], 1))
+    assert _counts() == {"ring_reduce_scatter_q": 3, "ring_all_reduce_q": 8}
 
 
 @pytest.mark.parametrize("wd", ["fp8", "int8"])
@@ -474,18 +547,59 @@ def test_quantized_kernels_keep_nonfinite_loud_and_zeros_exact(dev, wd):
     """An inf and a nan each poison their own 128-lane block on every
     member (the row's scale becomes +inf: fmaxf alone would drop the nan),
     an all-zero block comes out exactly zero, a denormal block stays
-    finite; all of it equal to the plain version."""
+    finite; all of it equal to the contract and the hop schedule, for B8
+    and B6."""
     x = _xq(dev, (4, 8192), torch.float32, seed=7)
     x[0, 5], x[1, 300] = float("inf"), float("nan")
     x[:, 1024:1152], x[3, 2048:2176] = 0.0, 1e-42
-    view, k, _ = ring_ccl._ar_layout(x, 1)
-    lane, got = ring_ccl._ar_q_kernel(view, (1,), 0, wd)
+    lane, out = ring_ccl._ar_kernel(x, (1,), 0, wd)
     lane.check("test")
-    assert _same(got, ring_ccl.ar_q_plain(view, (1,), wd))
-    out = ring_ccl._ar_unlayout(got, k, x)
+    assert _same(out, ring_ccl.ar_q_chain_plain(x, (1,), wd))
+    assert _same(out, _ar_q_hops(x, (1,), wd))
     assert out[:, :128].isnan().all() and out[:, 256:384].isnan().all()
     assert out[:, 128:256].isfinite().all() and out[:, 384:].isfinite().all()
     assert (out[:, 1024:1152] == 0).all()
+    lane, out = ring_ccl._rs_kernel(x, -1, 0, wd)
+    lane.check("test")
+    assert _same(out, ring_ccl.rs_q_chain_plain(x, -1, wd))
+    assert _same(out, _rs_q_hops(x, -1, wd))
+    # the owner's own term, member 0's inf among it, is added after the
+    # chain's last round trip: the nan row is poisoned, the inf stays put
+    assert out[0, 256:384].isnan().all() and torch.isinf(out[0, 5])
+    assert (out[0, 1024:1152] == 0).all() and out[1:].isfinite().all()
+
+
+@pytest.mark.parametrize("verb", ["all_reduce", "all_reduce_1", "bidir_all_reduce",
+                                  "reduce_scatter"])
+def test_quantized_verbs_allocate_no_scratch(dev, verb):
+    """The quantized AR and RS verbs hand B8 and B6 the payload as it is:
+    one call allocates its result and nothing else (no padded layout, no
+    staging, no gather buffers, no halves to concatenate), and launches as
+    many kernels as before."""
+    n, size = 4, 1 << 20
+    x = _xq(dev, (n, size), torch.float32, seed=14)
+    fn = {"all_reduce": lambda t: ring_ccl.ring_all_reduce(t, wire_dtype="fp8"),
+          "all_reduce_1": lambda t: ring_ccl.ring_all_reduce(t, bidirectional=False,
+                                                             wire_dtype="int8"),
+          "bidir_all_reduce": lambda t: ring_ccl.bidir_all_reduce(t, wire_dtype="fp8"),
+          "reduce_scatter": lambda t: ring_ccl.ring_reduce_scatter(t, wire_dtype="int8")}[verb]
+    fn(x)  # the flag regions exist from here on
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ring_ccl.reset_launch_counts()
+    got = fn(x)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(dev) - base <= got.nbytes + 512
+    kernel = "ring_reduce_scatter_q" if verb == "reduce_scatter" else "ring_all_reduce_q"
+    assert _counts() == {kernel: 2 if verb.startswith("bidir") else 1}
+    want = {"all_reduce": lambda: ring_ccl.ar_q_chain_plain(x, (1, -1), "fp8"),
+            "all_reduce_1": lambda: ring_ccl.ar_q_chain_plain(x, (1,), "int8"),
+            "bidir_all_reduce": lambda: torch.cat(
+                [ring_ccl.ar_q_chain_plain(x[:, :size // 2], (1,), "fp8"),
+                 ring_ccl.ar_q_chain_plain(x[:, size // 2:], (-1,), "fp8")], 1),
+            "reduce_scatter": lambda: ring_ccl.rs_q_chain_plain(x, 1, "int8")}[verb]()
+    assert _same(got, want)
 
 
 @pytest.mark.parametrize("wd", ["fp8", "int8"])

@@ -102,7 +102,7 @@ def test_check_all_takes_many_lanes_and_the_first_set_word():
 
 
 def test_both_libraries_share_one_spin_bound_and_their_limits():
-    assert ring_ccl._REGIONS.flag_shape == (lanes.MAX_MEMBERS, 2, lanes.MAX_CHANNELS, 4)
+    assert ring_ccl._REGIONS.flag_shape == (lanes.MAX_MEMBERS, 2, lanes.MAX_CHANNELS, 2)
     assert pallas_a2a._REGIONS.flag_shape == (lanes.MAX_MEMBERS, lanes.MAX_CHANNELS,
                                               lanes.MAX_MEMBERS + 1)
     assert ring_ccl.MAX_MEMBERS == pallas_a2a.MAX_MEMBERS == lanes.MAX_MEMBERS

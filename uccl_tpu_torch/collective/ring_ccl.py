@@ -20,12 +20,15 @@ become five CUDA kernels in ``csrc/ring_ccl.cu``, built with ``nvcc`` for
   member's output row (:func:`ar_chain_plain`); one or two streams, and
   :func:`bidir_all_reduce` runs two directed launches on two CUDA streams
   into one output.
-* ``ring_reduce_scatter_q`` (B6) and ``ring_all_reduce_q`` (B8): the same
-  two schedules with a quantized wire (``wire_dtype="fp8"|"int8"``). Every
-  RS hop crosses as a 1-byte payload plus one f32 scale per 128-lane row
-  (the ``ops/quant.py`` block codec, in the kernel body) and is dequantized
-  before it is added in the input dtype; B8 then quantizes the reduced slot
-  once, forwards wire bytes verbatim and dequantizes every slot, so all
+* ``ring_reduce_scatter_q`` (B6) and ``ring_all_reduce_q`` (B8): B5's and
+  B7's one pass with a quantized wire (``wire_dtype="fp8"|"int8"``). On the
+  ring every RS hop crosses as a 1-byte payload plus one f32 scale per
+  128-lane row (the ``ops/quant.py`` block codec) and is dequantized before
+  it is added in the input dtype; B8's owner then quantizes the reduced
+  slot once and every member dequantizes those wire bytes. The kernels run
+  that round trip at every link of the chain in registers, on the caller's
+  unpadded rows, and write each result once in place
+  (:func:`rs_q_chain_plain`, :func:`ar_q_chain_plain`), so all of B8's
   members end bit-identical. The quantized all-gather, and the broadcast's,
   quantize once outside the kernel and run B4 twice: on the payload, and on
   the packed scales on ``collective_id + CID_SCALE_OFFSET``.
@@ -40,8 +43,9 @@ Beside each kernel is its plain version (``*_plain``): the same hop schedule
 on the member-stacked tensor — the same slot order, the same per-hop add in
 the input dtype — so it is bit-identical to the kernel and to the JAX
 kernels. The one-pass kernels' own contracts are on the unpadded payload:
-:func:`ag_rows_plain` (B4), :func:`rs_chain_plain` (B5) and
-:func:`ar_chain_plain` (B7), each equal to its hop schedule on the padded
+:func:`ag_rows_plain` (B4), :func:`rs_chain_plain` (B5),
+:func:`ar_chain_plain` (B7), :func:`rs_q_chain_plain` (B6) and
+:func:`ar_q_chain_plain` (B8), each equal to its hop schedule on the padded
 slots. A wrapper runs the hop schedule for tensors on the CPU; for a CUDA
 tensor it launches the kernel or raises, and raises if a kernel reports a
 spin-wait timeout. ``launch_counts`` counts kernel launches.
@@ -83,11 +87,10 @@ _KERNEL_ID = {name: i for i, name in enumerate(KERNELS)}
 _ADD_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int32: 3}
 _WIRE_ID = {"fp8": 0, "int8": 1}
 MAX_MEMBERS = _lanes.MAX_MEMBERS
-_FLAG_WORDS = 4  # kFlagWords in the source
-# each member's flag words: [2 streams][channels][recv, ack, phase, entry]
+_FLAG_WORDS = 2  # kFlagWords in the source
+# each member's flag words: [2 streams][channels][entry, exit]
 _REGIONS = _lanes.Lanes((MAX_MEMBERS, 2, _lanes.MAX_CHANNELS, _FLAG_WORDS), KERNELS,
-                        ("entry barrier", "credit", "receive", "phase barrier",
-                         "full-peer entry barrier (step: the peer awaited)",
+                        ("full-peer entry barrier (step: the peer awaited)",
                          "full-peer exit barrier (step: the peer awaited)"), "stream")
 
 _WIRE_BYTES = _obsc.counter(
@@ -336,6 +339,55 @@ def rs_q_plain(chunks: torch.Tensor, direction: int, wire_dtype: str) -> torch.T
     return buf[r, r]
 
 
+def _round_trip(v: torch.Tensor, wire_dtype: str) -> torch.Tensor:
+    """One quantize → dequantize trip of ``v`` [..., len] in its dtype: the
+    block codec on 128-element rows counted from the start of the last dim,
+    a short last row's missing elements taken as zeros."""
+    q, sc = _quant.quantize_block(v, wire_dtype, LANES)
+    return _quant.dequantize_block(q, sc, LANES, v.dtype)
+
+
+def rs_q_chain_plain(x: torch.Tensor, direction: int, wire_dtype: str) -> torch.Tensor:
+    """B6's function on unpadded rows. ``x`` ``[n, n*per]`` → ``[n, per]``:
+    member k's slot k summed along the ring's chain as
+    :func:`rs_chain_plain` sums it, with one quantize round trip of the
+    partial sum at every link: ``acc = x[k+d][k]``, then for j = 2..n
+    ``acc = x[k+j·d][k] + RT(acc)`` (:func:`_round_trip` on the slot's rows,
+    the add in the input dtype). What :func:`rs_q_plain` gives on padded
+    slots."""
+    n = x.shape[0]
+    slots = x.reshape(n, n, -1)  # [member, slot, per]
+    k = torch.arange(n, device=x.device)
+    acc = slots[(k + direction) % n, k]
+    for j in range(2, n + 1):
+        acc = slots[(k + j * direction) % n, k] + _round_trip(acc, wire_dtype)
+    return acc
+
+
+def ar_q_chain_plain(x: torch.Tensor, dirs: Sequence[int], wire_dtype: str) -> torch.Tensor:
+    """B8's function on unpadded rows. ``x`` ``[n, size]`` → ``[n, size]``,
+    every member's row the same: the chunks of :func:`ar_chain_plain`, chunk
+    q = o·S + h summed along the chain of direction ``dirs[h]`` with a round
+    trip at every link (as :func:`rs_q_chain_plain`), then round-tripped
+    once more, and that value written into every member's row. What
+    :func:`ar_q_plain` gives on the padded layout, whose members all
+    dequantize the owner's wire bytes."""
+    n, size = x.shape
+    streams = len(dirs)
+    k = -(-size // (n * streams))
+    out = x.new_empty((n, size))
+    for q in range(n * streams):
+        lo, hi = q * k, min(size, (q + 1) * k)
+        if lo >= hi:
+            break
+        o, d = q // streams, dirs[q % streams]
+        acc = x[(o + d) % n, lo:hi]
+        for j in range(2, n + 1):
+            acc = x[(o + j * d) % n, lo:hi] + _round_trip(acc, wire_dtype)
+        out[:, lo:hi] = _round_trip(acc, wire_dtype)
+    return out
+
+
 def ar_q_plain(view: torch.Tensor, dirs: Sequence[int], wire_dtype: str) -> torch.Tensor:
     """B8's function. ``view`` ``[n, n, S, m]`` → the same layout: per
     stream the quantized RS hops, the reduced slot quantized ONCE, payload
@@ -368,13 +420,17 @@ def ar_q_plain(view: torch.Tensor, dirs: Sequence[int], wire_dtype: str) -> torc
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _lanes.load_library("ring_ccl", "uccl_ring", _FLAG_WORDS)
+    return declare(_lanes.load_library("ring_ccl", "uccl_ring", _FLAG_WORDS))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/ring_ccl.cu``, the source's or a variant's)
+    with its launch entry's argument types set."""
     i, p = ctypes.c_int, ctypes.c_void_p
     tab = ctypes.POINTER(ctypes.c_void_p)
     ll = ctypes.c_longlong
-    lib.uccl_ring_launch.argtypes = [i, i, i, i, i, i, i, i, ll, ll, ll, ll,
-                                     tab, tab, tab, tab, tab, tab, tab, tab, p, i,
-                                     ctypes.c_ulonglong, ctypes.c_ulonglong, p]
+    lib.uccl_ring_launch.argtypes = [i, i, i, i, i, i, i, i, ll, ll, ll, ll, tab, tab, tab, p,
+                                     i, ctypes.c_ulonglong, ctypes.c_ulonglong, p]
     lib.uccl_ring_launch.restype = i
     return lib
 
@@ -404,38 +460,16 @@ def _check_world(name: str, dtype: torch.dtype, n: int) -> None:
         raise TypeError(f"{name} on CUDA adds in {sorted(map(str, takes))}; got {dtype}")
 
 
-def _check_operands(name: str, dtype: torch.dtype, *ts: torch.Tensor) -> None:
-    _check_world(name, dtype, ts[0].shape[0])
-    dev = ts[0].device
-    for t in ts:
-        if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: operands must be contiguous, 16-byte aligned, on {dev}")
-
-
-def _launch(name: str, x: torch.Tensor, buf: torch.Tensor, stage: Optional[torch.Tensor],
-            out: Optional[torch.Tensor], streams: int, dirs: Sequence[int], cid: int,
-            slot_bytes: int, *, wire_dtype: Optional[str] = None,
-            sstage: Optional[torch.Tensor] = None, qbuf: Optional[torch.Tensor] = None,
-            sbuf: Optional[torch.Tensor] = None) -> _lanes.Lane:
-    """Launch one ring kernel (B6, B8) on the current stream; no sync and no
-    error check (the caller checks the returned lane). ``slot_bytes`` is one
-    chunk slot in ``x``'s dtype."""
-    operands = [t for t in (x, buf, stage, out, sstage, qbuf, sbuf) if t is not None]
-    _check_operands(name, x.dtype, *operands)
-    return _enqueue(name, x, buf, stage, out, streams, dirs, cid, slot_bytes,
-                    wire_dtype=wire_dtype, sstage=sstage, qbuf=qbuf, sbuf=sbuf)
-
-
-def _enqueue(name: str, x: torch.Tensor, buf: Optional[torch.Tensor],
-             stage: Optional[torch.Tensor], out: Optional[torch.Tensor], streams: int,
-             dirs: Sequence[int], cid: int, slot_bytes: int, *, row_elems: int = 0,
-             slot_stride: int = 0, extent: int = 0, x_ptrs: Optional[Sequence[int]] = None,
-             out_ptrs: Optional[Sequence[int]] = None, wire_dtype: Optional[str] = None,
-             sstage: Optional[torch.Tensor] = None, qbuf: Optional[torch.Tensor] = None,
-             sbuf: Optional[torch.Tensor] = None) -> _lanes.Lane:
-    """The C entry on checked operands (``row_elems``, ``slot_stride``,
-    ``extent``: as the entry sets out). ``x_ptrs`` and ``out_ptrs`` give the
-    members' addresses where they are not the rows of ``x`` and ``out``."""
+def _enqueue(name: str, x: torch.Tensor, out: torch.Tensor, streams: int, dirs: Sequence[int],
+             cid: int, slot_bytes: int, *, row_elems: int = 0, slot_stride: int = 0,
+             extent: int = 0, x_ptrs: Optional[Sequence[int]] = None,
+             out_ptrs: Optional[Sequence[int]] = None,
+             wire_dtype: Optional[str] = None) -> _lanes.Lane:
+    """Launch one ring kernel on the current stream, its operands checked by
+    the caller (``row_elems``, ``slot_stride``, ``extent``: as the C entry
+    sets out); no sync and no error check (the caller checks the returned
+    lane). ``x_ptrs`` and ``out_ptrs`` give the members' addresses where
+    they are not the rows of ``x`` and ``out``."""
     n = x.shape[0]
     lane = _lane(x.device, cid)
     stream = torch.cuda.current_stream(x.device)
@@ -443,11 +477,10 @@ def _enqueue(name: str, x: torch.Tensor, buf: Optional[torch.Tensor],
     rc = _lib().uccl_ring_launch(
         _KERNEL_ID[name], _ADD_DTYPES.get(x.dtype, 0), _WIRE_ID.get(wire_dtype, 0), n,
         n, streams, dirs[0], dirs[-1], slot_bytes, row_elems, slot_stride, extent,
-        t(x, n) if x_ptrs is None else (ctypes.c_void_p * n)(*x_ptrs), t(buf, n), t(stage, n),
-        t(out, n) if out_ptrs is None else (ctypes.c_void_p * n)(*out_ptrs), t(sstage, n),
-        t(qbuf, n), t(sbuf, n), t(lane.flags, n), ctypes.c_void_p(lane.err.data_ptr()), cid,
-        lane.next_epoch(), _lanes.SPIN_TIMEOUT_MS.get() * 1_000_000,
-        ctypes.c_void_p(stream.cuda_stream))
+        t(x, n) if x_ptrs is None else (ctypes.c_void_p * n)(*x_ptrs),
+        t(out, n) if out_ptrs is None else (ctypes.c_void_p * n)(*out_ptrs), t(lane.flags, n),
+        ctypes.c_void_p(lane.err.data_ptr()), cid, lane.next_epoch(),
+        _lanes.SPIN_TIMEOUT_MS.get() * 1_000_000, ctypes.c_void_p(stream.cuda_stream))
     _lanes.raise_on_launch(rc, name, x.device)
     launch_counts[name] += 1
     return lane
@@ -474,7 +507,7 @@ def launch_ag(x: torch.Tensor, out: torch.Tensor, cid: int) -> _lanes.Lane:
     _check_rows(name, x, x, out)
     isz = x.element_size()
     stride = out.stride(1) * isz
-    return _enqueue(name, x, None, None, out, 1, (1,), cid, per * isz, slot_stride=stride,
+    return _enqueue(name, x, out, 1, (1,), cid, per * isz, slot_stride=stride,
                     extent=per * isz + (n - 1) * stride)
 
 
@@ -493,83 +526,43 @@ def launch_ag_from_root(x: torch.Tensor, root: int, out: torch.Tensor, chunk: in
     _check_rows(name, x, x, out)
     isz = x.element_size()
     row = x.data_ptr() + root * x.stride(0) * isz
-    return _enqueue(name, x, None, None, out, 1, (1,), cid, width * isz,
+    return _enqueue(name, x, out, 1, (1,), cid, width * isz,
                     slot_stride=chunk * isz, extent=(size - lo) * isz,
                     x_ptrs=[row + (j * chunk + lo) * isz for j in range(n)],
                     out_ptrs=[out.data_ptr() + (r * out.stride(0) + lo) * isz for r in range(n)])
 
 
-def launch_rs(x: torch.Tensor, out: torch.Tensor, direction: int, cid: int) -> _lanes.Lane:
-    """B5 on ``x`` ``[n, n*per]``, the members' unpadded rows (rows at any
-    stride, slots at any element offset), into ``out`` ``[n, per]``; no
-    scratch."""
-    name, (n, size), per = "ring_reduce_scatter", x.shape, out.shape[-1]
+def launch_rs(x: torch.Tensor, out: torch.Tensor, direction: int, cid: int,
+              wire_dtype: Optional[str] = None) -> _lanes.Lane:
+    """B5 (B6 with a ``wire_dtype``) on ``x`` ``[n, n*per]``, the members'
+    unpadded rows (rows at any stride, slots at any element offset), into
+    ``out`` ``[n, per]``; no scratch."""
+    name = "ring_reduce_scatter_q" if wire_dtype else "ring_reduce_scatter"
+    (n, size), per = x.shape, out.shape[-1]
     _check_world(name, x.dtype, n)
     if size != n * per or tuple(out.shape) != (n, per):
         raise ValueError(f"{name}: rows of {size} are not {n} slots of {per}")
     _check_rows(name, x, x, out)
-    return _enqueue(name, x, None, None, out, 1, (direction,), cid, per * x.element_size(),
-                    row_elems=size)
+    return _enqueue(name, x, out, 1, (direction,), cid, per * x.element_size(), row_elems=size,
+                    wire_dtype=wire_dtype)
 
 
-def launch_ar(x: torch.Tensor, out: torch.Tensor, dirs: Sequence[int], cid: int) -> _lanes.Lane:
-    """B7 on ``x`` ``[n, size]``, the members' unpadded rows (rows at any
-    stride), into ``out`` alike (the bidir pair's halves are column ranges
-    of one tensor): every member's row receives :func:`ar_chain_plain`'s
-    sums; no scratch."""
-    name, (n, size) = "ring_all_reduce", x.shape
+def launch_ar(x: torch.Tensor, out: torch.Tensor, dirs: Sequence[int], cid: int,
+              wire_dtype: Optional[str] = None) -> _lanes.Lane:
+    """B7 (B8 with a ``wire_dtype``) on ``x`` ``[n, size]``, the members'
+    unpadded rows (rows at any stride), into ``out`` alike (the bidir pair's
+    halves are column ranges of one tensor): every member's row receives
+    :func:`ar_chain_plain`'s sums (:func:`ar_q_chain_plain`'s); no
+    scratch."""
+    name = "ring_all_reduce_q" if wire_dtype else "ring_all_reduce"
+    n, size = x.shape
     _check_world(name, x.dtype, n)
     if tuple(out.shape) != (n, size) or size == 0:
         raise ValueError(f"{name}: output {tuple(out.shape)} is not [{n}, {size}] or empty")
     _check_rows(name, x, x, out)
     k = -(-size // (n * len(dirs)))
-    return _enqueue(name, x, None, None, out, len(dirs), dirs, cid, k * x.element_size(),
-                    row_elems=size)
-
-
-def _scale_slot(m: int) -> int:
-    """f32 scales of one slot's packed sidecar: ``scale_rows`` rows of LANES."""
-    return _dma.scale_rows(m // LANES) * LANES
-
-
-def launch_rs_q(chunks: torch.Tensor, buf: torch.Tensor, qstage: torch.Tensor,
-                sstage: torch.Tensor, out: torch.Tensor, direction: int, cid: int,
-                wire_dtype: str) -> _lanes.Lane:
-    """B6 on ``chunks`` ``[n, n, m]`` (scratch ``buf`` alike) into ``out``
-    ``[n, m]``; the wire's staging is ``qstage`` ``[n, 2, m]`` bytes and
-    ``sstage`` ``[n, 2, scale slot]`` f32."""
-    m_bytes = chunks.shape[2] * chunks.element_size()
-    return _launch("ring_reduce_scatter_q", chunks, buf, qstage, out, 1, (direction,), cid,
-                   m_bytes, wire_dtype=wire_dtype, sstage=sstage)
-
-
-def launch_ar_q(view: torch.Tensor, out: torch.Tensor, qstage: torch.Tensor,
-                sstage: torch.Tensor, qbuf: torch.Tensor, sbuf: torch.Tensor,
-                dirs: Sequence[int], cid: int, wire_dtype: str) -> _lanes.Lane:
-    """B8 on ``view`` ``[n, n, S, m]`` into ``out`` alike; staging
-    ``qstage`` ``[n, S, 2, m]`` bytes and ``sstage`` ``[n, S, 2, scale
-    slot]`` f32, gather buffers ``qbuf`` ``[n, n, S, m]`` bytes and ``sbuf``
-    ``[n, n, S, scale slot]`` f32."""
-    m_bytes = view.shape[3] * view.element_size()
-    return _launch("ring_all_reduce_q", view, out, qstage, None, len(dirs), dirs, cid, m_bytes,
-                   wire_dtype=wire_dtype, sstage=sstage, qbuf=qbuf, sbuf=sbuf)
-
-
-def _wire_buffers(like: torch.Tensor, *lead: int):
-    """Payload bytes ``[*lead, m]`` and packed scales ``[*lead, scale slot]``
-    (zeroed: the sidecar's tail past the last row stays zero) for slots of
-    ``like``'s last dim."""
-    m = like.shape[-1]
-    return (torch.empty((*lead, m), dtype=torch.uint8, device=like.device),
-            torch.zeros((*lead, _scale_slot(m)), dtype=torch.float32, device=like.device))
-
-
-def _ar_q_operands(view):
-    """The output and scratch of one quantized all-reduce launch on ``view``
-    ``[n, n, S, m]``: (out, qstage, sstage, qbuf, sbuf)."""
-    n, _, s, _ = view.shape
-    return (view.new_empty(view.shape), *_wire_buffers(view, n, s, 2),
-            *_wire_buffers(view, n, n, s))
+    return _enqueue(name, x, out, len(dirs), dirs, cid, k * x.element_size(), row_elems=size,
+                    wire_dtype=wire_dtype)
 
 
 def _ag_kernel(x, cid):
@@ -578,33 +571,17 @@ def _ag_kernel(x, cid):
     return launch_ag(x, out, cid), out
 
 
-def _rs_kernel(x, direction, cid):
-    """One B5 launch on ``x`` ``[n, n*per]``; (lane, out ``[n, per]``)."""
+def _rs_kernel(x, direction, cid, wire_dtype=None):
+    """One B5 (B6) launch on ``x`` ``[n, n*per]``; (lane, out ``[n, per]``)."""
     n = x.shape[0]
     out = x.new_empty((n, x.shape[1] // n))
-    return launch_rs(x, out, direction, cid), out
+    return launch_rs(x, out, direction, cid, wire_dtype), out
 
 
-def _rs_q_kernel(chunks, direction, cid, wire_dtype):
-    """One B6 launch on ``chunks`` ``[n, n, m]``; (lane, out)."""
-    n, _, m = chunks.shape
-    buf, out = chunks.new_empty(chunks.shape), chunks.new_empty((n, m))
-    qstage, sstage = _wire_buffers(chunks, n, 2)
-    return launch_rs_q(chunks, buf, qstage, sstage, out, direction, cid, wire_dtype), out
-
-
-def _ar_kernel(x, dirs, cid):
-    """One B7 launch on ``x`` ``[n, size]``; (lane, out ``[n, size]``)."""
+def _ar_kernel(x, dirs, cid, wire_dtype=None):
+    """One B7 (B8) launch on ``x`` ``[n, size]``; (lane, out ``[n, size]``)."""
     out = x.new_empty(x.shape)
-    return launch_ar(x, out, dirs, cid), out
-
-
-def _ar_q_kernel(view, dirs, cid, wire_dtype, operands=None):
-    """One B8 launch on ``view``; (lane, out). ``operands`` are
-    :func:`_ar_q_operands`' buffers, allocated here unless a caller made
-    them beforehand (on another stream than the launch's)."""
-    out, *scratch = operands or _ar_q_operands(view)
-    return launch_ar_q(view, out, *scratch, dirs, cid, wire_dtype), out
+    return launch_ar(x, out, dirs, cid, wire_dtype), out
 
 
 def _run_pair(what: str, starts: Sequence[Callable[[], Tuple[List[_lanes.Lane], object]]],
@@ -728,10 +705,10 @@ def ring_reduce_scatter(x: torch.Tensor, *, direction: int = 1, collective_id: i
                         wire_dtype=None) -> torch.Tensor:
     """``[n, n*k, ...]`` → ``[n, k, ...]``: member r keeps reduced slot r
     (sum), by B5 on the payload as it is: no padding, no scratch, the
-    result a view of B5's output. ``wire_dtype``: by B6 — every hop's
-    partial sum crosses block-quantized and is dequantized before it is
-    added in the input precision, one quantize round trip of error per hop.
-    On the CPU both run their hop schedule on padded slots."""
+    result a view of B5's output. ``wire_dtype``: by B6, the same way — every
+    hop's partial sum crosses block-quantized and is dequantized before it
+    is added in the input precision, one quantize round trip of error per
+    hop. On the CPU both run their hop schedule on padded slots."""
     wire_dtype = _ring_wire_dtype(x, wire_dtype, "reduce_scatter")
     n = x.shape[0]
     if n == 1:
@@ -750,17 +727,14 @@ def ring_reduce_scatter(x: torch.Tensor, *, direction: int = 1, collective_id: i
         from uccl_tpu_torch.collective import plan
 
         return plan.ring_reduce_scatter(x)
-    if wire_dtype is None and not _is_cpu(x):
-        lane, out = _rs_kernel(_unit_rows(flat), direction, collective_id)
+    if not _is_cpu(x):
+        lane, out = _rs_kernel(_unit_rows(flat), direction, collective_id, wire_dtype)
         lane.check("ring_reduce_scatter")
         return out.reshape((n, k) + tuple(x.shape[2:]))
+    # past the budget too: the quantized mirror is the plain version
     chunks = _dma.pad_chunks(flat, n)[0].reshape(n, n, m)
-    if _is_cpu(x):  # past the budget too: the quantized mirror is the plain version
-        out = (rs_plain(chunks, direction) if wire_dtype is None
-               else rs_q_plain(chunks, direction, wire_dtype))
-    else:
-        lane, out = _rs_q_kernel(chunks, direction, collective_id, wire_dtype)
-        lane.check("ring_reduce_scatter")
+    out = rs_plain(chunks, direction) if wire_dtype is None else rs_q_plain(chunks, direction,
+                                                                           wire_dtype)
     return out[:, :per].reshape((n, k) + tuple(x.shape[2:]))
 
 
@@ -787,10 +761,10 @@ def ring_all_reduce(x: torch.Tensor, *, bidirectional: bool = True, direction: i
     payload as it is (one pass: no padding, the sums written in place, in
     the ring's chain order). ``bidirectional`` splits the payload over two
     counter-rotating streams; ``direction`` rotates the single ring
-    otherwise. ``wire_dtype``: ONE B8 launch — the quantized RS phase, the
-    reduced slot quantized once, wire bytes forwarded verbatim; the error is
-    n-1 per-hop round trips into the sum plus one on the gathered copy. On
-    the CPU the ring's hops on padded slots."""
+    otherwise. ``wire_dtype``: ONE B8 launch, the same way — a round trip at
+    every link of the chain and one more on the sum, which every member
+    receives; the error is n-1 per-hop round trips into the sum plus one on
+    the gathered copy. On the CPU the ring's hops on padded slots."""
     wire_dtype = _ring_wire_dtype(x, wire_dtype, "all_reduce")
     n = x.shape[0]
     if n == 1:
@@ -806,16 +780,12 @@ def ring_all_reduce(x: torch.Tensor, *, bidirectional: bool = True, direction: i
         from uccl_tpu_torch.collective import plan
 
         return plan.ring_all_reduce(x, bidirectional=bidirectional, direction=direction)
-    if wire_dtype is None and not _is_cpu(x):
-        lane, out = _ar_kernel(_unit_rows(x.reshape(n, -1)), dirs, collective_id)
+    if not _is_cpu(x):
+        lane, out = _ar_kernel(_unit_rows(x.reshape(n, -1)), dirs, collective_id, wire_dtype)
         lane.check("ring_all_reduce")
         return out.reshape(x.shape)
     view, k, _ = _ar_layout(x, len(dirs))
-    if _is_cpu(x):
-        buf = ar_plain(view, dirs) if wire_dtype is None else ar_q_plain(view, dirs, wire_dtype)
-    else:
-        lane, buf = _ar_q_kernel(view, dirs, collective_id, wire_dtype)
-        lane.check("ring_all_reduce")
+    buf = ar_plain(view, dirs) if wire_dtype is None else ar_q_plain(view, dirs, wire_dtype)
     return _ar_unlayout(buf, k, x)
 
 
@@ -825,13 +795,8 @@ def _unit_rows(flat: torch.Tensor) -> torch.Tensor:
     return flat if flat.stride(1) == 1 or flat.shape[1] <= 1 else flat.contiguous()
 
 
-def _start_ar(x, out, dirs, cid):
-    return [launch_ar(x, out, dirs, cid)], out
-
-
-def _start_ar_q(view, dirs, cid, wire_dtype, operands):
-    lane, out = _ar_q_kernel(view, dirs, cid, wire_dtype, operands)
-    return [lane], out
+def _start_ar(x, out, dirs, cid, wire_dtype):
+    return [launch_ar(x, out, dirs, cid, wire_dtype)], out
 
 
 def bidir_all_reduce(x: torch.Tensor, *, collective_id: Optional[int] = None,
@@ -839,8 +804,8 @@ def bidir_all_reduce(x: torch.Tensor, *, collective_id: Optional[int] = None,
     """Allreduce (sum) over TWO counter-rotating B7 launches (B8 with a
     ``wire_dtype``) on paired collective ids, in flight together on two CUDA
     streams: each member's flat payload is split in half, the first half
-    rings forward (+1), the second backward (-1); B7 writes both halves'
-    sums into one output, each into its own columns. Past the arena budget
+    rings forward (+1), the second backward (-1); B7 (B8) writes both
+    halves' sums into one output, each into its own columns. Past the arena budget
     both halves ride their directed mirrors as a pair (the plan lowerings,
     or the quantized schedule's plain version), counted on
     ``ep_wire_fallback_total`` and ``collective_plan_total{outcome="fallback"}``."""
@@ -884,23 +849,14 @@ def bidir_all_reduce(x: torch.Tensor, *, collective_id: Optional[int] = None,
         m = _dma.padded_chunk_elems(-(-h.shape[1] // n))
         _count_wire_bytes("ring_all_reduce", "pallas", wire_dtype,
                           _ar_wire_bytes(n, 1, m, itemsize, wire_dtype))
-    if wire_dtype is None:  # both halves' sums straight into one output
-        src = _unit_rows(flat)
-        out = src.new_empty((n, size))
-        starts = [functools.partial(_start_ar, src[:, lo:hi], out[:, lo:hi], (d,),
-                                    collective_id + i)
-                  for i, (lo, hi, d) in enumerate(((0, half, 1), (half, size, -1)))]
-        _run_pair("bidir_all_reduce", starts, (src, out), x.device)
-        return out.reshape(x.shape)
-    layouts = []
-    for h in halves:
-        view, k, _ = _ar_layout(h, 1)
-        layouts.append((view, k, h, _ar_q_operands(view)))
-    starts = [functools.partial(_start_ar_q, lay[0], (d,), collective_id + i, wire_dtype, lay[3])
-              for i, (lay, d) in enumerate(zip(layouts, (1, -1)))]
-    bufs = _run_pair("bidir_all_reduce", starts, (layouts[1][0], *layouts[1][3]), x.device)
-    outs = [_ar_unlayout(b, k, h) for b, (_, k, h, _) in zip(bufs, layouts)]
-    return torch.cat(outs, dim=1).reshape(x.shape)
+    # both halves' sums straight into one output
+    src = _unit_rows(flat)
+    out = src.new_empty((n, size))
+    starts = [functools.partial(_start_ar, src[:, lo:hi], out[:, lo:hi], (d,),
+                                collective_id + i, wire_dtype)
+              for i, (lo, hi, d) in enumerate(((0, half, 1), (half, size, -1)))]
+    _run_pair("bidir_all_reduce", starts, (src, out), x.device)
+    return out.reshape(x.shape)
 
 
 def _ag_pair_lax_mirror(flat: torch.Tensor, wire_dtype=None) -> torch.Tensor:

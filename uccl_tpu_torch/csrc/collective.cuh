@@ -22,8 +22,8 @@
 // (a bidirectional pair, or two chunk kernels on collective-id parity twins)
 // can both be resident.
 //
-// Copies move 16-byte vectors through L2 (ld.global.cg / st.global.cg),
-// four in flight a thread.
+// Copies (B9, B10) move 16-byte vectors through L2 (ld.global.cg /
+// st.global.cg), four in flight a thread.
 
 #pragma once
 

@@ -9,71 +9,38 @@
 //   ring_rsq_kernel<T,W>  <- ring_reduce_scatter's quantized kernel (:621, call :632)
 //   ring_arq_kernel<T,W>  <- ring_all_reduce's quantized kernel (:742, call :773)
 //
-// Members. Each kernel takes a table of per-member base addresses: inputs,
-// outputs and, for the quantized ring, data slots, 2-slot staging and flag
-// words. One launch runs every member of the world: blockIdx.y is the
-// member, and blockIdx.x splits its work into independent channels (and,
-// for B7 and B8, the two counter-rotating streams), each with its own flags,
-// so many SMs move each member's bytes. On one card every address in the
-// table lies in the same HBM, so a "hop" is an HBM-to-HBM store; members on
-// separate cards need only another table (peer or IPC addresses) and the
-// .sys memory scope.
+// Members. Each kernel takes a table of per-member base addresses: the
+// caller's inputs and outputs, as they are, and flag words. One launch runs
+// every member of the world: blockIdx.y is the member, and blockIdx.x
+// splits its work into independent channels (and, for B7 and B8, the two
+// counter-rotating streams), each with its own flags, so many SMs move each
+// member's bytes. On one card every address in the table lies in the same
+// HBM; members on separate cards need only another table (peer or IPC
+// addresses) and the .sys memory scope.
 //
-// B4, B5 and B7 are no ring on this card: each is one pass that reads every
-// input byte once and writes every result byte once, in its final place
-// (set out above ring_rs_kernel). B6 and B8 keep the ring, exactly the JAX
-// package's slot arithmetic (d = direction):
-//   RS step s sends slot (r - d*(s+1)) mod n into the right neighbor's
-//     staging slot s%2, and folds the partial that arrives from the left
-//     into slot (r - d*(s+2)) mod n, in the input dtype, one rounding per hop
-//     (buf + stage, pallas_ccl.py:242);
-//   B8 runs the RS phase, a phase barrier, then the AG phase (step s sends
-//     slot (r - d*s) mod n straight into the right neighbor's slot of the
-//     same index), on a payload laid out slot-major, then by stream
-//     ([n][S][m], pallas_ccl.py:673-676).
+// None of the five is a ring on this card: each is one pass that reads
+// every input byte once and writes every result byte once, in its final
+// place (set out above ring_rs_kernel, and for the quantized wire above
+// ring_rsq_kernel). They compute the ring's result bit for bit, in the
+// order its hops would add, without running its hops: no staging, no
+// per-hop flags, no credit window.
 //
-// Synchronization. The TPU kernels' DMA, credit and barrier semaphores
-// become 64-bit flag words holding (epoch << 32) | count. A sender stores its
-// data, then the count with st.release.gpu; the receiver spins with
-// ld.acquire.gpu until the flag reaches (epoch << 32) | target. Each flag has
-// exactly one writer and only grows within a launch, and the host gives
-// every launch on a flag region a new epoch, so a stale flag from an earlier
-// launch can never let a wait through (no signal/wait balance is needed).
-// Credit window as in pallas_ccl.py:172-197: two staging slots start free,
-// and from step 2 on a sender waits until its right neighbor has consumed
-// step s-2. Entry barrier with both neighbors; B8 keeps the phase barrier
-// (its AG stores into the right neighbor's slots only after that neighbor's
-// RS phase, which reads and folds those slots, is done).
+// Synchronization. The TPU kernels' barrier semaphores become 64-bit flag
+// words holding (epoch << 32) | count (csrc/collective.cuh): a full-peer
+// entry barrier and a full-peer exit barrier per channel (peer_barrier).
+// Each flag has exactly one writer, and the host gives every launch on a
+// flag region a new epoch, so a stale flag from an earlier launch can never
+// let a wait through.
 //
 // Deadlock and faults, as csrc/collective.cuh sets out for every collective
 // kernel: cooperative launches on at most half the card (the two kernels of
 // a bidirectional pair can both be resident), and every spin bounded by
-// %globaltimer with an error word (kernel, member, step, collective id,
-// stream, channel, which wait) that the host wrapper raises on.
+// %globaltimer with an error word (kernel, member, peer awaited, collective
+// id, stream, channel, which wait) that the host wrapper raises on.
 //
-// Quantized wire (B6, B8; wire = fp8 e4m3fn or int8). Every RS hop crosses
-// block-quantized: the sender computes each 128-element row's amax and f32
-// scale (uccl_tpu/ops/quant.py's rule: scale = amax * (1 / QMAX) floored at
-// the smallest normal f32, 1.0 for an all-zero row, +inf for a row holding
-// any inf or nan), and writes the 1-byte payload and the row's scale straight
-// into the right neighbor's staging slot s%2. The TPU kernel's send scratch
-// (qsend, ssend) and its second DMA semaphore set have no counterpart:
-// payload and scales of a hop ride ONE release flag. The receiver
-// dequantizes (payload * scale, rounded to the input dtype) and adds in the
-// input dtype with one correctly rounded add: partial sums never live in
-// wire precision. One warp owns a row (32 lanes x 4 values) and reduces its
-// amax with shuffles; a channel covers whole rows. B8 then quantizes its
-// reduced slot ONCE, forwards payload and scale bytes verbatim (write-once
-// slots), and dequantizes EVERY slot, its own included, from the wire
-// bytes, so all members end bit-identical. The codec is plain CUDA
-// arithmetic here: an IEEE division by the scale, __fmul_rn/__fadd_rn so
-// that no multiply and add contract into an fma, no fast-math.
-//
-// Bound. All five move bytes and do a handful of operations per element:
-// HBM bandwidth bounds them (3.35 TB/s on an H100 SXM). The ring kernels'
-// copies and folds use 16-byte vector loads and stores through L2
-// (ld.global.cg / st.global.cg), since staging slots are rewritten every
-// other step by another SM.
+// Bound. All five move bytes and do a handful of operations per element
+// (B6 and B8 a codec round trip per element and link): HBM bandwidth bounds
+// them (3.35 TB/s on an H100 SXM).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -89,42 +56,27 @@ namespace {
 
 using namespace uccl;
 
-constexpr int kFlagWords = 4;  // recv, ack, phase (B4, B5, B7: exit), entry
+constexpr int kFlagWords = 2;  // the full-peer barriers' words: entry, exit
+constexpr int kEntry = 0, kExit = 1;
 
 constexpr int kWarps = kThreads / 32;
-// Rows a warp has in flight. The quantized kernels are built for two blocks
-// per SM (64 registers a thread), like B5 and B7: at one block per SM the
-// cooperative grid has half the blocks and the kernels run 1.4-1.5x slower
-// (measured). Three rows fit those registers; four spill in B8.
-constexpr int kRowUnroll = 3;
 constexpr int kLanes = 128;     // elements of one quantization row
 constexpr float kScaleTiny = 1.17549435e-38f;  // smallest normal f32
 
 enum Kernel { kAG = 0, kRS = 1, kAR = 2, kRSQ = 3, kARQ = 4 };
 enum Wire { kFp8 = 0, kInt8 = 1 };
-// The full-peer barriers of B4, B5 and B7 (kWaitPeers at entry,
-// kWaitPeersExit at exit): the error word's step is the peer awaited
-enum Wait {
-  kWaitEntry = 0, kWaitCredit = 1, kWaitRecv = 2, kWaitPhase = 3, kWaitPeers = 4,
-  kWaitPeersExit = 5
-};
+// The full-peer barriers (kWaitPeers at entry, kWaitPeersExit at exit): the
+// error word's step is the peer awaited
+enum Wait { kWaitPeers = 0, kWaitPeersExit = 1 };
 
 struct RingArgs {
   const char* x[kMaxMembers];        // member inputs (B4: contributions)
-  char* buf[kMaxMembers];            // B6, B8: member data slots ([n][S][slot_bytes])
-  char* stage[kMaxMembers];          // B6, B8: member staging ([S][2][slot_bytes])
-  char* out[kMaxMembers];            // B4, B5, B7: member output rows; B6: member output
+  char* out[kMaxMembers];            // member outputs
   unsigned long long* flags[kMaxMembers];  // member flags ([2][kMaxChannels][kFlagWords])
-  // quantized wire: B6/B8 stage payload bytes in ``stage`` ([S][2][m]) and
-  // row scales in ``sstage`` ([S][2][srow]); B8 gathers into ``qbuf``
-  // ([n][S][m]) and ``sbuf`` ([n][S][srow])
-  float* sstage[kMaxMembers];
-  char* qbuf[kMaxMembers];
-  float* sbuf[kMaxMembers];
-  long long rows, srow;              // rows of a slot; f32 scales per scale slot
   int* err;                          // error word of the flag region: 8 ints
-  long long slot_bytes;              // one chunk slot of one stream (B4: one contribution)
-  long long row_elems;               // B5, B7: elements of a member's input row
+  long long slot_bytes;              // B5, B6: one slot; B7, B8: one chunk;
+                                     // B4: one contribution
+  long long row_elems;               // B5-B8: elements of a member's input row
   long long slot_stride, extent;     // B4: bytes between an output row's slots, and
                                      // bytes of an output row from its base that are written
   int n, S, C;                       // world, streams, channels
@@ -141,19 +93,6 @@ __device__ __forceinline__ unsigned long long* flag(const RingArgs& a, int membe
 
 __device__ __forceinline__ unsigned long long mark(const RingArgs& a, long long count) {
   return (a.epoch << 32) | (unsigned long long)count;
-}
-
-// All threads: spin (thread 0) until *f >= target. False when the wait timed
-// out or another block of the launch already failed; the caller returns.
-__device__ bool wait_geq(const RingArgs& a, const unsigned long long* f,
-                         unsigned long long target, int member, int h, int c, int step,
-                         int what) {
-  __shared__ int ok;
-  __syncthreads();  // every thread has read the previous wait's verdict
-  if (threadIdx.x == 0)
-    ok = spin_geq(f, target, a.err, a.timeout_ns, {a.kernel, member, step, a.cid, h, c, what});
-  __syncthreads();
-  return ok != 0;
 }
 
 __device__ __forceinline__ int mod(int v, int n) { return ((v % n) + n) % n; }
@@ -193,17 +132,6 @@ template <> __device__ __forceinline__ int4 add16<__half>(int4 a, int4 b) {
 // B4 runs the sums' pass on bytes (T = unsigned char) with one term: a copy,
 // which never names add16
 template <typename T> constexpr bool kAdds = !std::is_same<T, unsigned char>::value;
-
-__device__ __forceinline__ long long slot_off(const RingArgs& a, int slot, int h) {
-  return ((long long)slot * a.S + h) * a.slot_bytes;
-}
-
-// Entry barrier with both ring neighbors (dma.py:292 ring_barrier): B6, B8.
-__device__ bool entry_barrier(const RingArgs& a, int r, int h, int c, int right, int left) {
-  signal(flag(a, r, h, c, 3), mark(a, 1));
-  return wait_geq(a, flag(a, right, h, c, 3), mark(a, 1), r, h, c, -1, kWaitEntry) &&
-         wait_geq(a, flag(a, left, h, c, 3), mark(a, 1), r, h, c, -1, kWaitEntry);
-}
 
 // ---------------------------------------------------------------------------
 // B4, B5 and B7: one pass each (replace _ag_ring, pallas_ccl.py:434, and the
@@ -343,7 +271,7 @@ __device__ __forceinline__ T add1(T a, T b) {
 }
 
 // All threads: a full-peer barrier of stream h, channel c, on flag ``word``
-// (3 at entry, 2 at exit). Member k raises its word, and thread p waits for
+// (kEntry or kExit). Member k raises its word, and thread p waits for
 // member p's: every peer's, since k reads or writes them all. False when a
 // wait timed out or another block already failed.
 __device__ bool peer_barrier(const RingArgs& a, int k, int h, int c, int word, int what) {
@@ -516,10 +444,10 @@ __global__ void __launch_bounds__(kThreads, 2) ring_rs_kernel(RingArgs a) {
     term[threadIdx.x] = a.x[mod(k + ((int)threadIdx.x + 1) * d, n)] + k * a.slot_bytes;
   __syncthreads();
   if (threadIdx.x == 0) group_dests<T>(dests, [&](int) { return a.out[k]; }, 1, term, n, per);
-  if (!peer_barrier(a, k, 0, c, 3, kWaitPeers)) return;  // its __syncthreads publish dests
+  if (!peer_barrier(a, k, 0, c, kEntry, kWaitPeers)) return;  // its __syncthreads publish dests
   chain_range<T, kRsVecs>(term, n, dests, a.C, l2_evict_first());
   // channel c of every member has read its share of this member's row
-  peer_barrier(a, k, 0, c, 2, kWaitPeersExit);
+  peer_barrier(a, k, 0, c, kExit, kWaitPeersExit);
 }
 
 // B7: member o's blocks of stream h sum chunk q = o·S + h of every row and
@@ -539,12 +467,12 @@ __global__ void __launch_bounds__(kThreads, 2) ring_ar_kernel(RingArgs a) {
   if (threadIdx.x == 0)
     group_dests<T>(dests, [&](int r) { return a.out[r] + lo * (long long)sizeof(T); }, n, term,
                    n, len);
-  if (!peer_barrier(a, o, h, c, 3, kWaitPeers)) return;
+  if (!peer_barrier(a, o, h, c, kEntry, kWaitPeers)) return;
   chain_range<T, kRsVecs>(term, n, dests, a.C, l2_evict_first());
   // channel (h, c) of every member has read this member's chunks and
   // written its own into this member's row (the indices taken anew: fewer
   // registers live across the sum)
-  peer_barrier(a, blockIdx.y, blockIdx.x / a.C, blockIdx.x % a.C, 2, kWaitPeersExit);
+  peer_barrier(a, blockIdx.y, blockIdx.x / a.C, blockIdx.x % a.C, kExit, kWaitPeersExit);
 }
 
 // B4: bytes. Contribution j (``slot_bytes`` from x[j], cut where it would
@@ -561,310 +489,394 @@ __global__ void __launch_bounds__(kThreads, 2) ring_ag_kernel(RingArgs a) {
     group_dests<unsigned char>(dests, [&](int r) { return a.out[r] + m * a.slot_stride; }, n,
                                src, 1, bytes(m));
   }
-  if (!peer_barrier(a, m, 0, c, 3, kWaitPeers)) return;
+  if (!peer_barrier(a, m, 0, c, kEntry, kWaitPeers)) return;
   chain_range<unsigned char, kAgVecs>(src, 1, dests, a.C, l2_evict_first());
   // channel c of every member has written its share into this member's row
-  peer_barrier(a, m, 0, c, 2, kWaitPeersExit);
+  peer_barrier(a, m, 0, c, kExit, kWaitPeersExit);
 }
 
 // ---------------------------------------------------------------------------
-// The quantized wire (B6, B8)
+// B6 and B8: the quantized wire, one pass each (replace the quantized
+// kernels of ring_reduce_scatter, pallas_ccl.py:621, and ring_all_reduce,
+// :742)
+//
+// What they compute, bit for bit as the JAX kernels and the hop schedules
+// (rs_q_plain, ar_q_plain; the contracts rs_q_chain_plain and
+// ar_q_chain_plain in collective/ring_ccl.py). On the ring every RS hop
+// crosses the wire block-quantized: the sender quantizes its partial sum
+// per 128-element row (wire = fp8 e4m3fn or int8; the uccl_tpu/ops/quant.py
+// rule: scale = amax * (1 / QMAX) floored at the smallest normal f32, 1.0
+// for an all-zero row, +inf for a row holding any inf or nan), and the
+// receiver dequantizes it (payload * scale, rounded to the input dtype)
+// before one correctly rounded add of its own term in the input dtype. So
+// slot k is the chain of B5 with one round trip RT at every link:
+//   acc = x[k+d][k];  acc = x[k+j·d][k] + RT(acc) for j = 2..W
+// RT works on 128-element rows counted from the slot's (B8: the chunk's)
+// start; a last short row's missing elements are the zeros the ring's
+// padded slots hold there.
+//   B6: member k's output is acc.
+//   B8: the chunks of B7, each summed so in its stream's direction, then
+//     round-tripped once more: the ring's owner quantizes its reduced slot
+//     once and every member, the owner too, dequantizes the same wire
+//     bytes. That value goes into every member's row.
+//
+// How. Half a warp owns a 128-element row of the range and each of its 16
+// lanes holds 8 of the row's elements, so the row's amax is a register max
+// and 4 shuffles and a round trip never leaves the registers; a warp works
+// two rows at once. It loads a row's W terms in the chain's order, folds
+// each into the partial sum with one codec round trip, and stores the
+// result once (B6: into the member's output; B8: into every member's). So
+// each input is read once and each output written once, the bound's bytes,
+// as for B5 and B7: no staging slot, no gather buffer, no flag between
+// neighbours. The codec is most of the instructions here (a division, a
+// conversion each way and the row's reduction per element and link), so a
+// lane's 8 elements are 8 independent chains of them. Loads of the next
+// terms run ahead of the sums: a lane loads kAhead terms ahead, streaming
+// across its rows, where W terms of a row in flight would not fit the 64
+// registers a thread has at two blocks per SM for W = 16 (a third term
+// ahead spills, and moved the times by 2% either way; ring_q_arms). The
+// codec is plain CUDA arithmetic: an IEEE division by the scale, __fmul_rn
+// and one rounding to T, adds with no fma contraction, no fast-math.
+//
+// Alignment. A row starts anywhere (a chunk starts q·k elements into a
+// member's row, a bidir half size/2 elements in). A lane moves its 8
+// elements in units of U bytes, the largest of 16, 4 and the element on
+// which every term and output of the range starts: unit u of lane l holds
+// elements e·(l + 16·u) .. e·(l + 16·u) + e - 1 (e = U / itemsize), so every
+// access of a half warp is one contiguous run (the same bytes whatever U,
+// more instructions for a smaller one). The elements' assignment to lanes
+// does not change any result: the codec is element-wise but for the row's
+// amax, which its half warp takes.
+//
+// Contract: B5's and B7's, the full-peer entry and exit barriers.
 
-// Four consecutive elements of T, one lane's share of a 128-element row.
-template <typename T> struct Quad;
+template <typename T> struct Elem;  // conversions and the add in T
 
-template <> struct Quad<float> {
-  float4 v;
-  __device__ __forceinline__ static Quad load(const char* row, int lane) {
-    return {__ldcg(reinterpret_cast<const float4*>(row) + lane)};
+template <> struct Elem<float> {
+  __device__ __forceinline__ static float to_f(float v) { return v; }
+  __device__ __forceinline__ static float from_f(float f) { return f; }
+  __device__ __forceinline__ static float add(float a, float b) { return __fadd_rn(a, b); }
+  __device__ __forceinline__ static float from_bits(unsigned b) { return __uint_as_float(b); }
+  __device__ __forceinline__ static unsigned bits(float v) { return __float_as_uint(v); }
+};
+
+template <> struct Elem<__nv_bfloat16> {
+  __device__ __forceinline__ static float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+  __device__ __forceinline__ static __nv_bfloat16 from_f(float f) {
+    return __float2bfloat16_rn(f);
   }
-  __device__ __forceinline__ void store(char* row, int lane) const {
-    __stcg(reinterpret_cast<float4*>(row) + lane, v);
+  __device__ __forceinline__ static __nv_bfloat16 add(__nv_bfloat16 a, __nv_bfloat16 b) {
+    return __hadd(a, b);
   }
-  __device__ __forceinline__ void to_float(float f[4]) const {
-    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+  __device__ __forceinline__ static __nv_bfloat16 from_bits(unsigned b) {
+    return __ushort_as_bfloat16((unsigned short)b);
   }
-  __device__ __forceinline__ static Quad rounded(const float f[4]) {
-    return {make_float4(f[0], f[1], f[2], f[3])};
-  }
-  __device__ __forceinline__ Quad plus(const Quad& o) const {
-    return {make_float4(__fadd_rn(v.x, o.v.x), __fadd_rn(v.y, o.v.y),
-                        __fadd_rn(v.z, o.v.z), __fadd_rn(v.w, o.v.w))};
+  __device__ __forceinline__ static unsigned bits(__nv_bfloat16 v) {
+    return __bfloat16_as_ushort(v);
   }
 };
 
-template <> struct Quad<__nv_bfloat16> {
-  __nv_bfloat162 lo, hi;
-  __device__ __forceinline__ static Quad load(const char* row, int lane) {
-    uint2 t = __ldcg(reinterpret_cast<const uint2*>(row) + lane);
-    Quad q;
-    q.lo = *reinterpret_cast<__nv_bfloat162*>(&t.x);
-    q.hi = *reinterpret_cast<__nv_bfloat162*>(&t.y);
-    return q;
+template <> struct Elem<__half> {
+  __device__ __forceinline__ static float to_f(__half v) { return __half2float(v); }
+  __device__ __forceinline__ static __half from_f(float f) { return __float2half_rn(f); }
+  __device__ __forceinline__ static __half add(__half a, __half b) { return __hadd(a, b); }
+  __device__ __forceinline__ static __half from_bits(unsigned b) {
+    return __ushort_as_half((unsigned short)b);
   }
-  __device__ __forceinline__ void store(char* row, int lane) const {
-    uint2 t;
-    t.x = *reinterpret_cast<const unsigned*>(&lo);
-    t.y = *reinterpret_cast<const unsigned*>(&hi);
-    __stcg(reinterpret_cast<uint2*>(row) + lane, t);
-  }
-  __device__ __forceinline__ void to_float(float f[4]) const {
-    f[0] = __low2float(lo); f[1] = __high2float(lo);
-    f[2] = __low2float(hi); f[3] = __high2float(hi);
-  }
-  __device__ __forceinline__ static Quad rounded(const float f[4]) {
-    Quad q;
-    q.lo = __halves2bfloat162(__float2bfloat16_rn(f[0]), __float2bfloat16_rn(f[1]));
-    q.hi = __halves2bfloat162(__float2bfloat16_rn(f[2]), __float2bfloat16_rn(f[3]));
-    return q;
-  }
-  __device__ __forceinline__ Quad plus(const Quad& o) const {
-    Quad q;
-    q.lo = __hadd2(lo, o.lo);
-    q.hi = __hadd2(hi, o.hi);
-    return q;
+  __device__ __forceinline__ static unsigned bits(__half v) { return __half_as_ushort(v); }
+};
+
+constexpr int kPer = 8;  // elements of a row a lane holds
+
+// A lane's kPer elements of a row as raw words (f32: one word each; 16-bit:
+// two to a word, the lower element in the low half), the form loads fill.
+template <typename T> struct Raw {
+  static constexpr int kWords = kPer * sizeof(T) / 4;
+  unsigned w[kWords];
+  __device__ __forceinline__ T get(int i) const {
+    return Elem<T>::from_bits(sizeof(T) == 4 ? w[i] : w[i >> 1] >> (16 * (i & 1)));
   }
 };
 
-template <> struct Quad<__half> {
-  __half2 lo, hi;
-  __device__ __forceinline__ static Quad load(const char* row, int lane) {
-    uint2 t = __ldcg(reinterpret_cast<const uint2*>(row) + lane);
-    Quad q;
-    q.lo = *reinterpret_cast<__half2*>(&t.x);
-    q.hi = *reinterpret_cast<__half2*>(&t.y);
-    return q;
+// Element i of the lane at ``l`` (0..15) in its half warp, moved in units of
+// kUnit bytes.
+template <typename T, int kUnit>
+__device__ __forceinline__ int elem_of(int l, int i) {
+  constexpr int e = kUnit / sizeof(T);
+  return e * (l + 16 * (i / e)) + i % e;
+}
+
+// This lane's share of the row at ``row`` (``len`` <= 128 elements of it
+// exist, none when ``len`` is 0; the missing ones read as zeros). The loads
+// take the non-coherent path: the terms are read once and never written
+// during the launch (with B5's L2 evict-first hint as well, B6 and B8
+// measured 2-10% slower; ring_q_arms).
+template <typename T, int kUnit>
+__device__ __forceinline__ Raw<T> load_row(const char* row, int l, int len) {
+  Raw<T> r;
+  constexpr int e = kUnit / sizeof(T);
+  if (len == kLanes) {
+#pragma unroll
+    for (int u = 0; u < kPer / e; ++u) {
+      const char* p = row + (size_t)elem_of<T, kUnit>(l, u * e) * sizeof(T);
+      if constexpr (kUnit == 16) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+        r.w[4 * u] = v.x; r.w[4 * u + 1] = v.y; r.w[4 * u + 2] = v.z; r.w[4 * u + 3] = v.w;
+      } else if constexpr (kUnit == 4) {
+        r.w[u] = __ldg(reinterpret_cast<const unsigned*>(p));
+      } else {
+        const unsigned h = __ldg(reinterpret_cast<const unsigned short*>(p));
+        r.w[u >> 1] = (u & 1) ? r.w[u >> 1] | h << 16 : h;
+      }
+    }
+    return r;
   }
-  __device__ __forceinline__ void store(char* row, int lane) const {
-    uint2 t;
-    t.x = *reinterpret_cast<const unsigned*>(&lo);
-    t.y = *reinterpret_cast<const unsigned*>(&hi);
-    __stcg(reinterpret_cast<uint2*>(row) + lane, t);
+#pragma unroll
+  for (int k = 0; k < Raw<T>::kWords; ++k) r.w[k] = 0;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int x = elem_of<T, kUnit>(l, i);
+    if (x >= len) continue;
+    if constexpr (sizeof(T) == 4)
+      r.w[i] = __ldg(reinterpret_cast<const unsigned*>(row) + x);
+    else
+      r.w[i >> 1] |= (unsigned)__ldg(reinterpret_cast<const unsigned short*>(row) + x)
+                     << (16 * (i & 1));
   }
-  __device__ __forceinline__ void to_float(float f[4]) const {
-    f[0] = __low2float(lo); f[1] = __high2float(lo);
-    f[2] = __low2float(hi); f[3] = __high2float(hi);
+  return r;
+}
+
+// This lane's kPer values into the row at ``row`` (``len`` elements of it).
+template <typename T, int kUnit>
+__device__ __forceinline__ void store_row(char* row, int l, int len, const T v[kPer]) {
+  constexpr int e = kUnit / sizeof(T);
+  auto word = [&](int i) {  // the word of elements i (and i + 1 for 16-bit)
+    return sizeof(T) == 4 ? Elem<T>::bits(v[i])
+                          : Elem<T>::bits(v[i]) | Elem<T>::bits(v[i + 1]) << 16;
+  };
+  if (len == kLanes) {
+#pragma unroll
+    for (int u = 0; u < kPer / e; ++u) {
+      char* p = row + (size_t)elem_of<T, kUnit>(l, u * e) * sizeof(T);
+      constexpr int step = 4 / sizeof(T);  // elements of a word
+      if constexpr (kUnit == 16)
+        __stcs(reinterpret_cast<uint4*>(p),
+               make_uint4(word(u * e), word(u * e + step), word(u * e + 2 * step),
+                          word(u * e + 3 * step)));
+      else if constexpr (kUnit == 4)
+        __stcs(reinterpret_cast<unsigned*>(p), word(u * e));
+      else
+        __stcs(reinterpret_cast<unsigned short*>(p), (unsigned short)Elem<T>::bits(v[u]));
+    }
+    return;
   }
-  __device__ __forceinline__ static Quad rounded(const float f[4]) {
-    Quad q;
-    q.lo = __halves2half2(__float2half_rn(f[0]), __float2half_rn(f[1]));
-    q.hi = __halves2half2(__float2half_rn(f[2]), __float2half_rn(f[3]));
-    return q;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int x = elem_of<T, kUnit>(l, i);
+    if (x >= len) continue;
+    if constexpr (sizeof(T) == 4)
+      __stcs(reinterpret_cast<unsigned*>(row) + x, Elem<T>::bits(v[i]));
+    else
+      __stcs(reinterpret_cast<unsigned short*>(row) + x, (unsigned short)Elem<T>::bits(v[i]));
   }
-  __device__ __forceinline__ Quad plus(const Quad& o) const {
-    Quad q;
-    q.lo = __hadd2(lo, o.lo);
-    q.hi = __hadd2(hi, o.hi);
-    return q;
-  }
-};
+}
 
 template <int W> struct WireCodec;
 
 template <> struct WireCodec<kFp8> {
   static constexpr float kQmax = 448.0f;  // max normal of e4m3fn
-  __device__ __forceinline__ static unsigned encode(float q) {
-    return __nv_cvt_float_to_fp8(q, __NV_SATFINITE, __NV_E4M3);  // nan stays nan
+  // q0 and q1 into two bytes, q0 in the low one. satfinite is the codec's
+  // clip to ±QMAX (no finite quotient is past it by more than a rounding,
+  // and no quotient is infinite); a nan stays nan.
+  __device__ __forceinline__ static unsigned encode2(float q0, float q1) {
+    return __nv_cvt_float2_to_fp8x2(make_float2(q0, q1), __NV_SATFINITE, __NV_E4M3);
   }
-  __device__ __forceinline__ static float decode(unsigned b) {
-    return __half2float(__half(__nv_cvt_fp8_to_halfraw((__nv_fp8_storage_t)b, __NV_E4M3)));
+  __device__ __forceinline__ static float2 decode2(unsigned b) {
+    return __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+        (__nv_fp8x2_storage_t)(b & 0xffffu), __NV_E4M3)));
   }
 };
 
 template <> struct WireCodec<kInt8> {
   static constexpr float kQmax = 127.0f;
-  __device__ __forceinline__ static unsigned encode(float q) {
-    return (unsigned)__float2int_rn(q) & 0xffu;  // nearest even; nan -> 0
+  __device__ __forceinline__ static unsigned encode1(float q) {
+    q = q < -kQmax ? -kQmax : (q > kQmax ? kQmax : q);  // a nan passes through
+    return (unsigned)__float2int_rn(q) & 0xffu;           // nearest even; nan -> 0
   }
-  __device__ __forceinline__ static float decode(unsigned b) {
-    return (float)(signed char)b;
+  __device__ __forceinline__ static unsigned encode2(float q0, float q1) {
+    return encode1(q0) | encode1(q1) << 8;
+  }
+  __device__ __forceinline__ static float2 decode2(unsigned b) {
+    return make_float2((float)(signed char)(b & 0xffu), (float)(signed char)(b >> 8));
   }
 };
 
-// One warp quantizes one row: the row's scale (every lane gets it) and this
-// lane's four payload bytes, element 0 in the low byte.
-template <int W>
-__device__ __forceinline__ unsigned quantize_quad(const float f[4], float* scale_out) {
-  float amax = fmaxf(fmaxf(fabsf(f[0]), fabsf(f[1])), fmaxf(fabsf(f[2]), fabsf(f[3])));
-  // fmaxf drops a nan, so non-finite elements are tracked beside the amax
-  bool bad = !(isfinite(f[0]) && isfinite(f[1]) && isfinite(f[2]) && isfinite(f[3]));
+// One half warp, one row: the row's quantize -> dequantize round trip of
+// this lane's kPer values (of T, held in f32), rounded to T. The scale:
+// amax * (1 / QMAX), the reciprocal rounded to f32 once (XLA compiles the
+// JAX package's amax / QMAX to this product), floored at the smallest
+// normal f32; 1.0 for an all-zero row; +inf for a row holding any inf or
+// nan. Dequantized as payload * scale (the codec reads a nan scale or one
+// under the floor as 0; this scale is neither).
+template <typename T, int W>
+__device__ __forceinline__ void round_trip(const float f[kPer], T out[kPer]) {
+  float amax = 0.0f;
+  bool bad = false;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int i = 0; i < kPer; ++i) {
+    amax = fmaxf(amax, fabsf(f[i]));
+    bad |= !isfinite(f[i]);  // fmaxf drops a nan: non-finite elements tracked beside
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)  // within the half warp
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  bad = __any_sync(0xffffffffu, bad);
-  constexpr float qmax = WireCodec<W>::kQmax;
-  // amax * (1 / QMAX), the reciprocal rounded to f32 once: the codec's rule
-  // (XLA compiles the JAX package's amax / QMAX to this product)
-  constexpr float inv_qmax = 1.0f / qmax;
+  bad = (__ballot_sync(0xffffffffu, bad) >> (threadIdx.x & 16)) & 0xffffu;
+  constexpr float inv_qmax = 1.0f / WireCodec<W>::kQmax;
   float scale = amax > 0.0f ? fmaxf(__fmul_rn(amax, inv_qmax), kScaleTiny) : 1.0f;
   if (bad) scale = CUDART_INF_F;
-  unsigned packed = 0;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    float q = __fdiv_rn(f[k], scale);
-    q = q < -qmax ? -qmax : (q > qmax ? qmax : q);  // a nan passes through
-    packed |= WireCodec<W>::encode(q) << (8 * k);
-  }
-  *scale_out = scale;
-  return packed;
-}
-
-// This lane's four dequantized values of a row, rounded to T:
-// (payload * scale) with a nan scale or one under the floor read as 0.
-template <typename T, int W>
-__device__ __forceinline__ Quad<T> dequantize_quad(unsigned packed, float scale) {
-  const float s = (isnan(scale) || scale < kScaleTiny) ? 0.0f : scale;
-  float f[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    f[k] = __fmul_rn(WireCodec<W>::decode((packed >> (8 * k)) & 0xffu), s);
-  return Quad<T>::rounded(f);
-}
-
-__device__ __forceinline__ Range row_range(const RingArgs& a, int c) {
-  return {a.rows * c / a.C, a.rows * (c + 1) / a.C};
-}
-
-// Rows [rg.lo, rg.hi) of ``src`` (T) -> payload bytes at ``qdst`` and one
-// scale per row at ``sdst``. With ``back`` the round-tripped row is also
-// written there in T (B8's own slot is dequantized from its wire bytes).
-template <typename T, int W>
-__device__ __forceinline__ void quantize_rows(char* qdst, float* sdst, const char* src,
-                                              char* back, Range rg) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr long long kRowBytes = kLanes * (long long)sizeof(T);
-  for (long long row0 = rg.lo + warp; row0 < rg.hi; row0 += kWarps * kRowUnroll) {
-    Quad<T> in[kRowUnroll];
-#pragma unroll
-    for (int u = 0; u < kRowUnroll; ++u) {
-      const long long row = row0 + u * kWarps;
-      if (row < rg.hi) in[u] = Quad<T>::load(src + row * kRowBytes, lane);
-    }
-#pragma unroll
-    for (int u = 0; u < kRowUnroll; ++u) {
-      const long long row = row0 + u * kWarps;
-      if (row >= rg.hi) break;
-      float f[4], scale;
-      in[u].to_float(f);
-      const unsigned packed = quantize_quad<W>(f, &scale);
-      __stcg(reinterpret_cast<unsigned*>(qdst + row * kLanes) + lane, packed);
-      if (lane == 0) __stcg(sdst + row, scale);
-      if (back) dequantize_quad<T, W>(packed, scale).store(back + row * kRowBytes, lane);
-    }
+  for (int i = 0; i < kPer; i += 2) {
+    const float2 d = WireCodec<W>::decode2(
+        WireCodec<W>::encode2(__fdiv_rn(f[i], scale), __fdiv_rn(f[i + 1], scale)));
+    out[i] = Elem<T>::from_f(__fmul_rn(d.x, scale));
+    out[i + 1] = Elem<T>::from_f(__fmul_rn(d.y, scale));
   }
 }
 
-// dst = own + dequantize(payload, scales) over rows [rg.lo, rg.hi), or
-// dst = dequantize(...) when ``own`` is null.
-template <typename T, int W>
-__device__ __forceinline__ void dequantize_rows(char* dst, const char* own, const char* qsrc,
-                                                const float* ssrc, Range rg) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// This block's share of the range (``len`` elements from each of the ``n``
+// terms and ``nd`` outputs; channel blockIdx.x mod C of C): warp w of
+// channel c takes row pairs c·kWarps + w, then every C·kWarps-th, the lower
+// half warp the pair's first row. Each row's terms are folded in the
+// chain's order, one round trip a link (and one more with kFinal), and the
+// result stored into every output. The partial sum lives in f32 registers
+// (each value one of T's), and row indices are 32-bit: a row is 128
+// elements, so a range would need 2^38 of them to overflow.
+template <typename T, int W, int kUnit, bool kFinal>
+__device__ void quant_chain(const char* const* term, int n, char* const* dst, int nd,
+                            long long len, int C) {
+  constexpr int kAhead = 2;  // terms a lane loads ahead: 64 bytes f32, 32 bytes 16-bit
   constexpr long long kRowBytes = kLanes * (long long)sizeof(T);
-  for (long long row0 = rg.lo + warp; row0 < rg.hi; row0 += kWarps * kRowUnroll) {
-    unsigned packed[kRowUnroll];
-    float scale[kRowUnroll];
-    Quad<T> mine[kRowUnroll];
+  const int l = threadIdx.x & 15, half = (threadIdx.x >> 4) & 1;
+  const int rows = (int)((len + kLanes - 1) / kLanes);
+  const int tail = (int)(len - (long long)(rows - 1) * kLanes);  // elements of the last row
+  const int pairs = (rows + 1) / 2;
+  const int first = (int)(blockIdx.x % C) * kWarps + (threadIdx.x >> 5), stride = C * kWarps;
+  if (first >= pairs) return;
+  auto row_len = [&](int row) { return row < rows - 1 ? kLanes : row == rows - 1 ? tail : 0; };
+  const int loads = (pairs - first + stride - 1) / stride * n;
+  // the load cursor: kAhead terms ahead of the fold
+  int lpair = first, lj = 0;
+  auto next = [&](bool live) {
+    Raw<T> r = {};
+    const int row = 2 * lpair + half;
+    if (live)
+      r = load_row<T, kUnit>(term[lj] + row * kRowBytes, l, row_len(row));
+    if (++lj == n) { lj = 0; lpair += stride; }
+    return r;
+  };
+  Raw<T> ring[kAhead];
 #pragma unroll
-    for (int u = 0; u < kRowUnroll; ++u) {
-      const long long row = row0 + u * kWarps;
-      if (row < rg.hi) {
-        packed[u] = __ldcg(reinterpret_cast<const unsigned*>(qsrc + row * kLanes) + lane);
-        scale[u] = __ldcg(ssrc + row);
-        if (own) mine[u] = Quad<T>::load(own + row * kRowBytes, lane);
+  for (int s = 0; s < kAhead; ++s) ring[s] = next(s < loads);
+  int pair = first, j = 0;
+  float acc[kPer];
+  for (int t0 = 0; t0 < loads; t0 += kAhead) {
+#pragma unroll
+    for (int s = 0; s < kAhead; ++s) {
+      if (t0 + s >= loads) break;
+      const Raw<T>& v = ring[s];  // refilled once folded
+      if (j == 0) {
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) acc[i] = Elem<T>::to_f(v.get(i));
+      } else {
+        T rt[kPer];
+        round_trip<T, W>(acc, rt);
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) acc[i] = Elem<T>::to_f(Elem<T>::add(v.get(i), rt[i]));
       }
-    }
+      if (++j == n) {
+        T out[kPer];
+        if (kFinal) {
+          round_trip<T, W>(acc, out);
+        } else {
 #pragma unroll
-    for (int u = 0; u < kRowUnroll; ++u) {
-      const long long row = row0 + u * kWarps;
-      if (row >= rg.hi) break;
-      Quad<T> deq = dequantize_quad<T, W>(packed[u], scale[u]);
-      (own ? mine[u].plus(deq) : deq).store(dst + row * kRowBytes, lane);
+          for (int i = 0; i < kPer; ++i) out[i] = Elem<T>::from_f(acc[i]);  // exact: a T
+        }
+        const int row = 2 * pair + half, rl = row_len(row);
+        if (rl)
+          for (int e = 0; e < nd; ++e) store_row<T, kUnit>(dst[e] + row * kRowBytes, l, rl, out);
+        j = 0;
+        pair += stride;
+      }
+      ring[s] = next(t0 + s + kAhead < loads);
     }
   }
 }
 
-// The quantized reduce-scatter phase of one stream (pallas_ccl.py:262
-// _rs_phase_q): the RS step of the schedule at the top of this file, with
-// its credits and flags, the send path quantizing into the right neighbor's
-// staging and the fold dequantizing before it adds. Payload and scales of a
-// hop share the receive flag.
-template <typename T, int W>
-__device__ bool rs_phase_q(const RingArgs& a, int r, int h, int c, int d, Range rg,
-                           char* last_dst) {
-  const int n = a.n, right = mod(r + d, n), left = mod(r - d, n);
-  const long long m = a.rows * kLanes;
-  const char* x = a.x[r];
-  char* buf = a.buf[r];
-  for (int s = 0; s < n - 1; ++s) {
-    const int send_slot = mod(r - d * (s + 1), n);
-    const long long st = (long long)h * 2 + (s & 1);
-    if (s >= 2 && !wait_geq(a, flag(a, r, h, c, 1), mark(a, s - 1), r, h, c, s, kWaitCredit))
-      return false;
-    const char* src = (s == 0 ? x : buf) + slot_off(a, send_slot, h);
-    quantize_rows<T, W>(a.stage[right] + st * m, a.sstage[right] + st * a.srow, src, nullptr,
-                        rg);
-    signal(flag(a, right, h, c, 0), mark(a, s + 1));
-    if (!wait_geq(a, flag(a, r, h, c, 0), mark(a, s + 1), r, h, c, s, kWaitRecv)) return false;
-    const int recv_slot = mod(r - d * (s + 2), n);
-    char* dst = (s == n - 2 && last_dst) ? last_dst : buf + slot_off(a, recv_slot, h);
-    dequantize_rows<T, W>(dst, x + slot_off(a, recv_slot, h), a.stage[r] + st * m,
-                          a.sstage[r] + st * a.srow, rg);
-    signal(flag(a, left, h, c, 1), mark(a, s + 1));
-  }
-  return true;
+// One thread: the largest unit (16 bytes, 4, the element) on which every
+// term and output of the range starts.
+template <typename T>
+__device__ int quant_unit(const char* const* term, int n, char* const* dst, int nd) {
+  uintptr_t bits = 0;
+  for (int j = 0; j < n; ++j) bits |= reinterpret_cast<uintptr_t>(term[j]);
+  for (int e = 0; e < nd; ++e) bits |= reinterpret_cast<uintptr_t>(dst[e]);
+  return (bits & 15) == 0 ? 16 : (bits & 3) == 0 ? 4 : (int)sizeof(T);
 }
 
+template <typename T, int W, bool kFinal>
+__device__ __forceinline__ void quant_range(const char* const* term, int n, char* const* dst,
+                                            int nd, long long len, int unit, int C) {
+  if (unit == 16) {
+    quant_chain<T, W, 16, kFinal>(term, n, dst, nd, len, C);
+  } else if constexpr (sizeof(T) == 4) {
+    quant_chain<T, W, 4, kFinal>(term, n, dst, nd, len, C);
+  } else {
+    if (unit == 4)
+      quant_chain<T, W, 4, kFinal>(term, n, dst, nd, len, C);
+    else
+      quant_chain<T, W, 2, kFinal>(term, n, dst, nd, len, C);
+  }
+}
+
+// B6: member k's slot k, as B5's (``x`` the members' unpadded rows of W·per
+// elements; slot k starts k·per elements in).
 template <typename T, int W>
 __global__ void __launch_bounds__(kThreads, 2) ring_rsq_kernel(RingArgs a) {
-  const int r = blockIdx.y, c = blockIdx.x, d = a.dir[0];
-  if (!entry_barrier(a, r, 0, c, mod(r + d, a.n), mod(r - d, a.n))) return;
-  rs_phase_q<T, W>(a, r, 0, c, d, row_range(a, c), a.out[r]);
+  const int n = a.n, k = blockIdx.y, c = blockIdx.x, d = a.dir[0];
+  const long long per = a.slot_bytes / (long long)sizeof(T);
+  // term[j]: the chain's (j+1)-th term, slot k of member k + (j+1)·d
+  __shared__ const char* term[kMaxMembers];
+  __shared__ char* dst[1];
+  __shared__ int unit;
+  if (threadIdx.x < n)
+    term[threadIdx.x] = a.x[mod(k + ((int)threadIdx.x + 1) * d, n)] + k * a.slot_bytes;
+  if (threadIdx.x == 0) dst[0] = a.out[k];
+  __syncthreads();
+  if (threadIdx.x == 0) unit = quant_unit<T>(term, n, dst, 1);
+  if (!peer_barrier(a, k, 0, c, kEntry, kWaitPeers)) return;  // its __syncthreads publish unit
+  quant_range<T, W, false>(term, n, dst, 1, per, unit, a.C);
+  peer_barrier(a, blockIdx.y, 0, blockIdx.x, kExit, kWaitPeersExit);
 }
 
-// B8 (pallas_ccl.py:742): the quantized RS phase, the phase barrier, the
-// reduced slot quantized once, payload and scales forwarded verbatim, and
-// every slot dequantized from its wire bytes into the member's output.
+// B8: member o's blocks of stream h sum chunk q = o·S + h of every row, as
+// B7's, and store its last round trip into every member's output row.
 template <typename T, int W>
 __global__ void __launch_bounds__(kThreads, 2) ring_arq_kernel(RingArgs a) {
-  const int n = a.n, r = blockIdx.y, h = blockIdx.x / a.C, c = blockIdx.x % a.C, d = a.dir[h];
-  const int right = mod(r + d, n), left = mod(r - d, n);
-  const Range rg = row_range(a, c);
-  const long long m = a.rows * kLanes;
-  if (!entry_barrier(a, r, h, c, right, left)) return;
-  if (!rs_phase_q<T, W>(a, r, h, c, d, rg, nullptr)) return;
-  // Phase barrier (pallas_ccl.py:701-706): the all-gather phase reuses the
-  // receive and credit flags, and its stores into the right neighbor's slots
-  // land only after that neighbor's RS phase has read and folded them.
-  signal(flag(a, r, h, c, 2), mark(a, 1));
-  if (!wait_geq(a, flag(a, right, h, c, 2), mark(a, 1), r, h, c, n - 1, kWaitPhase)) return;
-  char* out = a.buf[r];
-  auto qslot = [&](int member, int slot) {
-    return a.qbuf[member] + ((long long)slot * a.S + h) * m;
-  };
-  auto sslot = [&](int member, int slot) {
-    return a.sbuf[member] + ((long long)slot * a.S + h) * a.srow;
-  };
-  quantize_rows<T, W>(qslot(r, r), sslot(r, r), out + slot_off(a, r, h), out + slot_off(a, r, h),
-                      rg);
-  const Range bytes = {rg.lo * (kLanes / 16), rg.hi * (kLanes / 16)};
-  for (int s = 0; s < n - 1; ++s) {
-    const int t = n - 1 + s;
-    const int send_slot = mod(r - d * s, n), recv_slot = mod(r - d * (s + 1), n);
-    if (s >= 2 && !wait_geq(a, flag(a, r, h, c, 1), mark(a, t - 1), r, h, c, t, kWaitCredit))
-      return;
-    if (s == 0) __syncthreads();  // the own slot's bytes were written by other warps
-    copy16(qslot(right, send_slot), qslot(r, send_slot), bytes);
-    const float* ss = sslot(r, send_slot);
-    float* sd = sslot(right, send_slot);
-    for (long long i = rg.lo + threadIdx.x; i < rg.hi; i += kThreads)
-      __stcg(sd + i, __ldcg(ss + i));
-    signal(flag(a, right, h, c, 0), mark(a, t + 1));
-    if (!wait_geq(a, flag(a, r, h, c, 0), mark(a, t + 1), r, h, c, t, kWaitRecv)) return;
-    dequantize_rows<T, W>(out + slot_off(a, recv_slot, h), nullptr, qslot(r, recv_slot),
-                          sslot(r, recv_slot), rg);
-    signal(flag(a, left, h, c, 1), mark(a, t + 1));
+  const int n = a.n, o = blockIdx.y, h = blockIdx.x / a.C, c = blockIdx.x % a.C, d = a.dir[h];
+  const long long k = a.slot_bytes / (long long)sizeof(T);  // elements of a chunk
+  const long long lo = ((long long)o * a.S + h) * k;
+  const long long len = max(0LL, min(k, a.row_elems - lo));
+  __shared__ const char* term[kMaxMembers];
+  __shared__ char* dst[kMaxMembers];
+  __shared__ int unit;
+  if (threadIdx.x < n) {
+    term[threadIdx.x] = a.x[mod(o + ((int)threadIdx.x + 1) * d, n)] + lo * (long long)sizeof(T);
+    dst[threadIdx.x] = a.out[threadIdx.x] + lo * (long long)sizeof(T);
   }
+  __syncthreads();
+  if (threadIdx.x == 0) unit = quant_unit<T>(term, n, dst, n);
+  if (!peer_barrier(a, o, h, c, kEntry, kWaitPeers)) return;
+  quant_range<T, W, true>(term, n, dst, n, len, unit, a.C);
+  peer_barrier(a, blockIdx.y, blockIdx.x / a.C, blockIdx.x % a.C, kExit, kWaitPeersExit);
 }
 
 }  // namespace
@@ -875,60 +887,48 @@ extern "C" {
 // 3 = quantized reduce-scatter (B6), 4 = quantized all-reduce (B8).
 // dtype (B5-B8): 0 float32, 1 bfloat16, 2 float16, 3 int32 (B5, B7 only); B4
 // moves bytes. wire (B6, B8): 0 fp8 e4m3fn, 1 int8. Tables hold one address
-// per member. B4, B5 and B7 take the caller's unpadded rows and no scratch
-// (``buf`` and ``stage`` null), at any element alignment:
+// per member. Every kernel takes the caller's unpadded rows and no scratch,
+// at any element alignment:
 //   B4: ``x`` holds each member's contribution of slot_bytes bytes, ``out``
 //     each member's output row; contribution j lands slot_stride·j bytes
 //     into every row, cut where it would pass ``extent`` bytes of the row.
-//   B5: ``x`` holds each member's row of row_elems = n * per elements,
+//   B5, B6: ``x`` holds each member's row of row_elems = n * per elements,
 //     slot_bytes is per * itemsize, ``out`` each member's per results.
-//   B7: ``x`` and ``out`` hold each member's row of row_elems elements, and
-//     slot_bytes is one chunk, ceil(row_elems / (n * S)) * itemsize.
-// B6 and B8 take padded slots of slot_bytes, a whole number of 16-byte
-// vectors: ``x`` the members' [n][S][slot] payloads, B6 ``buf`` its data
-// slots, ``stage`` its payload staging, ``sstage`` its scale staging and
-// ``out`` its output; B8 ``buf`` its output and ``qbuf`` and ``sbuf`` its
-// gather buffers besides. ``live`` launches members [0, live) only
-// (live < n is a test of the spin bound: the missing members' peers time
-// out). Returns 0, a cudaError_t, or -1 for arguments out of range.
+//   B7, B8: ``x`` and ``out`` hold each member's row of row_elems elements,
+//     and slot_bytes is one chunk, ceil(row_elems / (n * S)) * itemsize.
+// ``live`` launches members [0, live) only (live < n is a test of the spin
+// bound: the missing members' peers time out). Returns 0, a cudaError_t, or
+// -1 for arguments out of range.
 int uccl_ring_launch(int kernel, int dtype, int wire, int n, int live, int S, int dir0, int dir1,
                      long long slot_bytes, long long row_elems, long long slot_stride,
-                     long long extent, const void* const* x, void* const* buf,
-                     void* const* stage, void* const* out, void* const* sstage,
-                     void* const* qbuf, void* const* sbuf, void* const* flags, void* err,
-                     int cid, unsigned long long epoch, unsigned long long timeout_ns,
-                     void* stream) {
+                     long long extent, const void* const* x, void* const* out,
+                     void* const* flags, void* err, int cid, unsigned long long epoch,
+                     unsigned long long timeout_ns, void* stream) {
   static const int kItem[] = {4, 2, 2, 4};
   const bool quant = kernel == kRSQ || kernel == kARQ;
   if (n < 2 || n > kMaxMembers || live < 1 || live > n || (S != 1 && S != 2) ||
-      (kernel != kAR && kernel != kARQ && S != 1) || kernel < kAG || kernel > kARQ)
+      (kernel != kAR && kernel != kARQ && S != 1) || kernel < kAG || kernel > kARQ || !x ||
+      !out || !flags)
     return -1;
-  if (kernel == kAG || kernel == kRS || kernel == kAR) {
-    for (int r = 0; r < n; ++r)
-      if ((buf && buf[r]) || (stage && stage[r]) || !out || !out[r] || !x[r]) return -1;
-  }
+  for (int r = 0; r < n; ++r)
+    if (!x[r] || !out[r] || !flags[r]) return -1;
+  // the quantized wire takes the float dtypes
+  if (kernel != kAG && (dtype < 0 || dtype > (quant ? 2 : 3))) return -1;
+  if (quant && wire != kFp8 && wire != kInt8) return -1;
   if (kernel == kAG) {
     if (slot_bytes <= 0 || slot_stride < slot_bytes || extent <= 0) return -1;
-  } else if (kernel == kRS) {
-    if (dtype < 0 || dtype > 3 || slot_bytes <= 0 || slot_bytes % kItem[dtype] ||
+  } else if (kernel == kRS || kernel == kRSQ) {
+    if (slot_bytes <= 0 || slot_bytes % kItem[dtype] ||
         row_elems != n * (slot_bytes / kItem[dtype]))
       return -1;
-  } else if (kernel == kAR) {
-    if (dtype < 0 || dtype > 3 || row_elems <= 0 ||
-        slot_bytes != (row_elems + n * S - 1) / (n * S) * kItem[dtype])
-      return -1;
-  } else if (slot_bytes <= 0 || slot_bytes % 16) {
+  } else if (row_elems <= 0 ||
+             slot_bytes != (row_elems + n * S - 1) / (n * S) * kItem[dtype]) {
     return -1;
   }
   RingArgs a = {};
   for (int r = 0; r < n; ++r) {
     a.x[r] = static_cast<const char*>(x[r]);
-    a.buf[r] = buf ? static_cast<char*>(buf[r]) : nullptr;
-    a.stage[r] = stage ? static_cast<char*>(stage[r]) : nullptr;
-    a.out[r] = out ? static_cast<char*>(out[r]) : nullptr;
-    a.sstage[r] = sstage ? static_cast<float*>(sstage[r]) : nullptr;
-    a.qbuf[r] = qbuf ? static_cast<char*>(qbuf[r]) : nullptr;
-    a.sbuf[r] = sbuf ? static_cast<float*>(sbuf[r]) : nullptr;
+    a.out[r] = static_cast<char*>(out[r]);
     a.flags[r] = static_cast<unsigned long long*>(flags[r]);
   }
   a.err = static_cast<int*>(err);
@@ -939,15 +939,6 @@ int uccl_ring_launch(int kernel, int dtype, int wire, int n, int live, int S, in
   a.n = n; a.S = S; a.C = 1;
   a.dir[0] = dir0; a.dir[1] = dir1;
   a.cid = cid; a.kernel = kernel; a.epoch = epoch; a.timeout_ns = timeout_ns;
-  if (quant) {
-    // whole 128-element rows, a float dtype, staging for payload and scales
-    const long long row_bytes = kLanes * (dtype == 0 ? 4 : 2);
-    if (dtype < 0 || dtype > 2 || (wire != kFp8 && wire != kInt8) || slot_bytes % row_bytes ||
-        !stage || !sstage || (kernel == kRSQ ? !out : (!qbuf || !sbuf)))
-      return -1;
-    a.rows = slot_bytes / row_bytes;
-    a.srow = (a.rows + kLanes - 1) / kLanes * kLanes;
-  }
   if (kernel == kAG) return launch(ring_ag_kernel, a, live, stream);
   if (kernel == kRS) {
     switch (dtype) {
@@ -979,12 +970,10 @@ int uccl_ring_launch(int kernel, int dtype, int wire, int n, int live, int S, in
     }
     return -1;
   }
-  if (kernel == kARQ) {
-    switch (dtype) {
-      UCCL_QUANT_CASE(ring_arq_kernel, 0, float)
-      UCCL_QUANT_CASE(ring_arq_kernel, 1, __nv_bfloat16)
-      UCCL_QUANT_CASE(ring_arq_kernel, 2, __half)
-    }
+  switch (dtype) {
+    UCCL_QUANT_CASE(ring_arq_kernel, 0, float)
+    UCCL_QUANT_CASE(ring_arq_kernel, 1, __nv_bfloat16)
+    UCCL_QUANT_CASE(ring_arq_kernel, 2, __half)
   }
 #undef UCCL_QUANT_CASE
   return -1;
