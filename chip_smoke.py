@@ -17,8 +17,12 @@ then on the quantized one (fp8 and int8). Then the EP plane over a 4-member
 world: the all-to-all kernels against their plain versions and the
 transpose, their timing at the MoE layer's dispatch buffer, and the
 DeepEP-shaped Buffer verbs through layer 0 of the bench config on every
-wire. Every phase raises on failure; nothing is caught. Each phase prints one JSON line; the
-last three lines are the card's name and power limit (nvidia-smi), the
+wire. Then the serving slice: ``python -m uccl_tpu_torch.serve --server``'s
+engine on the MoE stack at the bench config's widths, EP world 4 on the
+pallas wire (B9 in prefill and decode), every request held token for token
+to the world-1 oracle, the same requests on the lax wire, and the dense
+stack at world 1. Every phase raises on failure; nothing is caught. Each
+phase prints one JSON line; the last three lines are the card's name and power limit (nvidia-smi), the
 per-kernel JSON summary and
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<GPU name>", "count": 1}}
@@ -2084,6 +2088,373 @@ def ep_moe_ffn(cfg, x, logits, experts, depth) -> dict:
     return {"launches_a2a": launches, "rel_norm_err_vs_world1": worst,
             "auto_depth_equals_phased": bool(torch.equal(phased, auto))}
 
+# The serving slice: python -m uccl_tpu_torch.serve --server on the MoE stack
+# at the bench config's widths (flagship.bench_config: vocab 16384, dim 1024,
+# 4 layers, 16/4 heads of 64, 8 experts top-2, ffn 2816) with the serving
+# capacity factor 8.0, EP world 4 on the one card, 16 slots, on the pallas
+# wire; 32 Poisson requests (8 req/s) of 128-896 prompt tokens and 64 new
+# tokens, half greedy and half sampled (T 0.8, top-p 0.95, top-k 50, one
+# seed each). Then the dense stack at world 1, same widths, 8 requests.
+SERVE_WIDTHS = dict(vocab=16384, dim=1024, layers=4, heads=16, kv_heads=4, ffn=2816, experts=8)
+SERVE_TRAFFIC = dict(requests=32, prompt_len=896, min_prompt_len=128, new_tokens=64,
+                     max_seq=1024, arrival_rate=8.0, slots=16, world=4)
+SERVE_DENSE_REQUESTS = 8
+# the backend call whose first B9 input serve_path keeps (the pool is full
+# by then), or the last call of that kind when the drive has fewer
+B9_CAPTURE_CALL = {"prefill": 2, "decode": 32}
+# The near-tie rule that holds the drive to the world-1 generate oracle,
+# which on the card runs other shapes than the engine (ROADMAP C7): a
+# request may differ from it only where the oracle met a near tie, a gap
+# within NEAR_TIE of the largest |value| compared: at its first router top-2
+# flip, the gap between the oracle's 2nd and 3rd router logits of that
+# token; with no flip, the top-2 score gap of the diverging output itself.
+NEAR_TIE = 1e-4
+
+def serve_args(widths, traffic, *, stack, device, slots):
+    from uccl_tpu_torch import serve
+
+    argv = ["--server", "--device", device, "--stack", stack, "--seed", "0",
+            "--slots", str(slots), "--prompt-len", str(traffic["prompt_len"]),
+            "--new-tokens", str(traffic["new_tokens"]), "--max-seq", str(traffic["max_seq"])]
+    if stack == "moe":
+        argv += ["--dp", str(traffic["world"])]
+    for k in ("vocab", "dim", "layers", "heads", "kv_heads", "ffn", "experts"):
+        argv += [f"--{k.replace('_', '-')}", str(widths[k])]
+    return serve.parser().parse_args(argv)
+
+def serve_workload(traffic, vocab, requests, *, poisson=True, seed=0):
+    """synth_workload's recipe with the prompt lengths drawn from
+    ``min_prompt_len`` up: uniform lengths, Poisson arrivals (all at once
+    when not ``poisson``), every second request sampled under its own
+    seed."""
+    from uccl_tpu_torch.serving import SamplingParams
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(traffic["min_prompt_len"], traffic["prompt_len"] + 1, requests)
+    prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+    arrivals = (np.cumsum(rng.exponential(1.0 / traffic["arrival_rate"], requests)) if poisson
+                else np.zeros(requests))
+    samplings = [SamplingParams(temperature=0.8, top_p=0.95, top_k=50, seed=seed + i)
+                 if i % 2 else None for i in range(requests)]
+    return prompts, lens, arrivals, samplings
+
+def serve_drive(backend, workload, traffic, hook=None, check=True):
+    """What serve --server runs after building its stack: the engine warmed
+    on every prefill bucket, ``hook(engine)`` just before the measured
+    drive, the arrival stream driven to the end, and with ``check``
+    serve.oracle_check (every request against its run alone on the
+    engine's slot programs). Returns (summary, requests)."""
+    from uccl_tpu_torch import serve
+    from uccl_tpu_torch.serving import ServingEngine
+    from uccl_tpu_torch.serving.loadgen import drive, warm_engine
+
+    prompts, lens, arrivals, samplings = workload
+    engine = ServingEngine(backend, register_stats=True)
+    warm_engine(engine, lens, traffic["max_seq"], traffic["new_tokens"])
+    if hook is not None:
+        hook(engine)
+    reqs, wall = drive(engine, prompts, arrivals, traffic["new_tokens"], samplings=samplings)
+    summary = {**engine.snapshot(), "wall_s": wall}
+    if check:
+        t0 = time.perf_counter()
+        summary.update(serve.oracle_check(engine, reqs), oracle_check_s=time.perf_counter() - t0)
+    engine.close()
+    return summary, reqs
+
+def serve_readings(summary, reqs) -> dict:
+    """The end-to-end serving numbers of one drive: TTFT / TPOT p50/p95/p99,
+    output tokens per second of wall time, slot occupancy (mean active
+    slots per decode step over the pool), prefill and decode call ms."""
+    from uccl_tpu_torch.serving.metrics import percentiles_ms
+
+    qs = (50, 95, 99)
+    return {
+        "ttft_ms": percentiles_ms([r.ttft for r in reqs], qs),
+        "tpot_ms": percentiles_ms([r.tpot for r in reqs if r.tpot is not None], qs),
+        "output_tok_s": summary["output_tokens"] / summary["wall_s"],
+        "goodput_tok_s": summary.get("goodput_tok_s"),
+        "mean_slot_occupancy": summary["decode_tokens"] / max(1, summary["decode_calls"])
+                               / summary["n_slots"],
+        "prefill_ms": summary["prefill_ms"], "decode_step_ms": summary["decode_step_ms"],
+        "prefill_calls": summary["prefill_calls"], "decode_calls": summary["decode_calls"],
+        "wall_s": summary["wall_s"], "output_tokens": summary["output_tokens"],
+    }
+
+def b9_held_on(x, out) -> dict:
+    """One B9 exchange of the serving path, held as ep_a2a_vs_plain holds
+    its cases: ``out``, what the drive's all_to_all returned on ``x``, and
+    a fresh launch on the same bytes, each bit for bit against a2a_plain
+    and ``x.transpose(0, 1)`` (every slot, the idle rows' too)."""
+    xb, _ = pa._as_bytes(x)
+    view, k, _ = pa._view(xb)
+    got = torch.empty_like(view)
+    pa.launch_a2a(view, got, dma.CID_A2A).check("a2a")
+    got, plain = pa._unview(got, k, xb), pa._unview(pa.a2a_plain(view), k, xb)
+    fresh = ep_rule(got, plain, xb)
+    drove = ep_rule(pa._as_bytes(out)[0], plain, xb)
+    return {"shape": list(x.shape), "dtype": str(x.dtype).removeprefix("torch."),
+            "drive_output_ok": drove["ok"], "fresh_launch_ok": fresh["ok"]}
+
+def moe_block_trace(run):
+    """Run ``run()`` with every MoE block's input rows and router logits
+    recorded, in call order (one call a layer, a forward's layers in
+    turn)."""
+    calls, real = [], ep_ops.moe_ffn
+
+    def recorded(x, router_logits, *a, **kw):
+        calls.append((x.detach().clone(), router_logits.detach().float().clone()))
+        return real(x, router_logits, *a, **kw)
+
+    ep_ops.moe_ffn = recorded
+    try:
+        run()
+    finally:
+        ep_ops.moe_ffn = real
+    return calls
+
+def router_flip(backend, srv1, placed1, req, pos, layers) -> dict:
+    """Where a request's run alone at EP world 4 (replay_alone: the engine's
+    own programs) and the world-1 ``generate`` first part ways: layer by
+    layer over the forward steps up to output ``pos`` (step 0 the prefill,
+    step i the decode that emits output i), the first token whose router
+    top-2 experts differ, each run's gap between its 2nd and 3rd router
+    logit there, the difference of the block's input rows and router
+    logits at that step and layer and the largest before it (relative to
+    the world-1 values' largest)."""
+    from uccl_tpu_torch.serving import replay_alone
+
+    b_loc = backend.b_loc
+    member, row, size = req.slot // b_loc, req.slot % b_loc, req.prompt.size
+    w4 = moe_block_trace(lambda: replay_alone(backend, req))
+    w1 = moe_block_trace(lambda: srv1.generate(placed1, req.prompt[None, None], pos + 1,
+                                               backend.max_seq, impl="ll",
+                                               sampling=req.sampling))
+
+    def rows(calls, k, world4):
+        x, logits = calls[k]
+        if k < layers:  # the prefill
+            if world4:
+                x = x.reshape(x.shape[0], b_loc, -1, x.shape[-1])[member, row, :size]
+                logits = logits.reshape(logits.shape[0], b_loc, -1, logits.shape[-1])
+                return x, logits[member, row, :size]
+            return x[0, :size], logits[0, :size]
+        return (x[member, row:row + 1], logits[member, row:row + 1]) if world4 else \
+            (x[0], logits[0])
+
+    def gap23(z):
+        top = torch.sort(z.double(), descending=True).values
+        return float(top[1] - top[2])
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    worst = {"x": 0.0, "router": 0.0}
+    for k in range((pos + 1) * layers):
+        (x4, z4), (x1, z1) = rows(w4, k, True), rows(w1, k, False)
+        top4 = torch.sort(torch.sort(z4, dim=-1, descending=True, stable=True).indices[:, :2])[0]
+        top1 = torch.sort(torch.sort(z1, dim=-1, descending=True, stable=True).indices[:, :2])[0]
+        differ = (top4 != top1).any(-1).nonzero()
+        if len(differ):
+            t = int(differ[0])
+            return {"step": k // layers, "layer": k % layers,
+                    "token": t if k < layers else size + k // layers - 1,
+                    "experts_world4": top4[t].tolist(), "experts_world1": top1[t].tolist(),
+                    "gap_2nd_3rd_world4": gap23(z4[t]), "gap_2nd_3rd_world1": gap23(z1[t]),
+                    "router_logit_max_world1": float(z1[t].abs().max()),
+                    "rel_diff_at_flip": {"x": rel(x4, x1), "router": rel(z4, z1)},
+                    "max_rel_diff_before": worst}
+        worst["x"] = max(worst["x"], rel(x4, x1))
+        worst["router"] = max(worst["router"], rel(z4, z1))
+    return {"step": None, "max_rel_diff_before": worst}
+
+def world1_comparison(backend, reqs, layers) -> dict:
+    """Each request of the drive against the JAX package's oracle, the
+    one-shot ``generate`` of a world-1 server on the same weights, held to
+    the NEAR_TIE rule: for each request that differs, the first diverging
+    output, the oracle's margin there (sample_margins: the top-2 score
+    gap), where the router first chose other experts (router_flip), and
+    whether a near tie explains it."""
+    from uccl_tpu_torch.models.moe_inference import MoEServer, init_params
+    from uccl_tpu_torch.models.sampling import sample_margins
+
+    srv = backend.server
+    srv1 = MoEServer(srv.cfg, make_mesh(MeshConfig(dp=1), srv.device, 1))
+    placed1 = srv1.shard_params(init_params(srv.cfg, torch.Generator().manual_seed(0),
+                                            srv.device))  # serve's weights: --seed 0
+    diverged = []
+    for r in reqs:
+        want = srv1.generate(placed1, r.prompt[None, None], r.n_generated, backend.max_seq,
+                             impl="ll", sampling=r.sampling)[0, 0].tolist()
+        if want == r.out_tokens:
+            continue
+        pos = next(i for i, (a, b) in enumerate(zip(r.out_tokens, want)) if a != b)
+        seq = np.concatenate([r.prompt, np.asarray(want[:pos], np.int32)])
+        logits, _ = srv1.prefill(placed1, seq[None, None], backend.max_seq)
+        sp = r.sampling
+        margin = sample_margins(sp.seed if sp else 0, pos, logits[0, 0],
+                                sp.temperature if sp else 0.0, sp.top_p if sp else 1.0,
+                                sp.top_k if sp else 0)
+        flip = router_flip(backend, srv1, placed1, r, pos, layers)
+        if flip["step"] is not None:
+            explained = flip["gap_2nd_3rd_world1"] <= NEAR_TIE * flip["router_logit_max_world1"]
+        else:
+            scale = float(logits[0, 0].abs().max()) / (sp.temperature if sp else 1.0)
+            explained = margin["score_gap"] <= NEAR_TIE * scale
+        diverged.append({"rid": r.rid, "pos": pos, "sampled": sp is not None, **margin,
+                         "router": flip, "near_tie": bool(explained)})
+    return {"requests": len(reqs), "differing": len(diverged), "near_tie_rule": NEAR_TIE,
+            "diverged": diverged}
+
+def serve_path(device=DEV, widths=SERVE_WIDTHS, traffic=SERVE_TRAFFIC,
+               dense_requests=SERVE_DENSE_REQUESTS) -> dict:
+    """The serve entry end to end (build_stack, the engine, its warmup, the
+    arrival stream and oracle_check: what ``python -m uccl_tpu_torch.serve
+    --server --check-oracle`` runs) on the MoE stack at EP world 4 on the
+    pallas wire, in float32 as the JAX package serves. Raises unless every
+    finished request equals its run alone on the engine's slot programs
+    token for token, no slot leaked, the conservation check holds, B9
+    launched in prefill and in decode and no wire fell back; one prefill
+    and one decode B9 exchange of the drive, and a fresh launch on each,
+    must equal a2a_plain and the transpose bit for bit. The same requests
+    queued at once on the lax wire and on the pallas wire at chunk depth 1
+    (drives that differ in the wire alone) must give the same tokens. A
+    request may differ from the world-1 generate oracle only at a near tie
+    (NEAR_TIE, world1_comparison). One more drive under torch.profiler gives the
+    device's idle share. Then the dense stack at world 1, each request
+    against its replay. Returns the B9 launches of the pallas drive, by
+    phase."""
+    from uccl_tpu_torch import serve
+
+    is_cuda = torch.device(device).type == "cuda"
+    dev = "cuda" if is_cuda else "cpu"
+    args = serve_args(widths, traffic, stack="moe", device=dev, slots=traffic["slots"])
+    backend, _, vocab = serve.build_stack(args, dev, moe_wire="pallas")
+    workload = serve_workload(traffic, vocab, traffic["requests"])
+    launches = {"prefill": 0, "decode": 0}
+    calls = {"prefill": 0, "decode": 0}
+    phase, captured = [None], {}
+
+    def count_b9(engine):
+        pa.reset_launch_counts()
+        if is_cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        be = engine.backend
+        for name in launches:
+            fn = getattr(be, name)
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                calls[_name] += 1
+                phase[0], a0 = _name, pa.launch_counts["a2a"]
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    launches[_name] += pa.launch_counts["a2a"] - a0
+                    phase[0] = None
+
+            setattr(be, name, counted)
+
+    real_a2a = pa.all_to_all
+
+    def capturing(x, **kw):
+        out = real_a2a(x, **kw)
+        name = phase[0]
+        if name is not None and calls[name] <= B9_CAPTURE_CALL[name] and \
+                captured.get(name, (0,))[0] < calls[name]:
+            captured[name] = (calls[name], x.clone(), out.clone())
+        return out
+
+    fb0 = dma.WIRE_FALLBACK.total()
+    pa.all_to_all = capturing
+    try:
+        summary, reqs = serve_drive(backend, workload, traffic, count_b9)
+    finally:
+        pa.all_to_all = real_a2a
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30 if is_cuda else None
+    if not (summary["oracle_match"] and summary["leaked_slots"] == 0 and summary["conservation"]):
+        fail(f"serve_path: oracle_match={summary['oracle_match']} "
+             f"leaked={summary['leaked_slots']} conservation={summary['conservation']} "
+             f"mismatches={summary['mismatches']}")
+    if not (launches["prefill"] and launches["decode"]):
+        fail(f"serve_path: B9 launches {launches}; the pallas wire must run in prefill and decode")
+    fallbacks = dma.WIRE_FALLBACK.total() - fb0
+    if fallbacks:
+        fail(f"serve_path: the EP wire fell back {fallbacks} times")
+    if len(reqs) != traffic["requests"] or any(len(r.out_tokens) != traffic["new_tokens"]
+                                                 for r in reqs):
+        fail("serve_path: not every request finished with its token budget")
+    b9_held = {}
+    for name in launches:
+        if name not in captured:
+            fail(f"serve_path: no B9 input was captured in {name}")
+        b9_held[name] = {"call": captured[name][0], **b9_held_on(*captured[name][1:])}
+        if not (b9_held[name]["drive_output_ok"] and b9_held[name]["fresh_launch_ok"]):
+            fail(f"serve_path: B9 on the {name} exchange differs from a2a_plain or the "
+                 f"transpose: {b9_held[name]}")
+    captured.clear()
+    world1 = world1_comparison(backend, reqs, widths["layers"])
+    unexplained = [d for d in world1["diverged"] if not d["near_tie"]]
+    if unexplained:
+        fail(f"serve_path: requests differ from the world-1 generate oracle with no near tie "
+             f"(NEAR_TIE {NEAR_TIE}): {unexplained}")
+    del backend
+    # the wire alone: the same requests queued at once (so both drives batch
+    # them alike) on the lax wire and on the pallas wire at chunk depth 1
+    at_once = serve_workload(traffic, vocab, traffic["requests"], poisson=False)
+    wires = {}
+    for wire, chunks in (("pallas", 1), ("lax", 0)):
+        be, _, _ = serve.build_stack(args, dev, moe_wire=wire, moe_chunks=chunks)
+        wires[wire] = serve_drive(be, at_once, traffic, check=False)
+        del be
+    lax_diff = [r.rid for r, q in zip(wires["pallas"][1], wires["lax"][1])
+                if r.out_tokens != q.out_tokens]
+    if len(wires["lax"][1]) != len(reqs) or lax_diff:
+        fail(f"serve_path: the lax wire's tokens differ from the pallas wire's on requests "
+             f"{lax_diff}")
+    busy = {}
+
+    def start_profile(engine):
+        busy["prof"] = profile(activities=[ProfilerActivity.CUDA] if is_cuda
+                               else [ProfilerActivity.CPU])
+        busy["prof"].__enter__()
+
+    be, _, _ = serve.build_stack(args, dev, moe_wire="pallas")
+    prof_summary, _ = serve_drive(be, workload, traffic, start_profile, check=False)
+    del be
+    if is_cuda:
+        torch.cuda.synchronize(device)
+    busy["prof"].__exit__(None, None, None)
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in busy["prof"].events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = profile_ep.union_ms(spans)
+    dense_args = serve_args(widths, traffic, stack="dense", device=dev, slots=dense_requests)
+    dense_be, _, _ = serve.build_stack(dense_args, dev)
+    dense_summary, dense_reqs = serve_drive(dense_be, serve_workload(traffic, vocab,
+                                                                     dense_requests),
+                                            traffic)
+    del dense_be
+    if not (dense_summary["oracle_match"] and dense_summary["leaked_slots"] == 0
+            and dense_summary["conservation"]):
+        fail(f"serve_path dense: oracle_match={dense_summary['oracle_match']} "
+             f"leaked={dense_summary['leaked_slots']} mismatches={dense_summary['mismatches']}")
+    emit("serve_path", widths=widths, traffic=traffic, capacity_factor=8.0, wire="pallas",
+         dtype="float32", decode_impl="ll", b9_launches=launches, fallbacks=fallbacks,
+         b9_held_on_the_drive=b9_held,
+         oracle="each request run alone on the engine's slot programs (replay_alone), "
+                "token for token", requests_exact=len(reqs),
+         sampled_requests=sum(r.sampling is not None for r in reqs),
+         oracle_check_s=summary["oracle_check_s"],
+         pallas=serve_readings(summary, reqs),
+         wire_alone={"lax_same_tokens_as_pallas_depth_1": True,
+                     **{w: serve_readings(*wires[w]) for w in wires}},
+         world1_generate=world1,
+         profiled_drive={"wall_s": prof_summary["wall_s"], "device_busy_ms": busy_ms,
+                         "idle_share": 1.0 - busy_ms / (prof_summary["wall_s"] * 1e3),
+                         "device_events": len(spans)},
+         peak_mem_gib=peak_gib,
+         dense={"requests_exact": len(dense_reqs), **serve_readings(dense_summary, dense_reqs)},
+         card=nvidia_smi_line() if is_cuda else None)
+    return launches
+
 def main() -> None:
     t_start = time.perf_counter()
     toolchain()
@@ -2122,6 +2493,10 @@ def main() -> None:
     ep_launches = ep_path()
     if dma.WIRE_FALLBACK.total() != ep_fb0:
         fail(f"the EP phases fell back {dma.WIRE_FALLBACK.total() - ep_fb0} times")
+    torch.cuda.empty_cache()
+    serve_launches = serve_path()
+    torch.cuda.empty_cache()
+    ep_launches["a2a"] += serve_launches["prefill"] + serve_launches["decode"]
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": errs[name],
@@ -2157,7 +2532,8 @@ def main() -> None:
          "ms": ep_time[timed]["ms"], "plain_ms": ep_time[timed]["plain_ms"],
          "bound_ms": ep_time[timed]["bound_ms"], "bound_by": "bytes",
          "library_ms": ep_time[timed]["library_ms"],
-         "library_call": ep_time[timed]["library_call"], "timed": timed}
+         "library_call": ep_time[timed]["library_call"], "timed": timed,
+         **({"serve_launches": serve_launches} if name == "a2a" else {})}
         for name, timed in (("a2a", "a2a"), ("sched_round", "sched_round schedule"))
     ]
     for k in kernels:

@@ -18,6 +18,31 @@ from uccl_tpu_torch.ops import attention as tattn
 from uccl_tpu_torch.ops import flash_attention as fa
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _order_independent():
+    """Every case here, the first included, sees the same process state
+    whatever file ran before it on the same worker: torch's default dtype
+    and JAX's x64 and matmul-precision flags are pinned for the module (and
+    restored after it), the JAX interpreter compiles and runs the forward
+    once before the first case, so no case is a process's first call of
+    it, and torch's exp and log run once on every intra-op thread (a fresh
+    OpenMP worker thread's first one can be off by ~1e-4, ROADMAP C8)."""
+    saved = (torch.get_default_dtype(), jax.config.jax_enable_x64,
+             jax.config.jax_default_matmul_precision)
+    torch.set_default_dtype(torch.float32)
+    jax.config.update("jax_enable_x64", False)
+    jax.config.update("jax_default_matmul_precision", None)
+    x = torch.rand(torch.get_num_threads() * 65536) + 0.5
+    torch.exp(x), torch.log(x)
+    q, k, v = _qkv(np.random.default_rng(0))
+    for causal in (True, False):
+        jax.block_until_ready(j_flash_attention_lse(*map(jnp.asarray, (q, k, v)), causal, 32, 32))
+    yield
+    torch.set_default_dtype(saved[0])
+    jax.config.update("jax_enable_x64", saved[1])
+    jax.config.update("jax_default_matmul_precision", saved[2])
+
+
 def _qkv(rng, b=1, s=64, h=4, hkv=None, d=32, dtype=np.float32):
     hkv = hkv or h
     return (

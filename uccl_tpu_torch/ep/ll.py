@@ -20,9 +20,15 @@ padded slot.
   ``"dense"`` on the CPU, as the JAX package picks ragged on a GPU or TPU
   backend and dense on XLA:CPU.
 * The *grouped GEMM* (``lax.ragged_dot`` in JAX, XLA code and no Pallas
-  kernel) is a loop of ``torch.matmul`` over each local expert's row range:
-  FLOPs in proportion to the real rows. It reads the group sizes on the
-  host, one sync per call.
+  kernel) gathers each local expert's rows to the front of a fixed
+  ``[R_max, H]`` block and runs the three products on all the blocks at
+  once: the same shapes whatever the counts, so a row's result does not
+  depend on what else the batch routed (a GEMM library picks its
+  summation order by the row count; the serving engine's exactness
+  against a request run alone rests on this), and the sizes never leave
+  the device. It spends ``E_local`` times the FLOPs of the real rows, on
+  the decode batches this path is for, where the weights' bytes set the
+  time.
 
 Tensors are member-stacked: row r of every ``[W, ...]`` tensor is member
 r's shard of the JAX per-shard function. ``topk_idx`` entries of ``-1``
@@ -38,12 +44,11 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from uccl_tpu_torch.collective import dma as _dma
 from uccl_tpu_torch.collective import lanes as _lanes
-from uccl_tpu_torch.ep.ops import (_gate_topk, _per_member, _take_member_rows, _weighted_sum,
-                                   counts_exchange, resolve_wire_dtype)
+from uccl_tpu_torch.ep.ops import (_expert_gemms, _gate_topk, _per_member, _take_member_rows,
+                                   _weighted_sum, counts_exchange, resolve_wire_dtype)
 from uccl_tpu_torch.ops import quant as _quant
 
 
@@ -354,18 +359,24 @@ def grouped_ffn(recv_x: torch.Tensor, group_sizes: torch.Tensor, w_gate: torch.T
     """SwiGLU expert FFN over packed rows, member-stacked: recv_x ``[W, R,
     H]``, group_sizes ``[W, E_local]``, w_gate/w_up ``[W, E_local, H, F]``,
     w_down ``[W, E_local, F, H]`` → ``[W, R, H]``, rows past the groups
-    zero (``lax.ragged_dot``'s contract). Three ``torch.matmul`` per local
-    expert on its row range: FLOPs in proportion to the real rows. The
-    sizes are read on the host, one sync per call."""
-    out = torch.zeros_like(recv_x)
-    for r, sizes in enumerate(group_sizes.tolist()):
-        start = 0
-        for e, n in enumerate(sizes):
-            rows = recv_x[r, start:start + n]
-            act = F.silu(rows @ w_gate[r, e]) * (rows @ w_up[r, e])
-            out[r, start:start + n] = act @ w_down[r, e]
-            start += n
-    return out
+    zero (``lax.ragged_dot``'s contract). Each local expert's rows are
+    gathered to the front of its own ``[R, H]`` block (zeros after them),
+    the products run on the ``[W * E_local, R, ...]`` blocks at once, and
+    the rows are scattered back: fixed shapes, no host read."""
+    w, r, h = recv_x.shape
+    e_local = group_sizes.shape[-1]
+    sizes = group_sizes.long()
+    i = torch.arange(r, device=recv_x.device)
+    valid = i < sizes[..., None]  # [W, E_local, R]
+    src = torch.where(valid, _exclusive_cumsum(sizes)[..., None] + i, r)  # r: a zero row
+    padded = torch.cat([recv_x, recv_x.new_zeros((w, 1, h))], dim=1)
+    xe = torch.gather(padded, 1, src.reshape(w, e_local * r, 1).expand(-1, -1, h))
+    flat = lambda t: t.reshape(w * e_local, *t.shape[2:])  # noqa: E731
+    ye = _expert_gemms(xe.reshape(w * e_local, r, h), flat(w_gate), flat(w_up), flat(w_down))
+    out = recv_x.new_zeros((w, r + 1, h))
+    out.scatter_(1, src.reshape(w, e_local * r, 1).expand(-1, -1, h),
+                 ye.reshape(w, e_local * r, h))  # every padding row lands on row r
+    return out[:, :r]
 
 
 def ll_moe_ffn(x: torch.Tensor, router_logits: torch.Tensor, w_gate: torch.Tensor,

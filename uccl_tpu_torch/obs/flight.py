@@ -54,11 +54,7 @@ Everything is a no-op (one ``is None`` check) until :func:`enable` is
 called, so the hooks threaded through the hot paths cost nothing in
 normal operation.
 
-Port copy of ``uccl_tpu/obs/flight.py`` (jax-free there too). The one
-difference: the JAX package renders the bundle's ``metrics_prom`` with
-``obs/export.py``, which the port does not carry yet; here
-:func:`_prometheus_text` renders the same counter and gauge families (the
-only kinds the port's registry holds) in the same text format.
+Port copy of ``uccl_tpu/obs/flight.py`` (jax-free there too).
 """
 
 from __future__ import annotations
@@ -115,24 +111,6 @@ def _jsonable(obj):
             except Exception:
                 break
     return repr(obj)
-
-
-def _prometheus_text() -> str:
-    """The registry's counters and gauges in Prometheus text exposition
-    format (``obs/export.py``'s rendering of those two kinds)."""
-    lines: List[str] = []
-    for fam in _counters.REGISTRY.families():
-        name = "".join(c if c.isalnum() or c in "_:" else "_" for c in fam.name)
-        if fam.help:
-            lines.append(f"# HELP {name} {fam.help}")
-        lines.append(f"# TYPE {name} {fam.kind}")
-        samples = fam.samples()
-        if not samples:
-            lines.append(f"{name} 0")
-        for labels, value in samples:
-            label_str = ",".join(f'{k}="{v}"' for k, v in sorted(labels.items()))
-            lines.append(f"{name}{{{label_str}}} {value!r}" if labels else f"{name} {value!r}")
-    return "\n".join(lines) + "\n"
 
 
 class FlightRecorder:
@@ -221,6 +199,8 @@ class FlightRecorder:
         return path
 
     def _collect(self, kind, key, context, providers, seq) -> Dict:
+        from uccl_tpu_torch.obs import export as _export
+
         t = _tracer.get_tracer()
         events: List[Dict] = []
         dropped = 0
@@ -260,7 +240,7 @@ class FlightRecorder:
             "events": events,
             "events_dropped_from_ring": dropped,
             "state": state,
-            "metrics_prom": _prometheus_text(),
+            "metrics_prom": _export.prometheus_text(),
             "registry": _counters.REGISTRY.snapshot(),
         }
 
