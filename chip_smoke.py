@@ -51,7 +51,7 @@ from torch.profiler import ProfilerActivity, profile
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: torch.cuda.is_available() is False; this script needs a GPU")
 
-from uccl_tpu_torch import profile_ep  # noqa: E402
+from uccl_tpu_torch import obs, profile_ep  # noqa: E402
 from uccl_tpu_torch.collective import Communicator, dma, plan  # noqa: E402
 from uccl_tpu_torch.collective import ring_ccl as rc  # noqa: E402
 from uccl_tpu_torch.ep import Buffer, a2a_sched  # noqa: E402
@@ -59,6 +59,7 @@ from uccl_tpu_torch.ep import ll as ep_ll  # noqa: E402
 from uccl_tpu_torch.ep import ops as ep_ops  # noqa: E402
 from uccl_tpu_torch.ep import pallas_a2a as pa  # noqa: E402
 from uccl_tpu_torch.models import flagship  # noqa: E402
+from uccl_tpu_torch.models.sampling import prng_key  # noqa: E402
 from uccl_tpu_torch.parallel.mesh import AXIS, MeshConfig, make_mesh  # noqa: E402
 from uccl_tpu_torch.models.layers import rms_norm, rope  # noqa: E402
 from uccl_tpu_torch.ops import flash_attention as fa  # noqa: E402
@@ -475,7 +476,7 @@ def against_plain_attention(cfg, params, batches) -> dict:
 
 def main_path() -> dict:
     cfg = flagship.bench_config()
-    params = flagship.init_params(cfg, torch.Generator().manual_seed(0), DEV)
+    params = flagship.init_params(prng_key(0), cfg, DEV)
     train_step, init_opt = flagship.make_train_step(cfg, DEV)
     opt_state = init_opt(params)
     batches = [_batch_for_step(i, BATCH, SEQ, cfg.vocab) for i in range(STEPS)]
@@ -934,7 +935,7 @@ def gradient_bucket() -> torch.Tensor:
     bench-config flagship on its own batch (B=8, S=1024), flattened in
     parameter order."""
     cfg = flagship.bench_config()
-    params = flagship.init_params(cfg, torch.Generator().manual_seed(0), DEV)
+    params = flagship.init_params(prng_key(0), cfg, DEV)
     leaves = [p.requires_grad_() for p in flagship.tree_leaves(params)]
     total = sum(p.numel() for p in leaves)
     if total != BUCKET:
@@ -2092,11 +2093,13 @@ def ep_moe_ffn(cfg, x, logits, experts, depth) -> dict:
 # at the bench config's widths (flagship.bench_config: vocab 16384, dim 1024,
 # 4 layers, 16/4 heads of 64, 8 experts top-2, ffn 2816) with the serving
 # capacity factor 8.0, EP world 4 on the one card, 16 slots, on the pallas
-# wire; 32 Poisson requests (8 req/s) of 128-896 prompt tokens and 64 new
+# wire; 8 Poisson requests (8 req/s) of 128-896 prompt tokens and 64 new
 # tokens, half greedy and half sampled (T 0.8, top-p 0.95, top-k 50, one
-# seed each). Then the dense stack at world 1, same widths, 8 requests.
+# seed each): 32 until serve_features_path came, cut to keep the script
+# near half its time limit. Then the dense stack at world 1, same widths,
+# 8 requests.
 SERVE_WIDTHS = dict(vocab=16384, dim=1024, layers=4, heads=16, kv_heads=4, ffn=2816, experts=8)
-SERVE_TRAFFIC = dict(requests=32, prompt_len=896, min_prompt_len=128, new_tokens=64,
+SERVE_TRAFFIC = dict(requests=8, prompt_len=896, min_prompt_len=128, new_tokens=64,
                      max_seq=1024, arrival_rate=8.0, slots=16, world=4)
 SERVE_DENSE_REQUESTS = 8
 # the backend call whose first B9 input serve_path keeps (the pool is full
@@ -2279,7 +2282,7 @@ def world1_comparison(backend, reqs, layers) -> dict:
 
     srv = backend.server
     srv1 = MoEServer(srv.cfg, make_mesh(MeshConfig(dp=1), srv.device, 1))
-    placed1 = srv1.shard_params(init_params(srv.cfg, torch.Generator().manual_seed(0),
+    placed1 = srv1.shard_params(init_params(prng_key(0), srv.cfg,
                                             srv.device))  # serve's weights: --seed 0
     diverged = []
     for r in reqs:
@@ -2455,6 +2458,350 @@ def serve_path(device=DEV, widths=SERVE_WIDTHS, traffic=SERVE_TRAFFIC,
          card=nvidia_smi_line() if is_cuda else None)
     return launches
 
+# The serving slice's local features (chunked prefill and preemption,
+# speculative decoding, the prefix cache and its host tier, health and the
+# router) on the MoE stack at SERVE_WIDTHS, float32, EP world 4 on the one
+# card on the pallas wire, 16 slots, max_seq 1024. Drive A: one engine with
+# prefill chunk 128, a 1024-token step budget, a prefix cache of chunk 128
+# behind a lossless host tier of about four 512-token entries, spec_k 2 with
+# the n-gram drafter, SLO classes with preemption; 32 Poisson requests at
+# 8 req/s of 64 new tokens, 25% interactive (batch first), half of them on a
+# shared 512-token system prompt (synth_shared_workload) and half repetitive
+# (synth_repeat_workload), each half half greedy and half sampled. Drive B:
+# a Router over 2 replicas of one server, prefill chunk 128, 16 greedy
+# requests, one replica killed after its 4th step.
+SERVE_FEATURES = dict(requests=32, prompt_len=896, shared_len=512, hit_rate=0.75, new_tokens=64,
+                      max_seq=1024, arrival_rate=8.0, slots=16, world=4, interactive_frac=0.25,
+                      prefill_chunk=128, step_tokens=1024, spec_k=2, host_entries=4,
+                      router_requests=16, router_min_prompt_len=128, kill_after_steps=4)
+FEATURE_KINDS = ("chunk_prefill", "decode", "verify")
+
+def features_workload(traffic, vocab, seed=0):
+    """Drive A's requests: Poisson arrivals first, then the shared-prompt
+    and repetitive prompts interleaved, the batch-first class pattern, and
+    within each workload every second request sampled under its own seed."""
+    from uccl_tpu_torch.serving import SamplingParams
+    from uccl_tpu_torch.serving.loadgen import (
+        assign_classes, synth_repeat_workload, synth_shared_workload,
+    )
+
+    n = traffic["requests"]
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / traffic["arrival_rate"], n))
+    shared, _, _ = synth_shared_workload(rng, n // 2, traffic["prompt_len"], vocab, 0.0,
+                                         traffic["hit_rate"], traffic["shared_len"])
+    repeat, _, _ = synth_repeat_workload(rng, n - n // 2, traffic["prompt_len"], vocab, 0.0)
+    prompts = [p for pair in zip(shared, repeat) for p in pair]
+    classes = assign_classes(rng, n, traffic["interactive_frac"], pattern="batch-first")
+    samplings = [SamplingParams(temperature=0.8, top_p=0.95, top_k=50, seed=seed + i)
+                 if (i // 2) % 2 else None for i in range(n)]
+    return prompts, np.asarray([p.size for p in prompts]), arrivals, classes, samplings
+
+def feature_counters() -> dict:
+    """The serving counters drive A must move, read off the obs registry."""
+    c = obs.counter
+    return {"prefix_cache_hits": c("prefix_cache_hits_total").total(),
+            "prefill_tokens_skipped": c("serving_prefill_tokens_total").get(kind="skipped"),
+            "prefill_tokens_computed": c("serving_prefill_tokens_total").get(kind="computed"),
+            "tier_demotions": c("kv_tier_demotions_total").get(tier="t1"),
+            "tier_promotions": c("kv_tier_promotions_total").get(tier="t1"),
+            "tier_drops": c("kv_tier_drops_total").get(tier="t1"),
+            "preempted": c("serving_preempted_total").total(),
+            "resumed": c("serving_resumed_total").total(),
+            "spec_accepted": c("spec_tokens_total").get(outcome="accepted"),
+            "spec_rejected": c("spec_tokens_total").get(outcome="rejected")}
+
+class CallMeter:
+    """Wraps a backend's prefill / decode / verify: B9 launches and host ms
+    per call kind (a prefill with a ``start`` is a chunk), and the first B9
+    input and output of a chosen call of each kind, kept for the bit checks
+    and the timing at the serving shapes."""
+
+    def __init__(self, capture_call=3):
+        self.launches = {k: 0 for k in FEATURE_KINDS}
+        self.calls = {k: 0 for k in FEATURE_KINDS}
+        self.seconds = {k: [] for k in FEATURE_KINDS}
+        self.captured = {}
+        self.capture_call = capture_call
+        self.kind = None
+
+    def wrap(self, backend):
+        for name in ("prefill", "decode", "verify"):
+            fn = getattr(backend, name)
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                kind = "chunk_prefill" if _name == "prefill" else _name
+                self.calls[kind] += 1
+                self.kind, a0, t0 = kind, pa.launch_counts["a2a"], time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.seconds[kind].append(time.perf_counter() - t0)
+                    self.launches[kind] += pa.launch_counts["a2a"] - a0
+                    self.kind = None
+
+            setattr(backend, name, counted)
+
+    def capture(self, real):
+        def capturing(x, **kw):
+            out = real(x, **kw)
+            kind, call = self.kind, self.calls.get(self.kind)
+            # each call up to the chosen one keeps its first exchange: the
+            # chosen call's when the drive reaches it, else the last call's
+            if kind is not None and x.dtype == torch.float32 and call <= self.capture_call \
+                    and self.captured.get(kind, (0,))[0] < call:
+                self.captured[kind] = (call, x.clone(), out.clone())
+            return out
+        return capturing
+
+def b9_at_serving_shapes(captured) -> dict:
+    """B9 timed on the drives' captured f32 exchanges (CUDA events, L2
+    flushed, median of 10), beside its bound (2 x bytes / 3.35 TB/s), its
+    plain version and x.transpose(0, 1).contiguous()."""
+    out = {}
+    for kind, (call, x, _) in captured.items():
+        view, _, _ = pa._view(x)
+        res = torch.empty_like(view)
+        lanes = []
+        ms = time_ms(lambda: lanes.append(pa.launch_a2a(view, res, dma.CID_A2A)), 10)
+        for lane in lanes:
+            lane.check("serve_features b9 timing")
+        bnd = ep_bound_ms(x.numel() * x.element_size())
+        out[kind] = dict(call=call, shape=list(x.shape), dtype="float32", ms=ms, bound_ms=bnd,
+                         bound_by="bytes", share_of_bound=bnd / ms,
+                         plain_ms=time_ms(lambda: pa.a2a_plain(view), 3),
+                         library_ms=time_ms(lambda: x.transpose(0, 1).contiguous(), 10),
+                         library_call="x.transpose(0, 1).contiguous()")
+    return out
+
+def output_gap(backend, req, pos) -> dict:
+    """The top-2 logit gap of output ``pos`` of ``req``'s own sequence (the
+    server's one-shot prefill over prompt + the tokens before it), against
+    NEAR_TIE times the largest |logit|."""
+    seq = np.concatenate([req.prompt, np.asarray(req.out_tokens[:pos], np.int32)])
+    srv = backend.server
+    logits, _ = srv.prefill(backend.params, np.tile(seq, (srv.world, 1, 1)), backend.max_seq)
+    z = logits[0, 0].double()
+    top = torch.topk(z, 2).values
+    gap = float(top[0] - top[1])
+    return {"gap": gap, "near_tie": gap <= NEAR_TIE * float(z.abs().max())}
+
+def features_engine(backend, traffic, host_bytes):
+    from uccl_tpu_torch.serving import PrefixCache, ServingEngine, TieredKVCache
+
+    return ServingEngine(backend, register_stats=True, prefill_chunk=traffic["prefill_chunk"],
+                         step_tokens=traffic["step_tokens"],
+                         prefix_cache=PrefixCache(traffic["prefill_chunk"]),
+                         kv_tiers=TieredKVCache(host_bytes), spec_k=traffic["spec_k"],
+                         priority_classes=True, preempt=True)
+
+def features_drive_a(backend, traffic, workload, meter=None, hook=None):
+    """Drive A once: the engine warmed (loadgen.warm_engine: the chunk
+    program, the hit path and the verify window), then the arrival stream
+    driven to the end. Returns (engine, requests, wall seconds, counter
+    deltas)."""
+    from uccl_tpu_torch.serving.loadgen import drive, warm_engine
+
+    prompts, lens, arrivals, classes, samplings = workload
+    cfg = backend.server.cfg
+    entry = 2 * cfg.n_layers * traffic["shared_len"] * cfg.n_kv_heads * cfg.head_dim * 4
+    engine = features_engine(backend, traffic, traffic["host_entries"] * entry + 1)
+    warm_engine(engine, lens, traffic["max_seq"], traffic["new_tokens"])
+    if meter is not None:
+        meter.wrap(engine.backend)
+    if hook is not None:
+        hook()
+    c0 = feature_counters()
+    reqs, wall = drive(engine, prompts, arrivals, traffic["new_tokens"], priorities=classes,
+                       samplings=samplings)
+    c1 = feature_counters()
+    return engine, reqs, wall, {k: c1[k] - c0[k] for k in c0}
+
+def features_drive_b(args, dev, traffic, vocab, meter):
+    """Drive B: a Router over 2 replicas of one server (replicate_backend),
+    prefill chunk 128, 16 greedy requests queued at once; replica 1 is
+    killed after its 4th step and the FailureDetector's DEAD fire moves its
+    requests to replica 0. Returns (router, submitted, finished, replica 1's
+    steps before the kill, routed counts at the kill)."""
+    from uccl_tpu_torch import serve
+    from uccl_tpu_torch.serving import Router, ServingEngine, replicate_backend
+
+    proto, _, _ = serve.build_stack(args, dev, moe_wire="pallas")
+    engines = [ServingEngine(b, prefill_chunk=traffic["prefill_chunk"])
+               for b in replicate_backend(proto, 2)]
+    for e in engines:
+        meter.wrap(e.backend)
+    router = Router(engines)
+    router.enable_health(suspect_after_s=0.05, dead_after_s=0.1)
+    rng = np.random.default_rng(1)
+    n = traffic["router_requests"]
+    lens = rng.integers(traffic["router_min_prompt_len"], traffic["prompt_len"] + 1, n)
+    submitted = [router.submit(rng.integers(0, vocab, int(m)).astype(np.int32),
+                               max_new_tokens=traffic["new_tokens"]) for m in lens]
+    steps, real_step, at_kill = [0], engines[1].step, {}
+
+    def step():
+        out = real_step()
+        steps[0] += 1
+        if steps[0] == traffic["kill_after_steps"]:
+            at_kill["routed"] = list(router.routed)
+            engines[1].kill()
+        return out
+
+    engines[1].step = step
+    finished = []
+    t_end = time.perf_counter() + 600
+    while router.has_work():
+        finished += router.step()
+        if time.perf_counter() > t_end:
+            fail("serve_features_path: drive B did not drain in 600 s")
+    return router, submitted, finished, steps[0], at_kill.get("routed")
+
+def serve_features_path(device=DEV, widths=SERVE_WIDTHS, traffic=SERVE_FEATURES) -> dict:
+    """Drive A and drive B (see SERVE_FEATURES) through the serve entry's
+    stack (serve.build_stack on the pallas wire) and the serving modules a
+    user calls. Raises unless: every finished request of both drives equals
+    its replay_alone token for token (its chunk boundaries, its verify
+    windows, on the replica that ran it) and finishes exactly once,
+    conservation holds and no slot leaks; the wire never fell back; B9 is
+    bit-identical to a2a_plain and the transpose on a chunk-prefill and a
+    verify exchange of drive A; B9 launched in chunk prefills, decodes and
+    verifies; prefix hits, skipped prefill tokens, tier demotions and
+    promotions, preemptions (equal to resumes) and accepted drafts are all
+    above zero; both replicas of drive B served requests. Greedy requests of
+    drive A are also replayed without speculation (other shapes: the
+    [n_slots, 3] verify window against [n_slots, 1] decodes on the LL path)
+    and the ones that differ are reported with their output's top-2 gap.
+    Then B9 is timed on the captured exchanges, and drive A runs once more
+    under torch.profiler for the device's idle share. Returns the B9
+    launches by call kind."""
+    from uccl_tpu_torch import serve
+    from uccl_tpu_torch.serving import replay_alone
+
+    is_cuda = torch.device(device).type == "cuda"
+    dev = "cuda" if is_cuda else "cpu"
+    args = serve_args(widths, traffic, stack="moe", device=dev, slots=traffic["slots"])
+    backend, _, vocab = serve.build_stack(args, dev, moe_wire="pallas")
+    workload = features_workload(traffic, vocab)
+    meter = CallMeter()
+    real_a2a = pa.all_to_all
+    fb0 = dma.WIRE_FALLBACK.total()
+    pa.all_to_all = meter.capture(real_a2a)
+    try:
+        engine, reqs, wall, moved = features_drive_a(backend, traffic, workload, meter,
+                                                     pa.reset_launch_counts)
+        snap = engine.snapshot()
+        t0 = time.perf_counter()
+        check = serve.oracle_check(engine, reqs)
+        oracle_s = time.perf_counter() - t0
+        launches_a = dict(meter.launches)
+        router, submitted, finished, b_steps, routed_at_kill = features_drive_b(
+            args, dev, traffic, vocab, meter)
+    finally:
+        pa.all_to_all = real_a2a
+    fallbacks = dma.WIRE_FALLBACK.total() - fb0
+    if not (check["oracle_match"] and check["leaked_slots"] == 0 and check["conservation"]):
+        fail(f"serve_features_path drive A: oracle_match={check['oracle_match']} "
+             f"leaked={check['leaked_slots']} conservation={check['conservation']} "
+             f"mismatches={check['mismatches']}")
+    if len(reqs) != traffic["requests"] or len({r.trace_id for r in reqs}) != len(reqs) or \
+            any(r.state.value != "finished" or r.n_generated != traffic["new_tokens"]
+                for r in reqs):
+        fail("serve_features_path drive A: not every request finished once with its budget")
+    for key in ("prefix_cache_hits", "prefill_tokens_skipped", "tier_demotions",
+                "tier_promotions", "preempted", "spec_accepted"):
+        if moved[key] <= 0:
+            fail(f"serve_features_path drive A: {key} did not move: {moved}")
+    if moved["preempted"] != moved["resumed"]:
+        fail(f"serve_features_path drive A: preemptions {moved['preempted']} != resumes "
+             f"{moved['resumed']}")
+    if fallbacks:
+        fail(f"serve_features_path: the EP wire fell back {fallbacks} times")
+    b9_held = {}
+    for kind in ("chunk_prefill", "verify"):
+        if kind not in meter.captured:
+            fail(f"serve_features_path: no B9 input was captured in {kind}")
+        b9_held[kind] = {"call": meter.captured[kind][0],
+                         **b9_held_on(*meter.captured[kind][1:])}
+        if not (b9_held[kind]["drive_output_ok"] and b9_held[kind]["fresh_launch_ok"]):
+            fail(f"serve_features_path: B9 on the {kind} exchange differs from a2a_plain or "
+                 f"the transpose: {b9_held[kind]}")
+    if not all(meter.launches.values()):
+        fail(f"serve_features_path: B9 launches by call kind {meter.launches}")
+    # drive B: each trace finished exactly once, on the replica that ran it
+    traces = [r.trace_id for r in submitted]
+    done = [r.trace_id for r in finished]
+    bsnap = router.snapshot()
+    by_pid = dict(zip(router._pids, router.engines))
+    b_mismatch = [r.rid for r in finished
+                  if replay_alone(by_pid[r.replica].backend, r).tolist() != r.out_tokens]
+    if sorted(done) != sorted(traces) or len(set(done)) != len(done) or b_mismatch or \
+            router.leaked() or not router.recoveries or bsnap["dead_replicas"] != 1 or \
+            bsnap["submitted"] != (bsnap["completed"] + bsnap["active"] + bsnap["queued"]
+                                   + bsnap["rejected"] + bsnap["expired"] + bsnap["lost"]):
+        fail(f"serve_features_path drive B: finished {len(done)}/{len(traces)} once="
+             f"{len(set(done)) == len(done)} replay mismatches {b_mismatch} leaked "
+             f"{router.leaked()} recoveries {len(router.recoveries)} snapshot "
+             f"{ {k: bsnap[k] for k in ('submitted', 'completed', 'lost', 'dead_replicas')} }")
+    if not routed_at_kill or min(routed_at_kill) == 0 or b_steps < traffic["kill_after_steps"]:
+        fail(f"serve_features_path drive B: both replicas must serve: routed {routed_at_kill}, "
+             f"replica 1 stepped {b_steps} times")
+    # greedy speculating requests against their vanilla replay (other shapes)
+    vanilla = []
+    for r in reqs:
+        if r.sampling is not None:
+            continue
+        want = replay_alone(backend, dataclasses.replace(r, spec_k=None)).tolist()
+        if want != r.out_tokens:
+            pos = next(i for i, (a, b) in enumerate(zip(r.out_tokens, want)) if a != b)
+            vanilla.append({"rid": r.rid, "pos": pos, **output_gap(backend, r, pos)})
+    captured = {k: meter.captured[k] for k in FEATURE_KINDS if k in meter.captured}
+    timing = b9_at_serving_shapes(captured) if is_cuda else None
+    meter.captured.clear()
+    n_recoveries = len(router.recoveries)
+    del router, finished, submitted, captured
+    busy = {}
+
+    def start_profile():
+        busy["prof"] = profile(activities=[ProfilerActivity.CUDA] if is_cuda
+                               else [ProfilerActivity.CPU])
+        busy["prof"].__enter__()
+
+    be, _, _ = serve.build_stack(args, dev, moe_wire="pallas")
+    _, _, prof_wall, _ = features_drive_a(be, traffic, workload, hook=start_profile)
+    if is_cuda:
+        torch.cuda.synchronize(device)
+    busy["prof"].__exit__(None, None, None)
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in busy["prof"].events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = profile_ep.union_ms(spans)
+    del be
+    from uccl_tpu_torch.serving.metrics import percentiles_ms
+
+    p50 = {k: percentiles_ms(v)["p50"] if v else None for k, v in meter.seconds.items()}
+    emit("serve_features_path", widths=widths, traffic=traffic, wire="pallas", dtype="float32",
+         card=nvidia_smi_line() if is_cuda else None,
+         prompt_lens={"min": int(workload[1].min()), "max": int(workload[1].max())},
+         drive_a={"requests_exact": len(reqs), "oracle_check_s": oracle_s,
+                  "sampled_requests": sum(r.sampling is not None for r in reqs),
+                  "ttft_ms": percentiles_ms([r.ttft for r in reqs]),
+                  "tpot_ms": percentiles_ms([r.tpot for r in reqs if r.tpot is not None]),
+                  "output_tok_s": snap["output_tokens"] / wall, "wall_s": wall,
+                  "acceptance_rate": snap.get("spec_acceptance_rate"),
+                  "cache_hits": moved["prefix_cache_hits"],
+                  "prefill_tokens_skipped": moved["prefill_tokens_skipped"],
+                  "counters": moved, "b9_launches": launches_a,
+                  "vanilla_replay_differs": vanilla},
+         drive_b={"requests_exact": len(done), "routed_at_kill": routed_at_kill,
+                  "replica_1_steps": b_steps, "recoveries": n_recoveries,
+                  "lost_copies": bsnap["lost"], "completed": bsnap["completed"]},
+         call_p50_ms=p50, b9_launches=meter.launches, b9_held_on_the_drive=b9_held,
+         fallbacks=fallbacks, b9_at_serving_shapes=timing,
+         profiled_drive={"wall_s": prof_wall, "device_busy_ms": busy_ms,
+                         "idle_share": 1.0 - busy_ms / (prof_wall * 1e3),
+                         "device_events": len(spans)})
+    return dict(meter.launches)
+
 def main() -> None:
     t_start = time.perf_counter()
     toolchain()
@@ -2496,7 +2843,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     serve_launches = serve_path()
     torch.cuda.empty_cache()
-    ep_launches["a2a"] += serve_launches["prefill"] + serve_launches["decode"]
+    serve_launches["serve_features_path"] = serve_features_path()
+    torch.cuda.empty_cache()
+    ep_launches["a2a"] += (serve_launches["prefill"] + serve_launches["decode"]
+                           + sum(serve_launches["serve_features_path"].values()))
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": errs[name],

@@ -244,11 +244,12 @@ def test_wrapper_refuses_what_the_kernels_do_not_take(dev):
 
 def test_flagship_flash_matches_plain_attention(dev):
     from uccl_tpu_torch.models import flagship as fl
+    from uccl_tpu_torch.models.sampling import prng_key
 
     cfg = fl.FlagshipConfig(vocab=256, dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
                             head_dim=64, moe_experts=4, moe_ffn=192,
                             capacity_factor=1.25, dtype=torch.bfloat16)
-    params = fl.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    params = fl.init_params(prng_key(0), cfg, dev)
     rng = np.random.default_rng(0)
     tokens = torch.tensor(rng.integers(0, cfg.vocab, (2, 128)), device=dev)
     targets = torch.tensor(rng.integers(0, cfg.vocab, (2, 128)), device=dev)

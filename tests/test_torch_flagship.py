@@ -22,6 +22,7 @@ import torch
 from uccl_tpu.models import flagship as jf
 from uccl_tpu.parallel.mesh import MeshConfig, make_mesh
 from uccl_tpu_torch.models import flagship as tf
+from uccl_tpu_torch.models.sampling import prng_key
 
 LR = 3e-4
 SIZE = dict(vocab=128, dim=64, n_layers=2, n_heads=4, n_kv_heads=2, head_dim=16,
@@ -154,7 +155,7 @@ def test_params_round_trip_and_init_shapes(data):
     for name, a in _leaves(params).items():
         np.testing.assert_array_equal(back[name], a)
     cfg = tf.FlagshipConfig(**SIZE)
-    init = tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    init = tf.init_params(prng_key(0), cfg, "cpu")
     assert {k: v.shape for k, v in _leaves(tf.params_to_numpy(init)).items()} == \
         {k: v.shape for k, v in _leaves(params).items()}
 
@@ -176,6 +177,6 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tf.FlagshipConfig(**SIZE)
     with pytest.raises(RuntimeError):
-        tf.init_params(cfg, torch.Generator().manual_seed(0))
+        tf.init_params(prng_key(0), cfg)
     with pytest.raises(RuntimeError):
         tf.make_train_step(cfg)

@@ -21,6 +21,7 @@ from uccl_tpu.models import inference as jinf
 from uccl_tpu.serving.sampling import SamplingParams as JSampling
 from uccl_tpu_torch.models import dense as tdense
 from uccl_tpu_torch.models import inference as tinf
+from uccl_tpu_torch.models.sampling import prng_key
 from uccl_tpu_torch.serving.sampling import SamplingParams
 
 SIZES = dict(vocab=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2, head_dim=16, ffn=128)
@@ -52,7 +53,7 @@ def test_bridge_round_trips_names_and_layouts(models):
 
 def test_init_params_shapes_match_jax(models):
     jcfg, jp, tcfg, _ = models
-    tp = tdense.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    tp = tdense.init_params(prng_key(0), tcfg, device="cpu")
     want = jax.tree.map(lambda a: tuple(a.shape), jp)
     got = jax.tree.map(lambda t: tuple(t.shape), tdense.params_to_numpy(tp))
     assert got == want

@@ -70,8 +70,20 @@ def test_oneshot_batch_mode(capsys):
     (["--server", "--replicas", "2"], "item 10d"),
 ])
 def test_flags_of_later_slices_are_refused_by_name(flags, item):
-    with pytest.raises(SystemExit, match=item):
-        serve.main(["--device", "cpu", *flags])
+    """``--ckpt-dir`` is still refused naming its item. The serving flags
+    of items 10g, 10a, 10c and 10d are ported: they are no longer refused
+    and reach the engine's knobs."""
+    if item == "item 6":
+        with pytest.raises(SystemExit, match=item):
+            serve.main(["--device", "cpu", *flags])
+        return
+    args = serve.parser().parse_args(["--device", "cpu", *flags])
+    serve._refuse_unported(args)
+    kw = serve.engine_kwargs(args)
+    assert {"item 10g": kw["prefill_chunk"] == 4 or args.step_tokens == 8,
+            "item 10a": kw["spec_k"] == 2,
+            "item 10c": args.adapter_rank == 4 and kw["tenant_fair"],
+            "item 10d": args.replicas == 2}[item]
 
 
 def test_bad_world_and_slots_are_refused():
@@ -96,3 +108,48 @@ def test_module_entry_point_runs_in_a_fresh_interpreter():
         timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert _last_json(proc.stdout)["oracle_match"] is True
+
+
+@pytest.mark.parametrize("stack,extra", [
+    ("moe", ["--dp", "4", "--slots", "4", "--prefill-chunk", "4", "--step-tokens", "16",
+             "--spec-k", "2", "--priority-classes", "--temperature", "0.8", "--top-k", "20"]),
+    ("dense", ["--slots", "2", "--tenants", "2", "--adapter-rank", "4", "--prefill-chunk", "4"]),
+    ("moe", ["--dp", "2", "--slots", "4", "--replicas", "2", "--prefill-chunk", "4",
+             "--spec-k", "2"]),
+])
+def test_server_engine_flags_check_oracle(capsys, stack, extra):
+    """The engine knobs of the serving slice through the CLI: every request
+    equal to its replay (with its engine's drafter and adapters, on the
+    replica that ran it), no slot leaked."""
+    summary, reqs = serve.main(["--server", "--check-oracle", "--stack", stack, *SMALL, *extra])
+    assert summary["oracle_match"] and summary["leaked_slots"] == 0 and summary["conservation"]
+    assert summary["completed"] == len(reqs) == 8 and summary["mismatches"] == []
+    if "--replicas" in extra:
+        assert summary["replicas"] == 2 and {r.replica for r in reqs} == {0, 1}
+    if "--adapter-rank" in extra:
+        assert {r.adapter for r in reqs} == {"t0", "t1"}
+    assert all(r.prefill_chunk == 4 for r in reqs)
+
+
+def test_bad_engine_flags_are_refused():
+    for flags, msg in ((["--step-tokens", "8"], "needs --prefill-chunk"),
+                       (["--prefill-chunk", "8", "--step-tokens", "4"], "must be >="),
+                       (["--adapter-rank", "4"], "needs --tenants"),
+                       (["--replicas", "0"], "--replicas must be")):
+        with pytest.raises(SystemExit, match=msg):
+            serve.main(["--server", *SMALL, *flags])
+
+
+def test_feature_workloads_draw_like_the_originals():
+    import numpy as np
+
+    from uccl_tpu.serving import loadgen as jload
+    from uccl_tpu_torch.serving import loadgen as tload
+
+    for name, args in (("synth_shared_workload", (9, 32, 100, 8.0, 0.5, 12)),
+                       ("synth_multi_prefix_workload", (7, 32, 100, 4.0, 3, 12)),
+                       ("synth_repeat_workload", (8, 24, 100, 0.0))):
+        tp, tl, ta = getattr(tload, name)(np.random.default_rng(5), *args)
+        jp, jl, ja = getattr(jload, name)(np.random.default_rng(5), *args)
+        assert [p.tolist() for p in tp] == [p.tolist() for p in jp]
+        assert np.array_equal(tl, jl) and np.array_equal(ta, ja)

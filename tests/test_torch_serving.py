@@ -34,6 +34,7 @@ from uccl_tpu_torch import obs as tobs
 from uccl_tpu_torch.models import dense as tdense
 from uccl_tpu_torch.models import inference as tinf
 from uccl_tpu_torch.models import moe_inference as tmoe
+from uccl_tpu_torch.models import sampling as tsampling
 from uccl_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from uccl_tpu_torch.serving import engine as tengine
 from uccl_tpu_torch.serving import loadgen as tload
@@ -165,37 +166,62 @@ def test_replay_needs_a_request_the_engine_prefilled():
         tengine.replay_alone(_tiny_dense_backend(n_slots=2, max_seq=8), req)
 
 
+# The knobs these tests once found unported are ported now: each, set
+# without what it needs, raises the JAX engine's ValueError, and both
+# engines refuse the same settings with the same message.
 KNOBS = [
-    (dict(prefill_chunk=4), ValueError, "10g"), (dict(step_tokens=8), ValueError, "10g"),
-    (dict(chunk_sink=print), ValueError, "10g"), (dict(preempt=True), ValueError, "10g"),
-    (dict(spec_k=2), ValueError, "10a"), (dict(drafter=object()), ValueError, "10a"),
-    (dict(prefix_cache=object()), ValueError, "10b"), (dict(adapters=object()), ValueError, "10c"),
-    (dict(kv_tiers=object()), ValueError, "10f"),
+    (dict(prefill_chunk=0), ValueError, "prefill_chunk must be >= 1"),
+    (dict(step_tokens=8), ValueError, "step_tokens requires prefill_chunk"),
+    (dict(chunk_sink=print), ValueError, "chunk_sink requires prefill_chunk"),
+    (dict(preempt=True), ValueError, "preempt requires priority_classes"),
+    (dict(spec_k=0), ValueError, "spec_k must be >= 1"),
+    (dict(drafter=object()), ValueError, "drafter requires spec_k"),
+    (dict(prefix_cache=object()), ValueError, "prefix_cache requires prefill_chunk"),
+    (dict(adapters=object()), ValueError, "adapters must be an AdapterStore"),
+    (dict(kv_tiers=object()), ValueError, "kv_tiers requires prefix_cache"),
 ]
 
 
 @pytest.mark.parametrize("kw,exc,item", KNOBS, ids=[next(iter(k)) for k, _, _ in KNOBS])
 def test_knobs_of_later_slices_raise_and_name_their_item(kw, exc, item):
     backend = _tiny_dense_backend()
-    with pytest.raises(exc, match=f"queue A item {item}"):
+    with pytest.raises(exc, match=item):
         tengine.ServingEngine(backend, **kw)
+    with pytest.raises(exc, match=item):
+        jengine.ServingEngine(backend, **kw)
 
 
 @pytest.mark.parametrize("method,item", [("attach_fleet", "10i"), ("adopt", "10h"),
                                          ("kill", "10e"), ("evacuate", "10e")])
 def test_methods_of_later_slices_raise_and_name_their_item(method, item):
+    """``attach_fleet`` and ``adopt`` still raise naming their item;
+    ``kill`` and ``evacuate`` are ported: a killed engine's step raises, and
+    evacuate strips its queue and slots."""
     eng = tengine.ServingEngine(_tiny_dense_backend())
-    args = (None,) if method == "attach_fleet" else ()
-    with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
-        getattr(eng, method)(*args)
-    with pytest.raises(ValueError, match="queue A item 10c"):
+    if method in ("kill", "evacuate"):
+        req = eng.submit([1, 2], max_new_tokens=3)
+        eng.step()
+        eng.submit([3], max_new_tokens=2)
+        if method == "kill":
+            eng.kill()
+            with pytest.raises(RuntimeError, match="dead"):
+                eng.step()
+        else:
+            queued, active = eng.evacuate()
+            assert active == [req] and len(queued) == 1
+            assert not eng.has_work() and eng.pool.leaked() == 0
+    else:
+        args = (None,) if method == "attach_fleet" else ()
+        with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
+            getattr(eng, method)(*args)
+    with pytest.raises(ValueError, match="AdapterStore"):
         eng.submit([1, 2], max_new_tokens=2, adapter="a")
 
 
 def _tiny_dense_backend(n_slots=2, max_seq=16):
     cfg = tdense.DenseConfig(vocab=32, dim=16, n_layers=1, n_heads=2, n_kv_heads=1, head_dim=8,
                              ffn=16)
-    params = tdense.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params = tdense.init_params(tsampling.prng_key(0), cfg, "cpu")
     return tengine.DenseBackend(params, cfg, n_slots=n_slots, max_seq=max_seq)
 
 

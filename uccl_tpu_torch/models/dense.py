@@ -5,7 +5,8 @@ Port of part of ``uccl_tpu/models/dense.py``: :class:`DenseConfig` and
 (``models/inference.py``) runs. Dense training (the JAX module's
 ``forward`` / ``loss_fn`` / ``make_train_step``) is not ported yet.
 
-``params_from_jax`` / ``params_to_numpy`` carry a JAX parameter tree to
+``init_params(prng_key(seed), cfg)`` draws the JAX init's weights for the
+same seed. ``params_from_jax`` / ``params_to_numpy`` carry a JAX parameter tree to
 this package and back through numpy: names and layouts are the same, and
 nothing is transposed.
 """
@@ -20,6 +21,7 @@ import torch
 
 from uccl_tpu_torch import DeviceLike, resolve_device
 from uccl_tpu_torch.models.flagship import params_from_jax, params_to_numpy  # noqa: F401
+from uccl_tpu_torch.models.sampling import normal, split
 
 Params = Dict[str, Any]
 
@@ -42,33 +44,35 @@ class DenseConfig:
     dtype: torch.dtype = torch.float32  # serving: activations, KV and logits
 
 
-def init_params(cfg: DenseConfig, generator: torch.Generator,
-                device: DeviceLike = None) -> Params:
-    """Random f32 parameters with the JAX model's scales (normal * 1/sqrt(fan
-    in), embeddings * 0.02, norms at 1), drawn from ``generator`` on the CPU
-    and moved to ``device``. The numbers differ from the JAX init of the
-    same seed; use :func:`params_from_jax` to share weights."""
+def init_params(key: torch.Tensor, cfg: DenseConfig, device: DeviceLike = None) -> Params:
+    """The JAX ``init_params(key, cfg)``: f32 parameters drawn on ``device``
+    from ``key`` (``sampling.prng_key(seed)``, JAX's ``PRNGKey(seed)``) by
+    the same ``split(key, 10)``, the same leaf order and the same scales
+    (normal * 1/sqrt(fan in), embeddings * 0.02, norms at 1). The draws'
+    bits equal JAX's; each normal lies within a few ulp of JAX's
+    (``sampling.erf_inv``)."""
     dev = resolve_device(device)
+    k = split(key.to(dev), 10)
     h, l, f = cfg.dim, cfg.n_layers, cfg.ffn
     qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
     s_in, s_f = 1.0 / math.sqrt(h), 1.0 / math.sqrt(f)
 
-    def rnd(shape, scale):
-        return (torch.randn(shape, generator=generator) * scale).to(dev)
+    def rnd(i, shape, scale):
+        return normal(k[i], shape) * scale
 
     return {
-        "embed": rnd((cfg.vocab, h), 0.02),
+        "embed": rnd(0, (cfg.vocab, h), 0.02),
         "blocks": {
             "ln1": torch.ones((l, h), device=dev),
             "ln2": torch.ones((l, h), device=dev),
-            "wq": rnd((l, h, qd), s_in),
-            "wk": rnd((l, h, kvd), s_in),
-            "wv": rnd((l, h, kvd), s_in),
-            "wo": rnd((l, qd, h), 1.0 / math.sqrt(qd)),
-            "w_gate": rnd((l, h, f), s_in),
-            "w_up": rnd((l, h, f), s_in),
-            "w_down": rnd((l, f, h), s_f),
+            "wq": rnd(1, (l, h, qd), s_in),
+            "wk": rnd(2, (l, h, kvd), s_in),
+            "wv": rnd(3, (l, h, kvd), s_in),
+            "wo": rnd(4, (l, qd, h), 1.0 / math.sqrt(qd)),
+            "w_gate": rnd(5, (l, h, f), s_in),
+            "w_up": rnd(6, (l, h, f), s_in),
+            "w_down": rnd(7, (l, f, h), s_f),
         },
         "final_norm": torch.ones((h,), device=dev),
-        "head": rnd((h, cfg.vocab), s_in),
+        "head": rnd(8, (h, cfg.vocab), s_in),
     }

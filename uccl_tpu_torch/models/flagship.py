@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from uccl_tpu_torch import DeviceLike, resolve_device
 from uccl_tpu_torch.ep import ops as ep_ops
 from uccl_tpu_torch.models.layers import rms_norm, rope, tp_cross_entropy
+from uccl_tpu_torch.models.sampling import normal, split
 from uccl_tpu_torch.ops.attention import attention_reference
 from uccl_tpu_torch.ops.flash_attention import flash_attention
 
@@ -135,19 +136,20 @@ def param_shapes(cfg: FlagshipConfig) -> Params:
     }
 
 
-def init_params(cfg: FlagshipConfig, generator: torch.Generator,
-                device: DeviceLike = None) -> Params:
-    """Random f32 parameters with the JAX model's scales (normal * 1/sqrt(fan
-    in), embeddings * 0.02, norms at 1), drawn from ``generator`` on the CPU
-    and moved to ``device``. The numbers differ from the JAX init of the
-    same seed; use :func:`params_from_jax` to share weights."""
+def init_params(key: torch.Tensor, cfg: FlagshipConfig, device: DeviceLike = None) -> Params:
+    """The JAX ``init_params(key, cfg)``: f32 parameters drawn on ``device``
+    from ``key`` (``sampling.prng_key(seed)``, JAX's ``PRNGKey(seed)``) by
+    the same ``split(key, 10)``, leaf order and scales (normal * 1/sqrt(fan
+    in), embeddings * 0.02, norms at 1). The bits equal JAX's; each normal
+    lies within a few ulp of JAX's (``sampling.erf_inv``)."""
     dev = resolve_device(device)
+    k = iter(split(key.to(dev), 10))
     h, f = cfg.dim, cfg.moe_ffn
     qd = cfg.n_heads * cfg.head_dim
     shapes = param_shapes(cfg)
 
-    def rnd(shape, scale):
-        return (torch.randn(shape, generator=generator) * scale).to(dev)
+    def rnd(shape, scale):  # the keys in the JAX init's leaf order
+        return normal(next(k), shape) * scale
 
     s_in = 1.0 / math.sqrt(h)
     blocks = shapes["blocks"]

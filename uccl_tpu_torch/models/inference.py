@@ -196,8 +196,10 @@ class SlotKVCache(NamedTuple):
     # masked-attention invariant.
 
     def export_rows(self, slot: int, lo: int, hi: int):
-        """Host copies of rows [lo, hi): (k, v) each [L, hi-lo, Hkv, D]."""
-        return (self.k[:, slot, lo:hi].cpu().numpy(), self.v[:, slot, lo:hi].cpu().numpy())
+        """Host copies of rows [lo, hi): (k, v) each [L, hi-lo, Hkv, D].
+        Copies on any device (a CPU tensor's ``.cpu()`` would be the pool's
+        own memory, which the slot's next occupant overwrites)."""
+        return tuple(t[:, slot, lo:hi].to("cpu", copy=True).numpy() for t in (self.k, self.v))
 
     def import_rows(self, slot: int, k_rows, v_rows, *, length: int) -> "SlotKVCache":
         """Rows [0, n) of ``slot`` replaced by ``k_rows``/``v_rows``

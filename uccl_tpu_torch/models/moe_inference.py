@@ -37,7 +37,9 @@ from uccl_tpu_torch.models.flagship import params_from_jax, params_to_numpy  # n
 from uccl_tpu_torch.models.inference import (
     KVCache, SlotKVCache, _as, _forward_cached, _forward_slots, greedy_acceptance, spec_advance,
 )
-from uccl_tpu_torch.models.sampling import broadcast_params, sample_tokens, sample_window
+from uccl_tpu_torch.models.sampling import (
+    broadcast_params, normal, sample_tokens, sample_window, split,
+)
 
 _AXIS = "dp"  # the EP/serving axis of the mesh
 _EXPERT_LEAVES = ("we_gate", "we_up", "we_down")
@@ -129,37 +131,39 @@ class MoESlotCache(NamedTuple):
         return self
 
 
-def init_params(cfg: MoEServeConfig, generator: torch.Generator,
+def init_params(key: torch.Tensor, cfg: MoEServeConfig,
                 device: DeviceLike = None) -> Dict[str, Any]:
-    """Global parameter tree (experts carry the full [E, ...] axis), f32,
-    with the JAX model's scales, drawn from ``generator`` on the CPU and
-    moved to ``device``. The numbers differ from the JAX init of the same
-    seed; use :func:`params_from_jax` to share weights."""
+    """Global parameter tree (experts carry the full [E, ...] axis), f32:
+    the JAX ``init_params(key, cfg)``, drawn on ``device`` from ``key``
+    (``sampling.prng_key(seed)``) by the same ``split(key, 12)``, leaf order
+    and scales. The bits equal JAX's; each normal lies within a few ulp of
+    JAX's (``sampling.erf_inv``)."""
     dev = resolve_device(device)
+    k = split(key.to(dev), 12)
     h, l, f, e = cfg.dim, cfg.n_layers, cfg.moe_ffn, cfg.moe_experts
     qd = cfg.n_heads * cfg.head_dim
     kvd = cfg.n_kv_heads * cfg.head_dim
     s_in, s_f = 1.0 / math.sqrt(h), 1.0 / math.sqrt(f)
 
-    def rnd(shape, scale):
-        return (torch.randn(shape, generator=generator) * scale).to(dev)
+    def rnd(i, shape, scale):
+        return normal(k[i], shape) * scale
 
     return {
-        "embed": rnd((cfg.vocab, h), 0.02),
+        "embed": rnd(0, (cfg.vocab, h), 0.02),
         "blocks": {
             "ln1": torch.ones((l, h), device=dev),
             "ln2": torch.ones((l, h), device=dev),
-            "wq": rnd((l, h, qd), s_in),
-            "wk": rnd((l, h, kvd), s_in),
-            "wv": rnd((l, h, kvd), s_in),
-            "wo": rnd((l, qd, h), 1.0 / math.sqrt(qd)),
-            "router": rnd((l, h, e), s_in),
-            "we_gate": rnd((l, e, h, f), s_in),
-            "we_up": rnd((l, e, h, f), s_in),
-            "we_down": rnd((l, e, f, h), s_f),
+            "wq": rnd(1, (l, h, qd), s_in),
+            "wk": rnd(2, (l, h, kvd), s_in),
+            "wv": rnd(3, (l, h, kvd), s_in),
+            "wo": rnd(4, (l, qd, h), 1.0 / math.sqrt(qd)),
+            "router": rnd(5, (l, h, e), s_in),
+            "we_gate": rnd(6, (l, e, h, f), s_in),
+            "we_up": rnd(7, (l, e, h, f), s_in),
+            "we_down": rnd(8, (l, e, f, h), s_f),
         },
         "final_norm": torch.ones((h,), device=dev),
-        "head": rnd((h, cfg.vocab), s_in),
+        "head": rnd(9, (h, cfg.vocab), s_in),
     }
 
 

@@ -30,8 +30,10 @@ survives; ``top_p >= 1`` disables the nucleus mask exactly.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -93,6 +95,57 @@ def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
     i = torch.arange(n, dtype=torch.int64, device=key.device)
     y0, y1 = threefry2x32(key[..., 0, None], key[..., 1, None], torch.zeros_like(i), i)
     return y0 ^ y1
+
+
+def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, n)`` in the partitionable mode: key ``i``
+    is the two threefry output words of the counter ``(0, i)`` (the
+    ``fold_in`` of ``i``). One key ``[2]`` -> ``[n, 2]``."""
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(i), i)
+    return torch.stack([y0, y1], dim=-1)
+
+
+# XLA's float32 erf_inv (the chlo legalization JAX lowers lax.erf_inv to):
+# Giles' single-precision approximation, one degree-8 polynomial in
+# w = -log1p(-x*x) - 2.5 below w = 5 and one in sqrt(w) - 3 above
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GT5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """``lax.erf_inv`` for float32, in torch ops: the same constants and the
+    same order of operations. XLA contracts each Horner step ``c + p * w``
+    into a fused multiply-add; here it is one float64 multiply-add rounded
+    to float32 (the product of two floats is exact in float64), which
+    matches it but for a rare double rounding. ``log1p`` and the last
+    products may still round otherwise: results lie within a few ulp of
+    XLA's (``tests/test_torch_init.py`` states the bound)."""
+    w = -torch.log1p(x * -x)
+    lt5 = w < 5.0
+    w = torch.where(lt5, w - 2.5, torch.sqrt(w) - 3.0)
+    lo = torch.tensor(_ERFINV_LT5, dtype=torch.float32, device=x.device)
+    hi = torch.tensor(_ERFINV_GT5, dtype=torch.float32, device=x.device)
+    p = torch.where(lt5, lo[0], hi[0])
+    for i in range(1, len(_ERFINV_LT5)):
+        c = torch.where(lt5, lo[i], hi[i])
+        p = (c.double() + p.double() * w.double()).float()
+    return torch.where(x.abs() == 1.0, torch.inf * x, p * x)
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: uniform floats on
+    ``[nextafter(-1, 0), 1)`` from the partitionable bits of the flattened
+    shape, then ``sqrt(2) * erf_inv``. The bits are integer hashing and
+    equal JAX's on any device; the polynomial may differ by a few ulp."""
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, n, minval=lo, maxval=1.0)
+    return (torch.tensor(math.sqrt(2), dtype=torch.float32, device=key.device)
+            * erf_inv(u)).reshape(shape)
 
 
 def uniform(key: torch.Tensor, n: int, minval: float = 0.0,

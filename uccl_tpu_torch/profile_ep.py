@@ -54,6 +54,7 @@ from uccl_tpu_torch import resolve_device
 from uccl_tpu_torch.ep import Buffer
 from uccl_tpu_torch.ep import ops as ep_ops
 from uccl_tpu_torch.models import flagship
+from uccl_tpu_torch.models.sampling import prng_key
 from uccl_tpu_torch.models.layers import rms_norm
 from uccl_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from uccl_tpu_torch.train import _batch_for_step
@@ -69,7 +70,7 @@ def layer_inputs(dev, batch: int, seq: int):
     """Layer 0's MoE input [W, T, H] bf16 on each member's own batch, its
     router logits [W, T, E] f32 and the experts sharded [W, E_local, ...]."""
     cfg = flagship.bench_config()
-    params = flagship.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    params = flagship.init_params(prng_key(0), cfg, dev)
     lp = {k: params["blocks"][k][0] for k in flagship._BLOCK_KEYS}
     xs = []
     with torch.no_grad():

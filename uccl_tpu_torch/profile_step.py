@@ -29,6 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from uccl_tpu_torch import resolve_device
 from uccl_tpu_torch.models import flagship
+from uccl_tpu_torch.models.sampling import prng_key
 from uccl_tpu_torch.train import _batch_for_step
 
 _CLASSES = (
@@ -73,7 +74,7 @@ def main(argv=None):
 
     dev = resolve_device("cuda")
     cfg = flagship.bench_config()
-    params = flagship.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    params = flagship.init_params(prng_key(0), cfg, dev)
     train_step, init_opt = flagship.make_train_step(cfg, dev)
     opt_state = init_opt(params)
     batches = [_batch_for_step(i, args.batch, args.seq, cfg.vocab)

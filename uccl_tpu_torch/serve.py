@@ -29,11 +29,14 @@ engine's batch, whose kernels sum in another order, so a near-tie can fall
 the other way there; the port's tests hold the engine to ``generate`` on the
 CPU, where it is exact, and the replay holds it on any device.
 
-Not ported yet, and refused if passed: ``--ckpt-dir`` (the port's trainer
-writes no checkpoints yet, ROADMAP queue A item 6), and the engine knobs of
-later serving modules (``--prefill-chunk``, ``--step-tokens``,
-``--spec-k``, ``--replicas`` above 1, ``--adapter-rank``), each named with
-its ROADMAP item. The EP wire is ``MoEServeConfig.moe_wire`` (``lax`` by
+The engine's knobs: ``--prefill-chunk C`` (chunked prefill; with
+``--priority-classes`` it also preempts), ``--step-tokens`` (the per-step
+token budget), ``--spec-k K`` (speculative decoding with the n-gram
+drafter), ``--tenants N --adapter-rank R`` (one published LoRA adapter per
+tenant, fused per slot) and ``--replicas N`` (a least-loaded Router over N
+replicas of one backend). Not ported yet, and refused if passed:
+``--ckpt-dir`` (the port's trainer writes no checkpoints yet, ROADMAP
+queue A item 6). The EP wire is ``MoEServeConfig.moe_wire`` (``lax`` by
 default); the JAX CLI has no flag for it, so neither has this one.
 """
 
@@ -53,15 +56,6 @@ import torch
 
 from uccl_tpu_torch import obs, resolve_device
 from uccl_tpu_torch.serving.metrics import percentile, percentiles_ms
-
-_UNPORTED_SERVER_FLAGS = (
-    # (flag, attribute, ROADMAP queue A item, module)
-    ("--prefill-chunk", "prefill_chunk", "10g", "chunked prefill"),
-    ("--step-tokens", "step_tokens", "10g", "chunked prefill"),
-    ("--spec-k", "spec_k", "10a", "serving/spec.py"),
-    ("--adapter-rank", "adapter_rank", "10c", "serving/adapters.py"),
-)
-
 
 def _sync(device) -> None:
     if device.type == "cuda":
@@ -135,8 +129,11 @@ def dense_config(args):
         n_kv_heads=args.kv_heads, head_dim=args.dim // args.heads, ffn=args.ffn)
 
 
-def _generator(args) -> torch.Generator:
-    return torch.Generator().manual_seed(args.seed)
+def _key(args) -> torch.Tensor:
+    """The weights' key: ``--seed``'s, the JAX CLI's ``PRNGKey(seed)``."""
+    from uccl_tpu_torch.models.sampling import prng_key
+
+    return prng_key(args.seed)
 
 
 def build_stack(args, device, **fields):
@@ -150,7 +147,7 @@ def build_stack(args, device, **fields):
         from uccl_tpu_torch.models.dense import init_params
 
         cfg = dense_config(args)
-        backend = DenseBackend(init_params(cfg, _generator(args), device), cfg,
+        backend = DenseBackend(init_params(_key(args), cfg, device), cfg,
                                n_slots=args.slots, max_seq=max_seq)
         return backend, 1, cfg.vocab
 
@@ -163,47 +160,80 @@ def build_stack(args, device, **fields):
                          "(one slot pool row per member batch row)")
     impl = args.impl if args.impl != "auto" else ("sort" if world == 1 else "ll")
     server = MoEServer(cfg, make_mesh(MeshConfig(dp=world), device, world))
-    backend = MoEBackend(server, server.shard_params(init_params(cfg, _generator(args), device)),
+    backend = MoEBackend(server, server.shard_params(init_params(_key(args), cfg, device)),
                          batch_local=args.slots // world, max_seq=max_seq, decode_impl=impl)
     return backend, world, cfg.vocab
 
 
-def oracle_check(engine, reqs) -> dict:
-    """``--check-oracle`` on a drained engine (before ``close``): every
-    request's tokens against :func:`serving.replay_alone` on the engine's
-    backend, no slot leaked, the queue empty, the conservation check holding
-    and every request completed. ``mismatches`` lists each request that
-    differs, with its first diverging output position and the two tokens
-    there."""
+def oracle_check(target, reqs) -> dict:
+    """``--check-oracle`` on a drained engine or Router (before ``close``):
+    every request's tokens against :func:`serving.replay_alone` on the
+    backend of the engine that ran it (with that engine's drafter and
+    adapter store), no slot leaked, every queue empty, the conservation
+    check holding on every engine and every request completed.
+    ``mismatches`` lists each request that differs, with its first
+    diverging output position and the two tokens there."""
     from uccl_tpu_torch.serving import replay_alone
 
+    engines = list(getattr(target, "engines", [target]))
+    by_pid = (dict(zip(target._pids, engines)) if hasattr(target, "_pids")
+              else {None: target})
     mismatched = []
     for r in reqs:
-        want = replay_alone(engine.backend, r).tolist()
+        eng = by_pid[r.replica]
+        want = replay_alone(eng.backend, r, drafter=eng.drafter,
+                            adapters=eng.adapters).tolist()
         if r.out_tokens != want:
-            pos = next(i for i, (a, b) in enumerate(zip(r.out_tokens, want)) if a != b)
-            mismatched.append({"rid": r.rid, "pos": pos, "got": r.out_tokens[pos],
-                               "want": want[pos], "sampled": r.sampling is not None})
-    leaked = engine.pool.leaked()
-    conserved = engine.conservation_holds()
-    ok = (not leaked and not mismatched and engine.sched.qsize == 0 and conserved
-          and engine.snapshot()["completed"] == len(reqs))
+            pos = next((i for i, (a, b) in enumerate(zip(r.out_tokens, want)) if a != b),
+                       min(len(want), len(r.out_tokens)))
+            mismatched.append({"rid": r.rid, "pos": pos,
+                               "got": r.out_tokens[pos] if pos < len(r.out_tokens) else None,
+                               "want": want[pos] if pos < len(want) else None,
+                               "sampled": r.sampling is not None})
+    leaked = sum(e.pool.leaked() for e in engines)
+    conserved = all(e.conservation_holds() for e in engines)
+    completed = sum(e.snapshot()["completed"] for e in engines)
+    ok = (not leaked and not mismatched and not any(e.sched.qsize for e in engines)
+          and conserved and completed == len(reqs))
     return {"oracle_match": bool(ok), "leaked_slots": leaked, "conservation": conserved,
             "mismatches": mismatched}
+
+
+def adapter_store(args, device):
+    """``--tenants N --adapter-rank R``: one published LoRA adapter per
+    synthetic tenant ``t{j}``, drawn from the JAX CLI's key
+    ``PRNGKey(seed * 7919 + j + 1)``; None without ``--adapter-rank``."""
+    if not args.adapter_rank:
+        return None
+    from uccl_tpu_torch.models.sampling import prng_key
+    from uccl_tpu_torch.serving import AdapterStore, make_lora
+
+    hd = args.dim // args.heads
+    store = AdapterStore(args.layers, args.dim, args.heads * hd, args.kv_heads * hd,
+                         max_rank=args.adapter_rank, capacity=max(4, args.slots), device=device)
+    for j in range(args.tenants):
+        store.publish(f"t{j}", make_lora(prng_key(args.seed * 7919 + j + 1), args.layers,
+                                         args.dim, args.heads * hd, args.kv_heads * hd,
+                                         args.adapter_rank))
+    return store
+
+
+def engine_kwargs(args, store=None) -> dict:
+    """The ``ServingEngine`` knobs the CLI sets. Preemption rides the
+    priority flag whenever the engine is chunked (chunk boundaries are what
+    make pause and resume cheap); a whole-prompt priority engine still
+    class-orders its queue."""
+    return dict(max_queue=args.max_queue or None, register_stats=True,
+                prefill_chunk=args.prefill_chunk or None, step_tokens=args.step_tokens or None,
+                spec_k=args.spec_k or None, priority_classes=args.priority_classes,
+                preempt=bool(args.priority_classes and args.prefill_chunk), adapters=store,
+                tenant_fair=bool(args.tenants) or None)
 
 
 def _refuse_unported(args) -> None:
     if args.ckpt_dir:
         raise SystemExit("--ckpt-dir: the port's trainer writes no checkpoints yet "
                          "(ROADMAP queue A item 6); serve initialises params from --seed")
-    if args.server:
-        for flag, attr, item, module in _UNPORTED_SERVER_FLAGS:
-            if getattr(args, attr):
-                raise SystemExit(f"{flag} needs {module}, which is not ported yet "
-                                 f"(ROADMAP queue A item {item})")
-        if args.replicas != 1:
-            raise SystemExit("--replicas above 1 needs serving/router.py, which is not "
-                             "ported yet (ROADMAP queue A item 10d)")
 
 
 def serve_continuous(args):
@@ -211,8 +241,12 @@ def serve_continuous(args):
     Returns (summary, requests). With ``--check-oracle`` the summary
     carries :func:`oracle_check`'s reading, and a failed check raises
     ``SystemExit``."""
-    from uccl_tpu_torch.serving import SamplingParams, ServingEngine, ServingMetrics
-    from uccl_tpu_torch.serving.loadgen import assign_classes, drive, synth_workload, warm_engine
+    from uccl_tpu_torch.serving import (
+        Router, SamplingParams, ServingEngine, ServingMetrics, replicate_backend,
+    )
+    from uccl_tpu_torch.serving.loadgen import (
+        assign_classes, drive, synth_workload, warm_engine, warm_replicas,
+    )
 
     device = resolve_device(args.device)
     if args.slots < 1:
@@ -230,6 +264,20 @@ def serve_continuous(args):
     if args.tenants and args.priority_classes:
         raise SystemExit("--tenants and --priority-classes are mutually exclusive admission "
                          "policies (per-tenant DRR has no class ladder)")
+    if args.spec_k < 0:
+        raise SystemExit(f"--spec-k must be >= 0, got {args.spec_k}")
+    if args.replicas < 1:
+        raise SystemExit(f"--replicas must be >= 1, got {args.replicas}")
+    if args.adapter_rank < 0:
+        raise SystemExit(f"--adapter-rank must be >= 0, got {args.adapter_rank}")
+    if args.adapter_rank and not args.tenants:
+        raise SystemExit("--adapter-rank needs --tenants (adapters are per tenant)")
+    if args.step_tokens and not args.prefill_chunk:
+        raise SystemExit("--step-tokens needs --prefill-chunk (the whole-prompt path has no "
+                         "sub-step unit to budget with)")
+    if args.prefill_chunk and args.step_tokens and args.step_tokens < args.prefill_chunk:
+        raise SystemExit(f"--step-tokens {args.step_tokens} must be >= --prefill-chunk "
+                         f"{args.prefill_chunk}, or no request could ever be admitted")
     max_seq = args.max_seq or (args.prompt_len + args.new_tokens)
     if args.prompt_len + args.new_tokens > max_seq:
         raise SystemExit("--prompt-len + --new-tokens exceed --max-seq")
@@ -237,9 +285,10 @@ def serve_continuous(args):
         args.stack = "moe"
 
     backend, world, vocab = build_stack(args, device)
-    engine = ServingEngine(backend, max_queue=args.max_queue or None, register_stats=True,
-                           priority_classes=args.priority_classes,
-                           tenant_fair=bool(args.tenants) or None)
+    store = adapter_store(args, device)
+    engines = [ServingEngine(b, **engine_kwargs(args, store))
+               for b in replicate_backend(backend, args.replicas)]
+    engine = engines[0] if args.replicas == 1 else Router(engines)
 
     rng = np.random.default_rng(args.seed)
     prompts, lens, arrivals = synth_workload(rng, args.requests, args.prompt_len, vocab,
@@ -249,6 +298,7 @@ def serve_continuous(args):
                   if args.priority_classes else None)
     tenant_labels = ([f"t{i % args.tenants}" for i in range(args.requests)]
                      if args.tenants else None)
+    adapter_labels = list(tenant_labels) if args.adapter_rank else None
     samplings = None
     if args.temperature > 0:
         # request i samples under seed --seed + i (lockstep counter keys)
@@ -257,7 +307,10 @@ def serve_continuous(args):
                            seed=args.seed + i)
             for i in range(args.requests)
         ]
-    warm_engine(engine, lens, max_seq, args.new_tokens)
+    if args.replicas == 1:
+        warm_engine(engine, lens, max_seq, args.new_tokens)
+    else:
+        warm_replicas(engine, lens, max_seq, args.new_tokens)
     metrics_srv = None
     if args.metrics_port:
         metrics_srv = obs.MetricsServer(
@@ -266,7 +319,7 @@ def serve_continuous(args):
         print(f"metrics: http://127.0.0.1:{metrics_srv.port}/metrics (+ /snapshot)", flush=True)
     try:
         reqs, wall = drive(engine, prompts, arrivals, args.new_tokens, priorities=priorities,
-                           tenants=tenant_labels, samplings=samplings)
+                           tenants=tenant_labels, samplings=samplings, adapters=adapter_labels)
     finally:
         if metrics_srv is not None:
             metrics_srv.close()
@@ -291,6 +344,9 @@ def serve_continuous(args):
         "top_p": args.top_p if args.temperature else None,
         "top_k": args.top_k if args.temperature else None,
         "tenants": args.tenants or None,
+        "prefill_chunk": args.prefill_chunk or None, "step_tokens": args.step_tokens or None,
+        "spec_k": args.spec_k or None, "replicas": args.replicas,
+        "adapter_rank": args.adapter_rank or None,
         "wall_s": round(wall, 3), "ttft_hist_ms": ttft_hist_ms, **snap,
     }
     if reqs:
@@ -327,7 +383,7 @@ def serve_oneshot(args) -> dict:
                          f"exceed --max-seq {max_seq}")
     impl = args.impl if args.impl != "auto" else ("sort" if world == 1 else "ll")
     server = MoEServer(cfg, make_mesh(MeshConfig(dp=world), device, world))
-    placed = server.shard_params(init_params(cfg, _generator(args), device))
+    placed = server.shard_params(init_params(_key(args), cfg, device))
     rng = np.random.default_rng(args.seed)
     prompt = rng.integers(0, cfg.vocab, (world, args.batch // world, args.prompt_len))
 
@@ -379,10 +435,16 @@ def parser() -> argparse.ArgumentParser:
                     help="server: bounded queue depth (0 = unbounded)")
     ap.add_argument("--stack", default="auto", choices=["auto", "dense", "moe"],
                     help="server: model stack ('auto': MoE)")
-    ap.add_argument("--prefill-chunk", type=int, default=0, help="server: not ported yet")
-    ap.add_argument("--step-tokens", type=int, default=0, help="server: not ported yet")
-    ap.add_argument("--spec-k", type=int, default=0, help="server: not ported yet")
-    ap.add_argument("--replicas", type=int, default=1, help="server: only 1 (router not ported)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="server: chunked prefill of this many tokens per step (0 = whole "
+                         "prompt)")
+    ap.add_argument("--step-tokens", type=int, default=0,
+                    help="server: per-step token budget (needs --prefill-chunk; 0 = none)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="server: speculative decoding, K n-gram drafts verified per step "
+                         "(0 = off)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="server: replicas of the backend behind a least-loaded router")
     ap.add_argument("--priority-classes", action="store_true",
                     help="server: SLO classes ('interactive' admits before 'batch'), drawn per "
                          "request at --interactive-frac")
@@ -396,10 +458,13 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--tenants", type=int, default=0,
                     help="server: N synthetic tenants, admitted by per-tenant deficit "
                          "round-robin")
-    ap.add_argument("--adapter-rank", type=int, default=0, help="server: not ported yet")
+    ap.add_argument("--adapter-rank", type=int, default=0,
+                    help="server: one LoRA adapter of this rank per --tenants tenant, fused "
+                         "per slot (0 = none)")
     ap.add_argument("--check-oracle", action="store_true",
-                    help="server: hold every completed request to the one-shot generate "
-                         "oracle token for token, and check that no KV slot leaked")
+                    help="server: hold every completed request to its run alone on the "
+                         "engine's slot programs token for token, and check that no KV slot "
+                         "leaked")
     ap.add_argument("--vocab", type=int, default=256)
     ap.add_argument("--dim", type=int, default=64)
     ap.add_argument("--layers", type=int, default=2)

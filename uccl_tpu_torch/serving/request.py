@@ -60,9 +60,16 @@ class Request:
     slot: Optional[int] = None
     admit_seq: Optional[int] = None  # admission order (FIFO is testable)
     prefill_pos: int = 0  # chunked-prefill cursor: prompt[:prefill_pos] is in KV
-    # length of the whole-prompt prefill call that admitted it (the port's
-    # field: what serving/engine.replay_alone reruns the request at)
+    # the port's fields, what serving/engine.replay_alone reruns the
+    # request at: the length of the whole-prompt prefill call that admitted
+    # it, or the chunk width C of the chunked prefill (its boundaries are
+    # the multiples of C: a prefix hit, a tier promotion and a preemption
+    # resume all restart at one), and the draft width of a speculating
+    # engine; ``replica`` is the Router's id of the replica that ran it
     prefill_bucket: Optional[int] = None
+    prefill_chunk: Optional[int] = None
+    spec_k: Optional[int] = None
+    replica: Optional[int] = None
     cache_hit_len: int = 0  # prompt tokens reused from the prefix cache
     # whether the reused rows are bit-exact w.r.t. recomputation: True for
     # T0 slot copies and lossless-tier promotions; False when the serving

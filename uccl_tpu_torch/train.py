@@ -9,8 +9,8 @@ the flash kernels take) and float32 on the CPU:
         --ffn 2816 --experts 8
 
 Data is the same seeded synthetic stream as the JAX trainer's: step i's
-batch depends only on i. Weights are random from ``--seed`` (a
-``torch.Generator``; the numbers differ from the JAX trainer's init).
+batch depends only on i. Weights are random from ``--seed``: the JAX trainer's init for the same
+seed (``init_params(prng_key(seed), cfg)``).
 Prints ``step N loss X ce Y`` every ``--log-every`` steps and one summary
 JSON line at the end.
 
@@ -29,6 +29,7 @@ import torch
 
 from uccl_tpu_torch import resolve_device
 from uccl_tpu_torch.models import flagship
+from uccl_tpu_torch.models.sampling import prng_key
 
 def _batch_for_step(step_i, batch, seq, vocab):
     """Deterministic synthetic batch (host arrays), a function of the step
@@ -50,7 +51,7 @@ def build(args, device):
         remat=args.remat,
         dtype=torch.bfloat16 if device.type == "cuda" else torch.float32,
     )
-    params = flagship.init_params(cfg, torch.Generator().manual_seed(args.seed), device)
+    params = flagship.init_params(prng_key(args.seed), cfg, device)
     train_step, init_opt = flagship.make_train_step(cfg, device, learning_rate=args.lr)
     return cfg, params, train_step, init_opt
 
