@@ -15,7 +15,8 @@ collective plane at the model's gradient bucket over a 4-member world: the
 ring kernels and the Communicator verbs, first on the full-precision wire,
 then on the quantized one (fp8 and int8). Then the EP plane over a 4-member
 world: the all-to-all kernels against their plain versions and the
-transpose, their timing at the MoE layer's dispatch buffer, and the
+transpose, their timing at the MoE layer's dispatch buffer (B9 also at the
+serving drives' exchanges), and the
 DeepEP-shaped Buffer verbs through layer 0 of the bench config on every
 wire. Then the serving slice: ``python -m uccl_tpu_torch.serve --server``'s
 engine on the MoE stack at the bench config's widths, EP world 4 on the
@@ -54,6 +55,7 @@ if not torch.cuda.is_available():
 from uccl_tpu_torch import obs, profile_ep  # noqa: E402
 from uccl_tpu_torch.collective import Communicator, dma, plan  # noqa: E402
 from uccl_tpu_torch.collective import ring_ccl as rc  # noqa: E402
+from uccl_tpu_torch.collective.lanes import SPIN_TIMEOUT_MS  # noqa: E402
 from uccl_tpu_torch.ep import Buffer, a2a_sched  # noqa: E402
 from uccl_tpu_torch.ep import ll as ep_ll  # noqa: E402
 from uccl_tpu_torch.ep import ops as ep_ops  # noqa: E402
@@ -1735,6 +1737,7 @@ def ep_planted_faults() -> None:
     zeroed[2, 1] = 0
     faults["a2a: pair (1, 2) zeroed"] = ep_rule(zeroed, plain, x)
     faults["a2a: slots one off"] = ep_rule(ok.roll(1, dims=1), plain, x)
+    timed_out = missing_arrival(view)
     rounds, k_mat = zipf_schedule(n, seed=51)
     perms = [r.perm for r in rounds]
     whole = pa._unview(run_schedule(view, perms, k_mat, sched_out(view)), k, x)
@@ -1751,7 +1754,31 @@ def ep_planted_faults() -> None:
     passed = [name for name, r in faults.items() if r["ok"]]
     if passed:
         fail(f"planted EP faults pass the check: {passed}")
-    emit("ep_planted_faults", W=n, readings=faults)
+    emit("ep_planted_faults", W=n, readings=faults, a2a_missing_arrival=timed_out)
+
+def missing_arrival(view) -> str:
+    """B9's protocol fault: pair (1, 3)'s piece 0 copied but its arrival
+    word never raised must time out through the error word (member 3's
+    receive wait, waiting on member 1) and return; the flag region must
+    work again afterwards. Returns the wrapper's error message."""
+    SPIN_TIMEOUT_MS.set(200)
+    try:
+        lane = pa._launch("a2a", view, torch.empty_like(view), dma.CID_A2A, drop=(1, 3))
+        try:
+            lane.check("a2a")
+        except RuntimeError as e:
+            message = str(e)
+            if "receive wait (member 3," not in message or "member 1," not in message:
+                fail(f"a2a missing arrival: the error word names another wait: {e}")
+        else:
+            fail("a2a missing arrival: the launch did not time out")
+    finally:
+        SPIN_TIMEOUT_MS.set(None)
+    out = torch.empty_like(view)
+    pa.launch_a2a(view, out, dma.CID_A2A).check("a2a")
+    if not torch.equal(out, pa.a2a_plain(view)):
+        fail("a2a after a missing arrival differs from a2a_plain")
+    return message
 
 def ep_bound_ms(nbytes_in: int) -> float:
     """The exchange reads its input once and writes its output once."""
@@ -1794,13 +1821,48 @@ def ep_launchers(x, sched):
             "sched_round schedule": (b10, b10_plain)}
     return runs, lanes
 
+# The serving drives' f32 exchanges, member-stacked [W, W, ...]: an LL
+# decode of 4 rows a member, a verify window ([16, 3] tokens sorted into 2
+# experts at capacity 6), a 128-token chunk prefill at capacity 128
+SERVE_A2A_SHAPES = {"decode": (4, 4, 4, 1024), "verify": (4, 4, 2, 6, 1024),
+                    "chunk_prefill": (4, 4, 2, 128, 1024)}
+EP_SWEEP_MIB = (1 / 16, 1 / 4) + SWEEP_MIB
+
+def b9_at_serving_shapes() -> dict:
+    """B9 at the serving drives' exchanges, on synthetic f32 inputs of their
+    shapes: CUDA-event medians (L2 flushed, median of 10) beside the bound
+    (2 x bytes / 3.35 TB/s), its plain version, the library call and the
+    pair grid (pieces per pair, blocks per member) the kernel chose."""
+    out = {}
+    for kind, shape in SERVE_A2A_SHAPES.items():
+        x = ep_inputs(shape[0], shape[2:], torch.float32, seed=70)
+        view, _, _ = pa._view(x)
+        res = torch.empty_like(view)
+        pending = []
+        ms = time_ms(lambda: pending.append(pa.launch_a2a(view, res, dma.CID_A2A)), 10)
+        for lane in pending:
+            lane.check("b9 at serving shapes")
+        if not torch.equal(res, pa.a2a_plain(view)):
+            fail(f"B9 at the {kind} shape differs from a2a_plain")
+        p, xb, blocks = pa.kernel_grid(shape[0], view[0, 0].numel() * view.element_size())
+        bnd = ep_bound_ms(x.numel() * x.element_size())
+        lib = time_ms(lambda: x.transpose(0, 1).contiguous(), 10)
+        out[kind] = dict(shape=list(shape), dtype="float32", ms=ms, bound_ms=bnd,
+                         bound_by="bytes", share_of_bound=bnd / ms,
+                         plain_ms=time_ms(lambda: pa.a2a_plain(view), 3), library_ms=lib,
+                         library_call="x.transpose(0, 1).contiguous()",
+                         vs_library=ms / lib, pieces_per_pair=p, blocks_per_member=xb,
+                         resident_blocks=blocks)
+    return out
+
 def ep_a2a_timing() -> dict:
     """CUDA-event medians (L2 flushed, median of 10) at the MoE layer's
     dispatch buffer, [W, E_local, C, H] bf16 per member: B9, the B9 chunk
     pair, and B10's whole Zipf schedule (its rounds write the receive buffer
     itself: nothing to assemble), each beside the bound, its plain version
-    and the library call ``x.transpose(0, 1).contiguous()``; then a
-    1/16/256 MiB-per-member sweep."""
+    and the library call ``x.transpose(0, 1).contiguous()``; B9 at the
+    serving drives' f32 exchanges (b9_at_serving_shapes); then a
+    1/16-to-256 MiB-per-member sweep."""
     cap = int(1.25 * EP_TOKENS * 2 / 8)
     x = ep_inputs(EP_WORLD, (2, cap, 1024), torch.bfloat16, seed=60)
     sched = ep_zipf_routing()[2]
@@ -1816,10 +1878,11 @@ def ep_a2a_timing() -> dict:
     for lane in lanes:
         lane.check("ep timing")
     res["sched_round schedule"]["rounds"] = len(sched[0])
+    res["a2a"]["serving"] = b9_at_serving_shapes()
     del runs, lanes
     sweep = []
-    for mib in SWEEP_MIB:
-        per_chunk = mib * 2 ** 20 // 2 // EP_WORLD  # bf16 elements per destination chunk
+    for mib in EP_SWEEP_MIB:
+        per_chunk = int(mib * 2 ** 20) // 2 // EP_WORLD  # bf16 elements per destination chunk
         xs = ep_inputs(EP_WORLD, (per_chunk,), torch.bfloat16, seed=61)
         runs, lanes = ep_launchers(xs.reshape(EP_WORLD, EP_WORLD, 1, 2, -1), sched)
         bnd = ep_bound_ms(xs.numel() * 2)
@@ -2554,26 +2617,6 @@ class CallMeter:
             return out
         return capturing
 
-def b9_at_serving_shapes(captured) -> dict:
-    """B9 timed on the drives' captured f32 exchanges (CUDA events, L2
-    flushed, median of 10), beside its bound (2 x bytes / 3.35 TB/s), its
-    plain version and x.transpose(0, 1).contiguous()."""
-    out = {}
-    for kind, (call, x, _) in captured.items():
-        view, _, _ = pa._view(x)
-        res = torch.empty_like(view)
-        lanes = []
-        ms = time_ms(lambda: lanes.append(pa.launch_a2a(view, res, dma.CID_A2A)), 10)
-        for lane in lanes:
-            lane.check("serve_features b9 timing")
-        bnd = ep_bound_ms(x.numel() * x.element_size())
-        out[kind] = dict(call=call, shape=list(x.shape), dtype="float32", ms=ms, bound_ms=bnd,
-                         bound_by="bytes", share_of_bound=bnd / ms,
-                         plain_ms=time_ms(lambda: pa.a2a_plain(view), 3),
-                         library_ms=time_ms(lambda: x.transpose(0, 1).contiguous(), 10),
-                         library_call="x.transpose(0, 1).contiguous()")
-    return out
-
 def output_gap(backend, req, pos) -> dict:
     """The top-2 logit gap of output ``pos`` of ``req``'s own sequence (the
     server's one-shot prefill over prompt + the tokens before it), against
@@ -2672,9 +2715,9 @@ def serve_features_path(device=DEV, widths=SERVE_WIDTHS, traffic=SERVE_FEATURES)
     drive A are also replayed without speculation (other shapes: the
     [n_slots, 3] verify window against [n_slots, 1] decodes on the LL path)
     and the ones that differ are reported with their output's top-2 gap.
-    Then B9 is timed on the captured exchanges, and drive A runs once more
-    under torch.profiler for the device's idle share. Returns the B9
-    launches by call kind."""
+    Then drive A runs once more under torch.profiler for the device's idle
+    share (B9's time at these exchanges' shapes is ep_a2a_timing's).
+    Returns the B9 launches by call kind."""
     from uccl_tpu_torch import serve
     from uccl_tpu_torch.serving import replay_alone
 
@@ -2755,11 +2798,9 @@ def serve_features_path(device=DEV, widths=SERVE_WIDTHS, traffic=SERVE_FEATURES)
         if want != r.out_tokens:
             pos = next(i for i, (a, b) in enumerate(zip(r.out_tokens, want)) if a != b)
             vanilla.append({"rid": r.rid, "pos": pos, **output_gap(backend, r, pos)})
-    captured = {k: meter.captured[k] for k in FEATURE_KINDS if k in meter.captured}
-    timing = b9_at_serving_shapes(captured) if is_cuda else None
     meter.captured.clear()
     n_recoveries = len(router.recoveries)
-    del router, finished, submitted, captured
+    del router, finished, submitted
     busy = {}
 
     def start_profile():
@@ -2796,7 +2837,7 @@ def serve_features_path(device=DEV, widths=SERVE_WIDTHS, traffic=SERVE_FEATURES)
                   "replica_1_steps": b_steps, "recoveries": n_recoveries,
                   "lost_copies": bsnap["lost"], "completed": bsnap["completed"]},
          call_p50_ms=p50, b9_launches=meter.launches, b9_held_on_the_drive=b9_held,
-         fallbacks=fallbacks, b9_at_serving_shapes=timing,
+         fallbacks=fallbacks,
          profiled_drive={"wall_s": prof_wall, "device_busy_ms": busy_ms,
                          "idle_share": 1.0 - busy_ms / (prof_wall * 1e3),
                          "device_events": len(spans)})
@@ -2883,7 +2924,12 @@ def main() -> None:
          "bound_ms": ep_time[timed]["bound_ms"], "bound_by": "bytes",
          "library_ms": ep_time[timed]["library_ms"],
          "library_call": ep_time[timed]["library_call"], "timed": timed,
-         **({"serve_launches": serve_launches} if name == "a2a" else {})}
+         **({"serve_launches": serve_launches,
+             "serving": {kind: {key: t[key] for key in ("ms", "bound_ms", "library_ms",
+                                                        "plain_ms", "pieces_per_pair",
+                                                        "blocks_per_member")}
+                         for kind, t in ep_time["a2a"]["serving"].items()}}
+            if name == "a2a" else {})}
         for name, timed in (("a2a", "a2a"), ("sched_round", "sched_round schedule"))
     ]
     for k in kernels:

@@ -208,18 +208,11 @@ def _launch_all_but_last(kernel, view, out, pi, cid):
     """``pallas_a2a._launch`` with the last member left out of the grid: the
     C entry launches members [0, n-1) only (B10 as round 0 with every pair
     due)."""
-    n, t = view.shape[0], lanes.table
-    lane = pallas_a2a._lane(view.device, cid)
-    perm = None if pi is None else (ctypes.c_int * n)(*pi)
-    send = 0 if pi is None else sum(1 << r for r, d in enumerate(pi) if d != r)
-    rc = pallas_a2a._lib().uccl_a2a_launch(
-        kernel, n, n - 1, view[0, 0].numel() * view.element_size(), t(view, n), t(out, n),
-        t(lane.flags, n), ctypes.c_void_p(lane.err.data_ptr()), perm, send, 1, cid,
-        lane.next_epoch(),
-        lanes.SPIN_TIMEOUT_MS.get() * 1_000_000,
-        ctypes.c_void_p(torch.cuda.current_stream(view.device).cuda_stream))
-    assert rc == 0
-    return lane
+    if kernel == 0:
+        return pallas_a2a._launch("a2a", view, out, cid, live=view.shape[0] - 1)
+    return pallas_a2a._launch("sched_round", view, out, cid, pi=pi,
+                              send=[d != r for r, d in enumerate(pi)], local=True,
+                              live=view.shape[0] - 1)
 
 
 def test_missing_member_raises_instead_of_hanging(dev):
@@ -280,12 +273,12 @@ def test_bad_arguments_are_refused(dev):
     tab = lanes.table
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
-    def call(kernel, nn, slot_bytes, pi, send=0):
+    def call(kernel, nn, slot_bytes, pi, send=0, drop=-1):
         perm = None if pi is None else (ctypes.c_int * nn)(*pi)
         return lib.uccl_a2a_launch(kernel, nn, nn, slot_bytes, tab(view, n),
                                    tab(torch.empty_like(view), n), tab(lane.flags, n),
-                                   ctypes.c_void_p(lane.err.data_ptr()), perm, send, 0, 9, 1,
-                                   10 ** 9, stream)
+                                   ctypes.c_void_p(lane.err.data_ptr()), perm, send, 0, drop, 9,
+                                   1, 10 ** 9, stream)
 
     assert call(0, 1, 4096, None) == -1  # world 1
     assert call(0, 17, 4096, None) == -1  # past kMaxMembers
@@ -294,5 +287,119 @@ def test_bad_arguments_are_refused(dev):
     assert call(1, 4, 4096, (0, 0, 1, 2)) == -1  # not a permutation
     assert call(1, 4, 4096, (1, 0, 2, 3), send=0b0100) == -1  # a self-loop sent
     assert call(1, 4, 4096, (1, 0, 3, 2), send=0b10000) == -1  # a send bit past the world
+    assert call(0, 4, 4096, None, drop=5) == -1  # B9 cannot drop the diagonal pair (1, 1)
+    assert call(0, 4, 4096, None, drop=16) == -1  # a pair past the world
+    assert call(1, 4, 4096, (1, 0, 3, 2), drop=1) == -1  # only B9 drops an arrival
+    out = (ctypes.c_int * 3)()
+    assert lib.uccl_a2a_grid(1, 4096, 0, out) == -1
+    assert lib.uccl_a2a_grid(4, 4100, 0, out) == -1
     with pytest.raises(ValueError):
         pallas_a2a.launch_a2a(view, torch.empty_like(view).float().double(), 9)
+
+
+# ---------------------------------------------------------------------------
+# B9's pair grid
+
+SERVING_SHAPES = {  # the serving drives' f32 exchanges, member-stacked
+    "decode": (4, 4, 4, 1024),
+    "verify": (4, 4, 2, 6, 1024),
+    "chunk prefill": (4, 4, 2, 128, 1024),
+}
+
+
+@pytest.mark.parametrize("kind", list(SERVING_SHAPES))
+def test_b9_at_the_serving_shapes(dev, kind):
+    x = _x(dev, SERVING_SHAPES[kind], torch.float32, seed=len(kind))
+    view, _, _ = pallas_a2a._view(x)
+    out = torch.full_like(view, float("nan"))
+    pallas_a2a.launch_a2a(view, out, 6).check("test")
+    assert torch.equal(out, pallas_a2a.a2a_plain(view))
+    assert torch.equal(out, view.transpose(0, 1).contiguous())
+    assert torch.equal(pallas_a2a.all_to_all(x), x.transpose(0, 1))
+
+
+# slots in 16-byte vectors: one vector, a few, around one least piece, odd
+# counts that cross the split into pieces and blocks
+SLOT_VECS = (1, 3, 511, 513, 4097, 33_333)
+
+
+@pytest.mark.parametrize("n", list(range(2, 17)))
+def test_b9_worlds_and_slot_sizes(dev, n):
+    grid_p = set()
+    for vecs in SLOT_VECS:
+        view = _x(dev, (n, n, vecs, 4), torch.int32, seed=n * vecs)
+        out = torch.full_like(view, -1)
+        pallas_a2a.launch_a2a(view, out, 6).check("test")
+        assert torch.equal(out, pallas_a2a.a2a_plain(view)), vecs
+        assert torch.equal(out, view.transpose(0, 1).contiguous()), vecs
+        p, x, blocks = pallas_a2a.kernel_grid(n, vecs * 16)
+        assert (p, x) == pallas_a2a.pair_grid(n, vecs * 16, blocks)
+        assert torch.equal(out, pallas_a2a.a2a_plain(view, pieces=p))
+        grid_p.add(p)
+    if blocks // (2 * n) // n > 1:  # half the card holds 2 pieces of every pair
+        assert max(grid_p) > 1  # some slot crossed the split into pieces
+
+
+def test_b9_grid_matches_its_mirror(dev):
+    """The built kernel's grid equals pallas_a2a.pair_grid on cards of any
+    size; on this one, the launch takes at most half of it."""
+    for n in (2, 3, 4, 8, 13, 16):
+        for slot_bytes in (16, 4096, 16384, 49152, 1 << 20, 10_485_760):
+            for blocks in (1, 7, 100, 264, 528, 1056, 2112):
+                p, x, b = pallas_a2a.kernel_grid(n, slot_bytes, blocks)
+                assert b == blocks and (p, x) == pallas_a2a.pair_grid(n, slot_bytes, blocks)
+            p, x, b = pallas_a2a.kernel_grid(n, slot_bytes)
+            assert x * n <= max(n, b // 2) and 1 <= p <= x <= lanes.MAX_CHANNELS
+
+
+def test_b9_repeated_calls_across_epochs_and_grids(dev):
+    """One flag region, many launches whose grids differ (pieces 1 to 16,
+    worlds 2 to 16): a word left by an earlier launch never lets a wait of
+    a later one through."""
+    for i in range(40):
+        n = (2, 4, 16, 3, 4)[i % 5]
+        vecs = (1, 1024, 3000, 65_536, 77)[i % 5 if n != 16 else 0] + i
+        view = _x(dev, (n, n, vecs, 4), torch.int32, seed=i)
+        out = torch.full_like(view, -1)
+        pallas_a2a.launch_a2a(view, out, 14).check("test")
+        assert torch.equal(out, view.transpose(0, 1).contiguous()), i
+
+
+def test_b9_parity_twins_in_flight_on_two_streams(dev):
+    """Two chunk launches on collective-id parity twins, on two streams at
+    once (each takes at most half the card, so both are resident), each
+    bit-identical, many times over."""
+    n = 4
+    views = [_x(dev, (n, n, 2, 1280, 1024), torch.bfloat16, seed=c) for c in (0, 1)]
+    outs = [torch.empty_like(v) for v in views]
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    torch.cuda.synchronize(dev)
+    got = []
+    for _ in range(8):
+        for c in (0, 1):
+            with torch.cuda.stream(streams[c]):
+                got.append(pallas_a2a.launch_a2a(views[c], outs[c],
+                                                 dma.chunk_collective_id(dma.CID_EP_DISPATCH, c)))
+    torch.cuda.synchronize(dev)
+    for lane in got:
+        lane.check("test")
+    for v, o in zip(views, outs):
+        assert torch.equal(o, v.transpose(0, 1).contiguous())
+
+
+def test_b9_missing_arrival_times_out(dev):
+    """A planted fault of the new protocol: pair (1, 3)'s piece 0 is copied
+    but its arrival word is never raised. Member 3's exit wait on that piece
+    times out through the error word (the receive wait, member 3, waiting on
+    member 1), the launch returns, and the region works again afterwards."""
+    n = 4
+    x = _x(dev, (n, n, 2, 1024), torch.float32, seed=8)
+    view = x.reshape(n, n, 16, 128)
+    lanes.SPIN_TIMEOUT_MS.set(200)
+    try:
+        lane = pallas_a2a._launch("a2a", view, torch.empty_like(view), 15, drop=(1, 3))
+        with pytest.raises(RuntimeError, match=r"receive wait \(member 3, .* member 1,"):
+            lane.check("test")
+    finally:
+        lanes.SPIN_TIMEOUT_MS.set(None)
+    assert torch.equal(pallas_a2a.all_to_all(x, collective_id=15), x.transpose(0, 1))

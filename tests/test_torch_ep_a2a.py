@@ -22,7 +22,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from uccl_tpu.ep import a2a_sched as jsched
 from uccl_tpu.ep import pallas_a2a as jpa
 from uccl_tpu.utils.jaxcompat import shard_map
-from uccl_tpu_torch.collective import dma
+from uccl_tpu_torch.collective import dma, lanes
 from uccl_tpu_torch.ep import a2a_sched as tsched
 from uccl_tpu_torch.ep import pallas_a2a as tpa
 
@@ -78,6 +78,43 @@ def test_scheduled_matches_pallas_round_kernel(devices, n, kind):
     _eq(tpa.scheduled_all_to_all(xt, sched), want)
 
 
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_b9_pieces_match_pallas_kernel(devices, n):
+    """B9's pair grid: every (source, destination) pair cut into the
+    pieces ``pair_grid`` gives, copied item by item as the kernel's blocks
+    take them (``a2a_plain(view, pieces=P)``), is the JAX kernel's exchange,
+    on cards of several sizes and with least pieces small enough that a
+    4 KiB slot splits."""
+    xj, xt = _inputs((n, n, 5, 9), "f32", seed=40 + n)
+    want = _jax(devices, n, lambda v: jpa.all_to_all(v, "ep", interpret=True), xj)
+    view, k, _ = tpa._view(xt)
+    slot_bytes = view[0, 0].numel() * view.element_size()
+    seen = set()
+    for blocks in (1, 2 * n, 8 * n * n, 1056):
+        for piece_vecs in (16, 37, 256):
+            p, x = tpa.pair_grid(n, slot_bytes, blocks, piece_vecs)
+            seen.add(p)
+            _eq(tpa._unview(tpa.a2a_plain(view, pieces=p), k, xt), want)
+    assert max(seen) > 4
+
+
+def test_pair_grid_bounds():
+    """The grid's limits for every world and many slots and cards: at most
+    half the card (or one block a member), P and X within the flag channels,
+    X >= P (each block x < P waits on piece x), one piece of one pair a
+    block whenever half the card holds n blocks a member, and no piece
+    below the least unless the slot is."""
+    for n in range(2, 17):
+        for vecs in (1, 2, 255, 511, 512, 513, 4096, 12_288, 65_536, 655_360):
+            for blocks in (1, n, 2 * n, 100, 264, 660, 1056):
+                p, x = tpa.pair_grid(n, 16 * vecs, blocks)
+                assert 1 <= p <= x <= lanes.MAX_CHANNELS
+                assert x * n <= max(n, blocks // 2)
+                if blocks // (2 * n) >= n:
+                    assert x == n * p
+                assert vecs // p >= min(vecs, tpa.PIECE_VECS)
+
+
 def test_chunked_matches_pallas_kernel(devices):
     n = 4
     xj, xt = _inputs((n, n, 2, 6, 5), "f32", seed=3)
@@ -117,7 +154,7 @@ def test_scheduled_matches_lax(devices, n, kind):
 
 @pytest.mark.parametrize("n", [2, 4, 5, 16])
 def test_plain_versions_are_the_transpose(n):
-    """a2a_plain's steps, and sched_round_plain's rounds into one
+    """a2a_plain's pieces, and sched_round_plain's rounds into one
     sentinel-filled receive buffer, on 1-byte payloads too, land every chunk
     where the transpose puts it. Round by round, each slot is written once,
     in its designated round (round 0 for the diagonal); a shadow duplicate
@@ -125,7 +162,8 @@ def test_plain_versions_are_the_transpose(n):
     g = torch.Generator().manual_seed(n)
     sentinel = 255
     view = torch.randint(0, sentinel, (n, n, 3, 128), generator=g, dtype=torch.uint8)
-    assert torch.equal(tpa.a2a_plain(view), view.transpose(0, 1))
+    for pieces in (1, 2, 5, 24):
+        assert torch.equal(tpa.a2a_plain(view, pieces=pieces), view.transpose(0, 1))
     shadows = 0
     for sched in (tsched.wire_schedule(np.ones((n, n)) - np.eye(n), n),
                   _zipf_schedule(n, seed=n, mod=tsched)):

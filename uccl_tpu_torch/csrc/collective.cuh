@@ -23,12 +23,21 @@
 // can both be resident.
 //
 // Copies (B9, B10) move 16-byte vectors through L2 (ld.global.cg /
-// st.global.cg), four in flight a thread.
+// st.global.cg): B10 four in flight a thread (copy16), B9 eight (its own
+// copy_piece in ep_a2a.cu).
+//
+// Host cost. The launchers ask the card once per (kernel, device) how many
+// blocks of the kernel it holds at once, and keep the answer
+// (resident_blocks): no attribute or occupancy query on every launch.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace uccl {
 
@@ -110,30 +119,61 @@ __device__ __forceinline__ void copy16(char* dst, const char* src, Range rg) {
   for (; i < rg.hi; i += kThreads) __stcg(d + i, __ldcg(s + i));
 }
 
+// The blocks of ``kernel`` (``threads`` a block) the current device holds
+// at once, all SMs together, into ``blocks``; asked of the card once per
+// (kernel, device). Returns 0 or a cudaError_t.
+inline int resident_blocks(const void* kernel, int threads, int* blocks) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, int> cache;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  {
+    std::lock_guard<std::mutex> hold(mu);
+    const auto it = cache.find({kernel, dev});
+    if (it != cache.end()) {
+      *blocks = it->second;
+      return 0;
+    }
+  }
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  if (e != cudaSuccess) return (int)e;
+  std::lock_guard<std::mutex> hold(mu);
+  *blocks = cache[{kernel, dev}] = sms * per_sm;
+  return 0;
+}
+
+// Cooperative launch of ``kernel`` on ``grid`` with ``threads`` a block and
+// ``a`` its one argument. Returns 0 or a cudaError_t.
+template <typename K, typename Args>
+int coop_launch(K kernel, dim3 grid, int threads, Args& a, void* stream) {
+  void* args[] = {&a};
+  const cudaError_t e = cudaLaunchCooperativeKernel((const void*)kernel, grid, dim3(threads),
+                                                    args, 0, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 // Cooperative launch of ``kernel`` on members [0, live): a grid of
 // (channels x streams, live) blocks, the channel count ``a.C`` chosen here
 // from the slot size and half the card. Returns 0 or a cudaError_t.
 template <typename K, typename Args>
 int launch(K kernel, Args& a, int live, void* stream, int streams = 1) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  const int e = resident_blocks((const void*)kernel, kThreads, &blocks);
+  if (e != 0) return e;
   const long long vecs = a.slot_bytes / 16;
-  long long c = (long long)per_sm * sms / (2LL * streams * a.n);
+  long long c = (long long)blocks / (2LL * streams * a.n);
   const long long by_size = (vecs + 4LL * kThreads - 1) / (4LL * kThreads);
   if (c > by_size) c = by_size;
   if (c > kMaxChannels) c = kMaxChannels;
   if (c < 1) c = 1;
   a.C = (int)c;
-  dim3 grid((unsigned)(a.C * streams), (unsigned)live), block(kThreads);
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)kernel, grid, block, args, 0,
-                                  (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return coop_launch(kernel, dim3((unsigned)(a.C * streams), (unsigned)live), kThreads, a,
+                     stream);
 }
 
 }  // namespace uccl

@@ -4,9 +4,11 @@ Port of ``uccl_tpu/ep/pallas_a2a.py``. Its two Pallas remote-DMA kernels
 become two CUDA kernels in ``csrc/ep_a2a.cu``, built with ``nvcc`` for
 ``sm_90a`` at first use and called through ctypes:
 
-* ``a2a`` (B9, replaces ``_a2a_kernel``): the whole exchange in one launch,
-  full-peer entry barrier, local short-circuit, the W-1 exchanges on two
-  counter-rotating streams into write-once per-source slots. Backs
+* ``a2a`` (B9, replaces ``_a2a_kernel``): the whole exchange in one
+  launch, one pass over every (source, destination) pair at once, each pair
+  cut into pieces (:func:`pair_grid`) and each piece copied by one block
+  into its write-once per-source slot; a sender waits only on its
+  receiver's ready word, a receiver only on its own pieces' arrivals. Backs
   :func:`all_to_all` and its chunk pipeline.
 * ``sched_round`` (B10, replaces ``_sched_round_kernel``): one
   contention-free permutation round of a schedule from
@@ -29,9 +31,9 @@ the destination axis). The view a kernel moves is
 1024 elements, so its slot is a whole number of 16-byte vectors.
 
 Beside each kernel is its plain version (:func:`a2a_plain`,
-:func:`sched_round_plain`): the same steps, or the same round's writes, on
-the member-stacked view; B9's steps, and a whole schedule's rounds, give the
-transpose by construction. A wrapper runs it for
+:func:`sched_round_plain`): the same pieces in the same order, or the same
+round's writes, on the member-stacked view; B9's pieces, and a whole
+schedule's rounds, give the transpose by construction. A wrapper runs it for
 CPU tensors; for a CUDA tensor it launches the kernel or raises, and raises
 if the kernel reports a spin-wait timeout: the error words are read once per
 call, after its last launch, or once per enclosing scope
@@ -65,8 +67,11 @@ _KERNEL_ID = {name: i for i, name in enumerate(KERNELS)}
 MAX_MEMBERS = _lanes.MAX_MEMBERS
 _FLAG_WORDS = MAX_MEMBERS + 1  # kFlagWords in the source
 # each member's flag words: [channels][one arrival word per source, entry]
+# (B9: [piece][arrival per source], and block x's ready word in entry x)
 _REGIONS = _lanes.Lanes((MAX_MEMBERS, _lanes.MAX_CHANNELS, _FLAG_WORDS), KERNELS,
-                        ("entry barrier", "receive"), "waiting on member")
+                        ("entry (B9: a receiver's ready word; B10: the barrier)", "receive"),
+                        "waiting on member")
+PIECE_VECS = 512  # kPieceVecs: B9's least piece, in 16-byte vectors
 
 
 def reset_launch_counts() -> None:
@@ -91,21 +96,42 @@ def _lax_fallback(x: torch.Tensor) -> torch.Tensor:
 # Plain versions on the member-stacked view [n, n, rows, LANES]
 
 
-def a2a_plain(view: torch.Tensor) -> torch.Tensor:
+def pair_grid(n: int, slot_bytes: int, blocks: int, piece_vecs: int = PIECE_VECS):
+    """B9's grid (``pair_grid`` in ``csrc/ep_a2a.cu``): ``(P, X)``, the
+    pieces each (source, destination) pair is cut into and the blocks each
+    member launches, for a world of ``n``, chunk slots of ``slot_bytes``
+    and a card that holds ``blocks`` of B9's blocks at once. Pieces are at
+    least ``piece_vecs`` 16-byte vectors, the launch takes at most half the
+    card and X, P <= MAX_CHANNELS. Block x of member s copies its items x, x
+    + X, ... of ``n * P`` (destination ``(s + j // P) % n``, piece ``j %
+    P``); piece p is vectors ``[V p // P, V (p + 1) // P)`` of the slot."""
+    x_max = min(_lanes.MAX_CHANNELS, max(1, blocks // (2 * n)))
+    p = max(1, min(slot_bytes // 16 // piece_vecs, x_max // n))
+    return p, min(n * p, x_max)
+
+
+def a2a_plain(view: torch.Tensor, pieces: int = 1) -> torch.Tensor:
     """B9's function on ``view`` ``[n, n, ...]`` (member r's send chunks in
-    row r): the kernel's steps, local chunk first, then at step s chunk r+s
-    forward and chunk r-s backward (the antipodal chunk forward only for
-    even n), each into the destination's slot r. Returns ``[n, n, ...]``,
-    member d's slot r = ``view[r, d]``."""
+    row r), item by item as the kernel's blocks take them: for destination
+    offset 0 (the local chunk) to n - 1 and piece 0 to ``pieces`` - 1, every
+    member s copies that piece of its chunk for ``d = (s + offset) % n`` into
+    member d's slot s. ``pieces`` > 1 cuts slots of whole 16-byte vectors as
+    :func:`pair_grid` says. Returns ``[n, n, ...]``, member d's slot s =
+    ``view[s, d]``."""
     n = view.shape[0]
-    r = torch.arange(n, device=view.device)
-    out = torch.empty_like(view)
-    out[r, r] = view[r, r]
-    s_fwd, s_bwd = n // 2, (n - 1) // 2
-    for s in range(1, s_fwd + 1):
-        for d in ((1, -1) if s <= s_bwd else (1,)):
-            dst = (r + d * s) % n
-            out[dst, r] = view[r, dst]
+    out = torch.empty(view.shape, dtype=view.dtype, device=view.device)
+    src, dst = view.reshape(n, n, -1), out.view(n, n, -1)
+    m = src.shape[2]
+    unit = m if pieces == 1 else 16 // view.element_size()  # elements a vector
+    if pieces > 1 and (16 % view.element_size() or m % unit):
+        raise ValueError(f"a2a_plain: slots of {m} elements are not whole 16-byte vectors")
+    vecs = m // unit
+    bounds = [vecs * p // pieces * unit for p in range(pieces + 1)]
+    s = torch.arange(n, device=view.device)
+    for off in range(n):
+        d = (s + off) % n
+        for lo, hi in zip(bounds, bounds[1:]):
+            dst[d, s, lo:hi] = src[s, d, lo:hi]
     return out
 
 
@@ -141,16 +167,34 @@ def sched_round_plain(view: torch.Tensor, out: torch.Tensor, pi, send, local: bo
 # The library and the flag regions
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _lanes.load_library("ep_a2a", "uccl_a2a", _FLAG_WORDS)
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/ep_a2a.cu``, the source's or a variant's)
+    with its entries' argument types set."""
     i, p = ctypes.c_int, ctypes.c_void_p
     tab = ctypes.POINTER(ctypes.c_void_p)
     lib.uccl_a2a_launch.argtypes = [i, i, i, ctypes.c_longlong, tab, tab, tab, p,
-                                    ctypes.POINTER(ctypes.c_int), ctypes.c_uint, i, i,
+                                    ctypes.POINTER(ctypes.c_int), ctypes.c_uint, i, i, i,
                                     ctypes.c_ulonglong, ctypes.c_ulonglong, p]
     lib.uccl_a2a_launch.restype = i
+    lib.uccl_a2a_grid.argtypes = [i, ctypes.c_longlong, i, ctypes.POINTER(ctypes.c_int)]
+    lib.uccl_a2a_grid.restype = i
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return declare(_lanes.load_library("ep_a2a", "uccl_a2a", _FLAG_WORDS))
+
+
+def kernel_grid(n: int, slot_bytes: int, blocks: int = 0):
+    """B9's grid as the built kernel computes it: ``(P, X, blocks)`` for a
+    world of ``n`` and chunk slots of ``slot_bytes``, on a card holding
+    ``blocks`` of B9's blocks at once (0: the current device's count)."""
+    out = (ctypes.c_int * 3)()
+    rc = _lib().uccl_a2a_grid(n, slot_bytes, blocks, out)
+    if rc != 0:
+        raise RuntimeError(f"uccl_a2a_grid({n}, {slot_bytes}, {blocks}) returned {rc}")
+    return tuple(out)
 
 
 def _lane(device: torch.device, cid: int) -> _lanes.Lane:
@@ -158,10 +202,12 @@ def _lane(device: torch.device, cid: int) -> _lanes.Lane:
 
 
 def _launch(name: str, view: torch.Tensor, out: torch.Tensor, cid: int, pi=None, send=(),
-            local: bool = False) -> _lanes.Lane:
+            local: bool = False, live: Optional[int] = None, drop=None) -> _lanes.Lane:
     """Launch one kernel on the current stream; no sync and no error check
     (the caller checks the returned lane). ``view`` and ``out``
-    ``[n, n, ...]``."""
+    ``[n, n, ...]``. ``live`` and ``drop`` are the entry's tests of the
+    spin bound: launch members ``[0, live)`` only, or (B9) never announce
+    piece 0 of the pair ``drop = (s, d)``."""
     n = view.shape[0]
     if not 2 <= n <= MAX_MEMBERS:
         raise ValueError(f"{name}: world {n} outside 2..{MAX_MEMBERS}")
@@ -182,9 +228,9 @@ def _launch(name: str, view: torch.Tensor, out: torch.Tensor, cid: int, pi=None,
     stream = torch.cuda.current_stream(dev)
     t = _lanes.table
     rc = _lib().uccl_a2a_launch(
-        _KERNEL_ID[name], n, n, slot_bytes, t(view, n), t(out, n), t(lane.flags, n),
-        ctypes.c_void_p(lane.err.data_ptr()), perm, send_mask, int(local), cid,
-        lane.next_epoch(),
+        _KERNEL_ID[name], n, n if live is None else live, slot_bytes, t(view, n), t(out, n),
+        t(lane.flags, n), ctypes.c_void_p(lane.err.data_ptr()), perm, send_mask, int(local),
+        -1 if drop is None else drop[0] * n + drop[1], cid, lane.next_epoch(),
         _lanes.SPIN_TIMEOUT_MS.get() * 1_000_000, ctypes.c_void_p(stream.cuda_stream))
     _lanes.raise_on_launch(rc, name, dev)
     launch_counts[name] += 1
