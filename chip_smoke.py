@@ -7,10 +7,15 @@ Run from the root of a checkout on a machine with one Hopper GPU and the CUDA
 toolkit. It builds the CUDA kernels from the checkout's sources, holds each
 against its plain PyTorch version on the card element by element (and shows
 that the same rule rejects planted faults), times them, then trains the
-flagship MoE model at the benchmark's base configuration for a few steps and
-checks that the step went through the kernels. At that size it also holds
-the kernels' autograd path, on layer 0's q/k/v, to the plain backward, and
-the first two losses to the same steps through plain attention. Then the
+flagship MoE model at the benchmark's base configuration (bf16) for a few
+steps and checks that the step went through the kernels. At that size it
+also holds the kernels' autograd path, on layer 0's q/k/v, to the plain
+backward, and the first two losses to the same steps through plain
+attention. Then the trainer's own path (train_path): ``python -m
+uccl_tpu_torch.train`` at the same widths in float32 through the f32 flash
+kernels (held first to their plain versions, planted faults too), on a
+seeded token corpus, with checkpoints, a bit-exact resume, every remat mode,
+dense and ``moe_impl="ll"``, and ``serve --ckpt-dir`` on its checkpoint. Then the
 collective plane at the model's gradient bucket over a 4-member world: the
 ring kernels and the Communicator verbs, first on the full-precision wire,
 then on the quantized one (fp8 and int8). Then the EP plane over a 4-member
@@ -33,6 +38,7 @@ It exits non-zero, before printing anything, when PyTorch sees no GPU.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import json
@@ -43,6 +49,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -93,6 +100,29 @@ REPLACES = {
     "flash_bwd_dkv": "uccl_tpu/ops/pallas_attention.py:234",
 }
 PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
+
+# The f32 kernels (what the trainer runs): held to their plain versions by
+# the f32 rule (fa.kernel_error at F32_KERNEL_ATOL_OF_ROW_RMS and
+# F32_KERNEL_RTOL, 2^-14 each; lse to fa.F32_LSE_ATOL, 1e-5 absolute), and
+# bound by FP32 FMA on the CUDA cores.
+PEAK_FP32_FLOPS = 66.9e12  # H100 SXM float32, non-tensor (an FMA is 2 operations)
+F32_REPLACES = {f"{name}_f32": path for name, path in REPLACES.items()}
+F32_PRODUCTS = {f"{name}_f32": n for name, n in PRODUCTS.items()}
+# Planted faults of the f32 kernels: text substitutions of the source,
+# each built as a variant library (build.build_variant) beside the real
+# ones. Each must fail the f32 rule at the main path's shape.
+F32_FAULTS = {
+    "out: causal mask off by one (the diagonal masked)":
+        ("fwd", [("(causal && kcol > qrow)", "(causal && kcol >= qrow)")]),
+    "out: KV tile 2 dropped":
+        ("fwd", [("kt < fwd_tiles; ++kt", "kt < fwd_tiles; kt += 1 + (kt == 1)")]),
+    "dq: KV tile 2 dropped":
+        ("dq", [("kt < dq_tiles; ++kt", "kt < dq_tiles; kt += 1 + (kt == 1)")]),
+    "dk: GQA sum over the next KV head's group":
+        ("dkv", [("const int h_first = hk * n_rep;",
+                  "const int h_first = ((hk + 1) % Hkv) * n_rep;")]),
+}
+F32_FAULT_LIBS = {}  # fault -> built variant library path
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -153,7 +183,8 @@ def ring_kernel_name(mangled: str) -> str:
     return m[0] if m else mangled
 
 def build_kernels() -> None:
-    """The three CUDA sources, one nvcc each, started together."""
+    """The three CUDA sources and the f32 kernels' planted-fault variants,
+    one nvcc each, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     def timed(name):
@@ -161,19 +192,29 @@ def build_kernels() -> None:
         return build.build(name), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(3 + len(F32_FAULTS)) as pool:
         jobs = [pool.submit(timed, name) for name in ("flash_attention", "ring_ccl", "ep_a2a")]
+        faults = {fault: pool.submit(build.build_variant, "flash_attention", f"f32_fault_{i}",
+                                     subs)
+                  for i, (fault, (_, subs)) in enumerate(F32_FAULTS.items())}
         (lib, seconds), (ring_lib, ring_seconds), (ep_lib, ep_seconds) = \
             [j.result() for j in jobs]
+        F32_FAULT_LIBS.update({fault: job.result() for fault, job in faults.items()})
     root = build.PACKAGE_DIR.parent
-    name = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)_kernelILi\d+ELi\d+E")
+    name = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)(_f32)?_kernelILi(\d+)E(?:Li(\d+)E)?")
     ptxas = ptxas_report("flash_attention", lambda n: name.search(n)[0])
+    f32_kind = {"fwd": 0, "bwd_dq": 1, "bwd_dkv": 2}
     for k in ptxas:  # each kernel's resident tiles and ring of stages are dynamic shared memory
-        m = re.match(r"flash_(fwd|bwd_dq|bwd_dkv)_kernelILi(\d+)ELi(\d+)E", k["kernel"])
-        d, tile = int(m[2]), int(m[3])
+        m = name.match(k["kernel"])
+        d = int(m[3])
+        if m[2]:
+            k["dynamic_smem"] = fa._lib().uccl_flash_f32_smem(f32_kind[m[1]], d)
+            continue
+        tile = int(m[4])
         k["dynamic_smem"] = (fa._lib().uccl_flash_fwd_smem(d, tile) if m[1] == "fwd" else
                              fa._lib().uccl_flash_bwd_smem(int(m[1] == "bwd_dkv"), d, tile))
-    emit("build", library=str(lib.relative_to(root)), seconds=round(seconds, 3), ptxas=ptxas)
+    emit("build", library=str(lib.relative_to(root)), seconds=round(seconds, 3), ptxas=ptxas,
+         f32_fault_variants=len(F32_FAULT_LIBS))
     # every ring kernel is built for two blocks of 512 threads per SM
     # (__launch_bounds__), so ptxas caps it at 64 registers and would spill
     # past them: ptxas_report's spill check is what guards the occupancy
@@ -188,13 +229,14 @@ def build_kernels() -> None:
 # ---------------------------------------------------------------------------
 # 3. Kernels against their plain versions
 
-def attn_inputs(b, s, h, hkv, d, seed):
+def attn_inputs(b, s, h, hkv, d, seed, dtype=torch.bfloat16, sk=None):
     g = torch.Generator(device=DEV).manual_seed(seed)
+    sk = sk or s
 
-    def t(*shape, dtype=torch.bfloat16):
+    def t(*shape, dtype=dtype):
         return torch.randn(shape, generator=g, device=DEV).to(dtype)
 
-    return dict(q=t(b, s, h, d), k=t(b, s, hkv, d), v=t(b, s, hkv, d),
+    return dict(q=t(b, s, h, d), k=t(b, sk, hkv, d), v=t(b, sk, hkv, d),
                 dout=t(b, s, h, d), g_lse=t(b, h, s, dtype=torch.float32) * 0.5)
 
 def held(name, got, want, shape) -> dict:
@@ -410,6 +452,134 @@ def time_kernels(b, s, h, hkv, d) -> dict:
     return res
 
 # ---------------------------------------------------------------------------
+# 4b. The f32 kernels: against their plain versions, planted faults, timing
+
+F32_RUN = {"fwd": fa.flash_fwd_f32, "dq": fa.flash_bwd_dq_f32, "dkv": fa.flash_bwd_dkv_f32}
+
+
+def check_kernels_f32(b, s, h, hkv, d, causal, seed, sk=None) -> tuple:
+    """Each f32 kernel against its plain version on the same f32 inputs, with
+    a nonzero lse cotangent, by the f32 rule; returns the readings, the
+    inputs and the plain results (for the planted faults)."""
+    x = attn_inputs(b, s, h, hkv, d, seed, dtype=torch.float32, sk=sk)
+    q, k, v, dout = x["q"], x["k"], x["v"], x["dout"]
+    shape = tuple(q.shape)
+    out, lse = fa.flash_fwd_f32(q, k, v, causal)
+    torch.cuda.synchronize()
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
+    delta = fa.flash_delta(out_p, dout, x["g_lse"])
+    dq = fa.flash_bwd_dq_f32(q, k, v, dout, lse_p, delta, causal)
+    torch.cuda.synchronize()
+    dk, dv = fa.flash_bwd_dkv_f32(q, k, v, dout, lse_p, delta, causal)
+    torch.cuda.synchronize()
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, dout, lse_p, delta, causal)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, dout, lse_p, delta, causal)
+    readings = {name: held(name, got, want, shape) for name, got, want in (
+        ("out", out, out_p), ("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p))}
+    lse_err = (lse - lse_p).abs().max().item()
+    if not lse_err <= fa.F32_LSE_ATOL:
+        fail(f"f32 lse at q {shape}: max abs err {lse_err} > {fa.F32_LSE_ATOL}")
+    readings["lse"] = {"max_abs_err": lse_err}
+    emit("f32_kernels_vs_plain",
+         shape=dict(B=b, Sq=s, Sk=sk or s, H=h, Hkv=hkv, D=d, causal=causal),
+         readings=readings, rtol=fa.F32_KERNEL_RTOL,
+         atol_of_row_rms=fa.F32_KERNEL_ATOL_OF_ROW_RMS, lse_atol=fa.F32_LSE_ATOL)
+    plain = dict(out=out_p, lse=lse_p, delta=delta, dq=dq_p, dk=dk_p, dv=dv_p)
+    return readings, x, plain
+
+
+def f32_planted_faults(x, plain) -> None:
+    """Each planted fault of F32_FAULTS (a variant build of the source) run
+    on the main path's inputs: every one must fail the f32 rule."""
+    q, k, v, dout = x["q"], x["k"], x["v"], x["dout"]
+    lse, delta = plain["lse"], plain["delta"]
+    real, readings = fa._lib, {}
+    for fault, (kernel, _) in F32_FAULTS.items():
+        lib = fa.declare(ctypes.CDLL(str(F32_FAULT_LIBS[fault])))
+        fa._lib = lambda lib=lib: lib
+        try:
+            if kernel == "fwd":
+                got, want = fa.flash_fwd_f32(q, k, v, True)[0], plain["out"]
+            elif kernel == "dq":
+                got, want = fa.flash_bwd_dq_f32(q, k, v, dout, lse, delta, True), plain["dq"]
+            else:
+                got, want = fa.flash_bwd_dkv_f32(q, k, v, dout, lse, delta, True)[0], plain["dk"]
+            torch.cuda.synchronize()
+        finally:
+            fa._lib = real
+        readings[fault] = fa.kernel_error(got, want)
+    passed = [f for f, r in readings.items() if not r["worst"] > 1]
+    if passed:
+        fail(f"planted f32 faults pass the check: {passed}")
+    emit("f32_planted_faults", shape=list(q.shape), readings=readings)
+
+
+def f32_bound_ms(name, b, s, h, hkv, d, causal) -> tuple:
+    """bound_ms's rule for an f32 kernel: its FMA operations over the FP32
+    peak, its f32 bytes over the HBM rate; causal work counts the unmasked
+    pairs."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = F32_PRODUCTS[name] * 2 * d * pairs * b * h
+    qo, kv, rows = b * s * h * d * 4, b * s * hkv * d * 4, b * h * s * 4
+    nbytes = {"flash_fwd_f32": 2 * qo + 2 * kv + rows,
+              "flash_bwd_dq_f32": 3 * qo + 2 * kv + 2 * rows,
+              "flash_bwd_dkv_f32": 2 * qo + 4 * kv + 2 * rows}[name]
+    op_ms, byte_ms = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms else "bytes")
+
+
+def time_kernels_f32(b, s, h, hkv, d) -> dict:
+    """The f32 kernels at the main path's shape: ms, the plain version's,
+    the bound, and PyTorch's SDPA on the same f32 tensors (KV heads expanded
+    beforehand) as the library yardstick: its forward, and its backward
+    (dq, dk and dv in one autograd call: B2 + B3)."""
+    import torch.nn.functional as F
+
+    x = attn_inputs(b, s, h, hkv, d, seed=2, dtype=torch.float32)
+    q, k, v, dout = x["q"], x["k"], x["v"], x["dout"]
+    out, lse = fa.flash_fwd_f32(q, k, v, True)
+    delta = fa.flash_delta(out, dout)
+    runs = {
+        "flash_fwd_f32": (lambda: fa.flash_fwd_f32(q, k, v, True),
+                          lambda: fa.flash_fwd_plain(q, k, v, True)),
+        "flash_bwd_dq_f32": (lambda: fa.flash_bwd_dq_f32(q, k, v, dout, lse, delta, True),
+                             lambda: fa.flash_bwd_dq_plain(q, k, v, dout, lse, delta, True)),
+        "flash_bwd_dkv_f32": (lambda: fa.flash_bwd_dkv_f32(q, k, v, dout, lse, delta, True),
+                              lambda: fa.flash_bwd_dkv_plain(q, k, v, dout, lse, delta, True)),
+    }
+    res = {}
+    for name, (kernel, plain) in runs.items():
+        bnd, by = f32_bound_ms(name, b, s, h, hkv, d, True)
+        ms = time_ms(kernel, 30)
+        res[name] = dict(ms=ms, plain_ms=time_ms(plain, 5), bound_ms=bnd, bound_by=by,
+                         share_of_bound=bnd / ms)
+    rep = h // hkv
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt = k.repeat_interleave(rep, dim=2).transpose(1, 2).detach().requires_grad_()
+    vt = v.repeat_interleave(rep, dim=2).transpose(1, 2).detach().requires_grad_()
+    go = dout.transpose(1, 2)
+    lib_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+    lib_out = lib_fwd()
+    lib_bwd = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), go,  # noqa: E731
+                                          retain_graph=True)
+    lib_dq = lib_bwd()[0].transpose(1, 2)
+    ours_dq = fa.flash_bwd_dq_f32(q, k, v, dout, lse, delta, True)
+    with torch.no_grad():
+        fwd_ms = time_ms(lib_fwd, 30)
+    bwd_ms = time_ms(lib_bwd, 30)
+    res["flash_fwd_f32"].update(library_ms=fwd_ms,
+                                library_call="F.scaled_dot_product_attention (f32)")
+    for name in ("flash_bwd_dq_f32", "flash_bwd_dkv_f32"):
+        res[name].update(library_ms=bwd_ms,
+                         library_call="autograd of F.scaled_dot_product_attention (f32: dq, "
+                                      "dk and dv in one call: B2 + B3)")
+    emit("f32_kernel_timing", shape=dict(B=b, S=s, H=h, Hkv=hkv, D=d, causal=True),
+         kernels=res, ours_bwd_ms=res["flash_bwd_dq_f32"]["ms"] + res["flash_bwd_dkv_f32"]["ms"],
+         library_bwd_ms=bwd_ms,
+         library_dq_norm_ratio_vs_ours=((lib_dq - ours_dq).norm() / ours_dq.norm()).item())
+    return res
+
+# ---------------------------------------------------------------------------
 # 5. The main path: the flagship train step
 
 def model_flops_per_token(cfg, seq: int) -> float:
@@ -499,7 +669,7 @@ def main_path() -> dict:
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite losses {losses}")
     want = {"flash_fwd": 2 * cfg.n_layers * STEPS, "flash_bwd_dq": cfg.n_layers * STEPS,
-            "flash_bwd_dkv": cfg.n_layers * STEPS}
+            "flash_bwd_dkv": cfg.n_layers * STEPS, **{n: 0 for n in fa.F32_KERNELS}}
     if launches != want:
         fail(f"kernel launches {launches} over {STEPS} steps, expected {want}")
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain["losses"])]
@@ -514,6 +684,286 @@ def main_path() -> dict:
          step_ms=step_ms, steady_step_ms=steady, tokens_per_s=tokens_per_s, mfu=mfu,
          peak_mem_gib=torch.cuda.max_memory_allocated(DEV) / 2**30,
          launches=launches, launches_per_step={k: v // STEPS for k, v in launches.items()})
+    return launches
+
+# ---------------------------------------------------------------------------
+# 5b. The slice's path: python -m uccl_tpu_torch.train in float32
+
+# The bench widths, float32 (the trainer's dtype on every device), through
+# the trainer's own entry point.
+TRAIN_WIDTHS = dict(vocab=16384, dim=1024, layers=4, heads=16, kv_heads=4, ffn=2816, experts=8)
+TRAIN_STEPS = 4
+# serve --ckpt-dir on the trained checkpoint: a few requests at EP world 1
+SERVE_CKPT_TRAFFIC = dict(requests=4, prompt_len=128, min_prompt_len=32, new_tokens=16,
+                          max_seq=160, arrival_rate=1.0, world=1, slots=4)
+CORPUS_TOKENS = 4 * 2**20
+# Step 1's loss through the f32 kernels against the same step through plain
+# attention: every attention output differs by a few ulp (summation order),
+# which moves the mean loss by ~1e-7 relative; a router near-tie that the
+# ulps flip sends a token to another expert and moves the mean of 8192
+# tokens' losses by ~1e-5 at most.
+F32_LOSS_RTOL = 1e-4
+# The ll path against the sort path at a capacity that drops nothing: the
+# same routing and the same products, summed in another order (per-segment
+# bmm against the capacity-padded einsum); tests/test_torch_flagship.py's
+# tolerances, which the CPU holds the port to against JAX.
+LL_LOSS_RTOL = 1e-5
+LL_GRAD_RTOL, LL_GRAD_ATOL = 1e-3, 1e-5
+
+
+def tree_items(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_items(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def tree_diff(a, b) -> float:
+    """The largest |a - b| over two trees of the same structure (numbers
+    count as tensors; a tensor of ``a`` is compared on ``b``'s device); 0.0
+    when they are bit-identical."""
+    worst = 0.0
+    for (na, x), (nb, y) in zip(tree_items(a), tree_items(b), strict=True):
+        if na != nb:
+            fail(f"trees differ in structure at {na} / {nb}")
+        if not torch.is_tensor(x):
+            worst = worst if x == y else float("inf")
+        elif x.shape != y.shape:
+            worst = float("inf")
+        elif not torch.equal(x := x.to(y.device), y):
+            worst = max(worst, (x.double() - y.double()).abs().max().item())
+    return worst
+
+
+def grads_of(cfg, params, batch):
+    """(loss, grads in tree_leaves order, ms, peak GiB) of one forward and
+    backward of ``cfg``'s loss: the train step's products, without the
+    update."""
+    from uccl_tpu_torch.models import dense
+
+    loss_fn = dense.loss_fn if isinstance(cfg, dense.DenseConfig) else \
+        (lambda *a: flagship.loss_fn(*a)[0])
+    leaves = [p.requires_grad_() for p in flagship.tree_leaves(params)]
+    tokens, targets = (torch.as_tensor(t, device=DEV) for t in batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    t0 = time.perf_counter()
+    loss = loss_fn(params, tokens, targets, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return loss.item(), grads, ms, torch.cuda.max_memory_allocated(DEV) / 2**30
+
+
+def grads_diff(a, b) -> float:
+    return max((x.double() - y.double()).abs().max().item() if not torch.equal(x, y) else 0.0
+               for x, y in zip(a, b, strict=True))
+
+
+def grads_close(got, want, rtol, atol) -> float:
+    """The largest |got - want| / (atol + rtol |want|) over every leaf."""
+    return max(((g - w).abs() / (atol + rtol * w.abs())).max().item()
+               for g, w in zip(got, want, strict=True))
+
+
+def train_flags() -> list:
+    return ["--batch", str(BATCH), "--seq", str(SEQ), "--log-every", "1",
+            "--device", DEV.type, *(f for k, v in TRAIN_WIDTHS.items()
+                                    for f in (f"--{k.replace('_', '-')}", str(v)))]
+
+
+def train_run(argv) -> tuple:
+    """train.main on the card, with its wall seconds and peak GiB."""
+    from uccl_tpu_torch import train
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    t0 = time.perf_counter()
+    run = train.main([*train_flags(), *argv])
+    torch.cuda.synchronize()
+    return run, time.perf_counter() - t0, torch.cuda.max_memory_allocated(DEV) / 2**30
+
+
+def time_steps(fam, cfg, batch, n=3) -> dict:
+    """``n`` train steps of ``fam.make_train_step(cfg)`` from the seed's
+    weights on ``batch``, each waited for: the median ms of all but the
+    first, the first's, the peak GiB and the first loss."""
+    step, init_opt = fam.make_train_step(cfg, DEV)
+    params = fam.init_params(prng_key(0), cfg, DEV)
+    opt_state = init_opt(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    ms, losses = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, *batch)
+        losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not all(map(math.isfinite, losses)):
+        fail(f"non-finite losses {losses} for {cfg}")
+    return dict(step_ms=statistics.median(ms[1:]), first_step_ms=ms[0], loss=losses[0],
+                peak_gib=torch.cuda.max_memory_allocated(DEV) / 2**30)
+
+
+def serve_checkpoint(ckpt_dir, params) -> dict:
+    """serve --ckpt-dir's stack on the checkpoint against the same engine
+    given ``params`` directly: a few requests (greedy and sampled), each
+    one's tokens equal."""
+    from uccl_tpu_torch import serve
+    from uccl_tpu_torch.models.moe_inference import MoEServer
+    from uccl_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from uccl_tpu_torch.serving.engine import MoEBackend
+
+    traffic = SERVE_CKPT_TRAFFIC
+    args = serve_args(TRAIN_WIDTHS, traffic, stack="moe", device=DEV.type,
+                      slots=traffic["slots"])
+    args.ckpt_dir = ckpt_dir
+    serve.read_ckpt_config(args, serve.parser().parse_args([]))
+    loaded, _, vocab = serve.build_stack(args, DEV)
+    server = MoEServer(serve.moe_config(args), make_mesh(MeshConfig(dp=1), DEV, 1))
+    direct = MoEBackend(server, server.shard_params(params), batch_local=args.slots,
+                        max_seq=traffic["max_seq"], decode_impl="sort")
+    workload = serve_workload(traffic, vocab, traffic["requests"], poisson=False)
+    outs = [[r.out_tokens for r in serve_drive(b, workload, traffic, check=False)[1]]
+            for b in (loaded, direct)]
+    if outs[0] != outs[1] or not all(len(t) == traffic["new_tokens"] for t in outs[0]):
+        fail(f"serve --ckpt-dir's tokens {outs[0]} != the engine's on the same params {outs[1]}")
+    return {"ckpt_step": args.ckpt_step, "requests": len(outs[0]), "tokens_equal": True,
+            "first_request": outs[0][0]}
+
+
+def train_path() -> dict:
+    """The slice's path on the card: python -m uccl_tpu_torch.train at the
+    bench widths in float32 on a seeded token corpus (--data), 4 steps with
+    a checkpoint every 2 (the flash f32 launches of this run are the
+    kernels' main-path counts), the checkpoint round trip, serve --ckpt-dir
+    on it, the same 4 steps again, a --resume from step 2 to 4, step 1
+    against plain attention, every remat mode's gradients and one step each
+    of dense, every remat mode and moe_impl="ll" (held to sort at a capacity
+    that drops nothing). Returns the f32 launch counts of the first run."""
+    from uccl_tpu_torch import train
+    from uccl_tpu_torch.models import dense
+
+    with tempfile.TemporaryDirectory(prefix="train_path_") as tmp:
+        corpus = os.path.join(tmp, "corpus.npy")
+        tokens = np.random.default_rng(0).integers(0, TRAIN_WIDTHS["vocab"], CORPUS_TOKENS,
+                                                   dtype=np.int32)
+        np.save(corpus, tokens)
+        data = ["--data", corpus, "--steps", str(TRAIN_STEPS)]
+        run_a_dir = os.path.join(tmp, "ckpt")
+        fa.reset_launch_counts()
+        a, a_s, a_gib = train_run([*data, "--ckpt-dir", run_a_dir, "--ckpt-every", "2"])
+        launches = {n: fa.launch_counts[n] for n in fa.F32_KERNELS}
+        if any(fa.launch_counts[n] for n in fa.BF16_KERNELS):
+            fail(f"the f32 trainer launched bf16 kernels: {fa.launch_counts}")
+        per_step = {n: c // TRAIN_STEPS for n, c in launches.items()}
+        if per_step != {"flash_fwd_f32": 8, "flash_bwd_dq_f32": 4, "flash_bwd_dkv_f32": 4} \
+                or any(c % TRAIN_STEPS for c in launches.values()):
+            fail(f"f32 flash launches {launches} over {TRAIN_STEPS} steps, want 8/4/4 a step")
+        losses = [m["loss"] for m in a.metrics]
+        if a.summary["dtype"] != "float32" or not all(map(math.isfinite, losses)):
+            fail(f"train run: {a.summary}, losses {losses}")
+        state_a = {"params": a.params, "opt": a.opt_state}
+        # the checkpoint round trip: every tensor of the state, exactly; then
+        # serve --ckpt-dir on it
+        last = os.path.join(run_a_dir, f"step_{TRAIN_STEPS}")
+        if tree_diff(train.load_state(run_a_dir, TRAIN_STEPS), state_a) != 0.0:
+            fail(f"step_{TRAIN_STEPS} does not load back bit for bit")
+        served = serve_checkpoint(run_a_dir, a.params)
+        # the same 4 steps again, and a resume from step 2 (the directory's
+        # newest once step 4 is gone: a checkpoint is 3.85 GB at these widths)
+        b, b_s, _ = train_run(data)
+        spread = max(tree_diff({"params": b.params, "opt": b.opt_state}, state_a),
+                     max(abs(x["loss"] - y["loss"]) for x, y in zip(a.metrics, b.metrics)))
+        del b
+        shutil.rmtree(last)
+        c, c_s, _ = train_run([*data, "--ckpt-dir", run_a_dir, "--ckpt-every", "2",
+                               "--resume"])
+        resumed = max(tree_diff({"params": c.params, "opt": c.opt_state}, state_a),
+                      max(abs(x["loss"] - y["loss"]) for x, y in zip(a.metrics[2:], c.metrics)))
+        if c.summary["steps"] != 2 or resumed > spread or not os.path.isdir(last):
+            fail(f"the resumed run differs from the uninterrupted one by {resumed} (the two "
+                 f"uninterrupted runs by {spread}; steps {c.summary['steps']})")
+        del c
+        del a, state_a
+    torch.cuda.empty_cache()
+
+    # step 1 through the kernels against the same step through plain attention
+    args = train.parser().parse_args(train_flags())
+    cfg, params, _, _ = train.build(args, DEV)
+    batch = _batch_for_step(0, BATCH, SEQ, cfg.vocab, tokens)
+    with torch.no_grad():
+        xla_loss = flagship.loss_fn(params, *(torch.as_tensor(t, device=DEV) for t in batch),
+                                    dataclasses.replace(cfg, attn_impl="xla"))[0].item()
+    loss_rel = abs(losses[0] - xla_loss) / abs(xla_loss)
+    if not loss_rel <= F32_LOSS_RTOL:
+        fail(f"step 1 loss {losses[0]} vs plain attention's {xla_loss}: rel {loss_rel}")
+
+    # every remat mode's gradients (and full's twice: is the step deterministic?)
+    modes, grads = {}, {}
+    for mode in ("full", "full", "dots", "mlp", "none"):
+        fa.reset_launch_counts()
+        loss, g, ms, gib = grads_of(dataclasses.replace(cfg, remat=mode), params, batch)
+        key = mode if mode not in modes else "full (again)"
+        modes[key] = dict(loss=loss, fwd_bwd_ms=ms, peak_gib=gib,
+                          f32_launches={n: fa.launch_counts[n] for n in fa.F32_KERNELS})
+        grads[key] = g
+    grad_spread = grads_diff(grads["full"], grads["full (again)"])
+    for mode in ("dots", "mlp", "none"):
+        modes[mode]["grad_diff_vs_full"] = d = grads_diff(grads[mode], grads["full"])
+        if d > grad_spread:
+            fail(f"remat {mode}'s gradients differ from full's by {d} (full against itself: "
+                 f"{grad_spread})")
+    full_grads = grads.pop("full")
+    grads.clear()
+    # moe_impl="ll" against sort at a capacity that drops nothing (E / k)
+    ll_loss, ll_grads, ll_ms, ll_gib = grads_of(dataclasses.replace(cfg, moe_impl="ll"),
+                                                params, batch)
+    cf = cfg.moe_experts / cfg.moe_topk
+    sort_loss, sort_grads, _, _ = grads_of(dataclasses.replace(cfg, capacity_factor=cf),
+                                           params, batch)
+    ll_rel = abs(ll_loss - sort_loss) / abs(sort_loss)
+    ll_worst = grads_close(ll_grads, sort_grads, LL_GRAD_RTOL, LL_GRAD_ATOL)
+    if not (ll_rel <= LL_LOSS_RTOL and ll_worst <= 1):
+        fail(f"ll against sort at capacity factor {cf}: loss rel {ll_rel}, grads {ll_worst} "
+             "of the limit")
+    modes["ll"] = dict(loss=ll_loss, fwd_bwd_ms=ll_ms, peak_gib=ll_gib,
+                       loss_rel_vs_sort=ll_rel, grads_worst_vs_sort=ll_worst)
+    del ll_grads, sort_grads, full_grads, params
+    torch.cuda.empty_cache()
+
+    # one step each through the trainer's entry point: dense and each remat mode
+    steps = {}
+    for name, argv in (("dense", ["--model", "dense"]), ("dots", ["--remat", "dots"]),
+                       ("mlp", ["--remat", "mlp"]), ("none", ["--remat", "none"])):
+        fa.reset_launch_counts()
+        run = train_run([*argv, "--steps", "1"])[0]
+        steps[name] = dict(loss=run.metrics[0]["loss"],
+                           f32_launches={n: fa.launch_counts[n] for n in fa.F32_KERNELS})
+        if not math.isfinite(steps[name]["loss"]) or not all(steps[name]["f32_launches"].values()):
+            fail(f"one {name} step: {steps[name]}")
+        del run
+    torch.cuda.empty_cache()
+    # the step's time and peak memory in every mode (ll through the same step)
+    dense_cfg = dense.DenseConfig(vocab=cfg.vocab, dim=cfg.dim, n_layers=cfg.n_layers,
+                                  n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                                  head_dim=cfg.head_dim, ffn=cfg.moe_ffn)
+    step_time = {mode: time_steps(flagship, dataclasses.replace(cfg, remat=mode), batch)
+                 for mode in flagship.REMAT_MODES}
+    step_time["ll"] = time_steps(flagship, dataclasses.replace(cfg, moe_impl="ll"), batch)
+    step_time["dense"] = time_steps(dense, dense_cfg, batch)
+    torch.cuda.empty_cache()
+    emit("train_path", config={"flags": train_flags(), "dtype": "float32",
+                               "steps": TRAIN_STEPS, "corpus_tokens": CORPUS_TOKENS},
+         losses=losses, f32_launches=launches, f32_launches_per_step=per_step,
+         run_s={"ckpt_every_2": a_s, "again": b_s, "resumed_2": c_s}, peak_gib=a_gib,
+         straight_runs_max_diff=spread, deterministic=spread == 0.0, resumed_max_diff=resumed,
+         step1_vs_plain_attention={"loss": losses[0], "plain": xla_loss, "rel": loss_rel,
+                                   "rtol": F32_LOSS_RTOL},
+         remat=modes, grad_spread_full_vs_full=grad_spread, one_step=steps,
+         step_time=step_time, serve_ckpt=served)
     return launches
 
 # ---------------------------------------------------------------------------
@@ -2855,7 +3305,23 @@ def main() -> None:
             "flash_bwd_dq": readings["dq"]["max_abs_err"],
             "flash_bwd_dkv": max(readings["dk"]["max_abs_err"], readings["dv"]["max_abs_err"])}
     timing = time_kernels(8, 1024, 16, 4, 64)
+    # the f32 kernels: the main path's shape, its planted faults, then odd
+    # lengths, Sq != Sk, GQA and D = 128, causal and not
+    f32_readings, x, plain = check_kernels_f32(8, 1024, 16, 4, 64, True, seed=0)
+    f32_planted_faults(x, plain)
+    del x, plain
+    check_kernels_f32(2, 77, 4, 1, 64, True, seed=1)
+    check_kernels_f32(2, 200, 8, 2, 64, False, seed=2, sk=136)
+    check_kernels_f32(1, 320, 8, 2, 128, True, seed=3)
+    check_kernels_f32(1, 130, 4, 4, 128, False, seed=4)
+    for name, reading in (("flash_fwd", "out"), ("flash_bwd_dq", "dq")):
+        errs[f"{name}_f32"] = f32_readings[reading]["max_abs_err"]
+    errs["flash_bwd_dkv_f32"] = max(f32_readings["dk"]["max_abs_err"],
+                                    f32_readings["dv"]["max_abs_err"])
+    timing.update(time_kernels_f32(8, 1024, 16, 4, 64))
     launches = main_path()
+    torch.cuda.empty_cache()
+    launches.update(train_path())
     torch.cuda.empty_cache()
     ring_vs_plain()
     ring_planted_faults()
@@ -2889,7 +3355,8 @@ def main() -> None:
     ep_launches["a2a"] += (serve_launches["prefill"] + serve_launches["decode"]
                            + sum(serve_launches["serve_features_path"].values()))
     kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+        {"name": name, "route": "cuda", "source": SOURCE,
+         "replaces": {**REPLACES, **F32_REPLACES}[name],
          "launches": launches[name], "max_abs_err": errs[name],
          "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],

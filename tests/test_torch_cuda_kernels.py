@@ -18,6 +18,11 @@ bf16. Each element is held to ``fa.kernel_error``'s limit, ``|got - want| <=
 KERNEL_ATOL_OF_ROW_RMS * rms(want's D-wide row) + KERNEL_RTOL * |want|`` (the
 rule ``chip_smoke.py`` holds the kernels to), and lse (f32, no bf16 product in
 its path) to 1e-3 absolute.
+
+f32 tolerance (the f32 kernels, at the end of this file): the same rule at
+f32 scale, ``fa.F32_KERNEL_ATOL_OF_ROW_RMS`` = ``fa.F32_KERNEL_RTOL`` =
+2^-14, lse to ``fa.F32_LSE_ATOL`` = 1e-5 absolute (see ops/flash_attention.py
+for why); planted faults of the source must fail it.
 """
 
 import dataclasses
@@ -36,6 +41,7 @@ from uccl_tpu_torch.ops import flash_attention as fa
 pytestmark = pytest.mark.cuda
 
 LSE_ATOL = 1e-3
+NO_F32 = {name: 0 for name in fa.F32_KERNELS}
 
 
 @pytest.fixture
@@ -136,7 +142,8 @@ def test_backward_every_variant(dev, d, tile, causal):
         dq = fa.flash_bwd_dq(q, k, v, dout, lse_p, delta, causal, tile)
         dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse_p, delta, causal, tile)
         torch.cuda.synchronize()
-        assert fa.launch_counts == {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+        assert fa.launch_counts == {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                                    **NO_F32}
         dq_p = fa.flash_bwd_dq_plain(q, k, v, dout, lse_p, delta, causal)
         dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, dout, lse_p, delta, causal)
         for got, want, name in ((dq, dq_p, "dq"), (dk, dk_p, "dk"), (dv, dv_p, "dv")):
@@ -215,7 +222,8 @@ def test_autograd_counts_and_grads(dev):
     out, lse = fa.flash_attention_lse(*leaves, True)
     grads = torch.autograd.grad((out, lse), leaves, (dout, g_lse))
     torch.cuda.synchronize()
-    assert fa.launch_counts == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    assert fa.launch_counts == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                                **NO_F32}
     out_p, lse_p = fa.flash_fwd_plain(q, k, v, True)
     delta = fa.flash_delta(out_p, dout, g_lse)
     want = (fa.flash_bwd_dq_plain(q, k, v, dout, lse_p, delta, True),
@@ -257,3 +265,147 @@ def test_flagship_flash_matches_plain_attention(dev):
     plain_cfg = dataclasses.replace(cfg, attn_impl="xla")
     plain = fl.loss_fn(params, tokens, targets, plain_cfg)[0].item()
     assert np.isfinite(flash) and abs(flash - plain) <= 1e-2 * abs(plain)
+
+
+# ---------------------------------------------------------------------------
+# The f32 kernels
+
+F32_SHAPES = [
+    # b, sq, sk, h, hkv, d, causal
+    (2, 256, 256, 8, 2, 64, True),
+    (2, 77, 77, 4, 1, 64, True),  # one partial tile
+    (2, 200, 136, 8, 2, 64, False),  # Sq != Sk, partial tiles
+    (1, 130, 130, 4, 4, 128, False),
+    (1, 320, 320, 8, 2, 128, True),
+    (1, 100, 300, 16, 2, 64, True),  # n_rep 8, more KV than q rows
+]
+
+
+def _inputs_f32(dev, b, sq, sk, h, hkv, d, seed=0):
+    return tuple(t.float() for t in _inputs(dev, b, sq, sk, h, hkv, d, seed))
+
+
+def _assert_close_f32(got, want, what):
+    assert got.dtype == torch.float32, what
+    e = fa.kernel_error(got, want)
+    assert e["worst"] <= 1, f"{what}: {e}"
+
+
+@pytest.mark.parametrize("shape", F32_SHAPES, ids=lambda s: "-".join(map(str, s)))
+def test_f32_kernels_match_plain(dev, shape):
+    b, sq, sk, h, hkv, d, causal = shape
+    q, k, v, dout, g_lse = _inputs_f32(dev, b, sq, sk, h, hkv, d)
+    fa.reset_launch_counts()
+    out, lse = fa.flash_fwd_f32(q, k, v, causal)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
+    delta = fa.flash_delta(out_p, dout, g_lse)
+    dq = fa.flash_bwd_dq_f32(q, k, v, dout, lse_p, delta, causal)
+    dk, dv = fa.flash_bwd_dkv_f32(q, k, v, dout, lse_p, delta, causal)
+    torch.cuda.synchronize()
+    assert fa.launch_counts == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                                "flash_fwd_f32": 1, "flash_bwd_dq_f32": 1,
+                                "flash_bwd_dkv_f32": 1}
+    assert (lse - lse_p).abs().max().item() <= fa.F32_LSE_ATOL
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, dout, lse_p, delta, causal)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, dout, lse_p, delta, causal)
+    for got, want, name in ((out, out_p, "out"), (dq, dq_p, "dq"), (dk, dk_p, "dk"),
+                            (dv, dv_p, "dv")):
+        _assert_close_f32(got, want, f"{name} {shape}")
+
+
+def test_f32_dkv_is_deterministic(dev):
+    q, k, v, dout, g_lse = _inputs_f32(dev, 2, 512, 512, 16, 2, 64, seed=5)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, True)
+    delta = fa.flash_delta(out_p, dout, g_lse)
+    first = fa.flash_bwd_dkv_f32(q, k, v, dout, lse_p, delta, True)
+    second = fa.flash_bwd_dkv_f32(q, k, v, dout, lse_p, delta, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+# Text substitutions of the source that plant a fault in one f32 kernel.
+F32_FAULTS = {
+    "mask_off_by_one": ("fwd", [("(causal && kcol > qrow)", "(causal && kcol >= qrow)")]),
+    "fwd_tile_dropped": ("fwd", [("kt < fwd_tiles; ++kt", "kt < fwd_tiles; kt += 1 + (kt == 1)")]),
+    "dq_tile_dropped": ("dq", [("kt < dq_tiles; ++kt", "kt < dq_tiles; kt += 1 + (kt == 1)")]),
+    "gqa_wrong_group": ("dkv", [("const int h_first = hk * n_rep;",
+                                 "const int h_first = ((hk + 1) % Hkv) * n_rep;")]),
+}
+
+
+def test_f32_planted_faults_fail_the_rule(dev, monkeypatch):
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    from uccl_tpu_torch.utils import build
+
+    with ThreadPoolExecutor(len(F32_FAULTS)) as pool:
+        libs = dict(zip(F32_FAULTS, pool.map(
+            lambda kv: build.build_variant("flash_attention", f"test_f32_{kv[0]}", kv[1][1]),
+            F32_FAULTS.items())))
+    q, k, v, dout, g_lse = _inputs_f32(dev, 2, 256, 256, 8, 2, 64, seed=9)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, True)
+    delta = fa.flash_delta(out_p, dout, g_lse)
+    want = {"fwd": out_p, "dq": fa.flash_bwd_dq_plain(q, k, v, dout, lse_p, delta, True),
+            "dkv": fa.flash_bwd_dkv_plain(q, k, v, dout, lse_p, delta, True)[0]}
+    for fault, (kernel, _) in F32_FAULTS.items():
+        lib = fa.declare(ctypes.CDLL(str(libs[fault])))
+        monkeypatch.setattr(fa, "_lib", lambda lib=lib: lib)
+        got = {"fwd": lambda: fa.flash_fwd_f32(q, k, v, True)[0],
+               "dq": lambda: fa.flash_bwd_dq_f32(q, k, v, dout, lse_p, delta, True),
+               "dkv": lambda: fa.flash_bwd_dkv_f32(q, k, v, dout, lse_p, delta, True)[0]}[kernel]()
+        torch.cuda.synchronize()
+        assert fa.kernel_error(got, want[kernel])["worst"] > 1, fault
+
+
+def test_f32_autograd_counts_and_grads(dev):
+    q, k, v, dout, g_lse = _inputs_f32(dev, 2, 192, 192, 8, 2, 64, seed=1)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    fa.reset_launch_counts()
+    out, lse = fa.flash_attention_lse(*leaves, True)
+    grads = torch.autograd.grad((out, lse), leaves, (dout, g_lse))
+    torch.cuda.synchronize()
+    assert fa.launch_counts == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                                "flash_fwd_f32": 1, "flash_bwd_dq_f32": 1,
+                                "flash_bwd_dkv_f32": 1}
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, True)
+    delta = fa.flash_delta(out.detach(), dout, g_lse)
+    want = (fa.flash_bwd_dq_plain(q, k, v, dout, lse.detach(), delta, True),
+            *fa.flash_bwd_dkv_plain(q, k, v, dout, lse.detach(), delta, True))
+    _assert_close_f32(out.detach(), out_p, "out")
+    for got, ref, name in zip(grads, want, ("dq", "dk", "dv")):
+        _assert_close_f32(got, ref, name)
+
+
+def test_f32_wrappers_refuse_other_dtypes_and_mixes(dev):
+    q, k, v, dout, _ = _inputs_f32(dev, 1, 128, 128, 2, 1, 64)
+    with pytest.raises(TypeError):
+        fa.flash_fwd_f32(q, k.bfloat16(), v)
+    with pytest.raises(TypeError):
+        fa.flash_fwd_f32(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    with pytest.raises(TypeError):  # f16 goes to the bf16 kernels, which refuse it
+        fa.flash_attention(q.half(), k.half(), v.half())
+    lse = torch.zeros((1, 2, 128), device=dev)
+    with pytest.raises(TypeError):
+        fa.flash_bwd_dq_f32(q, k, v, dout.bfloat16(), lse, lse)
+    with pytest.raises(ValueError):
+        fa.flash_fwd_f32(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                         v[..., :32].contiguous())
+
+
+def test_f32_flagship_trains_through_the_f32_kernels(dev):
+    from uccl_tpu_torch.models import flagship as fl
+    from uccl_tpu_torch.models.sampling import prng_key
+
+    cfg = fl.FlagshipConfig(vocab=256, dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
+                            head_dim=64, moe_experts=4, moe_ffn=192)
+    assert cfg.dtype == torch.float32
+    params = fl.init_params(prng_key(0), cfg, dev)
+    rng = np.random.default_rng(0)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab, (2, 96)), device=dev)
+    targets = torch.tensor(rng.integers(0, cfg.vocab, (2, 96)), device=dev)
+    fa.reset_launch_counts()
+    flash = fl.loss_fn(params, tokens, targets, cfg)[0].item()
+    assert fa.launch_counts["flash_fwd_f32"] == cfg.n_layers
+    plain = fl.loss_fn(params, tokens, targets, dataclasses.replace(cfg, attn_impl="xla"))[0]
+    assert np.isfinite(flash) and abs(flash - plain.item()) <= 1e-5 * abs(plain.item())

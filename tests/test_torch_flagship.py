@@ -161,9 +161,9 @@ def test_params_round_trip_and_init_shapes(data):
 
 
 @pytest.mark.parametrize("field,value,exc", [
-    ("remat", "dots", NotImplementedError),
-    ("remat", "mlp", NotImplementedError),
-    ("moe_impl", "ll", NotImplementedError),
+    ("seq_mode", "ulysses", NotImplementedError),
+    ("moe_chunks", 2, NotImplementedError),
+    ("remat", "bogus", ValueError),
     ("pp_schedule", "1f1b", NotImplementedError),
     ("moe_wire", "pallas", NotImplementedError),
     ("attn_impl", "bogus", ValueError),

@@ -3,10 +3,12 @@
 // These three kernels replace the Pallas TPU kernels of
 // uccl_tpu/ops/pallas_attention.py: _fwd_kernel (B1), _bwd_dq_kernel (B2) and
 // _bwd_dkv_kernel (B3). They compute the same functions; the block structure
-// is Hopper's own.
+// is Hopper's own. Each comes twice: for bf16 q/k/v on wgmma (most of this
+// file), and for f32 q/k/v on the CUDA cores' FP32 FMA (the section "B1-B3
+// in float32" near the end; the Pallas kernels take either dtype).
 //
 // Layout. q/out/dout/dq are [B, Sq, H, D] and k/v/dk/dv are [B, Sk, Hkv, D],
-// contiguous bf16, read in place: a D = 64 bf16 row is 128 contiguous bytes,
+// contiguous bf16 (or f32), read in place: a D = 64 bf16 row is 128 contiguous bytes,
 // so the TPU wrapper's [B*H, S, D] transposes are not needed. lse and delta
 // are [B, H, Sq] f32. Query head h reads KV head h / (H / Hkv) (GQA).
 //
@@ -911,6 +913,399 @@ __global__ void __launch_bounds__(BKV * 2 + 32, 1)
 }
 
 // ---------------------------------------------------------------------------
+// B1-B3 in float32. Replace the same Pallas kernels (pallas_attention.py::
+// _fwd_kernel, _bwd_dq_kernel, _bwd_dkv_kernel) on float32 q/k/v/dout: those
+// cast each tile to f32 and write in the input's dtype, so f32 in means f32
+// arithmetic throughout and f32 out.
+//
+// What bounds them: operations. At the flagship's shapes the three do 2, 3
+// and 4 S x S x D products per head, and float32 has no tensor-core rate on
+// the H100 that keeps its 24-bit mantissa (TF32 keeps 10 bits): the products
+// run as FP32 FMA on the CUDA cores, whose peak is about 15x below bf16
+// wgmma's. The bytes (each tensor read once) are some 50x below that bound.
+//
+// This design is the simple one: one CTA per 64-row tile (q rows for B1 and
+// B2, KV rows for B3) of one head, its resident tiles and each streamed tile
+// in shared memory as padded f32 rows, every product a register-tiled FMA
+// loop. A thread owns RM rows of the CTA's 64 and, of a 64-column score
+// tile, the columns tx + 8 j (j < 8): the 8 threads of a row group sit in
+// one quarter-warp, so a 16-byte read of 8 different streamed rows (row
+// stride D + 4 floats) hits 8 different bank groups, and the resident row
+// is a broadcast. A score tile goes through shared memory (P, dS) into the
+// second product of each pair, where a thread owns RM rows and D / 8 output
+// columns 4 tx + 32 c (+ 0..3). Row sums and maxima of the online softmax
+// take 3 shuffles across the row group. Causal tiles past the diagonal are
+// skipped, the longest rows run first. Rows and columns past a sequence's
+// end read as zeros, are masked and are not written, so any length works.
+//
+// Semantics are the bf16 kernels': -1e30 for a masked score (only whole
+// masked rows would see it, and causal rows never are), the 1e-20 row-sum
+// floor, f32 lse, delta from the stored out, and the GQA sum of B3 in
+// registers over the group's query heads (no atomics: the same inputs give
+// the same bits).
+
+constexpr int kF32Rows = 64;  // rows of every f32 tile
+
+template <int D>
+struct F32Tile {
+  static constexpr int RM = D == 64 ? 4 : 2;      // CTA rows a thread owns
+  static constexpr int NT = (kF32Rows / RM) * 8;  // threads: 8 a row group
+  static constexpr int LD = D + 4;                // row stride (floats) of a [64][D] tile
+  static constexpr int LDP = kF32Rows + 4;        // row stride of a [64][64] score tile
+  static constexpr int TILE = kF32Rows * LD;      // floats
+  static constexpr int PTILE = kF32Rows * LDP;
+  static constexpr int DC = D / 32;               // float4 output columns a thread owns
+};
+
+__device__ __forceinline__ float octet_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+}
+
+__device__ __forceinline__ float octet_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x + __shfl_xor_sync(0xffffffffu, x, 4);
+}
+
+__device__ __forceinline__ float f4_at(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// Rows [r0, r0 + 64) of one head of a [B, S, heads, D] f32 tensor (``src``
+// at that head's row 0, ``stride`` floats from row to row) into a padded
+// [64][D + 4] tile; rows at or past S arrive as zeros.
+template <int D>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* __restrict__ src, int r0,
+                                              int S, int stride) {
+  using T = F32Tile<D>;
+  constexpr int C4 = D / 4;
+  for (int i = threadIdx.x; i < kF32Rows * C4; i += T::NT) {
+    const int r = i / C4, c = i % C4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < S) x = __ldg(reinterpret_cast<const float4*>(src + (long long)(r0 + r) * stride) + c);
+    *reinterpret_cast<float4*>(dst + r * T::LD + 4 * c) = x;
+  }
+}
+
+// acc[i][j] = A[ty RM + i] . B[tx + 8 j] over D: this thread's block of a
+// 64 x 64 product of two [64][D + 4] tiles, the second transposed.
+template <int D>
+__device__ __forceinline__ void tile_abt(float (&acc)[F32Tile<D>::RM][8], const float* A,
+                                         const float* B, int ty, int tx) {
+  using T = F32Tile<D>;
+#pragma unroll
+  for (int i = 0; i < T::RM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 a[T::RM], b[8];
+#pragma unroll
+    for (int i = 0; i < T::RM; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + (ty * T::RM + i) * T::LD + d);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      b[j] = *reinterpret_cast<const float4*>(B + (tx + 8 * j) * T::LD + d);
+#pragma unroll
+    for (int i = 0; i < T::RM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float s = fmaf(a[i].x, b[j].x, acc[i][j]);
+        s = fmaf(a[i].y, b[j].y, s);
+        s = fmaf(a[i].z, b[j].z, s);
+        acc[i][j] = fmaf(a[i].w, b[j].w, s);
+      }
+  }
+}
+
+// acc[i][4 c + e] += sum_j P[ty RM + i][j] V[j][4 tx + 32 c + e]: this
+// thread's block of a [64][64] score tile (row stride 68) times a [64][D + 4]
+// tile.
+template <int D>
+__device__ __forceinline__ void tile_pv(float (&acc)[F32Tile<D>::RM][4 * F32Tile<D>::DC],
+                                        const float* P, const float* V, int ty, int tx) {
+  using T = F32Tile<D>;
+#pragma unroll 2
+  for (int j = 0; j < kF32Rows; j += 4) {
+    float4 p[T::RM];
+#pragma unroll
+    for (int i = 0; i < T::RM; ++i)
+      p[i] = *reinterpret_cast<const float4*>(P + (ty * T::RM + i) * T::LDP + j);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float4 v[T::DC];
+#pragma unroll
+      for (int c = 0; c < T::DC; ++c)
+        v[c] = *reinterpret_cast<const float4*>(V + (j + e) * T::LD + 4 * tx + 32 * c);
+#pragma unroll
+      for (int i = 0; i < T::RM; ++i) {
+        const float pi = f4_at(p[i], e);
+#pragma unroll
+        for (int c = 0; c < T::DC; ++c) {
+          acc[i][4 * c] = fmaf(pi, v[c].x, acc[i][4 * c]);
+          acc[i][4 * c + 1] = fmaf(pi, v[c].y, acc[i][4 * c + 1]);
+          acc[i][4 * c + 2] = fmaf(pi, v[c].z, acc[i][4 * c + 2]);
+          acc[i][4 * c + 3] = fmaf(pi, v[c].w, acc[i][4 * c + 3]);
+        }
+      }
+    }
+  }
+}
+
+// Rows a thread's accumulators cover, stored as f32 into a [B, S, heads, D]
+// tensor at ``dst`` (that head's row 0); rows at or past S are not written.
+template <int D>
+__device__ __forceinline__ void store_rows_f32(
+    float* __restrict__ dst, const float (&acc)[F32Tile<D>::RM][4 * F32Tile<D>::DC],
+    const float (&mul)[F32Tile<D>::RM], int r0, int S, int stride, int ty, int tx) {
+  using T = F32Tile<D>;
+#pragma unroll
+  for (int i = 0; i < T::RM; ++i) {
+    const int r = r0 + ty * T::RM + i;
+    if (r >= S) continue;
+    float* row = dst + (long long)r * stride;
+#pragma unroll
+    for (int c = 0; c < T::DC; ++c)
+      *reinterpret_cast<float4*>(row + 4 * tx + 32 * c) =
+          make_float4(acc[i][4 * c] * mul[i], acc[i][4 * c + 1] * mul[i],
+                      acc[i][4 * c + 2] * mul[i], acc[i][4 * c + 3] * mul[i]);
+  }
+}
+
+// Causal: the KV tiles a q tile starting at q0 reaches.
+__device__ __forceinline__ int kv_tiles_f32(int q0, int Sq, int Sk, int causal) {
+  const int all = (Sk + kF32Rows - 1) / kF32Rows;
+  return causal ? min(all, (min(q0 + kF32Rows, Sq) - 1) / kF32Rows + 1) : all;
+}
+
+// B1 in f32: one CTA per (batch * head, 64 q rows); K/V tiles stream
+// through shared memory, the online softmax runs in log2 units in
+// registers, P goes through shared memory into O += P V.
+template <int D>
+__global__ void __launch_bounds__(F32Tile<D>::NT)
+    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
+                         float scale_log2, int causal) {
+  using T = F32Tile<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sK = sQ + T::TILE;
+  float* sV = sK + T::TILE;
+  float* sP = sV + T::TILE;
+  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / (H / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32Rows;  // the longest causal rows first
+  const int qstride = H * D, kstride = Hkv * D;
+  const float* kb = k + ((long long)b * Sk * Hkv + hk) * D;
+  const float* vb = v + ((long long)b * Sk * Hkv + hk) * D;
+  load_tile_f32<D>(sQ, q + ((long long)b * Sq * H + h) * D, q0, Sq, qstride);
+
+  float m[T::RM], l[T::RM], acc[T::RM][4 * T::DC];
+#pragma unroll
+  for (int i = 0; i < T::RM; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * T::DC; ++c) acc[i][c] = 0.f;
+  }
+  const int fwd_tiles = kv_tiles_f32(q0, Sq, Sk, causal);
+  for (int kt = 0; kt < fwd_tiles; ++kt) {
+    const int k0 = kt * kF32Rows;
+    __syncthreads();  // the last tile's K, V and P are consumed
+    load_tile_f32<D>(sK, kb, k0, Sk, kstride);
+    load_tile_f32<D>(sV, vb, k0, Sk, kstride);
+    __syncthreads();
+    float s[T::RM][8];
+    tile_abt<D>(s, sQ, sK, ty, tx);
+#pragma unroll
+    for (int i = 0; i < T::RM; ++i) {
+      const int qrow = q0 + ty * T::RM + i;
+      float mt = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int kcol = k0 + tx + 8 * j;
+        s[i][j] = (kcol >= Sk || (causal && kcol > qrow)) ? kNegInf : s[i][j] * scale_log2;
+        mt = fmaxf(mt, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], octet_max(mt));
+      const float corr = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= corr;
+#pragma unroll
+      for (int c = 0; c < 4 * T::DC; ++c) acc[i][c] *= corr;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = exp2f(s[i][j] - m_new);
+        l[i] += p;
+        sP[(ty * T::RM + i) * T::LDP + tx + 8 * j] = p;
+      }
+    }
+    __syncthreads();
+    tile_pv<D>(acc, sP, sV, ty, tx);
+  }
+
+  constexpr float kLn2 = 0.69314718055994531f;
+  float inv[T::RM];
+#pragma unroll
+  for (int i = 0; i < T::RM; ++i) {
+    const float lsum = fmaxf(octet_sum(l[i]), 1e-20f);
+    inv[i] = 1.f / lsum;
+    const int qrow = q0 + ty * T::RM + i;
+    if (tx == 0 && qrow < Sq) lse[((long long)b * H + h) * Sq + qrow] = m[i] * kLn2 + logf(lsum);
+  }
+  store_rows_f32<D>(o + ((long long)b * Sq * H + h) * D, acc, inv, q0, Sq, qstride, ty, tx);
+}
+
+// B2 in f32: one CTA per (batch * head, 64 q rows) with Q and dO resident;
+// per K/V tile S = Q K^T and dP = dO V^T, then dS = P (dP - delta) scale
+// goes through shared memory into dQ += dS K.
+template <int D>
+__global__ void __launch_bounds__(F32Tile<D>::NT)
+    flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            float* __restrict__ dq, int Sq, int Sk, int H, int Hkv, float scale,
+                            float scale_log2, int causal) {
+  using T = F32Tile<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sO = sQ + T::TILE;  // dO
+  float* sK = sO + T::TILE;
+  float* sV = sK + T::TILE;
+  float* sS = sV + T::TILE;  // dS
+  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / (H / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32Rows;
+  const int qstride = H * D, kstride = Hkv * D;
+  const long long qhead = ((long long)b * Sq * H + h) * D;
+  const float* kb = k + ((long long)b * Sk * Hkv + hk) * D;
+  const float* vb = v + ((long long)b * Sk * Hkv + hk) * D;
+  load_tile_f32<D>(sQ, q + qhead, q0, Sq, qstride);
+  load_tile_f32<D>(sO, dout + qhead, q0, Sq, qstride);
+
+  float l2[T::RM], dl[T::RM], acc[T::RM][4 * T::DC];
+  const long long rows = ((long long)b * H + h) * Sq;
+#pragma unroll
+  for (int i = 0; i < T::RM; ++i) {
+    const int qrow = q0 + ty * T::RM + i;
+    l2[i] = qrow < Sq ? lse[rows + qrow] * kLog2e : 0.f;
+    dl[i] = qrow < Sq ? delta[rows + qrow] : 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * T::DC; ++c) acc[i][c] = 0.f;
+  }
+  const int dq_tiles = kv_tiles_f32(q0, Sq, Sk, causal);
+  for (int kt = 0; kt < dq_tiles; ++kt) {
+    const int k0 = kt * kF32Rows;
+    __syncthreads();  // the last tile's K and dS are consumed
+    load_tile_f32<D>(sK, kb, k0, Sk, kstride);
+    load_tile_f32<D>(sV, vb, k0, Sk, kstride);
+    __syncthreads();
+    float s[T::RM][8], dp[T::RM][8];
+    tile_abt<D>(s, sQ, sK, ty, tx);
+    tile_abt<D>(dp, sO, sV, ty, tx);
+#pragma unroll
+    for (int i = 0; i < T::RM; ++i) {
+      const int qrow = q0 + ty * T::RM + i;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = k0 + tx + 8 * j;
+        const bool dq_masked = col >= Sk || (causal && col > qrow);
+        const float p = dq_masked ? 0.f : exp2f(fmaf(s[i][j], scale_log2, -l2[i]));
+        sS[(ty * T::RM + i) * T::LDP + tx + 8 * j] = p * (dp[i][j] - dl[i]) * scale;
+      }
+    }
+    __syncthreads();
+    tile_pv<D>(acc, sS, sK, ty, tx);
+  }
+  float unit[T::RM];
+#pragma unroll
+  for (int i = 0; i < T::RM; ++i) unit[i] = 1.f;
+  store_rows_f32<D>(dq + qhead, acc, unit, q0, Sq, qstride, ty, tx);
+}
+
+// B3 in f32: one CTA per (batch * KV head, 64 KV rows) with K and V
+// resident; over the group's query heads and each q tile that reaches these
+// rows, S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T go through shared
+// memory into dV += P^T dO and dK += dS^T Q. The GQA sum is the loop over
+// heads, in registers.
+template <int D>
+__global__ void __launch_bounds__(F32Tile<D>::NT)
+    flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk,
+                             int H, int Hkv, float scale, float scale_log2, int causal) {
+  using T = F32Tile<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sK = reinterpret_cast<float*>(smem_raw);
+  float* sV = sK + T::TILE;
+  float* sQ = sV + T::TILE;
+  float* sO = sQ + T::TILE;  // dO
+  float* sP = sO + T::TILE;  // P^T
+  float* sS = sP + T::PTILE;  // dS^T
+  float* sL = sS + T::PTILE;  // the q tile's lse (log2 units)
+  float* sD = sL + kF32Rows;  // and delta
+  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
+  const int k0 = blockIdx.y * kF32Rows;
+  const int qstride = H * D, kstride = Hkv * D;
+  const long long khead = ((long long)b * Sk * Hkv + hk) * D;
+  load_tile_f32<D>(sK, k + khead, k0, Sk, kstride);
+  load_tile_f32<D>(sV, v + khead, k0, Sk, kstride);
+
+  float dk_acc[T::RM][4 * T::DC], dv_acc[T::RM][4 * T::DC];
+#pragma unroll
+  for (int i = 0; i < T::RM; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * T::DC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+  const int n_rep = H / Hkv;
+  const int h_first = hk * n_rep;
+  const int q_tiles = (Sq + kF32Rows - 1) / kF32Rows;
+  const int q_first = causal ? k0 / kF32Rows : 0;
+  for (int h = h_first; h < h_first + n_rep; ++h) {
+    const long long qhead = ((long long)b * Sq * H + h) * D;
+    const long long rows = ((long long)b * H + h) * Sq;
+    for (int qt = q_first; qt < q_tiles; ++qt) {
+      const int q0 = qt * kF32Rows;
+      __syncthreads();  // the last step's Q, dO, P^T and dS^T are consumed
+      load_tile_f32<D>(sQ, q + qhead, q0, Sq, qstride);
+      load_tile_f32<D>(sO, dout + qhead, q0, Sq, qstride);
+      for (int r = threadIdx.x; r < kF32Rows; r += T::NT) {
+        sL[r] = q0 + r < Sq ? lse[rows + q0 + r] * kLog2e : 0.f;
+        sD[r] = q0 + r < Sq ? delta[rows + q0 + r] : 0.f;
+      }
+      __syncthreads();
+      float s[T::RM][8], dp[T::RM][8];
+      tile_abt<D>(s, sK, sQ, ty, tx);
+      tile_abt<D>(dp, sV, sO, ty, tx);
+#pragma unroll
+      for (int i = 0; i < T::RM; ++i) {
+        const int krow = k0 + ty * T::RM + i;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int qc = tx + 8 * j;
+          const bool dkv_masked = q0 + qc >= Sq || (causal && krow > q0 + qc);
+          const float p = dkv_masked ? 0.f : exp2f(fmaf(s[i][j], scale_log2, -sL[qc]));
+          sP[(ty * T::RM + i) * T::LDP + qc] = p;
+          sS[(ty * T::RM + i) * T::LDP + qc] = p * (dp[i][j] - sD[qc]) * scale;
+        }
+      }
+      __syncthreads();
+      tile_pv<D>(dv_acc, sP, sO, ty, tx);
+      tile_pv<D>(dk_acc, sS, sQ, ty, tx);
+    }
+  }
+  float unit[T::RM];
+#pragma unroll
+  for (int i = 0; i < T::RM; ++i) unit[i] = 1.f;
+  store_rows_f32<D>(dk + khead, dk_acc, unit, k0, Sk, kstride, ty, tx);
+  store_rows_f32<D>(dv + khead, dv_acc, unit, k0, Sk, kstride, ty, tx);
+}
+
+// ---------------------------------------------------------------------------
 // Host launchers
 
 template <typename K>
@@ -1038,6 +1433,61 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// The f32 kernels' dynamic shared memory in bytes: B1's (kernel 0) Q, K, V
+// and P tiles; B2's (1) Q, dO, K, V and dS; B3's (2) K, V, Q, dO, P^T and
+// dS^T, and the q tile's lse and delta.
+template <int D>
+constexpr size_t f32_smem(int kernel) {
+  using T = F32Tile<D>;
+  return sizeof(float) * (kernel == 0   ? 3 * T::TILE + T::PTILE
+                          : kernel == 1 ? 4 * T::TILE + T::PTILE
+                                        : 4 * T::TILE + 2 * T::PTILE + 2 * kF32Rows);
+}
+
+template <int D>
+int launch_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                   int Sq, int Sk, int H, int Hkv, int causal, cudaStream_t st) {
+  const size_t smem = f32_smem<D>(0);
+  auto kern = flash_fwd_f32_kernel<D>;
+  if (int err = prepare(kern, smem)) return err;
+  dim3 grid(B * H, (Sq + kF32Rows - 1) / kF32Rows);
+  kern<<<grid, F32Tile<D>::NT, smem, st>>>((const float*)q, (const float*)k, (const float*)v,
+                                           (float*)o, (float*)lse, Sq, Sk, H, Hkv,
+                                           kLog2e / sqrtf((float)D), causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq_f32(const void* q, const void* k, const void* v, const void* dout,
+                  const void* lse, const void* delta, void* dq, int B, int Sq, int Sk, int H,
+                  int Hkv, int causal, cudaStream_t st) {
+  const size_t smem = f32_smem<D>(1);
+  auto kern = flash_bwd_dq_f32_kernel<D>;
+  if (int err = prepare(kern, smem)) return err;
+  dim3 grid(B * H, (Sq + kF32Rows - 1) / kF32Rows);
+  const float scale = 1.f / sqrtf((float)D);
+  kern<<<grid, F32Tile<D>::NT, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse,
+      (const float*)delta, (float*)dq, Sq, Sk, H, Hkv, scale, scale * kLog2e, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
+                   int Sk, int H, int Hkv, int causal, cudaStream_t st) {
+  const size_t smem = f32_smem<D>(2);
+  auto kern = flash_bwd_dkv_f32_kernel<D>;
+  if (int err = prepare(kern, smem)) return err;
+  dim3 grid(B * Hkv, (Sk + kF32Rows - 1) / kF32Rows);
+  const float scale = 1.f / sqrtf((float)D);
+  kern<<<grid, F32Tile<D>::NT, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse,
+      (const float*)delta, (float*)dk, (float*)dv, Sq, Sk, H, Hkv, scale, scale * kLog2e,
+      causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -1090,4 +1540,45 @@ extern "C" int uccl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                    (cudaStream_t)stream)
   UCCL_DISPATCH(D, block_k)
 #undef CALL
+}
+
+// The f32 kernels: any sequence lengths, D = 64 or 128, 64-row tiles.
+#define UCCL_DISPATCH_F32(D_)      \
+  if (D_ == 64) return CALL(64);   \
+  if (D_ == 128) return CALL(128); \
+  return (int)cudaErrorInvalidValue;
+
+extern "C" int uccl_flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                                  void* lse, int B, int Sq, int Sk, int H, int Hkv, int D,
+                                  int causal, void* stream) {
+#define CALL(d) launch_fwd_f32<d>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, (cudaStream_t)stream)
+  UCCL_DISPATCH_F32(D)
+#undef CALL
+}
+
+extern "C" int uccl_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
+                                     const void* dout, const void* lse, const void* delta,
+                                     void* dq, int B, int Sq, int Sk, int H, int Hkv, int D,
+                                     int causal, void* stream) {
+#define CALL(d)                                                                 \
+  launch_dq_f32<d>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, causal, \
+                   (cudaStream_t)stream)
+  UCCL_DISPATCH_F32(D)
+#undef CALL
+}
+
+extern "C" int uccl_flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
+                                      const void* dout, const void* lse, const void* delta,
+                                      void* dk, void* dv, int B, int Sq, int Sk, int H,
+                                      int Hkv, int D, int causal, void* stream) {
+#define CALL(d)                                                                      \
+  launch_dkv_f32<d>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, causal, \
+                    (cudaStream_t)stream)
+  UCCL_DISPATCH_F32(D)
+#undef CALL
+}
+
+// Dynamic shared memory per CTA of f32 kernel 0 (B1), 1 (B2) or 2 (B3).
+extern "C" int uccl_flash_f32_smem(int kernel, int D) {
+  return D == 64 ? (int)f32_smem<64>(kernel) : D == 128 ? (int)f32_smem<128>(kernel) : 0;
 }

@@ -20,15 +20,19 @@ padded slot.
   ``"dense"`` on the CPU, as the JAX package picks ragged on a GPU or TPU
   backend and dense on XLA:CPU.
 * The *grouped GEMM* (``lax.ragged_dot`` in JAX, XLA code and no Pallas
-  kernel) gathers each local expert's rows to the front of a fixed
-  ``[R_max, H]`` block and runs the three products on all the blocks at
-  once: the same shapes whatever the counts, so a row's result does not
-  depend on what else the batch routed (a GEMM library picks its
-  summation order by the row count; the serving engine's exactness
-  against a request run alone rests on this), and the sizes never leave
-  the device. It spends ``E_local`` times the FLOPs of the real rows, on
-  the decode batches this path is for, where the weights' bytes set the
-  time.
+  kernel) has two forms. :func:`grouped_ffn`, the serving form, gathers
+  each local expert's rows to the front of a fixed ``[R_max, H]`` block
+  and runs the three products on all the blocks at once: the same shapes
+  whatever the counts, so a row's result does not depend on what else the
+  batch routed (a GEMM library picks its summation order by the row count;
+  the serving engine's exactness against a request run alone rests on
+  this), and the sizes never leave the device. It spends ``E_local`` times
+  the FLOPs of the real rows, on the decode batches serving runs, where
+  the weights' bytes set the time. :func:`grouped_ffn_ragged`, the
+  training form (``moe_ffn(..., ll_grouped="ragged")``), reads the counts
+  on the host once and runs each expert's products on its own segment of
+  packed rows only: FLOPs in proportion to ``sum(group_sizes)``, as
+  ``ragged_dot``'s.
 
 Tensors are member-stacked: row r of every ``[W, ...]`` tensor is member
 r's shard of the JAX per-shard function. ``topk_idx`` entries of ``-1``
@@ -44,11 +48,13 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from uccl_tpu_torch.collective import dma as _dma
 from uccl_tpu_torch.collective import lanes as _lanes
-from uccl_tpu_torch.ep.ops import (_expert_gemms, _gate_topk, _per_member, _take_member_rows,
-                                   _weighted_sum, counts_exchange, resolve_wire_dtype)
+from uccl_tpu_torch.ep.ops import (MOE_CHECKPOINT_NAMES, _expert_gemms, _gate_topk, _per_member,
+                                   _stack, _take_member_rows, _weighted_sum, checkpoint_name,
+                                   counts_exchange, resolve_wire_dtype)
 from uccl_tpu_torch.ops import quant as _quant
 
 
@@ -379,16 +385,52 @@ def grouped_ffn(recv_x: torch.Tensor, group_sizes: torch.Tensor, w_gate: torch.T
     return out[:, :r]
 
 
+def grouped_ffn_ragged(recv_x: torch.Tensor, group_sizes: torch.Tensor, w_gate: torch.Tensor,
+                       w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """:func:`grouped_ffn`'s contract (``lax.ragged_dot``'s) for training:
+    after one host read of ``group_sizes``, each local expert's products
+    run on its own contiguous segment of packed rows, and rows past the
+    groups are zeros. Differentiable through autograd; the operand and the
+    three results carry the expert tags (``ep.ops.MOE_CHECKPOINT_NAMES``).
+    Each segment's product is a ``bmm`` with a batch of one, so
+    remat="dots" leaves it to the recompute, as the JAX policy leaves
+    ``ragged_dot``."""
+    w, r, _ = recv_x.shape
+    sizes = group_sizes.tolist()
+    xe_tag, hg_tag, hu_tag, ye_tag = MOE_CHECKPOINT_NAMES
+
+    def ragged(x, weights):  # [W, R, K] x [W, E_local, K, N] -> [W, R, N]
+        members = []
+        for m in range(w):
+            segs, off = [], 0
+            for e, n in enumerate(sizes[m]):
+                if n:
+                    segs.append(torch.bmm(x[m, off:off + n][None], weights[m, e][None])[0])
+                off += n
+            segs.append(x.new_zeros((r - off, weights.shape[-1])))
+            members.append(torch.cat(segs))
+        return _stack(members)
+
+    recv_x = checkpoint_name(recv_x, xe_tag)
+    gate = checkpoint_name(ragged(recv_x, w_gate), hg_tag)
+    up = checkpoint_name(ragged(recv_x, w_up), hu_tag)
+    return checkpoint_name(ragged(F.silu(gate) * up, w_down), ye_tag)
+
+
 def ll_moe_ffn(x: torch.Tensor, router_logits: torch.Tensor, w_gate: torch.Tensor,
                w_up: torch.Tensor, w_down: torch.Tensor, *, num_selected: int = 2,
                num_max_dispatch_tokens_per_rank: Optional[int] = None,
                pair_capacity_factor: Optional[float] = None, wire: str = "auto",
                wire_fp8: bool = False, renormalize: bool = True, n_chunks: int = 1,
-               wire_dtype: Optional[str] = None):
+               wire_dtype: Optional[str] = None, grouped: str = "fixed"):
     """The MoE layer on the low-latency path, member-stacked: route → packed
     dispatch → grouped GEMMs over the counts → packed combine. Drop-free by
-    default (no per-expert capacity). Returns (out ``[W, T, H]``, aux
+    default (no per-expert capacity). ``grouped``: the grouped GEMM's form,
+    ``"fixed"`` (:func:`grouped_ffn`, serving) or ``"ragged"``
+    (:func:`grouped_ffn_ragged`, training). Returns (out ``[W, T, H]``, aux
     ``[W]``, z ``[W]``)."""
+    if grouped not in ("fixed", "ragged"):
+        raise ValueError(f"unknown grouped GEMM form {grouped!r} (want fixed|ragged)")
     e = router_logits.shape[-1]
     topk_vals, topk_idx, aux_loss, z_loss = _per_member(_gate_topk, router_logits,
                                                         num_selected, renormalize)
@@ -397,6 +439,7 @@ def ll_moe_ffn(x: torch.Tensor, router_logits: torch.Tensor, w_gate: torch.Tenso
                     pair_capacity_factor=pair_capacity_factor, wire=wire, wire_fp8=wire_fp8,
                     n_chunks=n_chunks, wire_dtype=wire_dtype)
     dt = r.recv_x.dtype
-    y = grouped_ffn(r.recv_x, r.group_sizes, w_gate.to(dt), w_up.to(dt), w_down.to(dt))
+    ffn = grouped_ffn if grouped == "fixed" else grouped_ffn_ragged
+    y = ffn(r.recv_x, r.group_sizes, w_gate.to(dt), w_up.to(dt), w_down.to(dt))
     out = ll_combine(y, r.state, wire_fp8=wire_fp8, wire_dtype=wire_dtype)
     return out.to(x.dtype), aux_loss, z_loss

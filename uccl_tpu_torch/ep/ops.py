@@ -37,6 +37,7 @@ Pallas kernel.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Tuple, Union
 
 import torch
@@ -48,6 +49,49 @@ from uccl_tpu_torch.obs import counters as _obsc
 from uccl_tpu_torch.ops import quant as _quant
 
 Axis = Union[str, Tuple[str, ...], None]
+
+# The tags of the expert GEMMs' operand and results (the JAX package's
+# checkpoint_name tags), shared by the sort/dense path here, the ll path
+# (ep/ll.py) and the remat="mlp" save policy (models/flagship.remat_policy).
+# A drifted name fails silently (the policy stops matching and the memory
+# win goes), so every site uses this tuple.
+MOE_CHECKPOINT_NAMES = ("moe_xe", "moe_hg", "moe_hu", "moe_ye")
+_XE, _HG, _HU, _YE = MOE_CHECKPOINT_NAMES
+_tagging = [0]  # depth of the regions whose save policy reads the tags
+
+
+@torch.library.custom_op("uccl_tpu_torch::checkpoint_name", mutates_args=())
+def _checkpoint_name_op(x: torch.Tensor, name: str) -> torch.Tensor:
+    """A copy of ``x`` that carries ``name`` into the dispatcher, where a
+    selective-checkpoint policy sees it among the op's arguments. (A custom
+    op may not return its input, so the tag costs one copy.)"""
+    return x.clone()
+
+
+@_checkpoint_name_op.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+_checkpoint_name_op.register_autograd(lambda ctx, g: (g, None))
+
+
+@contextlib.contextmanager
+def tagging():
+    """Emit the :func:`checkpoint_name` tags inside this block (a remat
+    policy that saves them enters it); elsewhere a tag is the identity and
+    costs nothing."""
+    _tagging[0] += 1
+    try:
+        yield
+    finally:
+        _tagging[0] -= 1
+
+
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``jax.ad_checkpoint.checkpoint_name``: ``x``, tagged ``name`` for a
+    save policy inside :func:`tagging`; the identity elsewhere."""
+    return _checkpoint_name_op(x, name) if _tagging[0] else x
 
 _CHUNK_DEPTH = _obsc.gauge(
     "ep_chunk_depth", "resolved chunk-pipeline depth of the last EP layer")
@@ -503,11 +547,15 @@ def _resolve_chunks_value(n_chunks, wire, world, capacity, e_local, hidden, item
 
 
 def _expert_gemms(xe, w_gate, w_up, w_down):
-    """The SwiGLU expert GEMMs: [E, C, H] -> [E, C, H]."""
-    h_gate = torch.einsum("ebh,ehf->ebf", xe, w_gate)
-    h_up = torch.einsum("ebh,ehf->ebf", xe, w_up)
+    """The SwiGLU expert GEMMs: [E, C, H] -> [E, C, H], the operand and the
+    three results tagged (:data:`MOE_CHECKPOINT_NAMES`) for remat="mlp".
+    The products keep their expert batch dim (``bmm``), so remat="dots"
+    does not save them, as the JAX package's batched einsums."""
+    xe = checkpoint_name(xe, _XE)
+    h_gate = checkpoint_name(torch.einsum("ebh,ehf->ebf", xe, w_gate), _HG)
+    h_up = checkpoint_name(torch.einsum("ebh,ehf->ebf", xe, w_up), _HU)
     act = F.silu(h_gate) * h_up
-    return torch.einsum("ebf,efh->ebh", act, w_down)
+    return checkpoint_name(torch.einsum("ebf,efh->ebh", act, w_down), _YE)
 
 
 def _member_gemms(xe, w_gate, w_up, w_down):
@@ -567,6 +615,7 @@ def moe_ffn(
     wire: str = "lax",
     n_chunks: int = 1,
     wire_dtype=None,
+    ll_grouped: str = "fixed",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The MoE layer: route -> dispatch -> SwiGLU experts -> combine.
 
@@ -584,7 +633,9 @@ def moe_ffn(
     its auto wire). n_chunks: the pallas wire's pipeline depth (0 = auto);
     with "sort" and a depth > 1 the layer runs the chunk pipeline.
     wire_dtype: "fp8" | "int8" quantizes the dispatch and combine payloads
-    (``wire_fp8=True`` is the legacy "fp8")."""
+    (``wire_fp8=True`` is the legacy "fp8"). ll_grouped: the "ll" path's
+    grouped GEMM, "fixed" (serving's fixed shapes) or "ragged" (training:
+    the products see only the packed rows, ``ll.grouped_ffn_ragged``)."""
     wire_dtype = resolve_wire_dtype(wire_fp8, wire_dtype)
     if axis is None:
         # world 1 is one member of a member-stacked world: views, no copies;
@@ -593,7 +644,7 @@ def moe_ffn(
         out, aux, z = moe_ffn(x[None], router_logits[None], w_gate[None], w_up[None],
                               w_down[None], "ep", num_selected=num_selected,
                               capacity_factor=capacity_factor, impl=impl, wire=wire,
-                              n_chunks=n_chunks, wire_dtype=wire_dtype)
+                              n_chunks=n_chunks, wire_dtype=wire_dtype, ll_grouped=ll_grouped)
         return out[0], aux[0], z[0]
     with _lanes.one_check():  # every exchange's error word, read once at the end
         w, t, h = x.shape
@@ -605,7 +656,7 @@ def moe_ffn(
             return ll_moe_ffn(x, router_logits, w_gate, w_up, w_down, num_selected=num_selected,
                               pair_capacity_factor=capacity_factor,
                               wire="pallas" if wire == "pallas" else "auto",
-                              wire_dtype=wire_dtype, n_chunks=n_chunks)
+                              wire_dtype=wire_dtype, n_chunks=n_chunks, grouped=ll_grouped)
         if impl == "sort":
             rs = route_topk_sorted(router_logits, num_selected, capacity)
             n_chunks = resolve_chunks(n_chunks, wire, w, capacity, e // w, h,

@@ -17,8 +17,13 @@ Casts follow the JAX model: activations are in ``cfg.dtype`` and each weight
 is cast to it at its matmul; router and vocab logits are float32; the MoE
 output is cast back to the activation dtype.
 
+``remat`` is the JAX model's recompute schedule for each block: ``full``
+and ``none``, and ``dots`` / ``mlp`` as selective checkpoints
+(:func:`remat_policy`). ``moe_impl="ll"`` trains through the packed
+low-latency path with a ragged grouped GEMM (``ep/ll.grouped_ffn_ragged``).
+
 Not ported yet (they raise): the multi-chip fields of the config at other
-than their defaults, ``remat="dots"``/``"mlp"``, ``moe_impl="ll"``.
+than their defaults (the flagship at world > 1).
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ from typing import Any, Callable, Dict, Mapping, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from uccl_tpu_torch import DeviceLike, resolve_device
 from uccl_tpu_torch.ep import ops as ep_ops
@@ -74,13 +80,13 @@ class FlagshipConfig:
     pp_schedule: str = "gpipe"
     seq_mode: str = "ring"
     attn_impl: str = "auto"  # "auto" | "flash": the flash kernels; "xla": plain
-    moe_impl: str = "sort"  # "sort" | "dense"
+    moe_impl: str = "sort"  # "sort" | "dense" | "ll" (packed, drop-free at cf >= 1)
     moe_wire: str = "lax"
     moe_chunks: int = 0
     wire_fp8: bool = False
     wire_dtype: Any = None
-    remat: str = "full"  # "full" | "none"
-    dtype: torch.dtype = torch.float32  # activation dtype (bfloat16 on the card)
+    remat: str = "full"  # "full" | "dots" | "mlp" | "none": see _remat_wrap
+    dtype: torch.dtype = torch.float32  # activation dtype (the trainers' float32)
 
     def __post_init__(self):
         for name, default in _WORLD1_DEFAULTS.items():
@@ -89,16 +95,17 @@ class FlagshipConfig:
                     f"FlagshipConfig.{name}={getattr(self, name)!r}: the world-1 port "
                     f"takes only {default!r}"
                 )
-        if self.attn_impl not in ("auto", "flash", "xla"):
-            raise ValueError(f"unknown attn_impl {self.attn_impl!r} (want auto|flash|xla)")
-        if self.remat in ("dots", "mlp"):
-            raise NotImplementedError(f"remat={self.remat!r} is not ported yet (full|none)")
-        if self.remat not in ("full", "none"):
-            raise ValueError(f"unknown remat mode {self.remat!r} (want full|none)")
-        if self.moe_impl == "ll":
-            raise NotImplementedError("moe_impl='ll' (ep/ll.py) is not ported yet")
-        if self.moe_impl not in ("sort", "dense"):
-            raise ValueError(f"unknown moe impl {self.moe_impl!r} (want sort|dense)")
+        _check_common(self)
+        if self.moe_impl not in ("sort", "dense", "ll"):
+            raise ValueError(f"unknown moe impl {self.moe_impl!r} (want sort|dense|ll)")
+
+
+def _check_common(cfg) -> None:
+    """The checks the flagship and the dense config share."""
+    if cfg.attn_impl not in ("auto", "flash", "xla"):
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r} (want auto|flash|xla)")
+    if cfg.remat not in REMAT_MODES:
+        raise ValueError(f"unknown remat mode {cfg.remat!r} (want full|dots|mlp|none)")
 
 
 def bench_config(**overrides) -> FlagshipConfig:
@@ -202,6 +209,55 @@ def params_to_numpy(params: Params) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
+# Rematerialisation
+
+REMAT_MODES = ("full", "dots", "mlp", "none")
+# Products with no batch dim: projections, router, the dense FFN (the JAX
+# policy dots_with_no_batch_dims_saveable); the expert products are bmm.
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_TAG = torch.ops.uccl_tpu_torch.checkpoint_name.default
+
+
+def remat_policy(mode: str) -> Callable:
+    """The selective-checkpoint policy of remat mode ``dots`` or ``mlp``:
+    save the outputs of the products with no batch dim and, for ``mlp``,
+    the expert GEMMs' tagged operand and results
+    (``ep.ops.MOE_CHECKPOINT_NAMES``); recompute everything else, the
+    attention interior and the expert products included."""
+    names = set(ep_ops.MOE_CHECKPOINT_NAMES) if mode == "mlp" else set()
+
+    def policy(ctx, func, *args, **kwargs):
+        if func in _NO_BATCH_DOTS or (func is _TAG and args[1] in names):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+def _remat_wrap(f: Callable, mode: str) -> Callable:
+    """The JAX model's rematerialisation wrapper for one block: ``full``
+    recomputes the whole block in backward (``jax.checkpoint``); ``dots``
+    and ``mlp`` save what :func:`remat_policy` names and recompute the rest
+    (a selective checkpoint; ``mlp`` runs the block, in the forward and in
+    the recompute alike, with the expert tags on); ``none`` saves every
+    residual. Gradients do not depend on the mode: a saved tensor holds the
+    values a recompute would give."""
+    if mode == "none":
+        return f
+    if mode == "full":
+        return partial(checkpoint, f, use_reentrant=False)
+    if mode not in REMAT_MODES:
+        raise ValueError(f"unknown remat mode {mode!r} (want full|dots|mlp|none)")
+    block = f
+    if mode == "mlp":
+        def block(*args):
+            with ep_ops.tagging():
+                return f(*args)
+    return partial(checkpoint, block, use_reentrant=False,
+                   context_fn=partial(create_selective_checkpoint_contexts, remat_policy(mode)))
+
+
+# ---------------------------------------------------------------------------
 # Forward
 
 
@@ -237,19 +293,23 @@ def _layer(x: torch.Tensor, lp: Params, cfg: FlagshipConfig) -> Tuple[torch.Tens
         num_selected=cfg.moe_topk,
         capacity_factor=cfg.capacity_factor,
         impl=cfg.moe_impl,
+        ll_grouped="ragged",
     )
     x = x + moe_out.reshape(b, s, h)
     return x, cfg.aux_loss_weight * aux + cfg.z_loss_weight * z
 
 
-def _layer_at(blocks: Params, i: int, x: torch.Tensor, cfg: FlagshipConfig):
-    return _layer(x, {k: blocks[k][i] for k in _BLOCK_KEYS}, cfg)
+def _layer_at(layer: Callable, blocks: Params, i: int, x: torch.Tensor, cfg):
+    return layer(x, {k: v[i] for k, v in blocks.items()}, cfg)
 
 
-def _logits_aux(params: Params, tokens: torch.Tensor, cfg: FlagshipConfig):
+def logits_aux(params: Params, tokens: torch.Tensor, cfg, layer: Callable = None):
     """tokens [B, S] -> (logits [B, S, V] f32, aux summed over layers and
-    microbatches). The GPipe schedule at pp = 1 is a loop over
+    microbatches): the embedding, the blocks (``layer``, default the
+    flagship's, each under the config's remat wrapper), the final norm and
+    the vocab head. The GPipe schedule at pp = 1 is a loop over
     microbatches."""
+    layer = layer or _layer
     b, s = tokens.shape
     m = cfg.n_microbatches
     if b % m:
@@ -259,12 +319,8 @@ def _logits_aux(params: Params, tokens: torch.Tensor, cfg: FlagshipConfig):
     for xm in x.reshape(m, b // m, s, cfg.dim):
         aux_mb = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.n_layers):
-            step = partial(_layer_at, params["blocks"], i, cfg=cfg)
-            if cfg.remat == "full":
-                # recompute the whole block in backward (jax.checkpoint)
-                xm, a = checkpoint(step, xm, use_reentrant=False)
-            else:
-                xm, a = step(xm)
+            step = partial(_layer_at, layer, params["blocks"], i, cfg=cfg)
+            xm, a = _remat_wrap(step, cfg.remat)(xm)
             aux_mb = aux_mb + a
         outs.append(xm)
         aux = aux + aux_mb
@@ -275,13 +331,13 @@ def _logits_aux(params: Params, tokens: torch.Tensor, cfg: FlagshipConfig):
 
 def forward(params: Params, tokens: torch.Tensor, cfg: FlagshipConfig) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V] (float32)."""
-    return _logits_aux(params, tokens, cfg)[0]
+    return logits_aux(params, tokens, cfg)[0]
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
             cfg: FlagshipConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean loss including aux; returns (total_loss, ce_loss)."""
-    logits, aux = _logits_aux(params, tokens, cfg)
+    logits, aux = logits_aux(params, tokens, cfg)
     v = logits.shape[-1]
     loss = torch.mean(tp_cross_entropy(logits.reshape(-1, v), targets.reshape(-1)))
     return loss + aux / (cfg.n_layers * cfg.n_microbatches), loss
@@ -300,7 +356,20 @@ def make_train_step(cfg: FlagshipConfig, device: DeviceLike = None,
     weight_decay=0.01)`` (b1 0.9, b2 0.999, eps 1e-8, decay on every leaf).
     Unlike the JAX step it updates ``params`` and ``opt_state`` in place,
     which saves a copy of every parameter and moment, and returns the same
-    objects. Tokens and targets move to ``device`` if they are elsewhere."""
+    objects. Tokens and targets move to ``device`` if they are elsewhere.
+    Metrics are the total loss and its cross-entropy part."""
+
+    def loss(params, tokens, targets):
+        total, ce = loss_fn(params, tokens, targets, cfg)
+        return total, {"loss": total.detach(), "ce": ce.detach()}
+
+    return adamw_train_step(loss, device, learning_rate)
+
+
+def adamw_train_step(loss: Callable, device: DeviceLike = None, learning_rate: float = 3e-4):
+    """(train_step, init_optimizer) of the AdamW step above around ``loss``:
+    ``loss(params, tokens, targets) -> (total, metrics)``; the step returns
+    ``metrics``. Shared by the flagship and the dense model."""
     dev = resolve_device(device)
     b1, b2, eps, wd = 0.9, 0.999, 1e-8, 0.01
 
@@ -315,7 +384,7 @@ def make_train_step(cfg: FlagshipConfig, device: DeviceLike = None,
         leaves = [p.requires_grad_() for p in tree_leaves(params)]
         tokens = torch.as_tensor(tokens, device=dev)
         targets = torch.as_tensor(targets, device=dev)
-        total, ce = loss_fn(params, tokens, targets, cfg)
+        total, metrics = loss(params, tokens, targets)
         grads = torch.autograd.grad(total, leaves)
         count = opt_state["count"] + 1
         bc1, bc2 = 1.0 - b1 ** count, 1.0 - b2 ** count
@@ -327,7 +396,7 @@ def make_train_step(cfg: FlagshipConfig, device: DeviceLike = None,
                 update = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
                 p.sub_(learning_rate * (update + wd * p))
         opt_state["count"] = count
-        return params, opt_state, {"loss": total.detach(), "ce": ce.detach()}
+        return params, opt_state, metrics
 
     return train_step, init_optimizer
 

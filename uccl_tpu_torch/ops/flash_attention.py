@@ -1,8 +1,9 @@
 """Flash attention on Hopper: forward and backward CUDA kernels, LSE-exposing API.
 
-Port of ``uccl_tpu/ops/pallas_attention.py``. Its three Pallas kernels become
-three CUDA kernels in ``csrc/flash_attention.cu``, built with ``nvcc`` for
-``sm_90a`` at first use and called through ctypes:
+Port of ``uccl_tpu/ops/pallas_attention.py``. Its three Pallas kernels take
+bf16 or f32 q/k/v and become two sets of three CUDA kernels in
+``csrc/flash_attention.cu``, built with ``nvcc`` for ``sm_90a`` at first use
+and called through ctypes. For bf16:
 
 * ``flash_fwd``     (replaces ``_fwd_kernel``): out ``[B,S,H,D]`` and lse
   ``[B,H,S]`` f32, online softmax, causal tiles past the diagonal skipped;
@@ -16,6 +17,12 @@ three CUDA kernels in ``csrc/flash_attention.cu``, built with ``nvcc`` for
 
 The backward kernels run on ``wgmma`` too, fed by TMA rings that one producer
 warp keeps ahead of the consumer warpgroups.
+
+For float32 (what the trainers run): ``flash_fwd_f32``, ``flash_bwd_dq_f32``
+and ``flash_bwd_dkv_f32``, the same three functions in f32 arithmetic on the
+CUDA cores (no tensor-core rate keeps f32's mantissa), on 64-row tiles and
+any sequence length. The autograd function picks the set by q's dtype; on
+CUDA any other dtype, or a mix, raises.
 
 Beside each kernel is its plain PyTorch version (``*_plain``): the same
 function, in float32, materialising ``[S, S]``. A wrapper runs the plain
@@ -43,7 +50,9 @@ import torch
 from uccl_tpu_torch.ops.attention import HOPPER_TILES, _NEG_INF, _repeat_kv, auto_block
 from uccl_tpu_torch.utils.config import param
 
-KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+BF16_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+F32_KERNELS = ("flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
+KERNELS = BF16_KERNELS + F32_KERNELS
 launch_counts = {name: 0 for name in KERNELS}
 
 _HEAD_DIMS = (64, 128)
@@ -85,8 +94,13 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.uccl_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 8 + [p]
     lib.uccl_flash_fwd_smem.argtypes = [i, i]
     lib.uccl_flash_bwd_smem.argtypes = [i, i, i]
+    lib.uccl_flash_fwd_f32.argtypes = [p] * 5 + [i] * 7 + [p]
+    lib.uccl_flash_bwd_dq_f32.argtypes = [p] * 7 + [i] * 7 + [p]
+    lib.uccl_flash_bwd_dkv_f32.argtypes = [p] * 8 + [i] * 7 + [p]
+    lib.uccl_flash_f32_smem.argtypes = [i, i]
     for fn in (lib.uccl_flash_fwd, lib.uccl_flash_bwd_dq, lib.uccl_flash_bwd_dkv,
-               lib.uccl_flash_fwd_smem, lib.uccl_flash_bwd_smem):
+               lib.uccl_flash_fwd_smem, lib.uccl_flash_bwd_smem, lib.uccl_flash_fwd_f32,
+               lib.uccl_flash_bwd_dq_f32, lib.uccl_flash_bwd_dkv_f32, lib.uccl_flash_f32_smem):
         fn.restype = ctypes.c_int
     return lib
 
@@ -110,14 +124,18 @@ def _is_cpu(*ts: torch.Tensor) -> bool:
     raise ValueError(f"flash attention: tensors on {sorted({str(t.device) for t in ts})}")
 
 
-def _check_cuda(q, k, v, *, block: int, rows: int, others=()) -> None:
-    """What the CUDA kernels take; raises on anything else. ``block`` is the
-    launch's CTA tile and ``rows`` the sequence length it must divide."""
+def _check_cuda(q, k, v, *, dtype: torch.dtype, block: Optional[int] = None,
+                rows: Optional[int] = None, others=()) -> None:
+    """What the CUDA kernels of ``dtype`` (bfloat16 or float32) take; raises
+    on anything else, a mix of dtypes included. ``block`` is a bf16 launch's
+    CTA tile and ``rows`` the sequence length it must divide; the f32
+    kernels take any length."""
     for name, t in (("q", q), ("k", k), ("v", v), *others):
-        if t.dtype != (torch.float32 if name in ("lse", "delta") else torch.bfloat16):
+        if t.dtype != (torch.float32 if name in ("lse", "delta") else dtype):
             raise TypeError(
-                f"flash attention on CUDA: {name} is {t.dtype}; the kernels take "
-                "bfloat16 q/k/v/dout and float32 lse/delta"
+                f"flash attention on CUDA: {name} is {t.dtype}; these kernels take "
+                f"{str(dtype).replace('torch.', '')} q/k/v/dout and float32 lse/delta "
+                "(the kernels exist for all-bfloat16 and all-float32 q/k/v/dout)"
             )
         if not t.is_contiguous():
             raise ValueError(f"flash attention on CUDA: {name} must be contiguous")
@@ -139,6 +157,11 @@ def _check_cuda(q, k, v, *, block: int, rows: int, others=()) -> None:
             raise ValueError(f"flash attention: {name} is {tuple(t.shape)}, want {want[name]}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"flash attention on CUDA: head dim {d} not in {_HEAD_DIMS}")
+    if dtype == torch.float32:
+        if not (sq and sk and b and h):
+            raise ValueError(f"flash attention on CUDA: empty q {tuple(q.shape)} or k "
+                             f"{tuple(k.shape)}")
+        return
     if block not in HOPPER_TILES:
         raise ValueError(f"flash attention on CUDA: tile {block} not in {HOPPER_TILES}")
     if rows % block or sq % _STREAM_TILE or sk % _STREAM_TILE:
@@ -219,8 +242,9 @@ def flash_delta(out, g_out, g_lse=None):
     return delta.contiguous()
 
 
-# How far a kernel may sit from its plain version on the same bf16 inputs,
-# element by element: |got - want| <= ATOL * rms(want's row) + RTOL * |want|.
+# How far a bf16 kernel may sit from its plain version on the same bf16
+# inputs, element by element: |got - want| <= ATOL * rms(want's row) + RTOL *
+# |want|.
 # The kernels accumulate in f32 but round P and dS to bf16 before the second
 # product of each pair, and store bf16 outputs: the stored value is off by
 # up to 2^-8 of itself, and the rounded P/dS add an error that scales with
@@ -229,12 +253,27 @@ def flash_delta(out, g_out, g_lse=None):
 # times ATOL.
 KERNEL_RTOL = 2.0 ** -7
 KERNEL_ATOL_OF_ROW_RMS = 2.0 ** -5
+# The f32 kernels' rule has the same form at f32 scale. They and the plain
+# version do the same f32 arithmetic in another order (a 64-term tile sum
+# then the running sum across tiles, against one einsum), and the kernels
+# take exp2 of log2-scaled scores: each sum of S terms is off by a few
+# sqrt(S) ulp of its row, some 1e-6 of the row rms at S = 1024, and 2^-14
+# (6.1e-5) leaves 50x that. A dropped tile or term moves a row by a share of
+# its rms, far past it.
+F32_KERNEL_RTOL = 2.0 ** -14
+F32_KERNEL_ATOL_OF_ROW_RMS = 2.0 ** -14
+F32_LSE_ATOL = 1e-5
 
 
 def kernel_error(got: torch.Tensor, want: torch.Tensor) -> dict:
     """A kernel's output against its plain version: ``worst`` is the largest
     ``|got - want| / (ATOL * row rms + RTOL * |want|)`` (1 is the limit),
-    with the largest absolute error and the norm ratio ``|got-want|/|want|``."""
+    with the largest absolute error and the norm ratio ``|got-want|/|want|``.
+    The rule is that of ``got``'s kernels: the f32 one for a float32
+    output, the bf16 one for any other."""
+    f32 = got.dtype == torch.float32
+    atol = F32_KERNEL_ATOL_OF_ROW_RMS if f32 else KERNEL_ATOL_OF_ROW_RMS
+    rtol = F32_KERNEL_RTOL if f32 else KERNEL_RTOL
     g, w = got.float(), want.float()
     diff = (g - w).abs()
     # A row that is 0 in exact arithmetic (dq of causal row 0 when the lse
@@ -242,7 +281,7 @@ def kernel_error(got: torch.Tensor, want: torch.Tensor) -> dict:
     # the tensor's.
     rms = w.square().mean().sqrt()
     row_rms = w.square().mean(-1, keepdim=True).sqrt().clamp_min(1e-3 * rms)
-    limit = (KERNEL_ATOL_OF_ROW_RMS * row_rms + KERNEL_RTOL * w.abs()).clamp_min(
+    limit = (atol * row_rms + rtol * w.abs()).clamp_min(
         torch.finfo(torch.float32).tiny)
     return {"worst": (diff / limit).max().item(), "max_abs_err": diff.max().item(),
             "norm_ratio": (diff.norm() / w.norm()).item()}
@@ -261,11 +300,12 @@ def _block_k(k, block_k):
 
 
 def flash_fwd(q, k, v, causal: bool = True, block_q: Optional[int] = None):
-    """Forward: q [B,Sq,H,D], k/v [B,Sk,Hkv,D] -> (out [B,Sq,H,D], lse [B,H,Sq])."""
+    """Forward (the bf16 kernel): q [B,Sq,H,D], k/v [B,Sk,Hkv,D] -> (out
+    [B,Sq,H,D], lse [B,H,Sq])."""
     if _is_cpu(q, k, v):
         return flash_fwd_plain(q, k, v, causal)
     block_q = _block_q(q, block_q)
-    _check_cuda(q, k, v, block=block_q, rows=q.shape[1])
+    _check_cuda(q, k, v, dtype=torch.bfloat16, block=block_q, rows=q.shape[1])
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -285,7 +325,7 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
     if _is_cpu(q, k, v, dout, lse, delta):
         return flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal)
     block_q = _block_q(q, block_q)
-    _check_cuda(q, k, v, block=block_q, rows=q.shape[1],
+    _check_cuda(q, k, v, dtype=torch.bfloat16, block=block_q, rows=q.shape[1],
                 others=(("dout", dout), ("lse", lse), ("delta", delta)))
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -305,7 +345,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
     if _is_cpu(q, k, v, dout, lse, delta):
         return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal)
     block_k = _block_k(k, block_k)
-    _check_cuda(q, k, v, block=block_k, rows=k.shape[1],
+    _check_cuda(q, k, v, dtype=torch.bfloat16, block=block_k, rows=k.shape[1],
                 others=(("dout", dout), ("lse", lse), ("delta", delta)))
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -319,19 +359,88 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
     return dk, dv
 
 
+def flash_fwd_f32(q, k, v, causal: bool = True):
+    """Forward (the f32 kernel): q [B,Sq,H,D], k/v [B,Sk,Hkv,D] -> (out
+    [B,Sq,H,D], lse [B,H,Sq]), all f32."""
+    if _is_cpu(q, k, v):
+        return flash_fwd_plain(q, k, v, causal)
+    _check_cuda(q, k, v, dtype=torch.float32)
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    err = _lib().uccl_flash_fwd_f32(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse),
+        b, sq, sk, h, hkv, d, int(causal), _stream(q),
+    )
+    _raise_on(err, "flash_fwd_f32")
+    launch_counts["flash_fwd_f32"] += 1
+    return out, lse
+
+
+def flash_bwd_dq_f32(q, k, v, dout, lse, delta, causal: bool = True):
+    """dQ (the f32 kernel): -> dq [B,Sq,H,D] f32."""
+    if _is_cpu(q, k, v, dout, lse, delta):
+        return flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal)
+    _check_cuda(q, k, v, dtype=torch.float32,
+                others=(("dout", dout), ("lse", lse), ("delta", delta)))
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    err = _lib().uccl_flash_bwd_dq_f32(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(delta), _ptr(dq),
+        b, sq, sk, h, hkv, d, int(causal), _stream(q),
+    )
+    _raise_on(err, "flash_bwd_dq_f32")
+    launch_counts["flash_bwd_dq_f32"] += 1
+    return dq
+
+
+def flash_bwd_dkv_f32(q, k, v, dout, lse, delta, causal: bool = True):
+    """dK/dV (the f32 kernel): -> (dk, dv) [B,Sk,Hkv,D] f32, summed over each
+    KV head's query heads."""
+    if _is_cpu(q, k, v, dout, lse, delta):
+        return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal)
+    _check_cuda(q, k, v, dtype=torch.float32,
+                others=(("dout", dout), ("lse", lse), ("delta", delta)))
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _lib().uccl_flash_bwd_dkv_f32(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(delta), _ptr(dk),
+        _ptr(dv), b, sq, sk, h, hkv, d, int(causal), _stream(q),
+    )
+    _raise_on(err, "flash_bwd_dkv_f32")
+    launch_counts["flash_bwd_dkv_f32"] += 1
+    return dk, dv
+
+
 # ---------------------------------------------------------------------------
 # Autograd and the public API
 
 
+def _kernels(dtype: torch.dtype, block_q: Optional[int], block_k: Optional[int]):
+    """The (forward, dQ, dK/dV) wrappers for q's dtype: the f32 kernels for
+    float32, else the bf16 kernels at the given tiles (which raise on CUDA
+    for any dtype but bfloat16)."""
+    if dtype == torch.float32:
+        return flash_fwd_f32, flash_bwd_dq_f32, flash_bwd_dkv_f32
+    return (functools.partial(flash_fwd, block_q=block_q),
+            functools.partial(flash_bwd_dq, block_q=block_q),
+            functools.partial(flash_bwd_dkv, block_k=block_k))
+
+
 class _FlashAttentionLSE(torch.autograd.Function):
     """(out, lse) with both outputs differentiable; the backward runs the dQ
-    and dK/dV kernels (the JAX package's custom_vjp)."""
+    and dK/dV kernels (the JAX package's custom_vjp). The kernels are those
+    of q's dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, block_q, block_k):
-        out, lse = flash_fwd(q, k, v, causal, block_q)
+        fwd, ctx.bwd_dq, ctx.bwd_dkv = _kernels(q.dtype, block_q, block_k)
+        out, lse = fwd(q, k, v, causal)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.block_q, ctx.block_k = causal, block_q, block_k
+        ctx.causal = causal
         return out, lse
 
     @staticmethod
@@ -339,8 +448,8 @@ class _FlashAttentionLSE(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         delta = flash_delta(out, g_out, g_lse)
         dout = g_out.to(q.dtype).contiguous()
-        dq = flash_bwd_dq(q, k, v, dout, lse, delta, ctx.causal, ctx.block_q)
-        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, ctx.causal, ctx.block_k)
+        dq = ctx.bwd_dq(q, k, v, dout, lse, delta, ctx.causal)
+        dk, dv = ctx.bwd_dkv(q, k, v, dout, lse, delta, ctx.causal)
         return dq, dk, dv, None, None, None
 
 
@@ -357,7 +466,7 @@ def flash_attention_lse(
     q: [B, S, H, D]; k/v: [B, Sk, Hkv, D] (GQA-aware). The lse output is
     differentiable. block_q/block_k default from UCCL_TPU_FLASH_BLOCK_Q/K,
     and unset (0) from :func:`~uccl_tpu_torch.ops.attention.auto_block`;
-    they only matter on CUDA."""
+    they only matter for bf16 on CUDA (the f32 kernels run 64-row tiles)."""
     return _FlashAttentionLSE.apply(q, k, v, causal, block_q, block_k)
 
 

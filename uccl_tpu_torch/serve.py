@@ -1,11 +1,16 @@
 """Serving entry: ``python -m uccl_tpu_torch.serve``.
 
-Port of ``uccl_tpu/serve.py``. It generates through
+Port of ``uccl_tpu/serve.py``, the inference face of the trainer's
+checkpoints. It generates through
 :class:`uccl_tpu_torch.models.moe_inference.MoEServer`: EP-sharded KV-cache
 prefill (sorted throughput path) and decode (packed low-latency path, the
-DeepEP LL regime), on ``cuda`` unless ``--device cpu`` is given. Params
-initialise from ``--seed``; prompts are synthetic token ids (no tokenizer
-in scope). ``--devices N`` / ``--dp W`` serve over W members of an EP world
+DeepEP LL regime), on ``cuda`` unless ``--device cpu`` is given. With
+``--ckpt-dir`` (and ``--step``, default the newest) the params are a
+``python -m uccl_tpu_torch.train`` checkpoint's: only its ``params``
+subtree is read, the sizes come from its ``config.json`` (a size flag that
+differs from it is an error), and a dense checkpoint serves through the
+dense stack (``models/inference.py``). Without it params initialise from
+``--seed``. Prompts are synthetic token ids (no tokenizer in scope). ``--devices N`` / ``--dp W`` serve over W members of an EP world
 that all live on the one device (the port's member-stacked convention), so
 
     python -m uccl_tpu_torch.serve --dp 4 --batch 8 --prompt-len 8 --new-tokens 16
@@ -34,10 +39,9 @@ The engine's knobs: ``--prefill-chunk C`` (chunked prefill; with
 token budget), ``--spec-k K`` (speculative decoding with the n-gram
 drafter), ``--tenants N --adapter-rank R`` (one published LoRA adapter per
 tenant, fused per slot) and ``--replicas N`` (a least-loaded Router over N
-replicas of one backend). Not ported yet, and refused if passed:
-``--ckpt-dir`` (the port's trainer writes no checkpoints yet, ROADMAP
-queue A item 6). The EP wire is ``MoEServeConfig.moe_wire`` (``lax`` by
-default); the JAX CLI has no flag for it, so neither has this one.
+replicas of one backend). The EP wire is ``MoEServeConfig.moe_wire``
+(``lax`` by default); the JAX CLI has no flag for it, so neither has this
+one.
 """
 
 from __future__ import annotations
@@ -136,9 +140,103 @@ def _key(args) -> torch.Tensor:
     return prng_key(args.seed)
 
 
+def _load_params(ckpt_dir, step, device):
+    """The params subtree of a trainer checkpoint on ``device``, and its
+    step (``None``: the newest). The file is memory-mapped, so the
+    optimizer moments (twice the params' bytes) are never read."""
+    from uccl_tpu_torch.train import _latest_step, load_state
+
+    if step is None:
+        step = _latest_step(ckpt_dir) if os.path.isdir(ckpt_dir) else None
+        if step is None:
+            raise SystemExit(f"no step_N checkpoints in {ckpt_dir}")
+    state = load_state(ckpt_dir, step)
+    if "params" not in state:
+        raise SystemExit(f"{ckpt_dir}/step_{step} is not a trainer checkpoint (no params)")
+
+    def place(tree):
+        if isinstance(tree, dict):
+            return {k: place(v) for k, v in tree.items()}
+        return tree.to(device=device, dtype=torch.float32)
+
+    return place(state["params"]), step
+
+
+def _check_sizes(params, cfg):
+    """Mismatch errors for every size flag, before any placement: embed
+    pins (vocab, dim), we_gate / w_gate pins (layers, experts, dim, ffn),
+    wq pins heads * head_dim."""
+    blocks = params.get("blocks", {})
+    if hasattr(cfg, "moe_experts"):
+        if "we_gate" not in blocks:
+            raise SystemExit(
+                "checkpoint parameter tree has no expert weights — this looks like a "
+                "dense-family checkpoint; serve routes families via the checkpoint dir's "
+                "config.json (re-save with the current trainer or restore it manually)")
+        gate = ("blocks.we_gate", (cfg.n_layers, cfg.moe_experts, cfg.dim, cfg.moe_ffn),
+                "--layers/--experts/--dim/--ffn")
+    else:
+        if "w_gate" not in blocks:
+            raise SystemExit("checkpoint parameter tree has no dense FFN weights — this "
+                             "looks like a flagship (MoE) checkpoint; serve it with --stack moe")
+        gate = ("blocks.w_gate", (cfg.n_layers, cfg.dim, cfg.ffn), "--layers/--dim/--ffn")
+    checks = [("embed", (cfg.vocab, cfg.dim), "--vocab/--dim"), gate,
+              ("blocks.wq", (cfg.n_layers, cfg.dim, cfg.n_heads * cfg.head_dim),
+               "--layers/--dim/--heads")]
+    for name, want, flags in checks:
+        leaf = params
+        for part in name.split("."):
+            leaf = leaf[part]
+        got = tuple(leaf.shape)
+        if got != want:
+            raise SystemExit(f"checkpoint {name} {got} != model {want} ({flags}): "
+                             "pass the training run's size flags")
+
+
+def stack_params(args, cfg, init_params, device):
+    """(params, checkpoint step): ``--ckpt-dir``'s params, their sizes
+    checked against ``cfg``, or ``init_params`` from ``--seed`` (step
+    None)."""
+    if not args.ckpt_dir:
+        return init_params(_key(args), cfg, device), None
+    params, step = _load_params(args.ckpt_dir, args.step, device)
+    _check_sizes(params, cfg)
+    dense = not hasattr(cfg, "moe_experts")
+    print(f"serving {args.ckpt_dir}/step_{step}{' (dense)' if dense else ''}", flush=True)
+    return params, step
+
+
+def read_ckpt_config(args, defaults) -> None:
+    """Take the sizes of ``--ckpt-dir``'s ``config.json`` into ``args`` (a
+    size flag given at other than its default that differs is an error, as
+    shapes like heads and KV heads cannot all be read off the params), and
+    record its model family as ``args.ckpt_model`` (None without one)."""
+    args.ckpt_model = None
+    cfg_path = os.path.join(args.ckpt_dir, "config.json") if args.ckpt_dir else ""
+    if not (cfg_path and os.path.exists(cfg_path)):
+        return
+    with open(cfg_path) as f:
+        saved = json.load(f)
+    if saved.get("model") not in ("flagship", "dense"):
+        raise SystemExit(f"{args.ckpt_dir} holds a {saved.get('model')!r} checkpoint; serve "
+                         "handles flagship (MoE) and dense")
+    flags = ["vocab", "dim", "layers", "heads", "kv_heads", "ffn"]
+    if saved["model"] == "flagship":
+        flags.append("experts")  # MoE-only flag
+    for flag in flags:
+        given = getattr(args, flag)
+        if given != getattr(defaults, flag) and given != saved[flag]:
+            raise SystemExit(f"--{flag.replace('_', '-')} {given} != checkpoint config "
+                             f"{saved[flag]} ({cfg_path})")
+        setattr(args, flag, saved[flag])
+    args.ckpt_model = saved["model"]
+
+
 def build_stack(args, device, **fields):
-    """The serving backend ``--stack`` names, as ``serve --server`` builds it:
-    returns (backend, world, vocab). ``fields`` go to :func:`moe_config`."""
+    """The serving backend ``--stack`` names, as ``serve --server`` builds it,
+    its params from ``--ckpt-dir`` when given (:func:`stack_params`; the
+    step lands in ``args.ckpt_step``): returns (backend, world, vocab).
+    ``fields`` go to :func:`moe_config`."""
     from uccl_tpu_torch.parallel.mesh import MeshConfig, make_mesh
     from uccl_tpu_torch.serving.engine import DenseBackend, MoEBackend
 
@@ -147,8 +245,8 @@ def build_stack(args, device, **fields):
         from uccl_tpu_torch.models.dense import init_params
 
         cfg = dense_config(args)
-        backend = DenseBackend(init_params(_key(args), cfg, device), cfg,
-                               n_slots=args.slots, max_seq=max_seq)
+        params, args.ckpt_step = stack_params(args, cfg, init_params, device)
+        backend = DenseBackend(params, cfg, n_slots=args.slots, max_seq=max_seq)
         return backend, 1, cfg.vocab
 
     from uccl_tpu_torch.models.moe_inference import MoEServer, init_params
@@ -160,8 +258,9 @@ def build_stack(args, device, **fields):
                          "(one slot pool row per member batch row)")
     impl = args.impl if args.impl != "auto" else ("sort" if world == 1 else "ll")
     server = MoEServer(cfg, make_mesh(MeshConfig(dp=world), device, world))
-    backend = MoEBackend(server, server.shard_params(init_params(_key(args), cfg, device)),
-                         batch_local=args.slots // world, max_seq=max_seq, decode_impl=impl)
+    params, args.ckpt_step = stack_params(args, cfg, init_params, device)
+    backend = MoEBackend(server, server.shard_params(params), batch_local=args.slots // world,
+                         max_seq=max_seq, decode_impl=impl)
     return backend, world, cfg.vocab
 
 
@@ -230,12 +329,6 @@ def engine_kwargs(args, store=None) -> dict:
                 tenant_fair=bool(args.tenants) or None)
 
 
-def _refuse_unported(args) -> None:
-    if args.ckpt_dir:
-        raise SystemExit("--ckpt-dir: the port's trainer writes no checkpoints yet "
-                         "(ROADMAP queue A item 6); serve initialises params from --seed")
-
-
 def serve_continuous(args):
     """``--server``: the continuous-batching engine under Poisson arrivals.
     Returns (summary, requests). With ``--check-oracle`` the summary
@@ -282,7 +375,7 @@ def serve_continuous(args):
     if args.prompt_len + args.new_tokens > max_seq:
         raise SystemExit("--prompt-len + --new-tokens exceed --max-seq")
     if args.stack == "auto":
-        args.stack = "moe"
+        args.stack = "dense" if getattr(args, "ckpt_model", None) == "dense" else "moe"
 
     backend, world, vocab = build_stack(args, device)
     store = adapter_store(args, device)
@@ -335,7 +428,7 @@ def serve_continuous(args):
         print(f"wrote {path}", flush=True)
     summary = {
         "mode": "serve-continuous", "schema_version": obs.SCHEMA_VERSION,
-        "stack": args.stack, "device": str(device), "ckpt_step": None,
+        "stack": args.stack, "device": str(device), "ckpt_step": args.ckpt_step,
         "world": world, "slots": args.slots, "requests": args.requests,
         "arrival_rate": args.arrival_rate, "new_tokens": args.new_tokens,
         "priority_classes": bool(args.priority_classes),
@@ -366,6 +459,48 @@ def serve_continuous(args):
     return summary, reqs
 
 
+def _warm_and_time(run, args, device):
+    """One-shot mode's windows of ``run(n)`` (n new tokens): warmed at both
+    lengths (the first call pays the kernels' build and load), then
+    :func:`_timed_windows`."""
+    run(args.new_tokens)
+    run_one = None
+    if args.new_tokens > 1:
+        run(1)
+        run_one = lambda: run(1)  # noqa: E731
+    return _timed_windows(lambda: run(args.new_tokens), run_one, args.batch, args.new_tokens,
+                          args.timing_reps, device)
+
+
+def serve_oneshot_dense(args) -> dict:
+    """The one-shot fixed batch of a dense checkpoint through the dense
+    stack's ``generate`` (world 1); prints the first sequence and the
+    summary line."""
+    from uccl_tpu_torch.models.dense import init_params
+    from uccl_tpu_torch.models.inference import generate
+
+    device = resolve_device(args.device)
+    cfg = dense_config(args)
+    max_seq = args.max_seq or (args.prompt_len + args.new_tokens)
+    if args.prompt_len + args.new_tokens > max_seq:
+        raise SystemExit("--prompt-len + --new-tokens exceed --max-seq")
+    params, step = stack_params(args, cfg, init_params, device)
+    rng = np.random.default_rng(args.seed)
+    prompt = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
+
+    out, dt, extra = _warm_and_time(
+        lambda n: generate(params, prompt, cfg, max_new_tokens=n, max_seq=max_seq), args, device)
+    summary = {
+        "mode": "serve", "schema_version": obs.SCHEMA_VERSION, "ckpt_step": step,
+        "impl": "dense", "world": 1, "device": str(device), "batch": args.batch,
+        "new_tokens": args.new_tokens, "window": "prefill+decode",
+        "tokens_per_sec": round(args.batch * args.new_tokens / dt, 1), **extra,
+    }
+    print(f"first sequence: {out[0].tolist()}", flush=True)
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
 def serve_oneshot(args) -> dict:
     """The one-shot fixed batch through ``MoEServer.generate`` at the EP
     world; prints the first sequence and the summary line."""
@@ -383,22 +518,15 @@ def serve_oneshot(args) -> dict:
                          f"exceed --max-seq {max_seq}")
     impl = args.impl if args.impl != "auto" else ("sort" if world == 1 else "ll")
     server = MoEServer(cfg, make_mesh(MeshConfig(dp=world), device, world))
-    placed = server.shard_params(init_params(_key(args), cfg, device))
+    params, step = stack_params(args, cfg, init_params, device)
+    placed = server.shard_params(params)
     rng = np.random.default_rng(args.seed)
     prompt = rng.integers(0, cfg.vocab, (world, args.batch // world, args.prompt_len))
 
-    def run(n):
-        return server.generate(placed, prompt, n, max_seq, impl=impl)
-
-    run(args.new_tokens)  # warm: the first call pays the kernels' build and load
-    run_one = None
-    if args.new_tokens > 1:
-        run(1)
-        run_one = lambda: run(1)  # noqa: E731
-    out, dt, extra = _timed_windows(lambda: run(args.new_tokens), run_one, args.batch,
-                                    args.new_tokens, args.timing_reps, device)
+    out, dt, extra = _warm_and_time(
+        lambda n: server.generate(placed, prompt, n, max_seq, impl=impl), args, device)
     summary = {
-        "mode": "serve", "schema_version": obs.SCHEMA_VERSION, "ckpt_step": None,
+        "mode": "serve", "schema_version": obs.SCHEMA_VERSION, "ckpt_step": step,
         "impl": impl, "world": world, "device": str(device), "batch": args.batch,
         "new_tokens": args.new_tokens, "window": "prefill+decode",
         "tokens_per_sec": round(args.batch * args.new_tokens / dt, 1), **extra,
@@ -472,20 +600,23 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-heads", type=int, default=2)
     ap.add_argument("--ffn", type=int, default=128)
     ap.add_argument("--experts", type=int, default=8)
-    ap.add_argument("--ckpt-dir", default="", help="not ported yet")
-    ap.add_argument("--step", type=int, default=None, help="not ported yet")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="serve a `python -m uccl_tpu_torch.train` checkpoint directory")
+    ap.add_argument("--step", type=int, default=None, help="checkpoint step (default: newest)")
     obs.add_cli_args(ap)
     return ap
 
 
 def main(argv=None):
-    args = parser().parse_args(argv)
-    _refuse_unported(args)
+    ap = parser()
+    args = ap.parse_args(argv)
+    read_ckpt_config(args, ap.parse_args([]))
     obs.setup_from_args(args)
     obs.dump_at_exit(args)
     if args.server:
         return serve_continuous(args)
-    summary = serve_oneshot(args)
+    dense = args.ckpt_model == "dense"
+    summary = serve_oneshot_dense(args) if dense else serve_oneshot(args)
     obs.dump_from_args(args)
     return summary
 
