@@ -103,9 +103,11 @@ PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
 
 # The f32 kernels (what the trainer runs): held to their plain versions by
 # the f32 rule (fa.kernel_error at F32_KERNEL_ATOL_OF_ROW_RMS and
-# F32_KERNEL_RTOL, 2^-14 each; lse to fa.F32_LSE_ATOL, 1e-5 absolute), and
-# bound by FP32 FMA on the CUDA cores.
+# F32_KERNEL_RTOL, 2^-14 each; lse to fa.F32_LSE_ATOL, 1e-5 absolute). Their
+# bound is f32-accurate products at the 3xTF32 rate (three TF32 products
+# each: 495 / 3 = 165 TFLOP/s), the FP32-FMA bound beside it.
 PEAK_FP32_FLOPS = 66.9e12  # H100 SXM float32, non-tensor (an FMA is 2 operations)
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak
 F32_REPLACES = {f"{name}_f32": path for name, path in REPLACES.items()}
 F32_PRODUCTS = {f"{name}_f32": n for name, n in PRODUCTS.items()}
 # Planted faults of the f32 kernels: text substitutions of the source,
@@ -116,13 +118,19 @@ F32_FAULTS = {
         ("fwd", [("(causal && kcol > qrow)", "(causal && kcol >= qrow)")]),
     "out: KV tile 2 dropped":
         ("fwd", [("kt < fwd_tiles; ++kt", "kt < fwd_tiles; kt += 1 + (kt == 1)")]),
-    "dq: KV tile 2 dropped":
-        ("dq", [("kt < dq_tiles; ++kt", "kt < dq_tiles; kt += 1 + (kt == 1)")]),
+    "dq: KV tile 2 dropped (the ring still streams it)":
+        ("dq", [("const float* sK = ring + (kt % R)",
+                 "if (kt == 2) continue;\n    const float* sK = ring + (kt % R)")]),
     "dk: GQA sum over the next KV head's group":
         ("dkv", [("const int h_first = hk * n_rep;",
                   "const int h_first = ((hk + 1) % Hkv) * n_rep;")]),
+    "dq: lo terms dropped (a single TF32 pass)":
+        ("dq", [("constexpr int kDqTerms = 3;", "constexpr int kDqTerms = 1;")]),
+    "dk: one cross term (lo hi) dropped":
+        ("dkv", [("constexpr int kDkvTerms = 3;", "constexpr int kDkvTerms = 2;")]),
 }
 F32_FAULT_LIBS = {}  # fault -> built variant library path
+FLASH_BUILD = {}  # flash kernel -> registers, spills, static and dynamic shared memory
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -213,6 +221,7 @@ def build_kernels() -> None:
         tile = int(m[4])
         k["dynamic_smem"] = (fa._lib().uccl_flash_fwd_smem(d, tile) if m[1] == "fwd" else
                              fa._lib().uccl_flash_bwd_smem(int(m[1] == "bwd_dkv"), d, tile))
+    FLASH_BUILD.update({k["kernel"]: k for k in ptxas})
     emit("build", library=str(lib.relative_to(root)), seconds=round(seconds, 3), ptxas=ptxas,
          f32_fault_variants=len(F32_FAULT_LIBS))
     # every ring kernel is built for two blocks of 512 threads per SM
@@ -457,10 +466,34 @@ def time_kernels(b, s, h, hkv, d) -> dict:
 F32_RUN = {"fwd": fa.flash_fwd_f32, "dq": fa.flash_bwd_dq_f32, "dkv": fa.flash_bwd_dkv_f32}
 
 
-def check_kernels_f32(b, s, h, hkv, d, causal, seed, sk=None) -> tuple:
+def grads_float64(q, k, v, dout, lse, delta, causal) -> tuple:
+    """dq, dk and dv of the backward's function in float64 from the same
+    inputs, lse and delta (the plain versions' formulas)."""
+    n_rep = q.shape[2] // k.shape[2]
+    q, k, v, dout, lse, delta = (t.double() for t in (q, k, v, dout, lse, delta))
+    kk, vv = (_repeat_kv(t, n_rep) for t in (k, v))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, kk) * scale
+    if causal:
+        pos = torch.arange(q.shape[1], device=q.device)
+        sc = sc.masked_fill(pos[:, None] < pos[None, :], _NEG_INF)
+    p = torch.exp(sc - lse[..., None])
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dout, vv) - delta[..., None]) * scale
+    b, sk, hkv, d = k.shape
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, kk),
+            torch.einsum("bhqk,bqhd->bkhd", ds, q).reshape(b, sk, hkv, n_rep, d).sum(3),
+            torch.einsum("bhqk,bqhd->bkhd", p, dout).reshape(b, sk, hkv, n_rep, d).sum(3))
+
+
+def check_kernels_f32(b, s, h, hkv, d, causal, seed, sk=None, float64=False) -> tuple:
     """Each f32 kernel against its plain version on the same f32 inputs, with
     a nonzero lse cotangent, by the f32 rule; returns the readings, the
-    inputs and the plain results (for the planted faults)."""
+    inputs and the plain results (for the planted faults). With ``float64``
+    the plain versions and the kernels are also read against the backward
+    in float64 by the same rule: where dS = P (dP - delta) cancels (causal
+    rows whose P sits on one column), the plain f32 result itself is off
+    the float64 one, and only a kernel that rounds dP as the plain version
+    does (B2's in-order FMA) meets the rule there."""
     x = attn_inputs(b, s, h, hkv, d, seed, dtype=torch.float32, sk=sk)
     q, k, v, dout = x["q"], x["k"], x["v"], x["dout"]
     shape = tuple(q.shape)
@@ -480,10 +513,18 @@ def check_kernels_f32(b, s, h, hkv, d, causal, seed, sk=None) -> tuple:
     if not lse_err <= fa.F32_LSE_ATOL:
         fail(f"f32 lse at q {shape}: max abs err {lse_err} > {fa.F32_LSE_ATOL}")
     readings["lse"] = {"max_abs_err": lse_err}
+    vs_float64 = None
+    if float64:
+        exact = grads_float64(q, k, v, dout, lse_p, delta, causal)
+        vs_float64 = {who: {name: fa.kernel_error(got, want.float())["worst"]
+                            for name, got, want in zip(("dq", "dk", "dv"), grads, exact)}
+                      for who, grads in (("plain", (dq_p, dk_p, dv_p)), ("kernel", (dq, dk, dv)))}
+        del exact
     emit("f32_kernels_vs_plain",
          shape=dict(B=b, Sq=s, Sk=sk or s, H=h, Hkv=hkv, D=d, causal=causal),
          readings=readings, rtol=fa.F32_KERNEL_RTOL,
-         atol_of_row_rms=fa.F32_KERNEL_ATOL_OF_ROW_RMS, lse_atol=fa.F32_LSE_ATOL)
+         atol_of_row_rms=fa.F32_KERNEL_ATOL_OF_ROW_RMS, lse_atol=fa.F32_LSE_ATOL,
+         worst_vs_float64=vs_float64)
     plain = dict(out=out_p, lse=lse_p, delta=delta, dq=dq_p, dk=dk_p, dv=dv_p)
     return readings, x, plain
 
@@ -515,17 +556,20 @@ def f32_planted_faults(x, plain) -> None:
 
 
 def f32_bound_ms(name, b, s, h, hkv, d, causal) -> tuple:
-    """bound_ms's rule for an f32 kernel: its FMA operations over the FP32
-    peak, its f32 bytes over the HBM rate; causal work counts the unmasked
-    pairs."""
+    """bound_ms's rule for an f32 kernel: its operations as f32-accurate
+    products at the 3xTF32 rate (3 x operations over the TF32 peak), its f32
+    bytes over the HBM rate; causal work counts the unmasked pairs. Returns
+    (ms, "operations" | "bytes", the FP32-FMA bound: operations over the
+    FP32 peak)."""
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = F32_PRODUCTS[name] * 2 * d * pairs * b * h
     qo, kv, rows = b * s * h * d * 4, b * s * hkv * d * 4, b * h * s * 4
     nbytes = {"flash_fwd_f32": 2 * qo + 2 * kv + rows,
               "flash_bwd_dq_f32": 3 * qo + 2 * kv + 2 * rows,
               "flash_bwd_dkv_f32": 2 * qo + 4 * kv + 2 * rows}[name]
-    op_ms, byte_ms = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms else "bytes")
+    op_ms, byte_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes",
+            max(flops / PEAK_FP32_FLOPS * 1e3, byte_ms))
 
 
 def time_kernels_f32(b, s, h, hkv, d) -> dict:
@@ -549,10 +593,11 @@ def time_kernels_f32(b, s, h, hkv, d) -> dict:
     }
     res = {}
     for name, (kernel, plain) in runs.items():
-        bnd, by = f32_bound_ms(name, b, s, h, hkv, d, True)
+        bnd, by, fma_bnd = f32_bound_ms(name, b, s, h, hkv, d, True)
         ms = time_ms(kernel, 30)
         res[name] = dict(ms=ms, plain_ms=time_ms(plain, 5), bound_ms=bnd, bound_by=by,
-                         share_of_bound=bnd / ms)
+                         share_of_bound=bnd / ms, fp32_fma_bound_ms=fma_bnd,
+                         share_of_fp32_fma_bound=fma_bnd / ms)
     rep = h // hkv
     qt = q.transpose(1, 2).detach().requires_grad_()
     kt = k.repeat_interleave(rep, dim=2).transpose(1, 2).detach().requires_grad_()
@@ -576,7 +621,8 @@ def time_kernels_f32(b, s, h, hkv, d) -> dict:
     emit("f32_kernel_timing", shape=dict(B=b, S=s, H=h, Hkv=hkv, D=d, causal=True),
          kernels=res, ours_bwd_ms=res["flash_bwd_dq_f32"]["ms"] + res["flash_bwd_dkv_f32"]["ms"],
          library_bwd_ms=bwd_ms,
-         library_dq_norm_ratio_vs_ours=((lib_dq - ours_dq).norm() / ours_dq.norm()).item())
+         library_dq_norm_ratio_vs_ours=((lib_dq - ours_dq).norm() / ours_dq.norm()).item(),
+         build={k: FLASH_BUILD[k] for k in FLASH_BUILD if "_f32_" in k})
     return res
 
 # ---------------------------------------------------------------------------
@@ -3307,7 +3353,7 @@ def main() -> None:
     timing = time_kernels(8, 1024, 16, 4, 64)
     # the f32 kernels: the main path's shape, its planted faults, then odd
     # lengths, Sq != Sk, GQA and D = 128, causal and not
-    f32_readings, x, plain = check_kernels_f32(8, 1024, 16, 4, 64, True, seed=0)
+    f32_readings, x, plain = check_kernels_f32(8, 1024, 16, 4, 64, True, seed=0, float64=True)
     f32_planted_faults(x, plain)
     del x, plain
     check_kernels_f32(2, 77, 4, 1, 64, True, seed=1)

@@ -8,7 +8,7 @@ without JAX it runs alone, past the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 The backward's own checks: every variant the dispatch builds, B3's bits
-from run to run, and the pipeline-wait rule (a stalled ring ends its launch
+(and the f32 B2's and B3's) from run to run, and the pipeline-wait rule (a stalled ring ends its launch
 with a CUDA error, in a subprocess, within 60 s).
 
 bf16 tolerance: each kernel reads the same bf16 inputs as the plain float32
@@ -22,7 +22,8 @@ its path) to 1e-3 absolute.
 f32 tolerance (the f32 kernels, at the end of this file): the same rule at
 f32 scale, ``fa.F32_KERNEL_ATOL_OF_ROW_RMS`` = ``fa.F32_KERNEL_RTOL`` =
 2^-14, lse to ``fa.F32_LSE_ATOL`` = 1e-5 absolute (see ops/flash_attention.py
-for why); planted faults of the source must fail it.
+for why); planted faults of the source must fail it, a single TF32 pass and
+a dropped cross term of 3xTF32 among them.
 """
 
 import dataclasses
@@ -323,13 +324,29 @@ def test_f32_dkv_is_deterministic(dev):
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
-# Text substitutions of the source that plant a fault in one f32 kernel.
+def test_f32_dq_is_deterministic(dev):
+    q, k, v, dout, g_lse = _inputs_f32(dev, 2, 512, 512, 16, 2, 64, seed=6)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, True)
+    delta = fa.flash_delta(out_p, dout, g_lse)
+    first = fa.flash_bwd_dq_f32(q, k, v, dout, lse_p, delta, True)
+    second = fa.flash_bwd_dq_f32(q, k, v, dout, lse_p, delta, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+# Text substitutions of the source that plant a fault in one f32 kernel. B2's
+# dropped tile is still streamed by the ring and skipped by the products;
+# the last two take TF32 products out of the 3xTF32 sums.
 F32_FAULTS = {
     "mask_off_by_one": ("fwd", [("(causal && kcol > qrow)", "(causal && kcol >= qrow)")]),
     "fwd_tile_dropped": ("fwd", [("kt < fwd_tiles; ++kt", "kt < fwd_tiles; kt += 1 + (kt == 1)")]),
-    "dq_tile_dropped": ("dq", [("kt < dq_tiles; ++kt", "kt < dq_tiles; kt += 1 + (kt == 1)")]),
+    "dq_tile_dropped": ("dq", [("const float* sK = ring + (kt % R)",
+                                "if (kt == 2) continue;\n    const float* sK = ring + (kt % R)")]),
     "gqa_wrong_group": ("dkv", [("const int h_first = hk * n_rep;",
                                  "const int h_first = ((hk + 1) % Hkv) * n_rep;")]),
+    "dq_single_tf32_pass": ("dq", [("constexpr int kDqTerms = 3;", "constexpr int kDqTerms = 1;")]),
+    "dk_cross_term_dropped": ("dkv", [("constexpr int kDkvTerms = 3;",
+                                       "constexpr int kDkvTerms = 2;")]),
 }
 
 

@@ -4,8 +4,10 @@
 // uccl_tpu/ops/pallas_attention.py: _fwd_kernel (B1), _bwd_dq_kernel (B2) and
 // _bwd_dkv_kernel (B3). They compute the same functions; the block structure
 // is Hopper's own. Each comes twice: for bf16 q/k/v on wgmma (most of this
-// file), and for f32 q/k/v on the CUDA cores' FP32 FMA (the section "B1-B3
-// in float32" near the end; the Pallas kernels take either dtype).
+// file), and for f32 q/k/v (the sections "B1-B3 in float32" and "B2 and B3
+// in float32: 3xTF32" near the end: B1 on the CUDA cores' FP32 FMA, B2 and
+// B3 on the tensor cores as three TF32 products each; the Pallas kernels
+// take either dtype).
 //
 // Layout. q/out/dout/dq are [B, Sq, H, D] and k/v/dk/dv are [B, Sk, Hkv, D],
 // contiguous bf16 (or f32), read in place: a D = 64 bf16 row is 128 contiguous bytes,
@@ -920,23 +922,25 @@ __global__ void __launch_bounds__(BKV * 2 + 32, 1)
 //
 // What bounds them: operations. At the flagship's shapes the three do 2, 3
 // and 4 S x S x D products per head, and float32 has no tensor-core rate on
-// the H100 that keeps its 24-bit mantissa (TF32 keeps 10 bits): the products
-// run as FP32 FMA on the CUDA cores, whose peak is about 15x below bf16
-// wgmma's. The bytes (each tensor read once) are some 50x below that bound.
+// the H100 that keeps its 24-bit mantissa in one pass (TF32 keeps 10 bits):
+// B1 runs its products as FP32 FMA on the CUDA cores, whose peak is about
+// 15x below bf16 wgmma's; B2 and B3 as three TF32 products each (3xTF32,
+// the next section), at a third of the TF32 rate. The bytes (each tensor
+// read once) are far below either bound.
 //
-// This design is the simple one: one CTA per 64-row tile (q rows for B1 and
-// B2, KV rows for B3) of one head, its resident tiles and each streamed tile
-// in shared memory as padded f32 rows, every product a register-tiled FMA
-// loop. A thread owns RM rows of the CTA's 64 and, of a 64-column score
-// tile, the columns tx + 8 j (j < 8): the 8 threads of a row group sit in
-// one quarter-warp, so a 16-byte read of 8 different streamed rows (row
-// stride D + 4 floats) hits 8 different bank groups, and the resident row
-// is a broadcast. A score tile goes through shared memory (P, dS) into the
-// second product of each pair, where a thread owns RM rows and D / 8 output
-// columns 4 tx + 32 c (+ 0..3). Row sums and maxima of the online softmax
-// take 3 shuffles across the row group. Causal tiles past the diagonal are
-// skipped, the longest rows run first. Rows and columns past a sequence's
-// end read as zeros, are masked and are not written, so any length works.
+// B1's design is the simple one: one CTA per 64-row q tile of one head, its
+// resident tile and each streamed tile in shared memory as padded f32 rows,
+// every product a register-tiled FMA loop. A thread owns RM rows of the
+// CTA's 64 and, of a 64-column score tile, the columns tx + 8 j (j < 8): the
+// 8 threads of a row group sit in one quarter-warp, so a 16-byte read of 8
+// different streamed rows (row stride D + 4 floats) hits 8 different bank
+// groups, and the resident row is a broadcast. The score tile goes through
+// shared memory (P) into O += P V, where a thread owns RM rows and D / 8
+// output columns 4 tx + 32 c (+ 0..3). Row sums and maxima of the online
+// softmax take 3 shuffles across the row group. Causal tiles past the
+// diagonal are skipped, the longest rows run first. Rows and columns past a
+// sequence's end read as zeros, are masked and are not written, so any
+// length works.
 //
 // Semantics are the bf16 kernels': -1e30 for a masked score (only whole
 // masked rows would see it, and causal rows never are), the 1e-20 row-sum
@@ -1074,10 +1078,10 @@ __device__ __forceinline__ void store_rows_f32(
   }
 }
 
-// Causal: the KV tiles a q tile starting at q0 reaches.
-__device__ __forceinline__ int kv_tiles_f32(int q0, int Sq, int Sk, int causal) {
+// Causal: the KV tiles that ``rows`` q rows starting at q0 reach.
+__device__ __forceinline__ int kv_tiles_f32(int q0, int rows, int Sq, int Sk, int causal) {
   const int all = (Sk + kF32Rows - 1) / kF32Rows;
-  return causal ? min(all, (min(q0 + kF32Rows, Sq) - 1) / kF32Rows + 1) : all;
+  return causal ? min(all, (min(q0 + rows, Sq) - 1) / kF32Rows + 1) : all;
 }
 
 // B1 in f32: one CTA per (batch * head, 64 q rows); K/V tiles stream
@@ -1111,7 +1115,7 @@ __global__ void __launch_bounds__(F32Tile<D>::NT)
 #pragma unroll
     for (int c = 0; c < 4 * T::DC; ++c) acc[i][c] = 0.f;
   }
-  const int fwd_tiles = kv_tiles_f32(q0, Sq, Sk, causal);
+  const int fwd_tiles = kv_tiles_f32(q0, kF32Rows, Sq, Sk, causal);
   for (int kt = 0; kt < fwd_tiles; ++kt) {
     const int k0 = kt * kF32Rows;
     __syncthreads();  // the last tile's K, V and P are consumed
@@ -1159,150 +1163,633 @@ __global__ void __launch_bounds__(F32Tile<D>::NT)
   store_rows_f32<D>(o + ((long long)b * Sq * H + h) * D, acc, inv, q0, Sq, qstride, ty, tx);
 }
 
-// B2 in f32: one CTA per (batch * head, 64 q rows) with Q and dO resident;
-// per K/V tile S = Q K^T and dP = dO V^T, then dS = P (dP - delta) scale
-// goes through shared memory into dQ += dS K.
+// ---------------------------------------------------------------------------
+// B2 and B3 in float32: 3xTF32 on the tensor cores.
+//
+// What bounds them: operations, as B1 in f32. Here the products run on the
+// tensor cores all the same, as three TF32 products each: x = hi + lo with
+// hi = tf32(x) and lo = tf32(x - hi), both rounded as cvt.rna.tf32.f32
+// rounds, and a b = lo hi + hi lo + hi hi accumulated in f32 (lo lo, some
+// 2^-22 of the product, is dropped). That keeps f32's accuracy at a third
+// of the TF32 rate: 165 TFLOP/s of f32-accurate products against 67 for
+// FP32 FMA (of which mma.sync reaches less than wgmma would). One product stays
+// on FP32 FMA: B2's dP = dO V^T, whose rounding must be the plain version's
+// (see fma_abt).
+//
+// Why mma.sync (m16n8k8 .tf32) and not wgmma: wgmma reads tf32 operands from
+// shared memory in K-major layout only, and the products that take P or dS
+// (B2's dQ = dS K, B3's dV = P^T dO and dK = dS^T Q) read both operands
+// transposed. Each would need its own transposed hi/lo copy of a tile. With
+// mma.sync every tf32 element of a fragment is one 32-bit register, so a
+// transpose is another address pattern.
+//
+// The layout. A CTA holds its rows (q rows for B2, KV rows for B3), 16 a
+// warp, resident in shared memory as padded [rows][D + 4] f32 rows; the
+// streamed 64-row tiles (K and V for B2; Q, dO, lse and delta for B3) come
+// through a ring of cp.async copies (16 bytes each, zero-filled past a
+// sequence's end). B2 runs 64-row CTAs on one stage: some 70 KB, so two
+// CTAs share an SM and one's copies overlap the other's products. B3 at
+// D = 64 runs 128-row CTAs on two stages, the next step's copies in flight
+// while this step's products run, and splits each streamed Q and dO tile
+// into a hi and a lo tile once (kF32PreSplit), so its eight warps load B
+// fragments ready-made instead of each warp splitting every element for
+// both products it reads them in (205 KB: one CTA an SM). Elsewhere the B
+// fragments are split in registers as they are loaded, and a warp always
+// splits its own A rows. (flash_arms measured the other choices: see the
+// arms below.)
+//
+// A warp computes its 16 x NC block of S and dP (NC streamed columns at a
+// time, to keep the accumulators in registers), turns them into P and dS in
+// place, and feeds dS (and B3's P) straight from the accumulators into the
+// next product as its A fragment: the accumulator of m16n8k8 holds columns
+// 2t and 2t + 1 (t = lane % 4) where the A fragment wants k slots t and t +
+// 4, so those slots take columns 2t and 2t + 1 and the B operand's k rows
+// are read as rows 2t and 2t + 1. At a row stride of D + 4 floats every
+// fragment read is free of bank conflicts: a row-major read (S = Q K^T)
+// hits bank 4g + t (g = lane / 4), a transposed one (rows 2t, 2t + 1,
+// column g) bank 8t + g.
+//
+// Accumulation. The tensor cores round their own accumulator toward zero;
+// kept across a whole long sum that bias grows with its length, past the
+// f32 rule for B3's dK over four heads of 1024 rows. S and dP (k over D)
+// keep one chain; dQ, dK and dV take each chunk of NC streamed rows into a
+// fresh accumulator (at D = 128 one a column group, for registers) that is
+// added to the running sum in f32, rounding to nearest.
+//
+// Kept from the FP32-FMA design: the longest causal rows first, causal
+// tiles past the diagonal skipped (and, inside the diagonal tile, a warp's
+// column chunks that lie wholly above it), any length, -1e30 masking and
+// the lse and delta semantics, the GQA sum of B3 in registers over the
+// group's query heads (no atomics: the same inputs give the same bits).
+//
+// The design's arms (python -m uccl_tpu_torch.flash_arms times each beside
+// the source): the other stage count and CTA rows of each kernel, B3's
+// fragments split in registers, P and dS through shared memory, and the
+// ring on 1-D bulk copies (TMA's copy engine, one a row, completing on an
+// mbarrier).
+
 template <int D>
-__global__ void __launch_bounds__(F32Tile<D>::NT)
+constexpr int kF32DqRows = 64;  // B2's CTA rows
+constexpr int kF32DqRing = 1;  // B2's ring stages
+template <int D>
+constexpr int kF32DkvRows = D == 64 ? 128 : 64;  // B3's CTA rows
+constexpr int kF32DkvRing = 2;  // B3's ring stages
+template <int D>
+constexpr bool kF32PreSplit = D == 64;  // B3's Q and dO split into hi and lo tiles once a CTA
+constexpr bool kF32DsInRegisters = true;  // false: P and dS through a warp's shared-memory tile
+constexpr bool kF32BulkRing = false;  // true: the ring on 1-D bulk copies instead of cp.async
+
+// B2's (kDkv false) or B3's shapes at head dim D.
+template <int D, bool kDkv>
+struct BwdF32 {
+  static constexpr int BR = kDkv ? kF32DkvRows<D> : kF32DqRows<D>;  // CTA rows
+  static constexpr int RING = kDkv ? kF32DkvRing : kF32DqRing;
+  static constexpr int LD = D + 4;                 // row stride (floats) of every tile
+  static constexpr int NT = 2 * BR;                // threads: a warp per 16 rows
+  static constexpr int TILE = kF32Rows * LD;       // one streamed tile, floats
+  static constexpr int NC = D == 64 ? 64 : 16;     // streamed columns of a warp's S block
+  static constexpr int NJ = NC / 8;                // its m16n8 accumulators
+  static constexpr bool PRE = kDkv && kF32PreSplit<D>;
+  static constexpr int LO = PRE ? TILE : 0;        // floats from a split tile's hi to its lo
+  static constexpr int PW = 16 * (NC + 4);         // a warp's P or dS tile (the shared-memory arm)
+  static constexpr int PWS = kF32DsInRegisters ? 0 : (NT / 32) * PW;
+};
+
+// x rounded to tf32 as cvt.rna.tf32.f32 rounds it (to 10 explicit mantissa
+// bits, ties away from zero), on the integer pipe: half the dropped 13
+// bits' range added to the magnitude, then those bits cleared. Two
+// instructions where the cvt takes four; the same bits for every finite x.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x as hi + lo, two tf32 values.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// A B fragment element: split here (LO = 0), or read from a split tile's hi
+// at ``p`` and its lo LO floats on.
+template <int LO>
+__device__ __forceinline__ void load_b(const float* p, uint32_t& hi, uint32_t& lo) {
+  if constexpr (LO > 0) {
+    hi = __float_as_uint(p[0]);
+    lo = __float_as_uint(p[LO]);
+  } else {
+    split_tf32(p[0], hi, lo);
+  }
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32, the two small terms first. kTerms < 3 drops terms (a
+// planted fault's knob: 2 drops lo hi, 1 leaves a single TF32 pass).
+template <int kTerms>
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  if (kTerms > 2) mma_tf32(c, al, bh[0], bh[1]);
+  if (kTerms > 1) mma_tf32(c, ah, bl[0], bl[1]);
+  mma_tf32(c, ah, bh[0], bh[1]);
+}
+
+// The A fragment of a warp's 16 rows at ``A`` (row stride LD), k slots t
+// and t + 4 at columns k + t and k + t + 4, split in registers.
+template <int LD>
+__device__ __forceinline__ void load_a(const float* A, int k, int g, int t, uint32_t (&ah)[4],
+                                       uint32_t (&al)[4]) {
+  split_tf32(A[g * LD + k + t], ah[0], al[0]);
+  split_tf32(A[(g + 8) * LD + k + t], ah[1], al[1]);
+  split_tf32(A[g * LD + k + t + 4], ah[2], al[2]);
+  split_tf32(A[(g + 8) * LD + k + t + 4], ah[3], al[3]);
+}
+
+// c[j] = A B^T over k < D: a warp's 16 x 8 NJ block, A's 16 rows at ``A``
+// and B's 8 NJ rows at ``B``, both row-major tiles of row stride D + 4
+// (reads at bank 4g + t); B split in registers or pre-split (LO).
+template <int D, int NJ, int kTerms, int LO>
+__device__ __forceinline__ void mma_abt(float (&c)[NJ][4], const float* A, const float* B, int g,
+                                        int t) {
+  constexpr int LD = D + 4;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+#pragma unroll
+  for (int k = 0; k < D; k += 8) {
+    uint32_t ah[4], al[4];
+    load_a<LD>(A, k, g, t, ah, al);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t bh[2], bl[2];
+      const float* b = B + (8 * j + g) * LD + k + t;
+      load_b<LO>(b, bh[0], bl[0]);
+      load_b<LO>(b + 4, bh[1], bl[1]);
+      mma_3xtf32<kTerms>(c[j], ah, al, bh, bl);
+    }
+  }
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float c) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, c))));
+}
+
+// c[j] = A B^T over k < D as FP32 FMA, k in order: the same 16 x 8 NJ block
+// as mma_abt, in its accumulator layout (rows g, g + 8; columns 8j + 2t,
+// 8j + 2t + 1). B2's dP runs this way: dS = P (dP - delta) cancels down to
+// the lse cotangent where P sits on one column (causal row 0), and there
+// only the rounding of an f32 dot product taken in order, as the plain
+// version's f32 GEMM takes it, meets the f32 rule; any other order, however
+// exact, reads several times over it (the plain version itself reads 4.9
+// of the rule against float64 at the main path's shape: chip_smoke.py,
+// f32_kernels_vs_plain's worst_vs_float64). Reads: 16 bytes at banks 4g (A)
+// and 8t (B, a broadcast across g).
+template <int D, int NJ>
+__device__ __forceinline__ void fma_abt(float (&c)[NJ][4], const float* A, const float* B, int g,
+                                        int t) {
+  constexpr int LD = D + 4;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+#pragma unroll 2
+  for (int k = 0; k < D; k += 4) {
+    const float4 a0 = *reinterpret_cast<const float4*>(A + g * LD + k);
+    const float4 a1 = *reinterpret_cast<const float4*>(A + (g + 8) * LD + k);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float4 b0 = *reinterpret_cast<const float4*>(B + (8 * j + 2 * t) * LD + k);
+      const float4 b1 = *reinterpret_cast<const float4*>(B + (8 * j + 2 * t + 1) * LD + k);
+      c[j][0] = dot4(a0, b0, c[j][0]);
+      c[j][1] = dot4(a0, b1, c[j][1]);
+      c[j][2] = dot4(a1, b0, c[j][2]);
+      c[j][3] = dot4(a1, b1, c[j][3]);
+    }
+  }
+}
+
+// The A fragment of k-step j from accumulators p (rows g, g + 8; columns
+// 8j + 2t, 8j + 2t + 1): k slots t and t + 4 take columns 2t and 2t + 1.
+template <int NJ>
+__device__ __forceinline__ void acc_to_a(const float (&p)[NJ][4], int j, uint32_t (&ah)[4],
+                                         uint32_t (&al)[4]) {
+  split_tf32(p[j][0], ah[0], al[0]);
+  split_tf32(p[j][2], ah[1], al[1]);
+  split_tf32(p[j][1], ah[2], al[2]);
+  split_tf32(p[j][3], ah[3], al[3]);
+}
+
+// c[n] += P V: P is a warp's 16 x 8 NJ block as accumulators, used as A
+// fragments in place (acc_to_a); V's 8 NJ rows at ``V`` (row stride D + 4,
+// split in registers or pre-split, LO) are read to match, rows 8j + 2t and
+// 8j + 2t + 1 (bank 8t + g); n runs over D / 8 column groups. The chunk
+// sums into a fresh accumulator added to c once: at D = 64 one for all n
+// (k-steps outside), at D = 128 (for registers) one a column group, the
+// chunk's A fragments held.
+template <int D, int NJ, int kTerms, int LO>
+__device__ __forceinline__ void mma_pv(float (&c)[D / 8][4], const float (&p)[NJ][4],
+                                       const float* V, int g, int t) {
+  constexpr int LD = D + 4, N = D / 8;
+  if constexpr (D == 64) {
+    float d[N][4];
+#pragma unroll
+    for (int n = 0; n < N; ++n) d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t ah[4], al[4];
+      acc_to_a<NJ>(p, j, ah, al);
+      const float* v = V + (8 * j + 2 * t) * LD + g;
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        uint32_t bh[2], bl[2];
+        load_b<LO>(v + 8 * n, bh[0], bl[0]);
+        load_b<LO>(v + LD + 8 * n, bh[1], bl[1]);
+        mma_3xtf32<kTerms>(d[n], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[n][e] += d[n][e];
+  } else {
+    uint32_t ah[NJ][4], al[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc_to_a<NJ>(p, j, ah[j], al[j]);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t bh[2], bl[2];
+        const float* v = V + (8 * j + 2 * t) * LD + 8 * n + g;
+        load_b<LO>(v, bh[0], bl[0]);
+        load_b<LO>(v + LD, bh[1], bl[1]);
+        mma_3xtf32<kTerms>(d, ah[j], al[j], bh, bl);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[n][e] += d[e];
+    }
+  }
+}
+
+// mma_pv through shared memory (the kF32DsInRegisters = false arm): the
+// warp stores P into its own [16][8 NJ + 4] tile ``sP`` and reads it back as
+// A fragments in k order; one fresh accumulator a k-step.
+template <int D, int NJ, int kTerms, int LO>
+__device__ __forceinline__ void mma_pv_smem(float (&c)[D / 8][4], const float (&p)[NJ][4],
+                                            float* sP, const float* V, int g, int t) {
+  constexpr int LD = D + 4, LP = 8 * NJ + 4;
+  __syncwarp();  // the warp's last read of sP is done
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    *reinterpret_cast<float2*>(sP + g * LP + 8 * j + 2 * t) = make_float2(p[j][0], p[j][1]);
+    *reinterpret_cast<float2*>(sP + (g + 8) * LP + 8 * j + 2 * t) = make_float2(p[j][2], p[j][3]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < 8 * NJ; k += 8) {
+    uint32_t ah[4], al[4];
+    load_a<LP>(sP, k, g, t, ah, al);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      uint32_t bh[2], bl[2];
+      load_b<LO>(V + (k + t) * LD + 8 * n + g, bh[0], bl[0]);
+      load_b<LO>(V + (k + t + 4) * LD + 8 * n + g, bh[1], bl[1]);
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_3xtf32<kTerms>(s, ah, al, bh, bl);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[n][e] += s[e];
+    }
+  }
+}
+
+// A streamed [64][D + 4] tile ``src`` split into a hi tile ``hi`` and a lo
+// tile LO floats after it, by NT threads, 16 bytes each.
+template <int D, int NT, int LO>
+__device__ __forceinline__ void split_tile(float* hi, const float* src) {
+  constexpr int C4 = D / 4, LD = D + 4;
+  for (int i = threadIdx.x; i < kF32Rows * C4; i += NT) {
+    const int off = (i / C4) * LD + 4 * (i % C4);
+    const float4 x = *reinterpret_cast<const float4*>(src + off);
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    *reinterpret_cast<uint4*>(hi + LO + off) = l;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + ROWS) of one head of a [B, S, heads, D] f32 tensor (``src``
+// at that head's row 0, ``stride`` floats from row to row) into a padded
+// [ROWS][D + 4] tile, asynchronously: cp.async, 16 bytes a thread, or with
+// kBulk one 1-D bulk copy a row completing on ``bar`` (whose expected bytes
+// the caller sets). Rows at or past S arrive as zeros.
+template <int D, int ROWS, int NT, bool kBulk>
+__device__ __forceinline__ void async_tile_f32(float* dst, const float* __restrict__ src, int r0,
+                                               int S, int stride, uint32_t bar) {
+  constexpr int C4 = D / 4, LD = D + 4;
+  if constexpr (kBulk) {
+    for (int r = threadIdx.x; r < ROWS; r += NT) {
+      if (r0 + r < S) {
+        bulk_load(smem_u32(dst + r * LD), src + (long long)(r0 + r) * stride, D * 4, bar);
+      } else {
+        for (int c = 0; c < C4; ++c)
+          *reinterpret_cast<float4*>(dst + r * LD + 4 * c) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * C4; i += NT) {
+      const int r = i / C4, c = i % C4;
+      const bool in = r0 + r < S;
+      cp_async16(dst + r * LD + 4 * c, in ? src + (long long)(r0 + r) * stride + 4 * c : src, in);
+    }
+  }
+}
+
+// The bulk arm's stage barriers, at the base of dynamic shared memory (the
+// tiles start 64 bytes in); initialised before the first copy.
+template <int R>
+__device__ __forceinline__ void init_ring_bars(uint64_t* bars) {
+  if (kF32BulkRing) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < R; ++s) mbar_init(smem_u32(bars + s), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+  }
+}
+
+// Bytes of the in-range rows of a 64-row tile at r0 (the bulk arm's count).
+__device__ __forceinline__ uint32_t tile_bytes_f32(int r0, int S, int D) {
+  return (uint32_t)(min(kF32Rows, S - r0) * D * 4);
+}
+
+// The top of step i of a ring of R stages: wait for its stage (every
+// thread's copies, then the barrier makes them everyone's) and, past the
+// barrier, which also says that every warp is done with step i - 1's stage,
+// start the copies of step i + R - 1 into that stage. With one stage the
+// copies of step i start here, after every warp is done with step i - 1.
+// ``issue(i)`` starts step i's copies.
+template <int R, typename Issue>
+__device__ __forceinline__ void ring_step(int i, int n, uint64_t* bars, Issue issue) {
+  if constexpr (R == 1) {
+    if (i) __syncthreads();  // every warp is done with the one stage
+    if (kF32BulkRing) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    issue(i);
+    cp_async_commit();
+    cp_async_wait<0>();
+  } else {
+    cp_async_wait<R - 2>();
+  }
+  if constexpr (kF32BulkRing) mbar_wait(smem_u32(bars + i % R), (i / R) & 1);
+  __syncthreads();
+  if constexpr (R > 1) {
+    if (kF32BulkRing) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    if (i + R - 1 < n) issue(i + R - 1);
+    cp_async_commit();
+  }
+}
+
+// Before step 0: the copies of steps 0 .. R - 2, one group each.
+template <int R, typename Issue>
+__device__ __forceinline__ void ring_prologue(int n, Issue issue) {
+  for (int s = 0; s < R - 1; ++s) {
+    if (s < n) issue(s);
+    cp_async_commit();
+  }
+}
+
+// A warp's 16 x D accumulators (rows r and r + 8 of its block) stored as
+// f32 rows of a [B, S, heads, D] tensor at ``dst`` (that head's row 0);
+// rows at or past S are not written.
+template <int D>
+__device__ __forceinline__ void store_frag_rows(float* __restrict__ dst, const float (&c)[D / 8][4],
+                                                int r, int S, int stride, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (r + 8 * half >= S) continue;
+    float* row = dst + (long long)(r + 8 * half) * stride + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(row + 8 * n) = make_float2(c[n][2 * half], c[n][2 * half + 1]);
+  }
+}
+
+// B2 in f32: one CTA per (batch * head, BR q rows) with Q and dO resident,
+// K/V tiles streaming; per tile and column chunk a warp computes S = Q K^T
+// (3xTF32, K split in registers) and dP = dO V^T (FP32 FMA), dS = P (dP -
+// delta) scale in registers, then dQ += dS K.
+template <int D>
+__global__ void __launch_bounds__(2 * BwdF32<D, false>::BR, 1)
     flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v, const float* __restrict__ dout,
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             float* __restrict__ dq, int Sq, int Sk, int H, int Hkv, float scale,
                             float scale_log2, int causal) {
-  using T = F32Tile<D>;
+  using T = BwdF32<D, false>;
+  constexpr int BR = T::BR, R = T::RING;
+  constexpr int kDqTerms = 3;  // TF32 products per f32 product
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);
-  float* sO = sQ + T::TILE;  // dO
-  float* sK = sO + T::TILE;
-  float* sV = sK + T::TILE;
-  float* sS = sV + T::TILE;  // dS
-  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+  float* sQ = reinterpret_cast<float*>(smem_raw + 64);
+  float* sO = sQ + BR * T::LD;  // dO
+  float* ring = sO + BR * T::LD;  // stage s: K tile, then V tile
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float* sPw = ring + R * 2 * T::TILE + warp * T::PW;
   const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / (H / Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32Rows;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;  // the longest causal rows first
   const int qstride = H * D, kstride = Hkv * D;
   const long long qhead = ((long long)b * Sq * H + h) * D;
   const float* kb = k + ((long long)b * Sk * Hkv + hk) * D;
   const float* vb = v + ((long long)b * Sk * Hkv + hk) * D;
-  load_tile_f32<D>(sQ, q + qhead, q0, Sq, qstride);
-  load_tile_f32<D>(sO, dout + qhead, q0, Sq, qstride);
+  init_ring_bars<R>(bars);
+  async_tile_f32<D, BR, T::NT, false>(sQ, q + qhead, q0, Sq, qstride, 0);
+  async_tile_f32<D, BR, T::NT, false>(sO, dout + qhead, q0, Sq, qstride, 0);
+  auto issue = [&](int kt) {
+    float* st = ring + (kt % R) * 2 * T::TILE;
+    const uint32_t bar = smem_u32(bars + kt % R);
+    if (kF32BulkRing && threadIdx.x == 0)
+      mbar_expect_tx(bar, 2 * tile_bytes_f32(kt * kF32Rows, Sk, D));
+    async_tile_f32<D, kF32Rows, T::NT, kF32BulkRing>(st, kb, kt * kF32Rows, Sk, kstride, bar);
+    async_tile_f32<D, kF32Rows, T::NT, kF32BulkRing>(st + T::TILE, vb, kt * kF32Rows, Sk,
+                                                     kstride, bar);
+  };
+  const int dq_tiles = kv_tiles_f32(q0, BR, Sq, Sk, causal);
+  ring_prologue<R>(dq_tiles, issue);
 
-  float l2[T::RM], dl[T::RM], acc[T::RM][4 * T::DC];
+  const int r = q0 + 16 * warp + g;  // this lane's rows: r and r + 8
   const long long rows = ((long long)b * H + h) * Sq;
+  float l2[2], dl[2];
 #pragma unroll
-  for (int i = 0; i < T::RM; ++i) {
-    const int qrow = q0 + ty * T::RM + i;
-    l2[i] = qrow < Sq ? lse[rows + qrow] * kLog2e : 0.f;
-    dl[i] = qrow < Sq ? delta[rows + qrow] : 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * T::DC; ++c) acc[i][c] = 0.f;
+  for (int i = 0; i < 2; ++i) {
+    l2[i] = r + 8 * i < Sq ? lse[rows + r + 8 * i] * kLog2e : 0.f;
+    dl[i] = r + 8 * i < Sq ? delta[rows + r + 8 * i] : 0.f;
   }
-  const int dq_tiles = kv_tiles_f32(q0, Sq, Sk, causal);
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const float* sQw = sQ + 16 * warp * T::LD;
+  const float* sOw = sO + 16 * warp * T::LD;
   for (int kt = 0; kt < dq_tiles; ++kt) {
+    ring_step<R>(kt, dq_tiles, bars, issue);
+    const float* sK = ring + (kt % R) * 2 * T::TILE;
+    const float* sV = sK + T::TILE;
     const int k0 = kt * kF32Rows;
-    __syncthreads();  // the last tile's K and dS are consumed
-    load_tile_f32<D>(sK, kb, k0, Sk, kstride);
-    load_tile_f32<D>(sV, vb, k0, Sk, kstride);
-    __syncthreads();
-    float s[T::RM][8], dp[T::RM][8];
-    tile_abt<D>(s, sQ, sK, ty, tx);
-    tile_abt<D>(dp, sO, sV, ty, tx);
+#pragma unroll 1
+    for (int c = 0; c < kF32Rows; c += T::NC) {
+      if (causal && k0 + c > q0 + 16 * warp + 15) break;  // the chunk lies above the diagonal
+      float s[T::NJ][4], dp[T::NJ][4];
+      mma_abt<D, T::NJ, kDqTerms, 0>(s, sQw, sK + c * T::LD, g, t);
+      fma_abt<D, T::NJ>(dp, sOw, sV + c * T::LD, g, t);
 #pragma unroll
-    for (int i = 0; i < T::RM; ++i) {
-      const int qrow = q0 + ty * T::RM + i;
+      for (int j = 0; j < T::NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = k0 + tx + 8 * j;
-        const bool dq_masked = col >= Sk || (causal && col > qrow);
-        const float p = dq_masked ? 0.f : exp2f(fmaf(s[i][j], scale_log2, -l2[i]));
-        sS[(ty * T::RM + i) * T::LDP + tx + 8 * j] = p * (dp[i][j] - dl[i]) * scale;
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int row = r + 8 * (e >> 1), col = k0 + c + 8 * j + 2 * t + (e & 1);
+          const bool dq_masked = col >= Sk || (causal && col > row);
+          const float p = dq_masked ? 0.f : exp2f(fmaf(s[j][e], scale_log2, -l2[e >> 1]));
+          s[j][e] = p * (dp[j][e] - dl[e >> 1]) * scale;
+        }
+      if constexpr (kF32DsInRegisters)
+        mma_pv<D, T::NJ, kDqTerms, 0>(acc, s, sK + c * T::LD, g, t);
+      else
+        mma_pv_smem<D, T::NJ, kDqTerms, 0>(acc, s, sPw, sK + c * T::LD, g, t);
     }
-    __syncthreads();
-    tile_pv<D>(acc, sS, sK, ty, tx);
   }
-  float unit[T::RM];
-#pragma unroll
-  for (int i = 0; i < T::RM; ++i) unit[i] = 1.f;
-  store_rows_f32<D>(dq + qhead, acc, unit, q0, Sq, qstride, ty, tx);
+  store_frag_rows<D>(dq + qhead, acc, r, Sq, qstride, t);
 }
 
-// B3 in f32: one CTA per (batch * KV head, 64 KV rows) with K and V
-// resident; over the group's query heads and each q tile that reaches these
-// rows, S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T go through shared
-// memory into dV += P^T dO and dK += dS^T Q. The GQA sum is the loop over
-// heads, in registers.
+// B3 in f32: one CTA per (batch * KV head, BR KV rows) with K and V
+// resident; the ring streams, over the group's query heads and each q tile
+// that reaches these rows, the Q and dO tiles and the tile's lse and delta
+// (Q and dO split into hi and lo once a step, T::PRE). Per step and column
+// chunk a warp computes S^T = K Q^T and dP^T = V dO^T, P^T and dS^T in
+// registers, then dV += P^T dO and dK += dS^T Q, all in 3xTF32. The GQA sum
+// is the loop over heads, in registers.
 template <int D>
-__global__ void __launch_bounds__(F32Tile<D>::NT)
+__global__ void __launch_bounds__(2 * BwdF32<D, true>::BR, 1)
     flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                              const float* __restrict__ v, const float* __restrict__ dout,
                              const float* __restrict__ lse, const float* __restrict__ delta,
                              float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk,
                              int H, int Hkv, float scale, float scale_log2, int causal) {
-  using T = F32Tile<D>;
+  using T = BwdF32<D, true>;
+  constexpr int BR = T::BR, R = T::RING;
+  constexpr int kDkvTerms = 3;  // TF32 products per f32 product
+  constexpr int STAGE = 2 * T::TILE + 2 * kF32Rows;  // Q, dO, lse, delta
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sK = reinterpret_cast<float*>(smem_raw);
-  float* sV = sK + T::TILE;
-  float* sQ = sV + T::TILE;
-  float* sO = sQ + T::TILE;  // dO
-  float* sP = sO + T::TILE;  // P^T
-  float* sS = sP + T::PTILE;  // dS^T
-  float* sL = sS + T::PTILE;  // the q tile's lse (log2 units)
-  float* sD = sL + kF32Rows;  // and delta
-  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+  float* sK = reinterpret_cast<float*>(smem_raw + 64);
+  float* sV = sK + BR * T::LD;
+  float* ring = sV + BR * T::LD;
+  float* sS = ring + R * STAGE;  // Q's hi and lo tiles, then dO's (T::PRE)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float* sPw = sS + (T::PRE ? 4 * T::TILE : 0) + warp * T::PW;
   const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
-  const int k0 = blockIdx.y * kF32Rows;
+  const int k0 = blockIdx.y * BR;  // the longest causal column of q tiles first
   const int qstride = H * D, kstride = Hkv * D;
   const long long khead = ((long long)b * Sk * Hkv + hk) * D;
-  load_tile_f32<D>(sK, k + khead, k0, Sk, kstride);
-  load_tile_f32<D>(sV, v + khead, k0, Sk, kstride);
+  init_ring_bars<R>(bars);
+  async_tile_f32<D, BR, T::NT, false>(sK, k + khead, k0, Sk, kstride, 0);
+  async_tile_f32<D, BR, T::NT, false>(sV, v + khead, k0, Sk, kstride, 0);
 
-  float dk_acc[T::RM][4 * T::DC], dv_acc[T::RM][4 * T::DC];
-#pragma unroll
-  for (int i = 0; i < T::RM; ++i)
-#pragma unroll
-    for (int c = 0; c < 4 * T::DC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
   const int n_rep = H / Hkv;
   const int h_first = hk * n_rep;
   const int q_tiles = (Sq + kF32Rows - 1) / kF32Rows;
   const int q_first = causal ? k0 / kF32Rows : 0;
-  for (int h = h_first; h < h_first + n_rep; ++h) {
+  const int n_q = q_tiles - q_first;
+  const int steps = n_rep * n_q;  // (head, q tile) pairs, head-major
+  auto issue = [&](int i) {
+    const int h = h_first + i / n_q, q0 = (q_first + i % n_q) * kF32Rows;
     const long long qhead = ((long long)b * Sq * H + h) * D;
     const long long rows = ((long long)b * H + h) * Sq;
-    for (int qt = q_first; qt < q_tiles; ++qt) {
-      const int q0 = qt * kF32Rows;
-      __syncthreads();  // the last step's Q, dO, P^T and dS^T are consumed
-      load_tile_f32<D>(sQ, q + qhead, q0, Sq, qstride);
-      load_tile_f32<D>(sO, dout + qhead, q0, Sq, qstride);
-      for (int r = threadIdx.x; r < kF32Rows; r += T::NT) {
-        sL[r] = q0 + r < Sq ? lse[rows + q0 + r] * kLog2e : 0.f;
-        sD[r] = q0 + r < Sq ? delta[rows + q0 + r] : 0.f;
-      }
+    float* st = ring + (i % R) * STAGE;
+    const uint32_t bar = smem_u32(bars + i % R);
+    if (kF32BulkRing && threadIdx.x == 0) mbar_expect_tx(bar, 2 * tile_bytes_f32(q0, Sq, D));
+    async_tile_f32<D, kF32Rows, T::NT, kF32BulkRing>(st, q + qhead, q0, Sq, qstride, bar);
+    async_tile_f32<D, kF32Rows, T::NT, kF32BulkRing>(st + T::TILE, dout + qhead, q0, Sq,
+                                                     qstride, bar);
+    for (int j = threadIdx.x; j < 2 * kF32Rows; j += T::NT) {  // lse, then delta
+      const int row = q0 + j % kF32Rows;
+      const float* src = (j < kF32Rows ? lse : delta) + rows + row;
+      cp_async4(st + 2 * T::TILE + j, row < Sq ? src : lse, row < Sq);
+    }
+  };
+  ring_prologue<R>(steps, issue);
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  const int r = k0 + 16 * warp + g;  // this lane's KV rows: r and r + 8
+  const float* sKw = sK + 16 * warp * T::LD;
+  const float* sVw = sV + 16 * warp * T::LD;
+  for (int i = 0; i < steps; ++i) {
+    ring_step<R>(i, steps, bars, issue);
+    const float* sQ = ring + (i % R) * STAGE;
+    const float* sO = sQ + T::TILE;  // dO
+    const float* sL = sO + T::TILE;  // lse
+    const float* sD = sL + kF32Rows;  // delta
+    if constexpr (T::PRE) {
+      split_tile<D, T::NT, T::LO>(sS, sQ);
+      split_tile<D, T::NT, T::LO>(sS + 2 * T::TILE, sO);
       __syncthreads();
-      float s[T::RM][8], dp[T::RM][8];
-      tile_abt<D>(s, sK, sQ, ty, tx);
-      tile_abt<D>(dp, sV, sO, ty, tx);
+    }
+    const float* sQb = T::PRE ? sS : sQ;  // Q and dO as the tensor cores read them
+    const float* sOb = T::PRE ? sS + 2 * T::TILE : sO;
+    const int q0 = (q_first + i % n_q) * kF32Rows;
+#pragma unroll 1
+    for (int c = 0; c < kF32Rows; c += T::NC) {
+      if (causal && q0 + c + T::NC <= k0 + 16 * warp) continue;  // the chunk lies above the diagonal
+      float s[T::NJ][4], dp[T::NJ][4];
+      mma_abt<D, T::NJ, kDkvTerms, T::LO>(s, sKw, sQb + c * T::LD, g, t);
+      mma_abt<D, T::NJ, kDkvTerms, T::LO>(dp, sVw, sOb + c * T::LD, g, t);
 #pragma unroll
-      for (int i = 0; i < T::RM; ++i) {
-        const int krow = k0 + ty * T::RM + i;
+      for (int j = 0; j < T::NJ; ++j)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int qc = tx + 8 * j;
+        for (int e = 0; e < 4; ++e) {
+          const int krow = r + 8 * (e >> 1), qc = c + 8 * j + 2 * t + (e & 1);
           const bool dkv_masked = q0 + qc >= Sq || (causal && krow > q0 + qc);
-          const float p = dkv_masked ? 0.f : exp2f(fmaf(s[i][j], scale_log2, -sL[qc]));
-          sP[(ty * T::RM + i) * T::LDP + qc] = p;
-          sS[(ty * T::RM + i) * T::LDP + qc] = p * (dp[i][j] - sD[qc]) * scale;
+          const float p =
+              dkv_masked ? 0.f : exp2f(fmaf(s[j][e], scale_log2, -(sL[qc] * kLog2e)));
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - sD[qc]) * scale;
         }
+      if constexpr (kF32DsInRegisters) {
+        mma_pv<D, T::NJ, kDkvTerms, T::LO>(dv_acc, s, sOb + c * T::LD, g, t);
+        mma_pv<D, T::NJ, kDkvTerms, T::LO>(dk_acc, dp, sQb + c * T::LD, g, t);
+      } else {
+        mma_pv_smem<D, T::NJ, kDkvTerms, T::LO>(dv_acc, s, sPw, sOb + c * T::LD, g, t);
+        mma_pv_smem<D, T::NJ, kDkvTerms, T::LO>(dk_acc, dp, sPw, sQb + c * T::LD, g, t);
       }
-      __syncthreads();
-      tile_pv<D>(dv_acc, sP, sO, ty, tx);
-      tile_pv<D>(dk_acc, sS, sQ, ty, tx);
     }
   }
-  float unit[T::RM];
-#pragma unroll
-  for (int i = 0; i < T::RM; ++i) unit[i] = 1.f;
-  store_rows_f32<D>(dk + khead, dk_acc, unit, k0, Sk, kstride, ty, tx);
-  store_rows_f32<D>(dv + khead, dv_acc, unit, k0, Sk, kstride, ty, tx);
+  store_frag_rows<D>(dk + khead, dk_acc, r, Sk, kstride, t);
+  store_frag_rows<D>(dv + khead, dv_acc, r, Sk, kstride, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -1434,14 +1921,19 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // The f32 kernels' dynamic shared memory in bytes: B1's (kernel 0) Q, K, V
-// and P tiles; B2's (1) Q, dO, K, V and dS; B3's (2) K, V, Q, dO, P^T and
-// dS^T, and the q tile's lse and delta.
+// and P tiles; B2's (1) barriers, Q and dO, and the ring's K and V; B3's (2)
+// barriers, K and V, the ring's Q, dO, lse and delta, and Q and dO split
+// (and in the shared-memory dS arm, each warp's P/dS tile).
 template <int D>
 constexpr size_t f32_smem(int kernel) {
   using T = F32Tile<D>;
-  return sizeof(float) * (kernel == 0   ? 3 * T::TILE + T::PTILE
-                          : kernel == 1 ? 4 * T::TILE + T::PTILE
-                                        : 4 * T::TILE + 2 * T::PTILE + 2 * kF32Rows);
+  using Q = BwdF32<D, false>;
+  using K = BwdF32<D, true>;
+  return kernel == 0 ? sizeof(float) * (3 * T::TILE + T::PTILE)
+         : kernel == 1
+             ? 64 + sizeof(float) * ((2 * Q::BR + Q::RING * 2 * kF32Rows) * Q::LD + Q::PWS)
+             : 64 + sizeof(float) * (2 * K::BR * K::LD + K::RING * (2 * K::TILE + 2 * kF32Rows) +
+                                     (K::PRE ? 4 * K::TILE : 0) + K::PWS);
 }
 
 template <int D>
@@ -1461,12 +1953,13 @@ template <int D>
 int launch_dq_f32(const void* q, const void* k, const void* v, const void* dout,
                   const void* lse, const void* delta, void* dq, int B, int Sq, int Sk, int H,
                   int Hkv, int causal, cudaStream_t st) {
+  using T = BwdF32<D, false>;
   const size_t smem = f32_smem<D>(1);
   auto kern = flash_bwd_dq_f32_kernel<D>;
   if (int err = prepare(kern, smem)) return err;
-  dim3 grid(B * H, (Sq + kF32Rows - 1) / kF32Rows);
+  dim3 grid(B * H, (Sq + T::BR - 1) / T::BR);
   const float scale = 1.f / sqrtf((float)D);
-  kern<<<grid, F32Tile<D>::NT, smem, st>>>(
+  kern<<<grid, T::NT, smem, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse,
       (const float*)delta, (float*)dq, Sq, Sk, H, Hkv, scale, scale * kLog2e, causal);
   return (int)cudaGetLastError();
@@ -1476,12 +1969,13 @@ template <int D>
 int launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
                    int Sk, int H, int Hkv, int causal, cudaStream_t st) {
+  using T = BwdF32<D, true>;
   const size_t smem = f32_smem<D>(2);
   auto kern = flash_bwd_dkv_f32_kernel<D>;
   if (int err = prepare(kern, smem)) return err;
-  dim3 grid(B * Hkv, (Sk + kF32Rows - 1) / kF32Rows);
+  dim3 grid(B * Hkv, (Sk + T::BR - 1) / T::BR);
   const float scale = 1.f / sqrtf((float)D);
-  kern<<<grid, F32Tile<D>::NT, smem, st>>>(
+  kern<<<grid, T::NT, smem, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse,
       (const float*)delta, (float*)dk, (float*)dv, Sq, Sk, H, Hkv, scale, scale * kLog2e,
       causal);

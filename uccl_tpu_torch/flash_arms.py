@@ -1,16 +1,22 @@
 """Design arms of the flash-attention backward (B2, B3) on the card:
-``python -m uccl_tpu_torch.flash_arms``.
+``python -m uccl_tpu_torch.flash_arms [--set bf16|f32|all]``.
 
 Builds copies of ``csrc/flash_attention.cu`` that differ from the source in
 one choice, with :func:`~uccl_tpu_torch.utils.build.build_variant` (one
-``nvcc`` each, started together), here the ring's stage count; an arm is
-one list of ``(old, new)`` text substitutions in ``ARMS``. It times B2 and
-B3 of each copy beside
-the source's own build at the main path's shapes (B=8, S=1024, H=16, Hkv=4,
-D=64, causal, bf16) at both CTA tiles. Each timing runs in a process of its
-own (each build carries its own CUDA runtime), in turns (source, arm, arm,
-source) so that drift on the card shows, after holding that build's B2 and
-B3 to their plain versions. Prints one JSON line. Needs a GPU.
+``nvcc`` each, started together); an arm is one list of ``(old, new)`` text
+substitutions. ``ARMS`` are the bf16 kernels' (the ring's stage count),
+timed at both CTA tiles; ``F32_ARMS`` the f32 kernels' (3xTF32 on
+``mma.sync``): each kernel's other ring depth (one stage against two) and
+CTA rows (64 against 128), B3's fragments split in registers against split
+tiles, P and dS through a warp's shared-memory tile against straight from
+the accumulators, and the ring on 1-D bulk copies (TMA's copy engine, one
+a row, completing on an mbarrier) against ``cp.async``. It times B2 and B3 of
+each copy beside the source's own build at the main path's shapes (B=8,
+S=1024, H=16, Hkv=4, D=64, causal; bf16 or f32). Each timing runs in a
+process of its own (each build carries its own CUDA runtime), in turns
+(source, arm, arm, source) so that drift on the card shows, after holding
+that build's B2 and B3 to their plain versions (``fa.kernel_error``, with a
+nonzero lse cotangent). Prints one JSON line. Needs a GPU.
 
 JAX counterpart: none (the TPU kernels' tiles were chosen by hand).
 """
@@ -38,6 +44,23 @@ ARMS = {
     "stages 2": [("constexpr int kStages = 4;", "constexpr int kStages = 2;")],
     "stages 3": [("constexpr int kStages = 4;", "constexpr int kStages = 3;")],
 }
+_B3_64_ROWS = ("constexpr int kF32DkvRows = D == 64 ? 128 : 64;",
+                "constexpr int kF32DkvRows = 64;")
+F32_ARMS = {
+    "f32 B2 two stages": [("constexpr int kF32DqRing = 1;", "constexpr int kF32DqRing = 2;")],
+    "f32 B3 one stage": [("constexpr int kF32DkvRing = 2;", "constexpr int kF32DkvRing = 1;")],
+    "f32 B2 128-row CTAs": [("constexpr int kF32DqRows = 64;",
+                             "constexpr int kF32DqRows = D == 64 ? 128 : 64;")],
+    "f32 B3 64-row CTAs": [_B3_64_ROWS],
+    "f32 B3 fragments split in registers": [("constexpr bool kF32PreSplit = D == 64;",
+                                             "constexpr bool kF32PreSplit = false;")],
+    # at 128 rows B3's warps' P/dS tiles do not fit beside its split tiles
+    "f32 dS through shared memory, B3 64-row CTAs": [
+        ("constexpr bool kF32DsInRegisters = true;", "constexpr bool kF32DsInRegisters = false;"),
+        _B3_64_ROWS],
+    "f32 TMA bulk ring": [("constexpr bool kF32BulkRing = false;",
+                           "constexpr bool kF32BulkRing = true;")],
+}
 SHAPE = dict(B=8, S=1024, H=16, Hkv=4, D=64, causal=True)
 
 
@@ -61,6 +84,19 @@ def time_ms(fn, reps: int, dev) -> float:
     return statistics.median(times)
 
 
+def registers(log: str) -> dict:
+    """Registers of each f32 backward kernel in nvcc's -Xptxas -v report."""
+    out, kernel = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = next((part for part in line.replace("'", " ").split()
+                           if "_f32_kernel" in part and "bwd" in part), None)
+        elif "registers" in line and kernel:
+            name = kernel[kernel.index("flash_bwd"):]
+            out[name] = int(line.split("Used ")[1].split()[0])
+    return out
+
+
 def spill_bytes(log: str) -> int:
     """Spill stores of the backward kernels in nvcc's -Xptxas -v report."""
     total, backward = 0, False
@@ -72,26 +108,30 @@ def spill_bytes(log: str) -> int:
     return total
 
 
-def time_build(lib_path: str, tile: int, reps: int) -> dict:
-    """One build's B2 and B3 at SHAPE and ``tile``: held to the plain
-    versions (``fa.kernel_error``), then timed."""
+def time_build(lib_path: str, tile: int, reps: int, f32: bool = False) -> dict:
+    """One build's B2 and B3 at SHAPE (bf16 at ``tile``, or the f32
+    kernels): held to the plain versions (``fa.kernel_error``), then timed."""
     dev = resolve_device("cuda")
     lib = fa.declare(ctypes.CDLL(lib_path))
     b, s, h, hkv, d, causal = (SHAPE[k] for k in ("B", "S", "H", "Hkv", "D", "causal"))
+    dtype = torch.float32 if f32 else torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(2)
-    q, dout = (torch.randn((b, s, h, d), generator=g, device=dev).bfloat16() for _ in range(2))
-    k, v = (torch.randn((b, s, hkv, d), generator=g, device=dev).bfloat16() for _ in range(2))
+    q, dout = (torch.randn((b, s, h, d), generator=g, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, s, hkv, d), generator=g, device=dev).to(dtype) for _ in range(2))
+    g_lse = torch.randn((b, h, s), generator=g, device=dev) * 0.5
     out, lse = fa.flash_fwd_plain(q, k, v, causal)
-    delta = fa.flash_delta(out, dout)
+    delta = fa.flash_delta(out, dout, g_lse)
     x = (q, k, v, dout, lse, delta)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dims = (b, s, s, h, hkv, d, int(causal), tile, fa._stream(q))
+    dims = (b, s, s, h, hkv, d, int(causal), *(() if f32 else (tile,)), fa._stream(q))
+    dq_fn, dkv_fn = ((lib.uccl_flash_bwd_dq_f32, lib.uccl_flash_bwd_dkv_f32) if f32 else
+                     (lib.uccl_flash_bwd_dq, lib.uccl_flash_bwd_dkv))
 
     def b2():
-        fa._raise_on(lib.uccl_flash_bwd_dq(*map(fa._ptr, (*x, dq)), *dims), "flash_bwd_dq")
+        fa._raise_on(dq_fn(*map(fa._ptr, (*x, dq)), *dims), "B2")
 
     def b3():
-        fa._raise_on(lib.uccl_flash_bwd_dkv(*map(fa._ptr, (*x, dk, dv)), *dims), "flash_bwd_dkv")
+        fa._raise_on(dkv_fn(*map(fa._ptr, (*x, dk, dv)), *dims), "B3")
 
     b2()
     b3()
@@ -107,22 +147,26 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--lib", help="time this build only (one process a build)")
     ap.add_argument("--tile", type=int, default=64)
+    ap.add_argument("--f32", action="store_true", help="with --lib: the f32 kernels")
+    ap.add_argument("--set", choices=("bf16", "f32", "all"), default="all",
+                    help="which kernels' arms to build and time")
     args = ap.parse_args(argv)
     if args.lib:
-        print(json.dumps(time_build(args.lib, args.tile, args.reps)), flush=True)
+        print(json.dumps(time_build(args.lib, args.tile, args.reps, args.f32)), flush=True)
         return
     resolve_device("cuda")
-    with ThreadPoolExecutor(len(ARMS) + 1) as pool:
+    arms = {**(ARMS if args.set != "f32" else {}), **(F32_ARMS if args.set != "bf16" else {})}
+    with ThreadPoolExecutor(len(arms) + 1) as pool:
         jobs = {name: pool.submit(build.build_variant, "flash_attention",
                                   name.replace(" ", "_"), subs)
-                for name, subs in ARMS.items()}
+                for name, subs in arms.items()}
         libs = {"source": str(pool.submit(build.build, "flash_attention").result()),
                 **{name: str(j.result()) for name, j in jobs.items()}}
 
-    def run(name, tile):
+    def run(name, tile, f32):
         proc = subprocess.run(
             [sys.executable, "-m", "uccl_tpu_torch.flash_arms", "--lib", libs[name],
-             "--tile", str(tile), "--reps", str(args.reps)],
+             "--tile", str(tile), "--reps", str(args.reps), *(["--f32"] if f32 else [])],
             capture_output=True, text=True, check=True,
             env=dict(os.environ, PYTHONPATH=os.pathsep.join(
                 [str(build.PACKAGE_DIR.parent), *filter(None, [os.environ.get("PYTHONPATH")])])))
@@ -131,16 +175,18 @@ def main(argv=None):
     logs = {name: (Path(path).parent / "nvcc.log").read_text() for name, path in libs.items()
             if name != "source"}
     logs["source"] = build.build_log("flash_attention")
+    cases = [(name, tile, False) for tile in HOPPER_TILES for name in arms if name in ARMS]
+    cases += [(name, 64, True) for name in arms if name in F32_ARMS]
     rows = []
-    for tile in HOPPER_TILES:
-        for name in ARMS:
-            runs = [run(which, tile) for which in ("source", name, name, "source")]
-            rows.append({"arm": name, "tile": tile, "order": "source, arm, arm, source",
-                         "B2_ms": [r["B2_ms"] for r in runs], "B3_ms": [r["B3_ms"] for r in runs],
-                         "worst": max(r["worst"] for r in runs),
-                         "spill_bytes": spill_bytes(logs[name])})
-    print(json.dumps({"flash_arms": rows, "shape": SHAPE,
-                      "gpu": torch.cuda.get_device_name(0)}), flush=True)
+    for name, tile, f32 in cases:
+        runs = [run(which, tile, f32) for which in ("source", name, name, "source")]
+        rows.append({"arm": name, "tile": None if f32 else tile, "f32": f32,
+                     "order": "source, arm, arm, source",
+                     "B2_ms": [r["B2_ms"] for r in runs], "B3_ms": [r["B3_ms"] for r in runs],
+                     "worst": max(r["worst"] for r in runs),
+                     "spill_bytes": spill_bytes(logs[name]), "registers": registers(logs[name])})
+    print(json.dumps({"flash_arms": rows, "shape": SHAPE, "source_registers": registers(
+        logs["source"]), "gpu": torch.cuda.get_device_name(0)}), flush=True)
 
 
 if __name__ == "__main__":

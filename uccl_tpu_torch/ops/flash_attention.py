@@ -19,10 +19,13 @@ The backward kernels run on ``wgmma`` too, fed by TMA rings that one producer
 warp keeps ahead of the consumer warpgroups.
 
 For float32 (what the trainers run): ``flash_fwd_f32``, ``flash_bwd_dq_f32``
-and ``flash_bwd_dkv_f32``, the same three functions in f32 arithmetic on the
-CUDA cores (no tensor-core rate keeps f32's mantissa), on 64-row tiles and
-any sequence length. The autograd function picks the set by q's dtype; on
-CUDA any other dtype, or a mix, raises.
+and ``flash_bwd_dkv_f32``, the same three functions at f32 accuracy, at any
+sequence length: the forward as FP32 FMA on the CUDA cores, the backward on
+the tensor cores as three TF32 products per f32 product (3xTF32 on
+``mma.sync``; B2's dP = dO V^T stays FP32 FMA, its rounding the plain
+version's). ``tf32_rna``, ``mm_3xtf32`` and ``flash_bwd_*_3xtf32`` emulate
+that arithmetic on the CPU (tests only). The autograd function picks the
+set by q's dtype; on CUDA any other dtype, or a mix, raises.
 
 Beside each kernel is its plain PyTorch version (``*_plain``): the same
 function, in float32, materialising ``[S, S]``. A wrapper runs the plain
@@ -230,6 +233,87 @@ def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal: bool = True):
     dk = dk.reshape(b, sk, hkv, n_rep, d).sum(3)
     dv = dv.reshape(b, sk, hkv, n_rep, d).sum(3)
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The f32 backward kernels' arithmetic (3xTF32), emulated in torch. The main
+# path never calls these: they show on the CPU what the CUDA kernels' way of
+# computing an f32 product keeps of f32's accuracy.
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float32) rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to 10
+    explicit mantissa bits, ties away from zero (half the dropped 13 bits'
+    range added to the magnitude, then those bits cleared)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor, terms: int = 3) -> torch.Tensor:
+    """``a @ b`` (float32, batched) as the kernels' ``mma.sync`` products
+    compute it: each operand split into hi = tf32(x) and lo = tf32(x - hi);
+    per k-step of 8, lo·hi + hi·lo + hi·hi (lo·lo dropped), here summed
+    exactly and added to the f32 running sum in order. (The tensor cores
+    round their own sums toward zero; the kernels keep that off long sums
+    with fresh accumulators, which this model leaves out.) ``terms`` 2 also
+    drops lo·hi, 1 leaves a single TF32 pass (the planted faults)."""
+    a, b = a.float(), b.float()
+    ah, bh = tf32_rna(a), tf32_rna(b)
+    al, bl = tf32_rna(a - ah), tf32_rna(b - bh)
+    pairs = ((al, bh), (ah, bl), (ah, bh))[3 - terms:]
+    acc = torch.zeros((*a.shape[:-1], b.shape[-1]), dtype=torch.float32, device=a.device)
+    for k0 in range(0, a.shape[-1], 8):
+        step = sum(x[..., k0:k0 + 8].double() @ y[..., k0:k0 + 8, :].double() for x, y in pairs)
+        acc = acc + step.float()
+    return acc
+
+
+def _p_ds_3xtf32(q, k, v, dout, lse, delta, causal, terms, dp_f32):
+    """P and dS [B,H,Sq,Sk] as the f32 kernels compute them: S in 3xTF32
+    over D, dP too or (``dp_f32``, B2) as an f32 product, P = exp2(S scale
+    log2e - lse log2e), masked to 0."""
+    n_rep = q.shape[2] // k.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    log2e = torch.tensor(math.log2(math.e), dtype=torch.float32)
+    scale_log2 = torch.tensor(scale, dtype=torch.float32) * log2e
+    kk, vv = (_repeat_kv(t.float(), n_rep).transpose(1, 2) for t in (k, v))
+    s = mm_3xtf32(q.float().transpose(1, 2), kk.transpose(-1, -2), terms)
+    dp = (torch.matmul if dp_f32 else functools.partial(mm_3xtf32, terms=terms))(
+        dout.float().transpose(1, 2), vv.transpose(-1, -2))
+    p = torch.exp2(s * scale_log2 - lse[..., None].float() * log2e)
+    if causal:
+        pos_q = torch.arange(q.shape[1], device=q.device)
+        pos_k = torch.arange(k.shape[1], device=q.device)
+        p = p.masked_fill((pos_q[:, None] < pos_k[None, :])[None, None], 0.0)
+    ds = p * (dp - delta[..., None].float()) * scale
+    return p, ds, kk, n_rep
+
+
+def flash_bwd_dq_3xtf32(q, k, v, dout, lse, delta, causal: bool = True, terms: int = 3):
+    """B2 (f32) as its kernel computes it: S and dQ in 3xTF32 (dQ summed
+    over KV columns in k-steps of 8), dP an f32 product. Emulation only."""
+    _, ds, kk, _ = _p_ds_3xtf32(q, k, v, dout, lse, delta, causal, terms, dp_f32=True)
+    return mm_3xtf32(ds, kk, terms).transpose(1, 2).contiguous()
+
+
+def flash_bwd_dkv_3xtf32(q, k, v, dout, lse, delta, causal: bool = True, terms: int = 3):
+    """B3 (f32) as its kernel computes it: every product in 3xTF32; dK and
+    dV summed in one accumulator over the GQA group's heads, each head's q
+    rows in k-steps of 8 (padded with zero rows to a multiple of 8, as the
+    kernel's zero-filled tiles). Emulation only."""
+    p, ds, _, n_rep = _p_ds_3xtf32(q, k, v, dout, lse, delta, causal, terms, dp_f32=False)
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    pad = -sq % 8
+
+    def group(x):  # [B,H,Sq,X] -> [B,Hkv,n_rep*(Sq+pad),X], heads in order
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        return x.reshape(b, hkv, n_rep * (sq + pad), x.shape[-1])
+
+    pt, dst = group(p).transpose(-1, -2), group(ds).transpose(-1, -2)
+    dv = mm_3xtf32(pt, group(dout.float().transpose(1, 2)), terms)
+    dk = mm_3xtf32(dst, group(q.float().transpose(1, 2)), terms)
+    return dk.transpose(1, 2).contiguous(), dv.transpose(1, 2).contiguous()
 
 
 def flash_delta(out, g_out, g_lse=None):
