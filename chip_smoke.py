@@ -114,10 +114,15 @@ F32_PRODUCTS = {f"{name}_f32": n for name, n in PRODUCTS.items()}
 # each built as a variant library (build.build_variant) beside the real
 # ones. Each must fail the f32 rule at the main path's shape.
 F32_FAULTS = {
-    "out: causal mask off by one (the diagonal masked)":
-        ("fwd", [("(causal && kcol > qrow)", "(causal && kcol >= qrow)")]),
-    "out: KV tile 2 dropped":
-        ("fwd", [("kt < fwd_tiles; ++kt", "kt < fwd_tiles; kt += 1 + (kt == 1)")]),
+    "out: causal mask off by one (the key past the diagonal let in)":
+        ("fwd", [("(causal && key > row)", "(causal && key > row + 1)")]),
+    "out: KV tile 2 dropped (the ring still streams it)":
+        ("fwd", [("const int cols = Sk - k0;", "const int cols = k0 == 2 * kF32Rows ? 0 : Sk - k0;"),
+                 ("return k0 + kF32Rows > Sk ||", "return k0 == 2 * kF32Rows || k0 + kF32Rows > Sk ||")]),
+    "out: lo terms dropped (a single TF32 pass)":
+        ("fwd", [("constexpr int kF32FwdTerms = 3;", "constexpr int kF32FwdTerms = 1;")]),
+    "out: one cross term (lo hi) dropped":
+        ("fwd", [("constexpr int kF32FwdTerms = 3;", "constexpr int kF32FwdTerms = 2;")]),
     "dq: KV tile 2 dropped (the ring still streams it)":
         ("dq", [("const float* sK = ring + (kt % R)",
                  "if (kt == 2) continue;\n    const float* sK = ring + (kt % R)")]),

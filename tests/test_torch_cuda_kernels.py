@@ -8,7 +8,7 @@ without JAX it runs alone, past the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 The backward's own checks: every variant the dispatch builds, B3's bits
-(and the f32 B2's and B3's) from run to run, and the pipeline-wait rule (a stalled ring ends its launch
+(and the f32 B1's, B2's and B3's) from run to run, and the pipeline-wait rule (a stalled ring ends its launch
 with a CUDA error, in a subprocess, within 60 s).
 
 bf16 tolerance: each kernel reads the same bf16 inputs as the plain float32
@@ -22,8 +22,8 @@ its path) to 1e-3 absolute.
 f32 tolerance (the f32 kernels, at the end of this file): the same rule at
 f32 scale, ``fa.F32_KERNEL_ATOL_OF_ROW_RMS`` = ``fa.F32_KERNEL_RTOL`` =
 2^-14, lse to ``fa.F32_LSE_ATOL`` = 1e-5 absolute (see ops/flash_attention.py
-for why); planted faults of the source must fail it, a single TF32 pass and
-a dropped cross term of 3xTF32 among them.
+for why); planted faults of the source must fail it, single TF32 passes and
+dropped cross terms of 3xTF32 (in B1, B2 and B3) among them.
 """
 
 import dataclasses
@@ -324,6 +324,14 @@ def test_f32_dkv_is_deterministic(dev):
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
+def test_f32_fwd_is_deterministic(dev):
+    q, k, v, _, _ = _inputs_f32(dev, 2, 512, 512, 16, 2, 64, seed=7)
+    first = fa.flash_fwd_f32(q, k, v, True)
+    second = fa.flash_fwd_f32(q, k, v, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
 def test_f32_dq_is_deterministic(dev):
     q, k, v, dout, g_lse = _inputs_f32(dev, 2, 512, 512, 16, 2, 64, seed=6)
     out_p, lse_p = fa.flash_fwd_plain(q, k, v, True)
@@ -334,12 +342,19 @@ def test_f32_dq_is_deterministic(dev):
     assert torch.equal(first, second)
 
 
-# Text substitutions of the source that plant a fault in one f32 kernel. B2's
-# dropped tile is still streamed by the ring and skipped by the products;
-# the last two take TF32 products out of the 3xTF32 sums.
+# Text substitutions of the source that plant a fault in one f32 kernel.
+# B1's and B2's dropped tiles are still streamed by the ring (B1's is masked
+# whole, B2's skipped by the products); the single TF32 passes and dropped
+# cross terms take TF32 products out of the 3xTF32 sums.
 F32_FAULTS = {
-    "mask_off_by_one": ("fwd", [("(causal && kcol > qrow)", "(causal && kcol >= qrow)")]),
-    "fwd_tile_dropped": ("fwd", [("kt < fwd_tiles; ++kt", "kt < fwd_tiles; kt += 1 + (kt == 1)")]),
+    "mask_off_by_one": ("fwd", [("(causal && key > row)", "(causal && key > row + 1)")]),
+    "fwd_tile_dropped": ("fwd", [
+        ("const int cols = Sk - k0;", "const int cols = k0 == 2 * kF32Rows ? 0 : Sk - k0;"),
+        ("return k0 + kF32Rows > Sk ||", "return k0 == 2 * kF32Rows || k0 + kF32Rows > Sk ||")]),
+    "fwd_single_tf32_pass": ("fwd", [("constexpr int kF32FwdTerms = 3;",
+                                      "constexpr int kF32FwdTerms = 1;")]),
+    "fwd_cross_term_dropped": ("fwd", [("constexpr int kF32FwdTerms = 3;",
+                                        "constexpr int kF32FwdTerms = 2;")]),
     "dq_tile_dropped": ("dq", [("const float* sK = ring + (kt % R)",
                                 "if (kt == 2) continue;\n    const float* sK = ring + (kt % R)")]),
     "gqa_wrong_group": ("dkv", [("const int h_first = hk * n_rep;",

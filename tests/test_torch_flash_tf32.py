@@ -1,16 +1,18 @@
-"""The f32 flash backward's arithmetic (3xTF32) on the CPU.
+"""The f32 flash kernels' arithmetic (3xTF32) on the CPU.
 
-The CUDA kernels of B2 and B3 in float32 compute each f32 product on the
+The CUDA kernels of B1, B2 and B3 in float32 compute each f32 product on the
 tensor cores as three TF32 products: x = hi + lo with hi = tf32(x) and lo =
 tf32(x - hi), both rounded as ``cvt.rna.tf32.f32`` rounds, and a b = lo hi +
 hi lo + hi hi, accumulated in f32 per k-step of 8. ``ops/flash_attention``
-emulates that in torch (``tf32_rna``, ``mm_3xtf32``, ``flash_bwd_*_3xtf32``);
+emulates that in torch (``tf32_rna``, ``mm_3xtf32``, ``flash_fwd_3xtf32``,
+``flash_bwd_*_3xtf32``);
 the main path never calls the emulation. Here it is held to the rule the
 kernels are held to on the card (``fa.kernel_error``'s f32 rule, unchanged),
 against the plain versions with a nonzero lse cotangent; a single TF32 pass
 and a dropped cross term must fail that rule; and it is held to the JAX
-package's backward at a tiny shape, as tests/test_torch_flash_attention.py
-runs it (rtol 1e-3, atol 1e-4).
+package's backward and forward at a tiny shape, as
+tests/test_torch_flash_attention.py runs them (gradients at rtol 1e-3, atol
+1e-4; out and lse at rtol 2e-4, atol 2e-5).
 """
 
 import jax
@@ -90,3 +92,40 @@ def test_3xtf32_matches_the_jax_backward(rng):
     got = (fa.flash_bwd_dq_3xtf32(*x), *fa.flash_bwd_dkv_3xtf32(*x))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-3, atol=1e-4)
+
+
+# The forward (B1 in f32): S and each 64-key tile's P V in 3xTF32, the
+# tile's P V into a fresh accumulator added after the rescale.
+
+
+def _fwd_plain_and_emulated(rng, s, causal, terms):
+    q, k, v, _, _ = _inputs(rng, s)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
+    out, lse = fa.flash_fwd_3xtf32(q, k, v, causal, terms)
+    return fa.kernel_error(out, out_p)["worst"], (lse - lse_p).abs().max().item()
+
+
+@pytest.mark.parametrize("s,causal", [(256, True), (256, False), (77, True), (77, False)])
+def test_fwd_3xtf32_keeps_the_f32_rule(rng, s, causal):
+    worst, lse_err = _fwd_plain_and_emulated(rng, s, causal, terms=3)
+    assert worst <= 1 and lse_err <= fa.F32_LSE_ATOL, (worst, lse_err)
+
+
+@pytest.mark.parametrize("terms,what", [(1, "a single TF32 pass"), (2, "one cross term dropped")])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fwd_fewer_terms_fail_the_f32_rule(rng, terms, what, causal):
+    worst, _ = _fwd_plain_and_emulated(rng, 256, causal, terms=terms)
+    assert worst > 1, (what, worst)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_fwd_3xtf32_matches_the_jax_forward(rng, causal):
+    """The emulated out and lse against the JAX package's Pallas forward
+    (interpret mode) at the forward test's tolerance."""
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((1, 64, 4, 16), (1, 64, 2, 16), (1, 64, 2, 16)))
+    jo, jl = j_flash_attention_lse(*map(jnp.asarray, (q, k, v)), causal, 32, 32)
+    to, tl = fa.flash_fwd_3xtf32(*map(torch.tensor, (q, k, v)), causal)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=2e-4, atol=2e-5)
+

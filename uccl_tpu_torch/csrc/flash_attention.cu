@@ -4,10 +4,10 @@
 // uccl_tpu/ops/pallas_attention.py: _fwd_kernel (B1), _bwd_dq_kernel (B2) and
 // _bwd_dkv_kernel (B3). They compute the same functions; the block structure
 // is Hopper's own. Each comes twice: for bf16 q/k/v on wgmma (most of this
-// file), and for f32 q/k/v (the sections "B1-B3 in float32" and "B2 and B3
-// in float32: 3xTF32" near the end: B1 on the CUDA cores' FP32 FMA, B2 and
-// B3 on the tensor cores as three TF32 products each; the Pallas kernels
-// take either dtype).
+// file), and for f32 q/k/v (the sections "B1-B3 in float32", "B2 and B3 in
+// float32: 3xTF32" and "B1 in float32: 3xTF32" near the end: on the tensor
+// cores as three TF32 products per f32 product; the Pallas kernels take
+// either dtype).
 //
 // Layout. q/out/dout/dq are [B, Sq, H, D] and k/v/dk/dv are [B, Sk, Hkv, D],
 // contiguous bf16 (or f32), read in place: a D = 64 bf16 row is 128 contiguous bytes,
@@ -922,161 +922,22 @@ __global__ void __launch_bounds__(BKV * 2 + 32, 1)
 //
 // What bounds them: operations. At the flagship's shapes the three do 2, 3
 // and 4 S x S x D products per head, and float32 has no tensor-core rate on
-// the H100 that keeps its 24-bit mantissa in one pass (TF32 keeps 10 bits):
-// B1 runs its products as FP32 FMA on the CUDA cores, whose peak is about
-// 15x below bf16 wgmma's; B2 and B3 as three TF32 products each (3xTF32,
-// the next section), at a third of the TF32 rate. The bytes (each tensor
-// read once) are far below either bound.
+// the H100 that keeps its 24-bit mantissa in one pass (TF32 keeps 10 bits).
+// All three run their products as three TF32 products each (3xTF32, the
+// next section), at a third of the TF32 rate: 165 TFLOP/s of f32-accurate
+// products against 67 for FP32 FMA on the CUDA cores. The bytes (each
+// tensor read once) are far below either bound. B2 and B3 run mma.sync
+// (next section), B1 wgmma fed by a TMA ring (the section after B3).
 //
-// B1's design is the simple one: one CTA per 64-row q tile of one head, its
-// resident tile and each streamed tile in shared memory as padded f32 rows,
-// every product a register-tiled FMA loop. A thread owns RM rows of the
-// CTA's 64 and, of a 64-column score tile, the columns tx + 8 j (j < 8): the
-// 8 threads of a row group sit in one quarter-warp, so a 16-byte read of 8
-// different streamed rows (row stride D + 4 floats) hits 8 different bank
-// groups, and the resident row is a broadcast. The score tile goes through
-// shared memory (P) into O += P V, where a thread owns RM rows and D / 8
-// output columns 4 tx + 32 c (+ 0..3). Row sums and maxima of the online
-// softmax take 3 shuffles across the row group. Causal tiles past the
-// diagonal are skipped, the longest rows run first. Rows and columns past a
-// sequence's end read as zeros, are masked and are not written, so any
-// length works.
-//
-// Semantics are the bf16 kernels': -1e30 for a masked score (only whole
-// masked rows would see it, and causal rows never are), the 1e-20 row-sum
-// floor, f32 lse, delta from the stored out, and the GQA sum of B3 in
-// registers over the group's query heads (no atomics: the same inputs give
-// the same bits).
+// Kept in all three: the longest causal rows first, causal tiles past the
+// diagonal skipped, any length (rows and columns past a sequence's end read
+// as zeros, are masked and are not written), -1e30 for a masked score (only
+// whole masked rows would see it, and causal rows never are), the 1e-20
+// row-sum floor, f32 lse, delta from the stored out, and the GQA sum of B3
+// in registers over the group's query heads (no atomics: the same inputs
+// give the same bits).
 
-constexpr int kF32Rows = 64;  // rows of every f32 tile
-
-template <int D>
-struct F32Tile {
-  static constexpr int RM = D == 64 ? 4 : 2;      // CTA rows a thread owns
-  static constexpr int NT = (kF32Rows / RM) * 8;  // threads: 8 a row group
-  static constexpr int LD = D + 4;                // row stride (floats) of a [64][D] tile
-  static constexpr int LDP = kF32Rows + 4;        // row stride of a [64][64] score tile
-  static constexpr int TILE = kF32Rows * LD;      // floats
-  static constexpr int PTILE = kF32Rows * LDP;
-  static constexpr int DC = D / 32;               // float4 output columns a thread owns
-};
-
-__device__ __forceinline__ float octet_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-}
-
-__device__ __forceinline__ float octet_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x + __shfl_xor_sync(0xffffffffu, x, 4);
-}
-
-__device__ __forceinline__ float f4_at(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-// Rows [r0, r0 + 64) of one head of a [B, S, heads, D] f32 tensor (``src``
-// at that head's row 0, ``stride`` floats from row to row) into a padded
-// [64][D + 4] tile; rows at or past S arrive as zeros.
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* __restrict__ src, int r0,
-                                              int S, int stride) {
-  using T = F32Tile<D>;
-  constexpr int C4 = D / 4;
-  for (int i = threadIdx.x; i < kF32Rows * C4; i += T::NT) {
-    const int r = i / C4, c = i % C4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < S) x = __ldg(reinterpret_cast<const float4*>(src + (long long)(r0 + r) * stride) + c);
-    *reinterpret_cast<float4*>(dst + r * T::LD + 4 * c) = x;
-  }
-}
-
-// acc[i][j] = A[ty RM + i] . B[tx + 8 j] over D: this thread's block of a
-// 64 x 64 product of two [64][D + 4] tiles, the second transposed.
-template <int D>
-__device__ __forceinline__ void tile_abt(float (&acc)[F32Tile<D>::RM][8], const float* A,
-                                         const float* B, int ty, int tx) {
-  using T = F32Tile<D>;
-#pragma unroll
-  for (int i = 0; i < T::RM; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 a[T::RM], b[8];
-#pragma unroll
-    for (int i = 0; i < T::RM; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (ty * T::RM + i) * T::LD + d);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      b[j] = *reinterpret_cast<const float4*>(B + (tx + 8 * j) * T::LD + d);
-#pragma unroll
-    for (int i = 0; i < T::RM; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float s = fmaf(a[i].x, b[j].x, acc[i][j]);
-        s = fmaf(a[i].y, b[j].y, s);
-        s = fmaf(a[i].z, b[j].z, s);
-        acc[i][j] = fmaf(a[i].w, b[j].w, s);
-      }
-  }
-}
-
-// acc[i][4 c + e] += sum_j P[ty RM + i][j] V[j][4 tx + 32 c + e]: this
-// thread's block of a [64][64] score tile (row stride 68) times a [64][D + 4]
-// tile.
-template <int D>
-__device__ __forceinline__ void tile_pv(float (&acc)[F32Tile<D>::RM][4 * F32Tile<D>::DC],
-                                        const float* P, const float* V, int ty, int tx) {
-  using T = F32Tile<D>;
-#pragma unroll 2
-  for (int j = 0; j < kF32Rows; j += 4) {
-    float4 p[T::RM];
-#pragma unroll
-    for (int i = 0; i < T::RM; ++i)
-      p[i] = *reinterpret_cast<const float4*>(P + (ty * T::RM + i) * T::LDP + j);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float4 v[T::DC];
-#pragma unroll
-      for (int c = 0; c < T::DC; ++c)
-        v[c] = *reinterpret_cast<const float4*>(V + (j + e) * T::LD + 4 * tx + 32 * c);
-#pragma unroll
-      for (int i = 0; i < T::RM; ++i) {
-        const float pi = f4_at(p[i], e);
-#pragma unroll
-        for (int c = 0; c < T::DC; ++c) {
-          acc[i][4 * c] = fmaf(pi, v[c].x, acc[i][4 * c]);
-          acc[i][4 * c + 1] = fmaf(pi, v[c].y, acc[i][4 * c + 1]);
-          acc[i][4 * c + 2] = fmaf(pi, v[c].z, acc[i][4 * c + 2]);
-          acc[i][4 * c + 3] = fmaf(pi, v[c].w, acc[i][4 * c + 3]);
-        }
-      }
-    }
-  }
-}
-
-// Rows a thread's accumulators cover, stored as f32 into a [B, S, heads, D]
-// tensor at ``dst`` (that head's row 0); rows at or past S are not written.
-template <int D>
-__device__ __forceinline__ void store_rows_f32(
-    float* __restrict__ dst, const float (&acc)[F32Tile<D>::RM][4 * F32Tile<D>::DC],
-    const float (&mul)[F32Tile<D>::RM], int r0, int S, int stride, int ty, int tx) {
-  using T = F32Tile<D>;
-#pragma unroll
-  for (int i = 0; i < T::RM; ++i) {
-    const int r = r0 + ty * T::RM + i;
-    if (r >= S) continue;
-    float* row = dst + (long long)r * stride;
-#pragma unroll
-    for (int c = 0; c < T::DC; ++c)
-      *reinterpret_cast<float4*>(row + 4 * tx + 32 * c) =
-          make_float4(acc[i][4 * c] * mul[i], acc[i][4 * c + 1] * mul[i],
-                      acc[i][4 * c + 2] * mul[i], acc[i][4 * c + 3] * mul[i]);
-  }
-}
+constexpr int kF32Rows = 64;  // rows of every streamed f32 tile
 
 // Causal: the KV tiles that ``rows`` q rows starting at q0 reach.
 __device__ __forceinline__ int kv_tiles_f32(int q0, int rows, int Sq, int Sk, int causal) {
@@ -1084,90 +945,11 @@ __device__ __forceinline__ int kv_tiles_f32(int q0, int rows, int Sq, int Sk, in
   return causal ? min(all, (min(q0 + rows, Sq) - 1) / kF32Rows + 1) : all;
 }
 
-// B1 in f32: one CTA per (batch * head, 64 q rows); K/V tiles stream
-// through shared memory, the online softmax runs in log2 units in
-// registers, P goes through shared memory into O += P V.
-template <int D>
-__global__ void __launch_bounds__(F32Tile<D>::NT)
-    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
-                         float scale_log2, int causal) {
-  using T = F32Tile<D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);
-  float* sK = sQ + T::TILE;
-  float* sV = sK + T::TILE;
-  float* sP = sV + T::TILE;
-  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
-  const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / (H / Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32Rows;  // the longest causal rows first
-  const int qstride = H * D, kstride = Hkv * D;
-  const float* kb = k + ((long long)b * Sk * Hkv + hk) * D;
-  const float* vb = v + ((long long)b * Sk * Hkv + hk) * D;
-  load_tile_f32<D>(sQ, q + ((long long)b * Sq * H + h) * D, q0, Sq, qstride);
-
-  float m[T::RM], l[T::RM], acc[T::RM][4 * T::DC];
-#pragma unroll
-  for (int i = 0; i < T::RM; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * T::DC; ++c) acc[i][c] = 0.f;
-  }
-  const int fwd_tiles = kv_tiles_f32(q0, kF32Rows, Sq, Sk, causal);
-  for (int kt = 0; kt < fwd_tiles; ++kt) {
-    const int k0 = kt * kF32Rows;
-    __syncthreads();  // the last tile's K, V and P are consumed
-    load_tile_f32<D>(sK, kb, k0, Sk, kstride);
-    load_tile_f32<D>(sV, vb, k0, Sk, kstride);
-    __syncthreads();
-    float s[T::RM][8];
-    tile_abt<D>(s, sQ, sK, ty, tx);
-#pragma unroll
-    for (int i = 0; i < T::RM; ++i) {
-      const int qrow = q0 + ty * T::RM + i;
-      float mt = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kcol = k0 + tx + 8 * j;
-        s[i][j] = (kcol >= Sk || (causal && kcol > qrow)) ? kNegInf : s[i][j] * scale_log2;
-        mt = fmaxf(mt, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], octet_max(mt));
-      const float corr = exp2f(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= corr;
-#pragma unroll
-      for (int c = 0; c < 4 * T::DC; ++c) acc[i][c] *= corr;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p = exp2f(s[i][j] - m_new);
-        l[i] += p;
-        sP[(ty * T::RM + i) * T::LDP + tx + 8 * j] = p;
-      }
-    }
-    __syncthreads();
-    tile_pv<D>(acc, sP, sV, ty, tx);
-  }
-
-  constexpr float kLn2 = 0.69314718055994531f;
-  float inv[T::RM];
-#pragma unroll
-  for (int i = 0; i < T::RM; ++i) {
-    const float lsum = fmaxf(octet_sum(l[i]), 1e-20f);
-    inv[i] = 1.f / lsum;
-    const int qrow = q0 + ty * T::RM + i;
-    if (tx == 0 && qrow < Sq) lse[((long long)b * H + h) * Sq + qrow] = m[i] * kLn2 + logf(lsum);
-  }
-  store_rows_f32<D>(o + ((long long)b * Sq * H + h) * D, acc, inv, q0, Sq, qstride, ty, tx);
-}
-
 // ---------------------------------------------------------------------------
 // B2 and B3 in float32: 3xTF32 on the tensor cores.
 //
-// What bounds them: operations, as B1 in f32. Here the products run on the
-// tensor cores all the same, as three TF32 products each: x = hi + lo with
+// What bounds them: operations (see above). The products run on the tensor
+// cores as three TF32 products each: x = hi + lo with
 // hi = tf32(x) and lo = tf32(x - hi), both rounded as cvt.rna.tf32.f32
 // rounds, and a b = lo hi + hi lo + hi hi accumulated in f32 (lo lo, some
 // 2^-22 of the product, is dropped). That keeps f32's accuracy at a third
@@ -1216,11 +998,8 @@ __global__ void __launch_bounds__(F32Tile<D>::NT)
 // fresh accumulator (at D = 128 one a column group, for registers) that is
 // added to the running sum in f32, rounding to nearest.
 //
-// Kept from the FP32-FMA design: the longest causal rows first, causal
-// tiles past the diagonal skipped (and, inside the diagonal tile, a warp's
-// column chunks that lie wholly above it), any length, -1e30 masking and
-// the lse and delta semantics, the GQA sum of B3 in registers over the
-// group's query heads (no atomics: the same inputs give the same bits).
+// Inside the diagonal tile, a warp's column chunks that lie wholly above it
+// are skipped too.
 //
 // The design's arms (python -m uccl_tpu_torch.flash_arms times each beside
 // the source): the other stage count and CTA rows of each kernel, B3's
@@ -1793,6 +1572,459 @@ __global__ void __launch_bounds__(2 * BwdF32<D, true>::BR, 1)
 }
 
 // ---------------------------------------------------------------------------
+// B1 in float32: 3xTF32 on the tensor cores.
+//
+// What bounds it: operations (2 S x S x D products per head, the causal half
+// of them), here as 3xTF32 (the arithmetic of the section above: hi and lo
+// rounded as cvt.rna rounds, lo hi + hi lo + hi hi). S over D keeps one
+// accumulator chain; each KV tile's P V goes into a fresh accumulator that
+// is added in f32 (round to nearest) to the output after the output is
+// rescaled by the online softmax's correction, so the tensor cores' rounding
+// toward zero never runs across a long sum. The online softmax is B1's
+// (tile_softmax: exp2 with the scale folded into log2 e, the running max and
+// sum in registers), lse = m ln 2 + log l.
+//
+// Unlike the backward's, the forward's products read their operands as the
+// tf32 wgmma wants them, K-major: S = Q K^T reads Q and K rows as stored,
+// and O += P V takes P from registers. Only V needs a copy with the keys
+// contiguous (V^T), and the CTA writes that copy itself once a tile, when it
+// splits V into hi and lo.
+//
+// The wgmma design (kF32FwdWgmma, D = 64): one CTA per (batch * head, BR q
+// rows) with BR / 64 warpgroups. Raw f32 K and V tiles of 64 rows stream
+// through a ring of kF32FwdRing stages by TMA (4-d tensor maps over the
+// strided [B, S, heads, D] layouts, 128-byte swizzle, boxes of 64 rows x 32
+// floats, zeros past a sequence's end), each stage completing on an
+// mbarrier; one thread issues every copy, a stage's next tile as soon as the
+// CTA has split its last one. (A producer warp, as the bf16 B1 has, makes a
+// 288-thread CTA, for which ptxas allows 168 registers a thread: the design
+// spilled.) Q arrives once and is split in place (hi over the raw tile, lo
+// beside it). Per tile the CTA splits K into hi and lo tiles (the same
+// swizzled layout, element for element) and V into a V^T hi and lo tile
+// (keys along the 128-byte rows); then each warpgroup issues S = Q K^T as
+// three chains of wgmma m64n64k8 .tf32 from shared memory together with O
+// += P V of the previous tile (A, P's hi and lo, from registers), and runs
+// the softmax of this tile while the latter is in flight. The accumulator of
+// S holds columns 2t and 2t + 1 (t = lane % 4) where an A fragment wants k
+// slots t and t + 4, so P's k slots t and t + 4 take keys 2t and 2t + 1 of
+// each 8-key group, and V^T stores each group's keys in that order (even
+// keys in the first 16 bytes, odd keys in the second). K's split tiles are
+// single and V^T's double: two barriers a tile keep every warp's reads of a
+// split tile ahead of its next writes, and its writes (and reads of the raw
+// stage) ahead of the wgmma that read them (and the copy that refills the
+// stage). Splitting V while the products run and K once every S is in, so
+// that no split idles the tensor cores, measured no faster on an H100: the
+// splits and the products likely share the shared-memory bandwidth, which
+// S (both operands from shared memory, 4 KB a 32-cycle wgmma) uses whole.
+//
+// The mma.sync design (D = 128, where the wgmma design's split tiles do not
+// fit beside a ring, and the arm at D = 64): a warp per 16 q rows, Q
+// resident as padded f32 rows, K and V through a cp.async ring (the
+// backward's async_tile_f32 / ring_step), every fragment split in registers
+// as it is loaded; S with mma_abt, P V with mma_pv (P fed from the
+// accumulators, a fresh accumulator a tile). python -m uccl_tpu_torch.flash_arms --set f32 times the arms.
+
+template <int D>
+constexpr bool kF32FwdWgmma = D == 64;  // false: the mma.sync design
+template <int D>
+constexpr int kF32FwdRows = D == 64 ? 128 : 64;  // CTA q rows
+constexpr int kF32FwdRing = 2;  // raw K/V stages in the ring
+constexpr int kF32FwdTerms = 3;  // TF32 products per f32 product
+
+template <int D>
+struct FwdF32 {
+  static constexpr bool WG = kF32FwdWgmma<D>;
+  static constexpr int BR = kF32FwdRows<D>;  // CTA rows
+  static constexpr int R = kF32FwdRing;
+  static constexpr int NWG = BR / 64;  // wgmma: warpgroups
+  static constexpr int NT = BR * 2;  // threads: a warp per 16 rows
+  static constexpr int NCH = D / 32;  // wgmma: 128-byte chunks across a row of D
+  static constexpr int BLOCK = NCH * kChunkBytes;  // wgmma: one 64-row tile, bytes
+  static constexpr int VT = 2 * D * 128;  // wgmma: a V^T tile (two 32-key chunks of D rows), bytes
+  static constexpr int LD = D + 4;  // mma.sync: row stride (floats) of every tile
+  static constexpr int TILE = kF32Rows * LD;  // mma.sync: one streamed tile, floats
+};
+
+// Whether a 64-key tile at k0 holds any masked score for rows from
+// ``row_first`` on: keys at or past Sk and, with causal, keys past a row.
+__device__ __forceinline__ bool fwd_tile_masked(int k0, int Sk, int row_first, int causal) {
+  return k0 + kF32Rows > Sk || (causal && k0 + kF32Rows - 1 > row_first);
+}
+
+// Those scores set to -1e30, in tile_softmax's register layout (``row0``:
+// this lane's first row).
+__device__ __forceinline__ void fwd_mask_tile(float (&sc)[32], int k0, int Sk, int row0,
+                                              int causal, int t) {
+  const int cols = Sk - k0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int key = (i / 4) * 8 + 2 * t + (i & 1), row = row0 - k0 + 8 * ((i >> 1) & 1);
+    if (key >= cols || (causal && key > row)) sc[i] = kNegInf;
+  }
+}
+
+// Rows row0 and row0 + 8 of a warp's 16 x D output, divided by their row
+// sums and stored as f32, with their lse; rows at or past Sq are not written.
+template <int D>
+__device__ __forceinline__ void fwd_f32_epilogue(float (&acc)[D / 8][4], float m0, float m1,
+                                                 float l0, float l1, float* __restrict__ o,
+                                                 float* __restrict__ lse_rows, int row0, int Sq,
+                                                 int stride, int t) {
+  constexpr float kLn2 = 0.69314718055994531f;
+  l0 = fmaxf(quad_sum(l0), 1e-20f);
+  l1 = fmaxf(quad_sum(l1), 1e-20f);
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    acc[n][0] *= inv0;
+    acc[n][1] *= inv0;
+    acc[n][2] *= inv1;
+    acc[n][3] *= inv1;
+  }
+  store_frag_rows<D>(o, acc, row0, Sq, stride, t);
+  if (t == 0) {
+    if (row0 < Sq) lse_rows[row0] = (m0 + log2f(l0)) * kLn2;
+    if (row0 + 8 < Sq) lse_rows[row0 + 8] = (m1 + log2f(l1)) * kLn2;
+  }
+}
+
+// D[64x64] (+)= A[64x8] B[8x64], tf32 in, f32 accumulate; A and B in shared
+// memory, K-major. ``accumulate`` 0 overwrites D.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64x64] (+)= A[64x8] B[8x64]: A from registers (the m16n8k8 .tf32 A
+// layout per warp, warp w holding rows 16w..16w+15), B K-major in shared
+// memory.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// S = Q K^T of one 64 x 64 tile in 3xTF32 (lo hi, hi lo, hi hi a k-step),
+// issued and committed: k-steps of 8 along D, each 32 bytes further into the
+// 128-byte swizzled rows (the next 32 columns are the next chunk).
+template <int NCH, int kTerms>
+__device__ __forceinline__ void issue_qk_tf32(float (&sc)[32], uint32_t qh, uint32_t ql,
+                                              uint32_t kh, uint32_t kl) {
+#pragma unroll
+  for (int ks = 0; ks < NCH * 4; ++ks) {
+    const uint32_t off = (ks / 4) * kChunkBytes + (ks % 4) * 32;
+    if (kTerms > 2)
+      wgmma_tf32_ss(sc, sw128_desc(ql + off, 16, 1024), sw128_desc(kh + off, 16, 1024), ks > 0);
+    if (kTerms > 1)
+      wgmma_tf32_ss(sc, sw128_desc(qh + off, 16, 1024), sw128_desc(kl + off, 16, 1024),
+                    ks > 0 || kTerms > 2);
+    wgmma_tf32_ss(sc, sw128_desc(qh + off, 16, 1024), sw128_desc(kh + off, 16, 1024),
+                  ks > 0 || kTerms > 1);
+  }
+  wgmma_commit();
+}
+
+// F = P V of one tile in 3xTF32 into a fresh accumulator, issued and
+// committed: P's hi and lo A fragments from registers, k-step ks (8 keys)
+// of the V^T hi and lo tiles at vh and vl (32 bytes a k-step into the
+// 128-byte rows; keys 32-63 in the second chunk of D rows).
+template <int D, int kTerms>
+__device__ __forceinline__ void issue_pv_tf32(float (&f)[32], const uint32_t (&ph)[8][4],
+                                              const uint32_t (&pl)[8][4], uint32_t vh,
+                                              uint32_t vl) {
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    const uint32_t off = (ks / 4) * (D * 128) + (ks % 4) * 32;
+    if (kTerms > 2) wgmma_tf32_rs(f, pl[ks], sw128_desc(vh + off, 16, 1024), ks > 0);
+    if (kTerms > 1) wgmma_tf32_rs(f, ph[ks], sw128_desc(vl + off, 16, 1024), ks > 0 || kTerms > 2);
+    wgmma_tf32_rs(f, ph[ks], sw128_desc(vh + off, 16, 1024), ks > 0 || kTerms > 1);
+  }
+  wgmma_commit();
+}
+
+__device__ __forceinline__ void split4(const float4& x, uint4& hi, uint4& lo) {
+  split_tf32(x.x, hi.x, lo.x);
+  split_tf32(x.y, hi.y, lo.y);
+  split_tf32(x.z, hi.z, lo.z);
+  split_tf32(x.w, hi.w, lo.w);
+}
+
+// A ring stage's raw K tile (``raw``, [NCH] swizzled chunks) into K's hi and
+// lo tiles at kt and kt + BLOCK, element for element, and its raw V tile
+// (BLOCK bytes on) into V^T's hi and lo tiles at vt and vt + VT: row d of
+// V^T holds column d of V, key chunk c (keys 32c..32c+31) at c * D * 128,
+// 128-byte swizzled; each 8-key group's even keys fill its first 16 bytes
+// and its odd keys its second (the k slots P's A fragments put them in).
+// By the CTA's threads, thread ``tid``; every read and write free of bank
+// conflicts.
+template <int D>
+__device__ __forceinline__ void split_kv_tf32(const unsigned char* raw, unsigned char* kt,
+                                              unsigned char* vt, int tid) {
+  using T = FwdF32<D>;
+  for (int i = tid; i < T::BLOCK / 16; i += T::NT) {
+    uint4 hi, lo;
+    split4(reinterpret_cast<const float4*>(raw)[i], hi, lo);
+    reinterpret_cast<uint4*>(kt)[i] = hi;
+    reinterpret_cast<uint4*>(kt + T::BLOCK)[i] = lo;
+  }
+  const unsigned char* rv = raw + T::BLOCK;
+  for (int i = tid; i < D * 16; i += T::NT) {
+    const int d = i % D, grp = i / D, jg = grp >> 1, hh = grp & 1;
+    const unsigned char* src = rv + (d / 32) * kChunkBytes + (d & 3) * 4;
+    float4 x;
+    float* xe = &x.x;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 8 * jg + hh + 2 * e;
+      xe[e] = *reinterpret_cast<const float*>(src + r * 128 + ((((d & 31) >> 2) ^ (r & 7)) << 4));
+    }
+    uint4 hi, lo;
+    split4(x, hi, lo);
+    const int off = (jg >> 2) * (D * 128) + d * 128 + (((2 * (jg & 3) + hh) ^ (d & 7)) << 4);
+    *reinterpret_cast<uint4*>(vt + off) = hi;
+    *reinterpret_cast<uint4*>(vt + T::VT + off) = lo;
+  }
+}
+
+// B1 in f32, the wgmma design (see the section's note).
+template <int D>
+__device__ __forceinline__ void fwd_f32_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
+                                              const CUtensorMap& tv, float* __restrict__ o,
+                                              float* __restrict__ lse, int Sq, int Sk, int H,
+                                              int Hkv, float scale_log2, int causal) {
+  static_assert(D == 64, "the wgmma design's S and P V are m64n64 products");
+  using T = FwdF32<D>;
+  constexpr int NWG = T::NWG, R = T::R, BLOCK = T::BLOCK, NT = T::NT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + R];  // Q, full[]
+  unsigned char* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);  // [NWG] tiles
+  unsigned char* sQl = sQ + NWG * BLOCK;  // Q's lo tiles (its hi tiles: sQ, split in place)
+  unsigned char* ring = sQl + NWG * BLOCK;  // stage s: raw K, then raw V
+  unsigned char* sK = ring + R * 2 * BLOCK;  // K's hi tile, then its lo tile
+  unsigned char* sV = sK + 2 * BLOCK;  // V^T: [2 buffers][hi, lo]
+  const uint32_t bar_q = smem_u32(&bars[0]), bar_full = smem_u32(&bars[1]);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = warp >> 2, t = lane & 3;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / (H / Hkv);
+  const int q_first = (gridDim.y - 1 - blockIdx.y) * T::BR;  // the longest causal rows first
+  const int n_iter = kv_tiles_f32(q_first, T::BR, Sq, Sk, causal);
+  auto load_kv = [&](int j) {  // tile j's raw K and V into stage j % R
+    const int s = j % R;
+    mbar_expect_tx(bar_full + 8 * s, 2 * BLOCK);
+    for (int c = 0; c < T::NCH; ++c) {
+      tma_load(smem_u32(ring + 2 * s * BLOCK + c * kChunkBytes), &tk, bar_full + 8 * s, c * 32,
+               hk, j * kF32Rows, b);
+      tma_load(smem_u32(ring + (2 * s + 1) * BLOCK + c * kChunkBytes), &tv, bar_full + 8 * s,
+               c * 32, hk, j * kF32Rows, b);
+    }
+  };
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < R; ++s) mbar_init(bar_full + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, NWG * BLOCK);
+    for (int w = 0; w < NWG; ++w)
+      for (int c = 0; c < T::NCH; ++c)
+        tma_load(smem_u32(sQ + w * BLOCK + c * kChunkBytes), &tq, bar_q, c * 32, h,
+                 q_first + w * 64, b);
+    for (int j = 0; j < R && j < n_iter; ++j) load_kv(j);
+  }
+
+  const int wg_first = q_first + wg * 64;
+  // a warpgroup may end one tile before the CTA (the upper half of a causal
+  // q tile); it still splits every tile with the others
+  const int wg_iter = kv_tiles_f32(wg_first, 64, Sq, Sk, causal);
+  const int row0 = wg_first + (warp & 3) * 16 + (lane >> 2);  // this lane's rows: row0, row0 + 8
+
+  mbar_wait(bar_q, 0);
+  for (int i = tid; i < NWG * BLOCK / 16; i += NT) {
+    uint4 hi, lo;
+    split4(reinterpret_cast<const float4*>(sQ)[i], hi, lo);
+    reinterpret_cast<uint4*>(sQ)[i] = hi;
+    reinterpret_cast<uint4*>(sQl)[i] = lo;
+  }
+  const uint32_t qh = smem_u32(sQ + wg * BLOCK), ql = smem_u32(sQl + wg * BLOCK);
+  const uint32_t kh = smem_u32(sK), kl = kh + BLOCK;
+
+  float acc[32], f[32], sc[32];
+  uint32_t ph[8][4], pl[8][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = f[i] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f, c0 = 0.f, c1 = 0.f;
+  // Iteration j splits tile j, issues S of tile j with O += P V of tile
+  // j - 1, runs tile j's softmax while the latter is in flight, then adds
+  // the latter's fresh accumulator to O.
+  for (int j = 0; j <= n_iter; ++j) {
+    if (j < n_iter) {
+      __syncthreads();  // S of j - 1 and P V of j - 2 are done: K's and V^T[j % 2] are free
+      const int s = j % R;
+      mbar_wait(bar_full + 8 * s, (j / R) & 1);
+      split_kv_tf32<D>(ring + 2 * s * BLOCK, sK, sV + (j & 1) * 2 * T::VT, tid);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // for the wgmma reads
+      __syncthreads();  // every split tile of j is written, and stage s read
+      if (tid == 0 && j + R < n_iter) load_kv(j + R);
+    }
+    const bool do_s = j < wg_iter, do_pv = j >= 1 && j <= wg_iter;
+    if (!do_s && !do_pv) continue;
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      reg_fence(ph[ks]);
+      reg_fence(pl[ks]);
+    }
+    reg_fence(f);
+    reg_fence(sc);
+    wgmma_fence();
+    if (do_s) issue_qk_tf32<T::NCH, kF32FwdTerms>(sc, qh, ql, kh, kl);
+    if (do_pv) {
+      const uint32_t vh = smem_u32(sV + ((j - 1) & 1) * 2 * T::VT);
+      issue_pv_tf32<D, kF32FwdTerms>(f, ph, pl, vh, vh + T::VT);
+    }
+    const float cp0 = c0, cp1 = c1;  // tile j - 1's correction
+    if (do_s) {
+      if (do_pv)
+        wgmma_wait<1>();  // S of tile j is in; P V of tile j - 1 may still run
+      else
+        wgmma_wait<0>();
+      reg_fence(sc);
+      const int k0 = j * kF32Rows;
+      if (fwd_tile_masked(k0, Sk, wg_first, causal)) fwd_mask_tile(sc, k0, Sk, row0, causal, t);
+      tile_softmax<false>(sc, m0, m1, l0, l1, c0, c1, scale_log2, 0, t);
+    }
+    if (do_pv) {
+      wgmma_wait<0>();
+      reg_fence(f);
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+        reg_fence(ph[ks]);
+        reg_fence(pl[ks]);
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = acc[i] * (((i >> 1) & 1) ? cp1 : cp0) + f[i];
+    }
+    if (do_s) {
+      const float(&p)[8][4] = reinterpret_cast<const float(&)[8][4]>(sc);
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) acc_to_a<8>(p, ks, ph[ks], pl[ks]);
+    }
+  }
+  fwd_f32_epilogue<D>(reinterpret_cast<float(&)[D / 8][4]>(acc), m0, m1, l0, l1,
+                      o + ((long long)b * Sq * H + h) * D, lse + ((long long)b * H + h) * Sq,
+                      row0, Sq, H * D, t);
+}
+
+// B1 in f32, the mma.sync design (see the section's note).
+template <int D>
+__device__ __forceinline__ void fwd_f32_mma(const float* __restrict__ q,
+                                            const float* __restrict__ k,
+                                            const float* __restrict__ v, float* __restrict__ o,
+                                            float* __restrict__ lse, int Sq, int Sk, int H,
+                                            int Hkv, float scale_log2, int causal) {
+  using T = FwdF32<D>;
+  constexpr int BR = T::BR, R = T::R;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+  float* sQ = reinterpret_cast<float*>(smem_raw + 64);
+  float* ring = sQ + BR * T::LD;  // stage s: K tile, then V tile
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / (H / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;  // the longest causal rows first
+  const int qstride = H * D, kstride = Hkv * D;
+  const long long qhead = ((long long)b * Sq * H + h) * D;
+  const float* kb = k + ((long long)b * Sk * Hkv + hk) * D;
+  const float* vb = v + ((long long)b * Sk * Hkv + hk) * D;
+  init_ring_bars<R>(bars);
+  async_tile_f32<D, BR, T::NT, false>(sQ, q + qhead, q0, Sq, qstride, 0);
+  auto issue = [&](int kt) {
+    float* st = ring + (kt % R) * 2 * T::TILE;
+    const uint32_t bar = smem_u32(bars + kt % R);
+    if (kF32BulkRing && threadIdx.x == 0)
+      mbar_expect_tx(bar, 2 * tile_bytes_f32(kt * kF32Rows, Sk, D));
+    async_tile_f32<D, kF32Rows, T::NT, kF32BulkRing>(st, kb, kt * kF32Rows, Sk, kstride, bar);
+    async_tile_f32<D, kF32Rows, T::NT, kF32BulkRing>(st + T::TILE, vb, kt * kF32Rows, Sk,
+                                                     kstride, bar);
+  };
+  const int n_tiles = kv_tiles_f32(q0, BR, Sq, Sk, causal);
+  ring_prologue<R>(n_tiles, issue);
+
+  const int r = q0 + 16 * warp + g;  // this lane's rows: r and r + 8
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f, c0, c1;
+  const float* sQw = sQ + 16 * warp * T::LD;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    ring_step<R>(kt, n_tiles, bars, issue);
+    const float* kr = ring + (kt % R) * 2 * T::TILE;  // the stage's K, then V
+    const int k0 = kt * kF32Rows;
+    if (causal && k0 > q0 + 16 * warp + 15) continue;  // the tile lies above the warp's rows
+    float s[8][4];
+    mma_abt<D, 8, kF32FwdTerms, 0>(s, sQw, kr, g, t);
+    float(&sc)[32] = reinterpret_cast<float(&)[32]>(s);
+    if (fwd_tile_masked(k0, Sk, q0 + 16 * warp, causal)) fwd_mask_tile(sc, k0, Sk, r, causal, t);
+    tile_softmax<false>(sc, m0, m1, l0, l1, c0, c1, scale_log2, 0, t);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= c0;
+      acc[n][1] *= c0;
+      acc[n][2] *= c1;
+      acc[n][3] *= c1;
+    }
+    mma_pv<D, 8, kF32FwdTerms, 0>(acc, s, kr + T::TILE, g, t);
+  }
+  fwd_f32_epilogue<D>(acc, m0, m1, l0, l1, o + qhead, lse + ((long long)b * H + h) * Sq, r, Sq,
+                      qstride, t);
+}
+
+// B1 in f32: the design kF32FwdWgmma picks (the tensor maps are used by the
+// wgmma design, the pointers by the mma.sync one).
+template <int D>
+__global__ void __launch_bounds__(FwdF32<D>::NT, 1)
+    flash_fwd_f32_kernel(__grid_constant__ const CUtensorMap tq,
+                         __grid_constant__ const CUtensorMap tk,
+                         __grid_constant__ const CUtensorMap tv, const float* __restrict__ q,
+                         const float* __restrict__ k, const float* __restrict__ v,
+                         float* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H,
+                         int Hkv, float scale_log2, int causal) {
+  if constexpr (FwdF32<D>::WG)
+    fwd_f32_wgmma<D>(tq, tk, tv, o, lse, Sq, Sk, H, Hkv, scale_log2, causal);
+  else
+    fwd_f32_mma<D>(q, k, v, o, lse, Sq, Sk, H, Hkv, scale_log2, causal);
+}
+
+// ---------------------------------------------------------------------------
 // Host launchers
 
 template <typename K>
@@ -1825,17 +2057,23 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a contiguous bf16 [B, S, heads, D] tensor, boxes of
-// ``rows`` rows x 64 columns of one head, 128-byte swizzle. Encoded on the
-// host into ``map`` (the kernel takes it by value); nothing is allocated.
-int tensor_map(CUtensorMap* map, const void* base, int B, int S, int heads, int D, int rows) {
+// The tensor map of a contiguous bf16 (or, with ``f32``, float32) [B, S,
+// heads, D] tensor, boxes of ``rows`` rows x 128 bytes (64 bf16 or 32 f32
+// columns) of one head, 128-byte swizzle; boxes past S arrive as zeros.
+// Encoded on the host into ``map`` (the kernel takes it by value); nothing
+// is allocated.
+int tensor_map(CUtensorMap* map, const void* base, int B, int S, int heads, int D, int rows,
+               bool f32 = false) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return (int)cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t e = f32 ? 4 : 2;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1}, step[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+  const cuuint64_t strides[3] = {(cuuint64_t)D * e, (cuuint64_t)heads * D * e,
+                                 (cuuint64_t)S * heads * D * e};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / e), 1, (cuuint32_t)rows, 1},
+                   step[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        4, const_cast<void*>(base), dims,
                         strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1920,16 +2158,21 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// The f32 kernels' dynamic shared memory in bytes: B1's (kernel 0) Q, K, V
-// and P tiles; B2's (1) barriers, Q and dO, and the ring's K and V; B3's (2)
-// barriers, K and V, the ring's Q, dO, lse and delta, and Q and dO split
-// (and in the shared-memory dS arm, each warp's P/dS tile).
+// The f32 kernels' dynamic shared memory in bytes: B1's (kernel 0) Q's hi
+// and lo tiles, the ring's raw K and V, K's and (twice) V^T's hi and lo
+// tiles, and room to align the base to 1024 bytes (the wgmma design), or its
+// barriers, Q and the ring's K and V (mma.sync); B2's (1)
+// barriers, Q and dO, and the ring's K and V; B3's (2) barriers, K and V,
+// the ring's Q, dO, lse and delta, and Q and dO split (and in the
+// shared-memory dS arm, each warp's P/dS tile).
 template <int D>
 constexpr size_t f32_smem(int kernel) {
-  using T = F32Tile<D>;
+  using F = FwdF32<D>;
   using Q = BwdF32<D, false>;
   using K = BwdF32<D, true>;
-  return kernel == 0 ? sizeof(float) * (3 * T::TILE + T::PTILE)
+  return kernel == 0
+             ? (F::WG ? (size_t)(2 * F::NWG + 2 * F::R + 2) * F::BLOCK + 4 * F::VT + 1024
+                      : 64 + sizeof(float) * (F::BR * F::LD + F::R * 2 * F::TILE))
          : kernel == 1
              ? 64 + sizeof(float) * ((2 * Q::BR + Q::RING * 2 * kF32Rows) * Q::LD + Q::PWS)
              : 64 + sizeof(float) * (2 * K::BR * K::LD + K::RING * (2 * K::TILE + 2 * kF32Rows) +
@@ -1939,13 +2182,20 @@ constexpr size_t f32_smem(int kernel) {
 template <int D>
 int launch_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                    int Sq, int Sk, int H, int Hkv, int causal, cudaStream_t st) {
+  using T = FwdF32<D>;
+  CUtensorMap tq{}, tk{}, tv{};
+  if constexpr (T::WG) {
+    if (int err = tensor_map(&tq, q, B, Sq, H, D, kF32Rows, true)) return err;
+    if (int err = tensor_map(&tk, k, B, Sk, Hkv, D, kF32Rows, true)) return err;
+    if (int err = tensor_map(&tv, v, B, Sk, Hkv, D, kF32Rows, true)) return err;
+  }
   const size_t smem = f32_smem<D>(0);
   auto kern = flash_fwd_f32_kernel<D>;
   if (int err = prepare(kern, smem)) return err;
-  dim3 grid(B * H, (Sq + kF32Rows - 1) / kF32Rows);
-  kern<<<grid, F32Tile<D>::NT, smem, st>>>((const float*)q, (const float*)k, (const float*)v,
-                                           (float*)o, (float*)lse, Sq, Sk, H, Hkv,
-                                           kLog2e / sqrtf((float)D), causal);
+  dim3 grid(B * H, (Sq + T::BR - 1) / T::BR);
+  kern<<<grid, T::NT, smem, st>>>(tq, tk, tv, (const float*)q, (const float*)k, (const float*)v,
+                                  (float*)o, (float*)lse, Sq, Sk, H, Hkv,
+                                  kLog2e / sqrtf((float)D), causal);
   return (int)cudaGetLastError();
 }
 

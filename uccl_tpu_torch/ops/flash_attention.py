@@ -20,11 +20,12 @@ warp keeps ahead of the consumer warpgroups.
 
 For float32 (what the trainers run): ``flash_fwd_f32``, ``flash_bwd_dq_f32``
 and ``flash_bwd_dkv_f32``, the same three functions at f32 accuracy, at any
-sequence length: the forward as FP32 FMA on the CUDA cores, the backward on
-the tensor cores as three TF32 products per f32 product (3xTF32 on
-``mma.sync``; B2's dP = dO V^T stays FP32 FMA, its rounding the plain
-version's). ``tf32_rna``, ``mm_3xtf32`` and ``flash_bwd_*_3xtf32`` emulate
-that arithmetic on the CPU (tests only). The autograd function picks the
+sequence length, on the tensor cores as three TF32 products per f32
+product (3xTF32): the forward on ``wgmma`` fed by a TMA ring at D = 64
+(``mma.sync`` at D = 128), the backward on ``mma.sync`` (B2's dP = dO V^T
+stays FP32 FMA, its rounding the plain version's). ``tf32_rna``,
+``mm_3xtf32``, ``flash_fwd_3xtf32`` and ``flash_bwd_*_3xtf32`` emulate that
+arithmetic on the CPU (tests only). The autograd function picks the
 set by q's dtype; on CUDA any other dtype, or a mix, raises.
 
 Beside each kernel is its plain PyTorch version (``*_plain``): the same
@@ -236,8 +237,8 @@ def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal: bool = True):
 
 
 # ---------------------------------------------------------------------------
-# The f32 backward kernels' arithmetic (3xTF32), emulated in torch. The main
-# path never calls these: they show on the CPU what the CUDA kernels' way of
+# The f32 kernels' arithmetic (3xTF32), emulated in torch. The main path
+# never calls these: they show on the CPU what the CUDA kernels' way of
 # computing an f32 product keeps of f32's accuracy.
 
 
@@ -314,6 +315,37 @@ def flash_bwd_dkv_3xtf32(q, k, v, dout, lse, delta, causal: bool = True, terms: 
     dv = mm_3xtf32(pt, group(dout.float().transpose(1, 2)), terms)
     dk = mm_3xtf32(dst, group(q.float().transpose(1, 2)), terms)
     return dk.transpose(1, 2).contiguous(), dv.transpose(1, 2).contiguous()
+
+
+def flash_fwd_3xtf32(q, k, v, causal: bool = True, terms: int = 3):
+    """B1 (f32) as its kernel computes it: S = Q K^T in 3xTF32 over D, the
+    online softmax in log2 units a 64-key tile at a time (-1e30 for a masked
+    score), each tile's P V in 3xTF32 (P split as the kernel splits its
+    registers) into a fresh accumulator that is added to the running output
+    after the output is rescaled. Returns (out, lse), f32. Emulation only."""
+    n_rep = q.shape[2] // k.shape[2]
+    log2e = torch.tensor(math.log2(math.e), dtype=torch.float32)
+    scale_log2 = torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=torch.float32) * log2e
+    kk, vv = (_repeat_kv(t.float(), n_rep).transpose(1, 2) for t in (k, v))
+    s = mm_3xtf32(q.float().transpose(1, 2), kk.transpose(-1, -2), terms)
+    if causal:
+        pos_q = torch.arange(q.shape[1], device=q.device)
+        pos_k = torch.arange(k.shape[1], device=q.device)
+        s = s.masked_fill((pos_q[:, None] < pos_k[None, :])[None, None], _NEG_INF)
+    m = torch.full(s.shape[:-1], _NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros((*s.shape[:-1], q.shape[-1]), dtype=torch.float32, device=q.device)
+    for c0 in range(0, s.shape[-1], _STREAM_TILE):
+        sc = s[..., c0:c0 + _STREAM_TILE]
+        m_new = torch.maximum(m, sc.amax(-1) * scale_log2)
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(sc * scale_log2 - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + mm_3xtf32(p, vv[..., c0:c0 + _STREAM_TILE, :], terms)
+        m = m_new
+    l = l.clamp_min(1e-20)
+    out = (o / l[..., None]).transpose(1, 2).contiguous()
+    return out, (m + torch.log2(l)) * torch.tensor(math.log(2.0), dtype=torch.float32)
 
 
 def flash_delta(out, g_out, g_lse=None):
