@@ -16,6 +16,10 @@ uccl_tpu_torch.train`` at the same widths in float32 through the f32 flash
 kernels (held first to their plain versions, planted faults too), on a
 seeded token corpus, with checkpoints, a bit-exact resume, every remat mode,
 dense and ``moe_impl="ll"``, and ``serve --ckpt-dir`` on its checkpoint. Then the
+flagship at world > 1 with every member on the card (mesh_path): meshes
+dp=2/cp=2/tp=2 (ring and Ulysses attention on the f32 kernels) and
+pp=2/cp=2/tp=2 (GPipe, and 1F1B against it) held to world 1, the EP wire on
+B9 bit for bit, and ``train --mesh`` with a bit-exact resume. Then the
 collective plane at the model's gradient bucket over a 4-member world: the
 ring kernels and the Communicator verbs, first on the full-precision wire,
 then on the quantized one (fp8 and int8). Then the EP plane over a 4-member
@@ -38,6 +42,7 @@ It exits non-zero, before printing anything, when PyTorch sees no GPU.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -291,26 +296,26 @@ def check_kernels(b, s, h, hkv, d, causal, seed) -> tuple:
     plain = dict(out=out_p, lse=lse_p, delta=delta, dq=dq_p, dk=dk_p, dv=dv_p)
     return readings, x, plain
 
-def out_without_kv_tile(q, k, v, tile, rows=64):
-    """The causal forward's output had it skipped KV tile ``tile`` for every
-    q row past that tile."""
+def out_without_kv_tile(q, k, v, tile, rows=64, causal=True):
+    """The forward's output had it skipped KV tile ``tile`` for every q row
+    past that tile (causal), or for every q row."""
     n_rep = q.shape[2] // k.shape[2]
     kk, vv = (_repeat_kv(t.float(), n_rep) for t in (k, v))
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) / math.sqrt(q.shape[-1])
     pos = torch.arange(q.shape[1], device=DEV)
-    keep = pos[:, None] >= pos[None, :]
-    keep[(tile + 1) * rows:, tile * rows:(tile + 1) * rows] = False
+    keep = pos[:, None] >= pos[None, :] if causal else torch.ones_like(s[0, 0], dtype=bool)
+    keep[(tile + 1) * rows if causal else 0:, tile * rows:(tile + 1) * rows] = False
     p = torch.softmax(s.masked_fill(~keep, _NEG_INF), dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype)
 
-def dq_without_kv_tile(q, k, v, dout, lse, delta, tile, rows=64):
-    """The causal dQ had it skipped KV tile ``tile`` for every q row past
-    that tile."""
-    _, ds, n_rep = fa._plain_p_ds(q, k, v, dout, lse, delta, True)
-    ds[:, :, (tile + 1) * rows:, tile * rows:(tile + 1) * rows] = 0
+def dq_without_kv_tile(q, k, v, dout, lse, delta, tile, rows=64, causal=True):
+    """The dQ had it skipped KV tile ``tile`` for every q row past that tile
+    (causal), or for every q row."""
+    _, ds, n_rep = fa._plain_p_ds(q, k, v, dout, lse, delta, causal)
+    ds[:, :, (tile + 1) * rows if causal else 0:, tile * rows:(tile + 1) * rows] = 0
     return torch.einsum("bhqk,bkhd->bqhd", ds, _repeat_kv(k.float(), n_rep)).to(q.dtype)
 
-def planted_faults(x, plain) -> None:
+def planted_faults(x, plain, causal=True) -> None:
     """The readings of faults the check must reject, at the same inputs
     (made with the plain version): a forward and a dQ that drop KV tile 1, a
     dK/dV pass that drops q tile 1, and one whose GQA sum drops query head 1
@@ -322,22 +327,23 @@ def planted_faults(x, plain) -> None:
     rows = slice(64, 128)
     dout_drop, delta_drop = dout.clone(), delta.clone()
     dout_drop[:, rows], delta_drop[:, :, rows] = 0, 0
-    dk_drop, dv_drop = fa.flash_bwd_dkv_plain(q, k, v, dout_drop, lse, delta_drop, True)
+    dk_drop, dv_drop = fa.flash_bwd_dkv_plain(q, k, v, dout_drop, lse, delta_drop, causal)
     n_rep = q.shape[2] // k.shape[2]
     heads = torch.arange(q.shape[2], device=DEV) % n_rep == 1  # query head 1 of each group
     dout_head, delta_head = dout.clone(), delta.clone()
     dout_head[:, :, heads], delta_head[:, heads] = 0, 0
-    dk_head, dv_head = fa.flash_bwd_dkv_plain(q, k, v, dout_head, lse, delta_head, True)
-    dk_glse, dv_glse = fa.flash_bwd_dkv(q, k, v, dout, lse, delta_no_glse, True)
+    dk_head, dv_head = fa.flash_bwd_dkv_plain(q, k, v, dout_head, lse, delta_head, causal)
+    dk_glse, dv_glse = fa.flash_bwd_dkv(q, k, v, dout, lse, delta_no_glse, causal)
     faults = {
-        "out: KV tile 1 dropped": (out_without_kv_tile(q, k, v, 1), plain["out"]),
-        "dq: KV tile 1 dropped": (dq_without_kv_tile(q, k, v, dout, lse, delta, 1),
-                                  plain["dq"]),
+        "out: KV tile 1 dropped": (out_without_kv_tile(q, k, v, 1, causal=causal),
+                                   plain["out"]),
+        "dq: KV tile 1 dropped": (dq_without_kv_tile(q, k, v, dout, lse, delta, 1,
+                                                     causal=causal), plain["dq"]),
         "dk: q tile 1 dropped": (dk_drop, plain["dk"]),
         "dv: q tile 1 dropped": (dv_drop, plain["dv"]),
         "dk: GQA query head 1 dropped": (dk_head, plain["dk"]),
         "dv: GQA query head 1 dropped": (dv_head, plain["dv"]),
-        "dq: g_lse ignored": (fa.flash_bwd_dq(q, k, v, dout, lse, delta_no_glse, True),
+        "dq: g_lse ignored": (fa.flash_bwd_dq(q, k, v, dout, lse, delta_no_glse, causal),
                               plain["dq"]),
         "dk: g_lse ignored": (dk_glse, plain["dk"]),
     }
@@ -345,7 +351,7 @@ def planted_faults(x, plain) -> None:
     passed = [name for name, r in readings.items() if not r["worst"] > 1]
     if passed:
         fail(f"planted faults pass the check: {passed}")
-    emit("planted_faults", shape=list(q.shape), readings=readings)
+    emit("planted_faults", shape=list(q.shape), causal=causal, readings=readings)
 
 # ---------------------------------------------------------------------------
 # 4. Kernel timing
@@ -534,22 +540,26 @@ def check_kernels_f32(b, s, h, hkv, d, causal, seed, sk=None, float64=False) -> 
     return readings, x, plain
 
 
-def f32_planted_faults(x, plain) -> None:
+def f32_planted_faults(x, plain, causal=True) -> None:
     """Each planted fault of F32_FAULTS (a variant build of the source) run
-    on the main path's inputs: every one must fail the f32 rule."""
+    on the given inputs (the main path's; non-causal, those that are not of
+    the causal mask): every one must fail the f32 rule."""
     q, k, v, dout = x["q"], x["k"], x["v"], x["dout"]
     lse, delta = plain["lse"], plain["delta"]
     real, readings = fa._lib, {}
     for fault, (kernel, _) in F32_FAULTS.items():
+        if not causal and "causal mask" in fault:
+            continue
         lib = fa.declare(ctypes.CDLL(str(F32_FAULT_LIBS[fault])))
         fa._lib = lambda lib=lib: lib
         try:
             if kernel == "fwd":
-                got, want = fa.flash_fwd_f32(q, k, v, True)[0], plain["out"]
+                got, want = fa.flash_fwd_f32(q, k, v, causal)[0], plain["out"]
             elif kernel == "dq":
-                got, want = fa.flash_bwd_dq_f32(q, k, v, dout, lse, delta, True), plain["dq"]
+                got, want = fa.flash_bwd_dq_f32(q, k, v, dout, lse, delta, causal), plain["dq"]
             else:
-                got, want = fa.flash_bwd_dkv_f32(q, k, v, dout, lse, delta, True)[0], plain["dk"]
+                got, want = (fa.flash_bwd_dkv_f32(q, k, v, dout, lse, delta, causal)[0],
+                             plain["dk"])
             torch.cuda.synchronize()
         finally:
             fa._lib = real
@@ -557,7 +567,7 @@ def f32_planted_faults(x, plain) -> None:
     passed = [f for f, r in readings.items() if not r["worst"] > 1]
     if passed:
         fail(f"planted f32 faults pass the check: {passed}")
-    emit("f32_planted_faults", shape=list(q.shape), readings=readings)
+    emit("f32_planted_faults", shape=list(q.shape), causal=causal, readings=readings)
 
 
 def f32_bound_ms(name, b, s, h, hkv, d, causal) -> tuple:
@@ -836,11 +846,12 @@ def train_run(argv) -> tuple:
     return run, time.perf_counter() - t0, torch.cuda.max_memory_allocated(DEV) / 2**30
 
 
-def time_steps(fam, cfg, batch, n=3) -> dict:
-    """``n`` train steps of ``fam.make_train_step(cfg)`` from the seed's
-    weights on ``batch``, each waited for: the median ms of all but the
-    first, the first's, the peak GiB and the first loss."""
-    step, init_opt = fam.make_train_step(cfg, DEV)
+def time_steps(fam, cfg, batch, n=3, mesh=None) -> dict:
+    """``n`` train steps of ``fam.make_train_step(cfg)`` (over ``mesh``, else
+    at world 1) from the seed's weights on ``batch``, each waited for: the
+    median ms of all but the first, the first's, the peak GiB and the first
+    loss."""
+    step, init_opt = fam.make_train_step(cfg, mesh or DEV)
     params = fam.init_params(prng_key(0), cfg, DEV)
     opt_state = init_opt(params)
     torch.cuda.synchronize()
@@ -943,7 +954,7 @@ def train_path() -> dict:
 
     # step 1 through the kernels against the same step through plain attention
     args = train.parser().parse_args(train_flags())
-    cfg, params, _, _ = train.build(args, DEV)
+    cfg, params, _, _ = train.build(args, make_mesh(MeshConfig(), DEV))
     batch = _batch_for_step(0, BATCH, SEQ, cfg.vocab, tokens)
     with torch.no_grad():
         xla_loss = flagship.loss_fn(params, *(torch.as_tensor(t, device=DEV) for t in batch),
@@ -1016,6 +1027,315 @@ def train_path() -> dict:
          remat=modes, grad_spread_full_vs_full=grad_spread, one_step=steps,
          step_time=step_time, serve_ckpt=served)
     return launches
+
+# ---------------------------------------------------------------------------
+# 5c. The flagship at world > 1, every member on this one card
+
+# Mesh A is the JAX trainer's own example (EP world 4, ring attention over
+# cp); mesh B puts a 2-stage GPipe (2 microbatches) in front of cp and tp.
+# Both at the bench widths in float32 on seed-0 weights, B = 8, S = 1024.
+MESH_A = MeshConfig(dp=2, cp=2, tp=2)
+MESH_B = MeshConfig(pp=2, cp=2, tp=2)
+MESH_B_MICROBATCHES = 2
+# One ring step's launch per member at mesh A (B/dp, S/cp, heads/tp, D): the
+# shape the kernels are held to non-causally in main() as well
+RING_SHARD = (4, 512, 8, 2, 64)
+# A mesh against world 1 on the same params and batch, at capacity factor
+# E/k (nothing drops, so capacity per member does not matter) and without
+# the aux losses (a member computes them on its own tokens' routing, by
+# design): the same function summed in another order (tp splits each
+# product's reduction, the ring merges softmax blocks, 3xTF32 kernels).
+MESH_LOSS_RTOL = 1e-5
+MESH_GRAD_RTOL = 1e-4  # each leaf, relative in norm
+# 1F1B against GPipe at the same mesh: tests/test_flagship.py:195-205's
+ONE_F_ONE_B_LOSS_RTOL, ONE_F_ONE_B_GRAD_RTOL, ONE_F_ONE_B_GRAD_ATOL = 1e-5, 5e-3, 1e-5
+MESH_TRAIN_STEPS = 4
+
+
+@contextlib.contextmanager
+def routing_capture(calls: list):
+    """Record (router logits, top-k ids) of every routing decision made in
+    the block: ``ep_ops._gate_topk``, which every sorted dispatch runs once
+    per member."""
+    real = ep_ops._gate_topk
+
+    def spy(logits, k, renormalize):
+        out = real(logits, k, renormalize)
+        calls.append((logits.detach(), out[1].detach()))
+        return out
+
+    ep_ops._gate_topk = spy
+    try:
+        yield
+    finally:
+        ep_ops._gate_topk = real
+
+
+def global_routing(calls, mcfg, m, n_layers, b, s):
+    """The captured calls of one forward at mesh ``mcfg`` (``m`` microbatches)
+    laid out globally: (top-k ids [L, B, S, K], router logits [L, B, S, E]).
+    Calls come in GPipe slot order, then a stage's layers, then (pp, tp)
+    groups, then EP members (dp outer); tp replicas route identically, so
+    tp 0's are kept, and a stage's calls outside its valid slots dropped."""
+    pp, dp, cp, tp = mcfg.axis_sizes()
+    b_loc, s_loc = b // dp, s // cp
+    b_mb, lps = b_loc // m, n_layers // pp
+    k, e = calls[0][1].shape[-1], calls[0][0].shape[-1]
+    idx = torch.full((n_layers, b, s, k), -1, dtype=torch.long, device=DEV)
+    logits = torch.zeros((n_layers, b, s, e), device=DEV)
+    it = iter(calls)
+    for t in range(m + pp - 1):
+        for i in range(lps):
+            for g in range(pp * tp):
+                stage, t_idx = divmod(g, tp)
+                for r in range(dp * cp):
+                    lg, ix = next(it)
+                    mb = t - stage
+                    if t_idx or not 0 <= mb < m:
+                        continue
+                    d, c = divmod(r, cp)
+                    rows = slice(d * b_loc + mb * b_mb, d * b_loc + (mb + 1) * b_mb)
+                    cols = slice(c * s_loc, (c + 1) * s_loc)
+                    idx[stage * lps + i, rows, cols] = ix.reshape(b_mb, s_loc, k).long()
+                    logits[stage * lps + i, rows, cols] = lg.reshape(b_mb, s_loc, e)
+    if next(it, None) is not None or (idx < 0).any():
+        fail(f"routing capture does not fit mesh {mcfg} with {m} microbatches")
+    return idx, logits
+
+
+def routing_vs_world1(got, want) -> dict:
+    """Tokens whose top-k differs from world 1's; each must be a near tie in
+    world 1's own router logits (C7): the smallest gap between its top k+1
+    logits within NEAR_TIE of its largest |logit|."""
+    idx, _ = got
+    idx1, logits1 = want
+    differs = (idx != idx1).any(-1)
+    top = torch.sort(logits1, dim=-1, descending=True).values[..., :idx.shape[-1] + 1]
+    gap = (top[..., :-1] - top[..., 1:]).amin(-1)
+    near = gap <= NEAR_TIE * logits1.abs().amax(-1)
+    if (differs & ~near).any():
+        fail(f"{int((differs & ~near).sum())} tokens route differently from world 1 "
+             "away from a near tie")
+    return {"tokens_differing": int(differs.sum()), "token_layers": differs.numel(),
+            "near_ties_in_world1": int(near.sum())}
+
+
+def expected_flash_launches(cfg, mcfg, m) -> dict:
+    """f32 flash launches of one GPipe forward and backward with remat full:
+    each layer call launches once per ring step (cp) or once (cp = 1,
+    Ulysses); forward and the recompute each launch B1, the backward B2 and
+    B3 once."""
+    per_call = mcfg.cp if mcfg.cp > 1 and cfg.seq_mode == "ring" else 1
+    calls = (m + mcfg.pp - 1) * (cfg.n_layers // mcfg.pp)
+    return {"flash_fwd_f32": 2 * calls * per_call, "flash_bwd_dq_f32": calls * per_call,
+            "flash_bwd_dkv_f32": calls * per_call}
+
+
+def expected_1f1b_launches(cfg, mcfg, m) -> dict:
+    """f32 flash launches of one manual 1F1B step with remat full: a slot in
+    which some stage runs a forward launches B1 once per layer call; one in
+    which some stage runs a backward recomputes the stage (B1), the remat
+    recompute (B1 again) and the backward (B2, B3)."""
+    from uccl_tpu_torch.parallel.pipeline import _simulate_1f1b
+
+    do_f, _, do_b, _ = _simulate_1f1b(m, mcfg.pp)
+    per_slot = (mcfg.cp if mcfg.cp > 1 and cfg.seq_mode == "ring" else 1) * (
+        cfg.n_layers // mcfg.pp)
+    f_slots, b_slots = int(do_f.any(axis=1).sum()), int(do_b.any(axis=1).sum())
+    return {"flash_fwd_f32": (f_slots + 2 * b_slots) * per_slot,
+            "flash_bwd_dq_f32": b_slots * per_slot, "flash_bwd_dkv_f32": b_slots * per_slot}
+
+
+def mesh_grads(cfg, mesh, params, batch, manual=False) -> dict:
+    """One forward and backward of ``cfg``'s total loss over ``mesh``
+    (autograd through GPipe, or the manual 1F1B schedule): loss, gradients
+    in tree_leaves order, wall ms, peak GiB, f32 flash launches and the
+    forward's routing calls."""
+    leaves = [p.requires_grad_() for p in flagship.tree_leaves(params)]
+    tokens, targets = (torch.as_tensor(t, device=DEV) for t in batch)
+    calls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    if manual:
+        total, ce, g = flagship.manual_loss_and_grads(params, tokens, targets, cfg, mesh)
+        grads = flagship.tree_leaves(g)
+    else:
+        with routing_capture(calls):
+            total, ce = flagship.loss_fn(params, tokens, targets, cfg, mesh)
+        grads = torch.autograd.grad(total, leaves)
+    loss = total.item()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if not math.isfinite(loss) or not all(torch.isfinite(x).all() for x in grads):
+        fail(f"non-finite loss or gradients at {mesh.config}: {loss}")
+    return dict(loss=loss, ce=ce.item(), grads=grads, ms=ms,
+                peak_gib=torch.cuda.max_memory_allocated(DEV) / 2**30,
+                launches={n: fa.launch_counts[n] for n in fa.F32_KERNELS}, calls=calls)
+
+
+def grads_rel_norm(got, want) -> float:
+    """The largest ||got - want|| / ||want|| over the leaves."""
+    return max(((g.double() - w.double()).norm() / w.double().norm()).item()
+               for g, w in zip(got, want, strict=True))
+
+
+def mesh_path() -> dict:
+    """The flagship at world > 1 with every member on the card, at the bench
+    widths in float32: mesh A (dp=2, cp=2, tp=2: ring attention on the f32
+    kernels, EP world 4) and Ulysses, then mesh B (pp=2, cp=2, tp=2, GPipe
+    over 2 microbatches), each forward and backward held against world 1 on
+    the same params and batch (loss, every gradient leaf, every token's
+    top-2 routing) with exact f32 flash launches; mesh B's 1F1B against its
+    GPipe; mesh A's forward on the pallas wire (B9) against the lax wire,
+    bit for bit; the step time of each; then ``python -m
+    uccl_tpu_torch.train --mesh dp=2,cp=2,tp=2`` on a seeded corpus with
+    checkpoints and a bit-exact --resume. Returns the f32 flash launches of
+    that trainer run and B9's launches."""
+    from uccl_tpu_torch import train
+
+    t_start = time.perf_counter()
+    w = TRAIN_WIDTHS
+    size = dict(vocab=w["vocab"], dim=w["dim"], n_layers=w["layers"], n_heads=w["heads"],
+                n_kv_heads=w["kv_heads"], head_dim=w["dim"] // w["heads"], moe_experts=w["experts"],
+                moe_topk=2, moe_ffn=w["ffn"])
+    cfg = flagship.FlagshipConfig(**size, capacity_factor=size["moe_experts"] / 2,
+                                  aux_loss_weight=0.0, z_loss_weight=0.0)
+    params = flagship.init_params(prng_key(0), cfg, DEV)
+    corpus = np.random.default_rng(0).integers(0, w["vocab"], CORPUS_TOKENS, dtype=np.int32)
+    batch = _batch_for_step(0, BATCH, SEQ, w["vocab"], corpus)
+    mesh_a, mesh_b = make_mesh(MESH_A, DEV), make_mesh(MESH_B, DEV)
+    readings = {}
+
+    def held(name, run, ref, mcfg, m, run_cfg):
+        want = expected_flash_launches(run_cfg, mcfg, m)
+        if run["launches"] != want:
+            fail(f"{name}: f32 flash launches {run['launches']}, want {want}")
+        loss_rel = abs(run["loss"] - ref["loss"]) / abs(ref["loss"])
+        grad_rel = grads_rel_norm(run["grads"], ref["grads"])
+        if not (loss_rel <= MESH_LOSS_RTOL and grad_rel <= MESH_GRAD_RTOL):
+            fail(f"{name} against world 1: loss rel {loss_rel}, gradient rel {grad_rel}")
+        routing = routing_vs_world1(global_routing(run["calls"], mcfg, m, cfg.n_layers, BATCH,
+                                                   SEQ),
+                                    global_routing(ref["calls"], MeshConfig(), m, cfg.n_layers,
+                                                   BATCH, SEQ))
+        readings[name] = dict(loss=run["loss"], world1_loss=ref["loss"], loss_rel=loss_rel,
+                              grad_rel_norm=grad_rel, routing=routing, ms=run["ms"],
+                              world1_ms=ref["ms"], peak_gib=run["peak_gib"],
+                              launches=run["launches"])
+
+    world1 = mesh_grads(cfg, None, params, batch)
+    want1 = expected_flash_launches(cfg, MeshConfig(), 1)
+    if world1["launches"] != want1:
+        fail(f"world 1: f32 flash launches {world1['launches']}, want {want1}")
+    held("mesh_a_ring", mesh_grads(cfg, mesh_a, params, batch), world1, MESH_A, 1, cfg)
+    ulysses = dataclasses.replace(cfg, seq_mode="ulysses")
+    held("mesh_a_ulysses", mesh_grads(ulysses, mesh_a, params, batch), world1, MESH_A, 1,
+         ulysses)
+    del world1
+    # the pallas wire (B9; forward only) against the lax wire
+    fb0 = dma.WIRE_FALLBACK.total()
+    tokens = torch.as_tensor(batch[0], device=DEV)
+    with torch.no_grad():
+        lax_logits = flagship.forward(params, tokens, cfg, mesh_a)
+        a0 = pa.launch_counts["a2a"]
+        pallas_logits = flagship.forward(params, tokens,
+                                         dataclasses.replace(cfg, moe_wire="pallas"), mesh_a)
+        b9 = pa.launch_counts["a2a"] - a0
+    if not torch.equal(pallas_logits, lax_logits) or not b9 \
+            or dma.WIRE_FALLBACK.total() != fb0:
+        fail(f"mesh A on the pallas wire: equal {torch.equal(pallas_logits, lax_logits)}, "
+             f"{b9} B9 launches, {dma.WIRE_FALLBACK.total() - fb0} fallbacks")
+    readings["mesh_a_pallas_wire"] = dict(bit_identical=True, b9_launches=b9,
+                                          max_abs_logit=lax_logits.abs().max().item())
+    del lax_logits, pallas_logits
+    torch.cuda.empty_cache()
+
+    cfg_b = dataclasses.replace(cfg, n_microbatches=MESH_B_MICROBATCHES)
+    world1 = mesh_grads(cfg_b, None, params, batch)
+    gpipe = mesh_grads(cfg_b, mesh_b, params, batch)
+    held("mesh_b_gpipe", gpipe, world1, MESH_B, MESH_B_MICROBATCHES, cfg_b)
+    del world1
+    manual = mesh_grads(dataclasses.replace(cfg_b, pp_schedule="1f1b"), mesh_b, params, batch,
+                        manual=True)
+    loss_rel = abs(manual["loss"] - gpipe["loss"]) / abs(gpipe["loss"])
+    close = grads_close(manual["grads"], gpipe["grads"], ONE_F_ONE_B_GRAD_RTOL,
+                        ONE_F_ONE_B_GRAD_ATOL)
+    if not (loss_rel <= ONE_F_ONE_B_LOSS_RTOL and close <= 1):
+        fail(f"1F1B against GPipe at mesh B: loss rel {loss_rel}, gradients {close} of the "
+             "tolerance")
+    want = expected_1f1b_launches(cfg_b, MESH_B, MESH_B_MICROBATCHES)
+    if manual["launches"] != want:
+        fail(f"1F1B at mesh B: f32 flash launches {manual['launches']}, want {want}")
+    readings["mesh_b_1f1b"] = dict(loss=manual["loss"], gpipe_loss=gpipe["loss"],
+                                   loss_rel=loss_rel, grads_of_tolerance=close,
+                                   grad_rel_norm=grads_rel_norm(manual["grads"], gpipe["grads"]),
+                                   ms=manual["ms"], gpipe_ms=gpipe["ms"],
+                                   peak_gib=manual["peak_gib"], launches=manual["launches"])
+    del gpipe, manual, params
+    torch.cuda.empty_cache()
+
+    # the step at each mesh, as a user trains (the aux losses on, capacity
+    # factor 1.25)
+    train_cfg = flagship.FlagshipConfig(**size, capacity_factor=1.25)
+    step_time = {
+        "mesh_a": time_steps(flagship, train_cfg, batch, mesh=mesh_a),
+        "mesh_b_gpipe": time_steps(flagship, dataclasses.replace(
+            train_cfg, n_microbatches=MESH_B_MICROBATCHES), batch, mesh=mesh_b),
+        "mesh_b_1f1b": time_steps(flagship, dataclasses.replace(
+            train_cfg, n_microbatches=MESH_B_MICROBATCHES, pp_schedule="1f1b"), batch,
+            mesh=mesh_b),
+    }
+    for t in step_time.values():
+        t["tokens_per_s"] = BATCH * SEQ / (t["step_ms"] / 1e3)
+    torch.cuda.empty_cache()
+
+    # the trainer's --mesh: 4 steps with a checkpoint every 2, a resume from 2
+    with tempfile.TemporaryDirectory(prefix="mesh_path_") as tmp:
+        path = os.path.join(tmp, "corpus.npy")
+        np.save(path, corpus)
+        flags = ["--mesh", "dp=2,cp=2,tp=2", "--data", path, "--steps", str(MESH_TRAIN_STEPS)]
+        ckpt = os.path.join(tmp, "ckpt")
+        fa.reset_launch_counts()
+        a, a_s, a_gib = train_run([*flags, "--ckpt-dir", ckpt, "--ckpt-every", "2"])
+        launches = {n: fa.launch_counts[n] for n in fa.F32_KERNELS}
+        want = {n: c * MESH_TRAIN_STEPS for n, c in expected_flash_launches(
+            dataclasses.replace(cfg, capacity_factor=1.25), MESH_A, 1).items()}
+        losses = [m["loss"] for m in a.metrics]
+        if launches != want or not all(map(math.isfinite, losses)) \
+                or a.summary["mesh"] != {"pp": 1, "dp": 2, "cp": 2, "tp": 2}:
+            fail(f"train --mesh: launches {launches} (want {want}), {a.summary}")
+        state_a = {"params": a.params, "opt": a.opt_state}
+        shutil.rmtree(os.path.join(ckpt, f"step_{MESH_TRAIN_STEPS}"))
+        c, c_s, _ = train_run([*flags, "--ckpt-dir", ckpt, "--resume"])
+        resumed = max(tree_diff({"params": c.params, "opt": c.opt_state}, state_a),
+                      max(abs(x["loss"] - y["loss"]) for x, y in zip(a.metrics[2:], c.metrics)))
+        del c
+        spread = None
+        if resumed != 0.0:  # train_path's rule: within two straight runs' spread
+            b, _, _ = train_run(flags)
+            spread = max(tree_diff({"params": b.params, "opt": b.opt_state}, state_a),
+                         max(abs(x["loss"] - y["loss"]) for x, y in zip(a.metrics, b.metrics)))
+            del b
+            if resumed > spread:
+                fail(f"train --mesh resumed differs by {resumed}, two straight runs by {spread}")
+        del a, state_a
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_start
+    emit("mesh_path", config={"widths": w, "batch": BATCH, "seq": SEQ, "dtype": "float32",
+                              "mesh_a": MESH_A.axis_sizes(), "mesh_b": MESH_B.axis_sizes(),
+                              "mesh_b_microbatches": MESH_B_MICROBATCHES,
+                              "parity_capacity_factor": cfg.capacity_factor},
+         tolerances={"loss_rtol": MESH_LOSS_RTOL, "grad_rel_norm": MESH_GRAD_RTOL,
+                     "one_f_one_b": [ONE_F_ONE_B_LOSS_RTOL, ONE_F_ONE_B_GRAD_RTOL,
+                                     ONE_F_ONE_B_GRAD_ATOL], "near_tie": NEAR_TIE},
+         readings=readings, step_time=step_time,
+         train_mesh={"losses": losses, "run_s": a_s, "resumed_s": c_s, "peak_gib": a_gib,
+                     "launches": launches, "resumed_max_diff": resumed,
+                     "straight_runs_max_diff": spread},
+         card=nvidia_smi_line(), seconds=seconds)
+    return {**launches, "a2a": b9}
 
 # ---------------------------------------------------------------------------
 # 6. The collective plane: ring kernels B4, B5, B7 over a W-member world
@@ -3352,6 +3672,11 @@ def main() -> None:
     planted_faults(x, plain)
     del x, plain
     check_kernels(2, 256, 4, 4, 64, False, seed=1)  # small, non-causal, n_rep = 1
+    # a ring step's shard at mesh_path's mesh A: non-causal, GQA n_rep = 4,
+    # a nonzero lse cotangent (what the LSE merge sends back)
+    _, x, plain = check_kernels(*RING_SHARD, False, seed=5)
+    planted_faults(x, plain, causal=False)
+    del x, plain
     errs = {"flash_fwd": readings["out"]["max_abs_err"],
             "flash_bwd_dq": readings["dq"]["max_abs_err"],
             "flash_bwd_dkv": max(readings["dk"]["max_abs_err"], readings["dv"]["max_abs_err"])}
@@ -3365,6 +3690,9 @@ def main() -> None:
     check_kernels_f32(2, 200, 8, 2, 64, False, seed=2, sk=136)
     check_kernels_f32(1, 320, 8, 2, 128, True, seed=3)
     check_kernels_f32(1, 130, 4, 4, 128, False, seed=4)
+    _, x, plain = check_kernels_f32(*RING_SHARD, False, seed=5)
+    f32_planted_faults(x, plain, causal=False)
+    del x, plain
     for name, reading in (("flash_fwd", "out"), ("flash_bwd_dq", "dq")):
         errs[f"{name}_f32"] = f32_readings[reading]["max_abs_err"]
     errs["flash_bwd_dkv_f32"] = max(f32_readings["dk"]["max_abs_err"],
@@ -3373,6 +3701,10 @@ def main() -> None:
     launches = main_path()
     torch.cuda.empty_cache()
     launches.update(train_path())
+    torch.cuda.empty_cache()
+    mesh_launches = mesh_path()
+    for name in fa.F32_KERNELS:
+        launches[name] += mesh_launches[name]
     torch.cuda.empty_cache()
     ring_vs_plain()
     ring_planted_faults()
@@ -3403,7 +3735,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     serve_launches["serve_features_path"] = serve_features_path()
     torch.cuda.empty_cache()
-    ep_launches["a2a"] += (serve_launches["prefill"] + serve_launches["decode"]
+    ep_launches["a2a"] += (mesh_launches["a2a"] + serve_launches["prefill"]
+                           + serve_launches["decode"]
                            + sum(serve_launches["serve_features_path"].values()))
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE,

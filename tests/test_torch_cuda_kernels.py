@@ -77,6 +77,7 @@ SHAPES = [
     (1, 256, 256, 4, 2, 64, True, 128, 128),
     (1, 256, 256, 4, 2, 128, False, 64, 128),
     (1, 128, 256, 4, 2, 64, False, 64, 64),
+    (4, 512, 512, 8, 2, 64, False, 64, 64),  # a ring step's shard: non-causal GQA
 ]
 
 
@@ -278,6 +279,7 @@ F32_SHAPES = [
     (2, 200, 136, 8, 2, 64, False),  # Sq != Sk, partial tiles
     (1, 130, 130, 4, 4, 128, False),
     (1, 320, 320, 8, 2, 128, True),
+    (4, 512, 512, 8, 2, 64, False),  # a ring step's shard: non-causal GQA
     (1, 100, 300, 16, 2, 64, True),  # n_rep 8, more KV than q rows
 ]
 
@@ -441,3 +443,59 @@ def test_f32_flagship_trains_through_the_f32_kernels(dev):
     assert fa.launch_counts["flash_fwd_f32"] == cfg.n_layers
     plain = fl.loss_fn(params, tokens, targets, dataclasses.replace(cfg, attn_impl="xla"))[0]
     assert np.isfinite(flash) and abs(flash - plain.item()) <= 1e-5 * abs(plain.item())
+
+
+@pytest.mark.parametrize("seq_mode", ["ring", "ulysses"])
+def test_f32_context_parallel_attention_on_the_kernels(dev, seq_mode):
+    """Ring and Ulysses attention over cp = 2 in float32 on the kernels
+    against their plain torch impl, forward and gradients (the ring's lse
+    cotangent reaches B2/B3 through delta); launches: the ring's n per call
+    (each backward as many), Ulysses' one."""
+    from uccl_tpu_torch.ops import attention as attn
+
+    rng = np.random.default_rng(7)
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+
+    q, k, v, cot = t(2, 2, 256, 8, 64), t(2, 2, 256, 2, 64), t(2, 2, 256, 2, 64), \
+        t(2, 2, 256, 8, 64)
+    fn = attn.ring_attention if seq_mode == "ring" else attn.ulysses_attention
+    outs = {}
+    for impl in ("xla", "flash"):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        fa.reset_launch_counts()
+        out = fn(*leaves, "cp", causal=True, impl=impl)
+        grads = torch.autograd.grad((out * cot).sum(), leaves)
+        torch.cuda.synchronize()
+        outs[impl] = (out.detach(), *grads)
+        n = 2 if seq_mode == "ring" and impl == "flash" else int(impl == "flash")
+        assert {k_: fa.launch_counts[k_] for k_ in fa.F32_KERNELS} == \
+            {"flash_fwd_f32": n, "flash_bwd_dq_f32": n, "flash_bwd_dkv_f32": n}
+    for name, got, want in zip(("out", "dq", "dk", "dv"), outs["flash"], outs["xla"]):
+        assert torch.isfinite(got).all(), name
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5, msg=name)
+
+
+def test_f32_flagship_at_a_mesh_matches_world_1(dev):
+    """The flagship over dp = 2, cp = 2, tp = 2 on the card (ring attention
+    on the f32 kernels, 2 forward launches a layer) against world 1, at a
+    capacity that drops nothing and without the per-member aux losses."""
+    from uccl_tpu_torch.models import flagship as fl
+    from uccl_tpu_torch.models.sampling import prng_key
+    from uccl_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    cfg = fl.FlagshipConfig(vocab=256, dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
+                            head_dim=64, moe_experts=4, moe_ffn=192, capacity_factor=2.0,
+                            aux_loss_weight=0.0, z_loss_weight=0.0)
+    params = fl.init_params(prng_key(0), cfg, dev)
+    rng = np.random.default_rng(0)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab, (4, 256)), device=dev)
+    targets = torch.tensor(rng.integers(0, cfg.vocab, (4, 256)), device=dev)
+    mesh = make_mesh(MeshConfig(dp=2, cp=2, tp=2), dev)
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        got = fl.loss_fn(params, tokens, targets, cfg, mesh)[0].item()
+        assert fa.launch_counts["flash_fwd_f32"] == 2 * cfg.n_layers
+        want = fl.loss_fn(params, tokens, targets, cfg)[0].item()
+    assert np.isfinite(got) and abs(got - want) <= 1e-5 * abs(want)

@@ -9,6 +9,8 @@ Tolerances are tests/test_torch_flagship.py's: logits rtol 1e-4 / atol
 step atol 1e-6 where |g| > 1e-6 and within 2*lr elsewhere.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -103,8 +105,16 @@ def test_one_adamw_step_matches_jax(data, jax_run):
         assert np.all(np.abs(got[name][~big] - want[~big]) <= 2 * LR), name
 
 
-def test_dense_config_checks():
+def test_dense_config_checks(data):
+    """Bad values raise; seq_mode="ulysses" is ported, and at world 1 its
+    forward is ring's bit for bit (the reference's cp = 1 branch)."""
     with pytest.raises(ValueError):
         td.DenseConfig(remat="bogus")
-    with pytest.raises(NotImplementedError):
-        td.DenseConfig(seq_mode="ulysses")
+    with pytest.raises(ValueError):
+        td.DenseConfig(seq_mode="bogus")
+    params, tokens, _ = data
+    cfg, tp = _port(params)
+    with torch.no_grad():
+        want = td.forward(tp, torch.tensor(tokens), cfg)
+        got = td.forward(tp, torch.tensor(tokens), dataclasses.replace(cfg, seq_mode="ulysses"))
+    assert torch.equal(got, want)

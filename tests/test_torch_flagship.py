@@ -161,16 +161,56 @@ def test_params_round_trip_and_init_shapes(data):
 
 
 @pytest.mark.parametrize("field,value,exc", [
-    ("seq_mode", "ulysses", NotImplementedError),
-    ("moe_chunks", 2, NotImplementedError),
+    ("seq_mode", "bogus", ValueError),
+    ("pp_schedule", "bogus", ValueError),
     ("remat", "bogus", ValueError),
-    ("pp_schedule", "1f1b", NotImplementedError),
-    ("moe_wire", "pallas", NotImplementedError),
+    ("moe_wire", "bogus", ValueError),
     ("attn_impl", "bogus", ValueError),
 ])
 def test_unported_options_raise(field, value, exc):
+    """Values outside the JAX model's raise; every value it takes is ported
+    (the multi-chip ones at world 1 below, at world > 1 in
+    tests/test_torch_flagship_mesh.py)."""
     with pytest.raises(exc):
         dataclasses.replace(tf.FlagshipConfig(), **{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("seq_mode", "ulysses"),
+    ("moe_chunks", 2),
+    ("pp_schedule", "1f1b"),
+    ("moe_wire", "pallas"),
+])
+def test_multichip_options_at_world_1(data, field, value):
+    """The multi-chip fields once refused here: at world 1 Ulysses is the
+    direct attention (the reference's cp = 1 branch), the pallas wire and a
+    chunk depth move nothing, so the loss and gradients are the default's
+    bit for bit; the manual 1F1B schedule gives GPipe's loss and gradients
+    (rtol 1e-5 / atol 1e-7: another summation order)."""
+    params, tokens, targets = data
+    t, y = torch.tensor(tokens), torch.tensor(targets)
+    base_cfg, base = _port(params)
+    leaves = tf.tree_leaves(base)
+    for p in leaves:
+        p.requires_grad_()
+    want_total, _ = tf.loss_fn(base, t, y, base_cfg)
+    want = torch.autograd.grad(want_total, leaves)
+    cfg, tp = _port(params, **{field: value})
+    if field == "pp_schedule":
+        total, _, grads = tf.manual_loss_and_grads(tp, t, y, cfg)
+        np.testing.assert_allclose(total.item(), want_total.item(), rtol=1e-5)
+        for g, w in zip(tf.tree_leaves(grads), want):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=1e-7)
+        return
+    leaves = tf.tree_leaves(tp)
+    for p in leaves:
+        p.requires_grad_()
+    total, _ = tf.loss_fn(tp, t, y, cfg)
+    assert total.item() == want_total.item()
+    if field == "moe_wire":  # the pallas wire is forward only (no vjp, as in JAX)
+        return
+    for g, w in zip(torch.autograd.grad(total, leaves), want):
+        assert torch.equal(g, w)
 
 
 def test_cuda_without_a_gpu_raises(monkeypatch):

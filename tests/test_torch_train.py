@@ -38,14 +38,15 @@ def test_trainer_runs_on_cpu_with_finite_losses():
     assert summary["dtype"] == "float32" and np.isfinite(summary["final_loss"])
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "dp=2"]])
+@pytest.mark.parametrize("flag", [["--mesh", "dp=2", "--batch", "3"]])
 def test_trainer_refuses_unported_flags(flag, capsys):
-    """Only --mesh (the flagship at world > 1) is still refused: --data,
-    checkpoints and --model dense are ported (tests/test_torch_train_ckpt.py,
-    test_torch_dense_train.py)."""
+    """Every flag of the JAX trainer is ported (--mesh in
+    tests/test_torch_train_mesh.py); a mesh the data does not divide over is
+    refused before anything is built, with the JAX trainer's message."""
     with pytest.raises(SystemExit) as exc:
         ttrain.main(["--device", "cpu", "--steps", "1", *flag])
-    assert exc.value.code == 2 and "not ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert exc.value.code == 2 and "--batch 3 must divide by dp=2" in err
 
 
 def test_batch_stream_matches_jax_trainer():

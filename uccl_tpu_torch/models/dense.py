@@ -1,15 +1,19 @@
-"""Dense (Llama-family) transformer: the second model family, at world 1.
+"""Dense (Llama-family) transformer: the second model family.
 
-Port of ``uccl_tpu/models/dense.py`` on one device: :class:`DenseConfig`,
+Port of ``uccl_tpu/models/dense.py``: :class:`DenseConfig`,
 :func:`init_params` (the parameter tree the dense serving stack,
-``models/inference.py``, runs too), and training: ``forward``, ``loss_fn``,
-``make_train_step`` (the flagship's AdamW, weight decay 0.01) and the
-unsharded ``reference_forward``. A block is the flagship's attention
-(``flagship._attention``, so the flash kernels run here too) and a dense
-SwiGLU MLP; the blocks run through the flagship's block loop
-(``flagship.logits_aux``: the GPipe loop at pp = 1, each block under the
-config's remat wrapper). ``remat="mlp"`` is ``"dots"`` here, as in the JAX
-package: the dense FFN has no expert tags for its save list to match.
+``models/inference.py``, runs too), :func:`param_specs` /
+:func:`shard_params`, and training over the pp/dp/cp/tp mesh: ``forward``,
+``loss_fn``, ``make_train_step`` (the flagship's AdamW, weight decay 0.01)
+and the unsharded ``reference_forward``. The same parallel machinery as the
+flagship, on the same member-grid tensors (``models/flagship``'s docstring):
+a block is the flagship's attention (``flagship._attention``: the flash
+kernels, ring or Ulysses over cp) and a Megatron-split SwiGLU MLP with its
+psum over tp; the blocks run through the flagship's GPipe schedule
+(``flagship.logits_aux``, each block under the config's remat wrapper).
+Without a mesh a call runs at world 1. ``remat="mlp"`` is ``"dots"`` here,
+as in the JAX package: the dense FFN has no expert tags for its save list to
+match.
 
 ``init_params(prng_key(seed), cfg)`` draws the JAX init's weights for the
 same seed. ``params_from_jax`` / ``params_to_numpy`` carry a JAX parameter tree to
@@ -21,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -29,9 +33,12 @@ import torch.nn.functional as F
 from uccl_tpu_torch import DeviceLike, resolve_device
 from uccl_tpu_torch.models import flagship as _fs
 from uccl_tpu_torch.models.flagship import params_from_jax, params_to_numpy  # noqa: F401
-from uccl_tpu_torch.models.layers import rms_norm, rope, tp_cross_entropy
+from uccl_tpu_torch.models.layers import rms_norm, rope
 from uccl_tpu_torch.models.sampling import normal, split
 from uccl_tpu_torch.ops.attention import attention_reference
+from uccl_tpu_torch.parallel import sharding as shd
+from uccl_tpu_torch.parallel.mesh import AXIS, Mesh, MeshConfig, make_mesh
+from uccl_tpu_torch.parallel.sharding import P
 
 Params = Dict[str, Any]
 
@@ -49,15 +56,37 @@ class DenseConfig:
     norm_eps: float = 1e-6
     n_microbatches: int = 1
     remat: str = "full"  # "full" | "dots" | "mlp" (= dots here) | "none"
-    seq_mode: str = "ring"
+    seq_mode: str = "ring"  # "ring" | "ulysses" (at cp > 1)
     attn_impl: str = "auto"
     dtype: torch.dtype = torch.float32  # activations (serving: also KV and logits)
 
     def __post_init__(self):
-        if self.seq_mode != "ring":
-            raise NotImplementedError(f"DenseConfig.seq_mode={self.seq_mode!r}: the world-1 "
-                                      "port takes only 'ring'")
         _fs._check_common(self)
+
+
+def param_specs(cfg: DenseConfig) -> Dict[str, Any]:
+    """PartitionSpec tree matching :func:`init_params`' tree."""
+    return {
+        "embed": P(AXIS.TP, None),
+        "blocks": {
+            "ln1": P(AXIS.PP, None),
+            "ln2": P(AXIS.PP, None),
+            "wq": P(AXIS.PP, None, AXIS.TP),
+            "wk": P(AXIS.PP, None, AXIS.TP),
+            "wv": P(AXIS.PP, None, AXIS.TP),
+            "wo": P(AXIS.PP, AXIS.TP, None),
+            "w_gate": P(AXIS.PP, None, AXIS.TP),
+            "w_up": P(AXIS.PP, None, AXIS.TP),
+            "w_down": P(AXIS.PP, AXIS.TP, None),
+        },
+        "final_norm": P(None),
+        "head": P(None, AXIS.TP),
+    }
+
+
+def shard_params(params: Params, mesh: Mesh, cfg: DenseConfig) -> Params:
+    """The member-grid view of the global tree (``sharding.put_tree``)."""
+    return shd.put_tree(mesh, params, param_specs(cfg))
 
 
 def init_params(key: torch.Tensor, cfg: DenseConfig, device: DeviceLike = None) -> Params:
@@ -99,37 +128,48 @@ def init_params(key: torch.Tensor, cfg: DenseConfig, device: DeviceLike = None) 
 
 
 def _layer(x: torch.Tensor, lp: Params, cfg: DenseConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One block: x [B, S, H] -> (x, a zero aux)."""
-    x = x + _fs._attention(rms_norm(x, lp["ln1"], cfg.norm_eps), lp, cfg)
-    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    act = F.silu(h2 @ lp["w_gate"].to(h2.dtype)) * (h2 @ lp["w_up"].to(h2.dtype))
-    x = x + act @ lp["w_down"].to(act.dtype)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    """One block on every member: x [*G, B, S_loc, H] -> (x, a zero aux [*G])."""
+    gmm, w = _fs._gmm, _fs._w
+    attn_out = _fs._attention(rms_norm(x, w(lp["ln1"], x), cfg.norm_eps), lp, cfg)
+    x = x + shd.psum(attn_out, AXIS.TP)
+    h2 = rms_norm(x, w(lp["ln2"], x), cfg.norm_eps)
+    act = F.silu(gmm(h2, lp["w_gate"].to(h2.dtype))) * gmm(h2, lp["w_up"].to(h2.dtype))
+    x = x + shd.psum(gmm(act, lp["w_down"].to(act.dtype)), AXIS.TP)
+    return x, torch.zeros(x.shape[:shd.GRID_DIMS], dtype=torch.float32, device=x.device)
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: DenseConfig) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, V] (float32)."""
-    return _fs.logits_aux(params, tokens, cfg, _layer)[0]
+def forward(params: Params, tokens, cfg: DenseConfig, mesh: Optional[Mesh] = None):
+    """tokens [B, S] -> logits [B, S, V] (float32), over ``mesh`` (default:
+    world 1 on the parameters' device)."""
+    return _fs.logits_aux(params, tokens, cfg, mesh, _layer, param_specs(cfg))[0]
 
 
-def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
-            cfg: DenseConfig) -> torch.Tensor:
-    """Mean next-token cross-entropy."""
-    logits = forward(params, tokens, cfg)
-    v = logits.shape[-1]
-    return torch.mean(tp_cross_entropy(logits.reshape(-1, v), targets.reshape(-1)))
+def loss_fn(params: Params, tokens, targets, cfg: DenseConfig,
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy (each member's mean, averaged over the
+    EP world dp x cp)."""
+    mesh = _fs._mesh_of(mesh, params)
+    logits, _ = _fs._per_shard_logits_aux(shard_params(params, mesh, cfg),
+                                          _fs._put_data(mesh, tokens), cfg, _layer)
+    per_token = _fs._tp_ce(logits, _fs._put_data(mesh, targets))
+    loss = per_token.reshape(tuple(per_token.shape[:shd.GRID_DIMS]) + (-1,)).mean(-1)
+    return shd.member0(shd.pmean(loss, AXIS.EP))
 
 
-def make_train_step(cfg: DenseConfig, device: DeviceLike = None, learning_rate: float = 3e-4):
+def make_train_step(cfg: DenseConfig, device: Union[DeviceLike, Mesh] = None,
+                    learning_rate: float = 3e-4):
     """(train_step, init_optimizer): the flagship's AdamW step
-    (``flagship.adamw_train_step``) on :func:`loss_fn`; metrics hold the
-    loss, as the JAX dense step's do."""
+    (``flagship.adamw_train_step``) on :func:`loss_fn`, over a
+    :class:`Mesh` passed as ``device`` (any other device: world 1 on it);
+    metrics hold the loss, as the JAX dense step's do."""
+    mesh = device if isinstance(device, Mesh) else make_mesh(MeshConfig(), resolve_device(device))
+    dev = mesh.device
 
     def loss(params, tokens, targets):
-        total = loss_fn(params, tokens, targets, cfg)
+        total = loss_fn(params, tokens, targets, cfg, mesh)
         return total, {"loss": total.detach()}
 
-    return _fs.adamw_train_step(loss, device, learning_rate)
+    return _fs.adamw_train_step(loss, dev, learning_rate)
 
 
 def reference_forward(params: Params, tokens: torch.Tensor, cfg: DenseConfig) -> torch.Tensor:

@@ -78,7 +78,10 @@ def layer_inputs(dev, batch: int, seq: int):
             tokens = torch.as_tensor(_batch_for_step(200 + r, batch, seq, cfg.vocab)[0],
                                      device=dev)
             x = params["embed"][tokens.long()].to(cfg.dtype)
-            x = x + flagship._attention(rms_norm(x, lp["ln1"], cfg.norm_eps), lp, cfg)
+            one = (1,) * 4  # a one-member grid: flagship._attention's form
+            x = x + flagship._attention(rms_norm(x, lp["ln1"], cfg.norm_eps).reshape(one + x.shape),
+                                        {k: v.reshape(one + v.shape) for k, v in lp.items()},
+                                        cfg).reshape(x.shape)
             xs.append(rms_norm(x, lp["ln2"], cfg.norm_eps).reshape(-1, cfg.dim))
     x = torch.stack(xs)
     logits = x.float() @ lp["router"]

@@ -1,9 +1,12 @@
 """Where the flagship train step's time goes on the card:
 ``python -m uccl_tpu_torch.profile_step``.
 
-Trains the benchmark's base configuration (``flagship.bench_config``) for a
-few warm-up steps, then runs ``--steps`` more under ``torch.profiler`` and
-prints one JSON line: the step's wall time, the device's busy and idle
+Trains the benchmark's base configuration (``flagship.bench_config``; or
+at ``--dtype``, ``--remat`` and ``--moe-impl``, or the dense model at the
+same widths with ``--model dense``) for a few warm-up steps, times
+``--steps`` more without the profiler (one wait at their end), then runs
+``--steps`` more under ``torch.profiler`` and prints one JSON line: the
+step's wall time with and without the profiler, the device's busy and idle
 share of it (union of kernel intervals over the window), device time by
 kernel class and by the top kernels and PyTorch ops that launched them.
 
@@ -28,7 +31,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from uccl_tpu_torch import resolve_device
-from uccl_tpu_torch.models import flagship
+from uccl_tpu_torch.models import dense, flagship
 from uccl_tpu_torch.models.sampling import prng_key
 from uccl_tpu_torch.train import _batch_for_step
 
@@ -70,22 +73,39 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--trace-out", default="", help="also write a Chrome trace here")
+    ap.add_argument("--model", default="flagship", choices=["flagship", "dense"])
+    ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    ap.add_argument("--remat", default="full", choices=list(flagship.REMAT_MODES))
+    ap.add_argument("--moe-impl", default="sort", choices=["sort", "ll"])
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
-    cfg = flagship.bench_config()
-    params = flagship.init_params(prng_key(0), cfg, dev)
-    train_step, init_opt = flagship.make_train_step(cfg, dev)
+    cfg = flagship.bench_config(dtype=getattr(torch, args.dtype), remat=args.remat,
+                                moe_impl=args.moe_impl)
+    fam = flagship
+    if args.model == "dense":
+        fam = dense
+        cfg = dense.DenseConfig(vocab=cfg.vocab, dim=cfg.dim, n_layers=cfg.n_layers,
+                                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                                head_dim=cfg.head_dim, ffn=cfg.moe_ffn, remat=cfg.remat,
+                                dtype=cfg.dtype)
+    params = fam.init_params(prng_key(0), cfg, dev)
+    train_step, init_opt = fam.make_train_step(cfg, dev)
     opt_state = init_opt(params)
     batches = [_batch_for_step(i, args.batch, args.seq, cfg.vocab)
-               for i in range(args.warmup + args.steps)]
+               for i in range(args.warmup + 2 * args.steps)]
     for tokens, targets in batches[:args.warmup]:
         params, opt_state, m = train_step(params, opt_state, tokens, targets)
     torch.cuda.synchronize(dev)
 
+    t0 = time.perf_counter()
+    for tokens, targets in batches[args.warmup:args.warmup + args.steps]:
+        params, opt_state, m = train_step(params, opt_state, tokens, targets)
+    torch.cuda.synchronize(dev)
+    plain_us = (time.perf_counter() - t0) * 1e6
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for tokens, targets in batches[args.warmup:]:
+        for tokens, targets in batches[args.warmup + args.steps:]:
             params, opt_state, m = train_step(params, opt_state, tokens, targets)
         torch.cuda.synchronize(dev)
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -110,7 +130,9 @@ def main(argv=None):
     per = 1e-3 / args.steps  # us over all steps -> ms per step
     print(json.dumps({
         "bench": "profile_step", "device": torch.cuda.get_device_name(dev),
-        "batch": args.batch, "seq": args.seq, "steps": args.steps,
+        "model": args.model, "dtype": args.dtype, "remat": args.remat,
+        "moe_impl": args.moe_impl, "batch": args.batch, "seq": args.seq, "steps": args.steps,
+        "step_ms_unprofiled": plain_us * per,
         "step_ms": wall_us * per, "device_busy_ms": busy_us * per,
         "device_idle_share": 1.0 - busy_us / wall_us,
         "kernels_per_step": len(kernels) / args.steps,

@@ -1,10 +1,9 @@
-"""World-1 trainer: ``python -m uccl_tpu_torch.train``.
+"""The trainer: ``python -m uccl_tpu_torch.train``.
 
-Port of ``uccl_tpu/train.py`` for one device, with its flags and
-``--device`` (default ``cuda``). It trains in float32 on every device, as
-the JAX trainer does (its configs take the models' default dtype): on the
-card the attention runs the float32 flash kernels. At the benchmark's
-widths:
+Port of ``uccl_tpu/train.py``, with its flags and ``--device`` (default
+``cuda``). It trains in float32 on every device, as the JAX trainer does
+(its configs take the models' default dtype): on the card the attention runs
+the float32 flash kernels. At the benchmark's widths:
 
     python -m uccl_tpu_torch.train --steps 20 --batch 8 --seq 1024 \\
         --vocab 16384 --dim 1024 --layers 4 --heads 16 --kv-heads 4 \\
@@ -13,7 +12,11 @@ widths:
     python -m uccl_tpu_torch.train ... --ckpt-dir run1 --resume
 
 ``--model flagship`` (the MoE, default) or ``dense``; ``--remat full | dots
-| mlp | none``. Data is the JAX trainer's: without ``--data`` a seeded
+| mlp | none``. ``--mesh pp=2,cp=2,tp=2`` (unnamed axes 1) trains over that
+mesh with all of its members on ``--device`` (``models/flagship``'s member
+grid); ``--batch`` must divide by dp and ``--seq`` by cp, and
+``--microbatches`` feeds the pipeline. Without ``--mesh`` the run is world
+1. Data is the JAX trainer's: without ``--data`` a seeded
 synthetic stream, with it next-token windows of a 1-D integer token
 ``.npy`` (memory-mapped) at step-indexed offsets; either way step i's batch
 depends only on i, so a resumed run replays the uninterrupted one. Weights
@@ -27,12 +30,14 @@ renamed into place in one ``os.replace``, so no half-written step is ever
 visible, and ``<dir>/config.json`` (written once: the model family and
 size flags under the JAX trainer's keys), which ``serve --ckpt-dir`` reads.
 The layout is this package's own (torch format, not the JAX trainer's
-orbax). ``--resume`` continues from the newest ``step_N``; a directory that
-already holds checkpoints is refused without it.
+orbax). The parameters and moments are the global trees at every mesh, so a
+checkpoint holds no trace of the mesh that wrote it; a run resumed at the
+same mesh replays the uninterrupted one. ``--resume`` continues from the
+newest ``step_N``; a directory that already holds checkpoints is refused
+without it.
 
 Prints ``step N loss X [ce Y]`` every ``--log-every`` steps and one summary
-JSON line at the end. Not ported yet, and refused if passed: ``--mesh``
-(the flagship at world > 1).
+JSON line at the end.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ import torch
 from uccl_tpu_torch import resolve_device
 from uccl_tpu_torch.models import dense, flagship
 from uccl_tpu_torch.models.sampling import prng_key
+from uccl_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 
 STATE_FILE = "state.pt"
 
@@ -159,9 +165,21 @@ def _restore(ckpt_dir, step_i, params, opt_state):
             _copy_into(opt_state, state["opt"], "opt"))
 
 
-def build(args, device):
-    """Returns (cfg, params, train_step, init_opt) for the model family, at
-    float32 as the JAX trainer builds them."""
+def parse_mesh(spec: str) -> MeshConfig:
+    """"dp=2,cp=2,tp=2" -> MeshConfig (unnamed axes default to 1)."""
+    sizes = {}
+    if spec:
+        for part in spec.split(","):
+            m = re.fullmatch(r"(pp|dp|cp|tp)=(\d+)", part.strip())
+            if not m:
+                raise SystemExit(f"bad --mesh entry {part!r} (want e.g. dp=2,tp=2)")
+            sizes[m.group(1)] = int(m.group(2))
+    return MeshConfig(**sizes)
+
+
+def build(args, mesh):
+    """Returns (cfg, params, train_step, init_opt) for the model family over
+    ``mesh``, at float32 as the JAX trainer builds them."""
     fam = flagship if args.model == "flagship" else dense
     size_kw = dict(vocab=args.vocab, dim=args.dim, n_layers=args.layers, n_heads=args.heads,
                    n_kv_heads=args.kv_heads, head_dim=args.dim // args.heads,
@@ -171,8 +189,8 @@ def build(args, device):
                                       moe_topk=2)
     else:
         cfg = dense.DenseConfig(**size_kw, ffn=args.ffn)
-    params = fam.init_params(prng_key(args.seed), cfg, device)
-    train_step, init_opt = fam.make_train_step(cfg, device, learning_rate=args.lr)
+    params = fam.init_params(prng_key(args.seed), cfg, mesh.device)
+    train_step, init_opt = fam.make_train_step(cfg, mesh, learning_rate=args.lr)
     return cfg, params, train_step, init_opt
 
 
@@ -189,7 +207,7 @@ class TrainRun(NamedTuple):
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m uccl_tpu_torch.train")
     ap.add_argument("--model", default="flagship", choices=["flagship", "dense"])
-    ap.add_argument("--mesh", default="", help="not ported yet")
+    ap.add_argument("--mesh", default="", help="e.g. pp=2,dp=2,tp=2 (members on --device)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
@@ -221,12 +239,15 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> TrainRun:
     ap = parser()
     args = ap.parse_args(argv)
-    if args.mesh:
-        ap.error("--mesh: not ported to uccl_tpu_torch yet (world-1 training only)")
+    mcfg = parse_mesh(args.mesh)
+    if args.batch % mcfg.dp or args.seq % mcfg.cp:
+        ap.error(f"--batch {args.batch} must divide by dp={mcfg.dp} and --seq {args.seq} by "
+                 f"cp={mcfg.cp} (data is sharded [batch/dp, seq/cp])")
 
     device = resolve_device(args.device)
+    mesh = make_mesh(mcfg, device)
     corpus = _open_corpus(args.data, args.vocab, args.seq) if args.data else None
-    cfg, params, train_step, init_opt = build(args, device)
+    cfg, params, train_step, init_opt = build(args, mesh)
     opt_state = init_opt(params)
 
     start = 0
@@ -268,7 +289,8 @@ def main(argv=None) -> TrainRun:
     done = args.steps - start
     summary = {
         "model": args.model,
-        "mesh": {"dp": 1},
+        "mesh": {"pp": mcfg.pp, "dp": mcfg.dp, "cp": mcfg.cp, "tp": mcfg.tp}
+        if args.mesh else {"dp": 1},
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "dtype": str(cfg.dtype).replace("torch.", ""),
         "steps": done,
