@@ -31,7 +31,11 @@ wire. Then the serving slice: ``python -m uccl_tpu_torch.serve --server``'s
 engine on the MoE stack at the bench config's widths, EP world 4 on the
 pallas wire (B9 in prefill and decode), every request held token for token
 to the world-1 oracle, the same requests on the lax wire, and the dense
-stack at world 1. Every phase raises on failure; nothing is caught. Each
+stack at world 1. Then the p2p plane (p2p_path): the MoE model's params
+published from the card and pushed down a relay chain over loopback into a
+server that must serve the source server's tokens, the remote KV tier, and
+CUDA-tensor staging (mesh_path also holds interleaved 1F1B to sequential
+autograd). Every phase raises on failure; nothing is caught. Each
 phase prints one JSON line; the last three lines are the card's name and power limit (nvidia-smi), the
 per-kernel JSON summary and
 
@@ -55,6 +59,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -158,6 +163,9 @@ def nvidia_smi_line() -> str:
 # 1. Toolchain
 
 def toolchain() -> None:
+    for tool in ("make", "g++"):  # the p2p plane's native runtime builds with make
+        if shutil.which(tool) is None:
+            fail(f"`{tool}` is not on PATH: the native p2p runtime (native/) cannot be built")
     nvcc = build.find_nvcc()
     nvcc_ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                               check=True).stdout.strip().splitlines()
@@ -202,15 +210,23 @@ def ring_kernel_name(mangled: str) -> str:
 
 def build_kernels() -> None:
     """The three CUDA sources and the f32 kernels' planted-fault variants,
-    one nvcc each, all started together."""
+    one nvcc each, and the p2p plane's native runtime (make), all started
+    together."""
     from concurrent.futures import ThreadPoolExecutor
+
+    from uccl_tpu_torch.p2p import endpoint as p2p_endpoint
 
     def timed(name):
         t0 = time.perf_counter()
         return build.build(name), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3 + len(F32_FAULTS)) as pool:
+    def native():
+        t0 = time.perf_counter()
+        return p2p_endpoint._build_if_needed(), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(4 + len(F32_FAULTS)) as pool:
+        native_job = pool.submit(native)
         jobs = [pool.submit(timed, name) for name in ("flash_attention", "ring_ccl", "ep_a2a")]
         faults = {fault: pool.submit(build.build_variant, "flash_attention", f"f32_fault_{i}",
                                      subs)
@@ -218,7 +234,10 @@ def build_kernels() -> None:
         (lib, seconds), (ring_lib, ring_seconds), (ep_lib, ep_seconds) = \
             [j.result() for j in jobs]
         F32_FAULT_LIBS.update({fault: job.result() for fault, job in faults.items()})
+        native_lib, native_seconds = native_job.result()
     root = build.PACKAGE_DIR.parent
+    emit("p2p_native_build", library=os.path.relpath(native_lib, root),
+         seconds=round(native_seconds, 3))
     name = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)(_f32)?_kernelILi(\d+)E(?:Li(\d+)E)?")
     ptxas = ptxas_report("flash_attention", lambda n: name.search(n)[0])
     f32_kind = {"fwd": 0, "bwd_dq": 1, "bwd_dkv": 2}
@@ -1181,6 +1200,64 @@ def grads_rel_norm(got, want) -> float:
                for g, w in zip(got, want, strict=True))
 
 
+# Interleaved 1F1B (parallel/pipeline.interleaved_1f1b) on
+# tests/test_pipeline.py::TestInterleaved's stage MLPs, y = tanh(x @ w + b),
+# at width 1024 (weights drawn at 0.3 / sqrt(h / 8), the test's 0.3 at its
+# width 8), P = 2 stages of V = 2 chunks, M = 4 microbatches of 8 rows, in
+# float32 with every member on the card; held to sequential autograd at the
+# test's tolerances.
+INTERLEAVED = dict(p=2, v=2, m=4, rows=8, width=1024)
+INTERLEAVED_TOL = dict(loss_rtol=1e-5, grad_rtol=1e-4, grad_atol=1e-5)
+
+def interleaved_vs_sequential(device=DEV, sizes=INTERLEAVED) -> dict:
+    from uccl_tpu_torch.parallel.pipeline import _simulate_interleaved, interleaved_1f1b
+
+    p, v, m, b, h = (sizes[k] for k in ("p", "v", "m", "rows", "width"))
+    n = p * v
+    g = torch.Generator(device=device).manual_seed(0)
+    ws = torch.randn(n, h, h, device=device, generator=g) * (0.3 / math.sqrt(h / 8))
+    bs = torch.randn(n, h, device=device, generator=g) * 0.1
+    xmb = torch.randn(m, b, h, device=device, generator=g)
+
+    def chunks(a):  # [L, ...] stage-major -> [P, V, ...]: chunk c of stage s is c*P + s
+        return a.reshape((v, p) + tuple(a.shape[1:])).transpose(0, 1).contiguous()
+
+    def stage(prm, x):
+        return torch.tanh(x @ prm[0] + prm[1][:, None])
+
+    def loss(y):
+        return (y * y).sum(dim=(1, 2))
+
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    got_l, (dw, db) = interleaved_1f1b(stage, loss, (chunks(ws), chunks(bs)),
+                                       xmb.expand((p,) + tuple(xmb.shape)).contiguous(),
+                                       n_chunks=v)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    w_seq, b_seq = ws.clone().requires_grad_(), bs.clone().requires_grad_()
+    total = 0.0
+    for k in range(m):
+        x = xmb[k]
+        for i in range(n):
+            x = torch.tanh(x @ w_seq[i] + b_seq[i])
+        total = total + (x * x).sum()
+    gw, gb = torch.autograd.grad(total, [w_seq, b_seq])
+    tol = INTERLEAVED_TOL
+
+    def of_tol(got, want):  # max |got - want| / (atol + rtol |want|): <= 1 passes
+        return ((got - want).abs() / (tol["grad_atol"] + tol["grad_rtol"] * want.abs())).max().item()
+
+    loss_rel = max(abs(got_l[s].item() - total.item()) for s in range(p)) / abs(total.item())
+    grads = max(of_tol(dw, chunks(gw)), of_tol(db, chunks(gb)))
+    if not (loss_rel <= tol["loss_rtol"] and grads <= 1):
+        fail(f"interleaved 1F1B against sequential autograd: loss rel {loss_rel}, gradients "
+             f"{grads} of the tolerance")
+    return dict(sizes=sizes, tolerances=tol, loss=got_l[0].item(), sequential_loss=total.item(),
+                loss_rel=loss_rel, grads_of_tolerance=grads, ms=ms,
+                slots=int(_simulate_interleaved(m, p, v)["do_f"].shape[0]))
+
 def mesh_path() -> dict:
     """The flagship at world > 1 with every member on the card, at the bench
     widths in float32: mesh A (dp=2, cp=2, tp=2: ring attention on the f32
@@ -1274,6 +1351,8 @@ def mesh_path() -> dict:
                                    ms=manual["ms"], gpipe_ms=gpipe["ms"],
                                    peak_gib=manual["peak_gib"], launches=manual["launches"])
     del gpipe, manual, params
+    torch.cuda.empty_cache()
+    readings["interleaved_1f1b"] = interleaved_vs_sequential()
     torch.cuda.empty_cache()
 
     # the step at each mesh, as a user trains (the aux losses on, capacity
@@ -3664,6 +3743,293 @@ def serve_features_path(device=DEV, widths=SERVE_WIDTHS, traffic=SERVE_FEATURES)
                          "device_events": len(spans)})
     return dict(meter.launches)
 
+# ---------------------------------------------------------------------------
+# 10. The p2p plane: weight push into a server, the remote KV tier, staging
+
+# (a) The MoE model's global f32 params (init_params, seed 0, at
+# SERVE_WIDTHS: 320,906,240 floats, the gradient bucket's count) published
+# from the card with wire None and fp8 and pushed down a relay chain
+# publisher -> relay -> leaf over loopback; then a server at EP world 4 on the
+# pallas wire built on the leaf's snapshot serves P2P_TRAFFIC's 8 requests
+# beside the same engine on the source params. (b) A features-style engine
+# at KV_TIER_TRAFFIC whose one-entry host tier spills to a KvTierServer on a
+# second endpoint; each request is submitted once the one before it has
+# finished. (c) A 256 MiB CUDA tensor through send_device / recv_device at
+# 8 MiB chunks.
+P2P_TRAFFIC = dict(requests=8, prompt_len=256, min_prompt_len=64, new_tokens=16, max_seq=512,
+                   arrival_rate=8.0, slots=16, world=4)
+P2P_PATHS = 4  # channel paths per hop of the relay chain
+KV_TIER_TRAFFIC = dict(slots=4, world=4, prefill_chunk=128, prefix_len=256, suffix_len=64,
+                       donors=6, revisits=3, new_tokens=16, max_seq=512)
+STAGE_BYTES = 256 << 20
+STAGE_CHUNK = 8 << 20
+
+def chan_pair(server_ep, client_ep, n_paths):
+    """A p2p Channel between two endpoints: (server side, client side)."""
+    from uccl_tpu_torch.p2p import Channel
+
+    res = {}
+    t = threading.Thread(target=lambda: res.setdefault("c", Channel.accept(server_ep)))
+    t.start()
+    client = Channel.connect(client_ep, "127.0.0.1", server_ep.port, n_paths=n_paths)
+    t.join(timeout=60)
+    if "c" not in res:
+        fail("p2p: a channel handshake did not complete in 60 s")
+    return res["c"], client
+
+def same_bits(a, b) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a.contiguous().view(ints), b.contiguous().view(ints))
+
+def push_chain(pub, version) -> tuple:
+    """Serve ``version`` of "moe" from ``pub`` down publisher -> relay ->
+    leaf (three endpoints, P2P_PATHS paths a hop): returns the relay's and
+    the leaf's snapshots and the seconds from the first fetch to the last
+    verified group."""
+    from uccl_tpu_torch.p2p import Endpoint
+    from uccl_tpu_torch.p2p import weight_push as wp
+
+    eps = [Endpoint(n_engines=P2P_PATHS) for _ in range(3)]
+    try:
+        d0, up_relay = chan_pair(eps[0], eps[1], P2P_PATHS)
+        d1, up_leaf = chan_pair(eps[1], eps[2], P2P_PATHS)
+        snaps, errs = {}, []
+
+        def node(name, up, downs):
+            try:
+                snaps[name] = wp.fetch(up, "moe", version=version, forward_to=downs)
+            except BaseException as e:  # re-raised below
+                errs.append(e)
+
+        ts = [threading.Thread(target=node, args=("relay", up_relay, [d1])),
+              threading.Thread(target=node, args=("leaf", up_leaf, []))]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        pub.serve(d0)
+        for t in ts:
+            t.join(timeout=600)
+        seconds = time.perf_counter() - t0
+        if errs or any(t.is_alive() for t in ts):
+            fail(f"p2p_path: the relay chain failed: {errs}")
+        for c in (d0, up_relay, d1, up_leaf):
+            c.close()
+    finally:
+        for ep in eps:
+            ep.close()
+    return snaps["relay"], snaps["leaf"], seconds
+
+def stage_roundtrip(x, reps=3) -> dict:
+    """send_device / recv_device of ``x`` at STAGE_CHUNK over loopback:
+    bit-exact each time; the median GB/s of ``reps`` timed runs after one
+    warm run."""
+    from uccl_tpu_torch.p2p import Endpoint
+
+    out = {"gbps": []}
+    with Endpoint() as server, Endpoint() as client:
+        conn_c = client.connect("127.0.0.1", server.port)
+        conn_s = server.accept()
+        for i in range(reps + 1):
+            errs = []
+
+            def send():
+                try:
+                    client.send_device(conn_c, x, chunk_bytes=STAGE_CHUNK)
+                except BaseException as e:
+                    errs.append(e)
+
+            sync = torch.cuda.synchronize if x.device.type == "cuda" else (lambda: None)
+            sync()
+            t0 = time.perf_counter()
+            t = threading.Thread(target=send)
+            t.start()
+            y = server.recv_device(conn_s, tuple(x.shape), x.dtype, device=x.device,
+                                   timeout_ms=120000)
+            t.join(timeout=120)
+            sync()
+            dt = time.perf_counter() - t0
+            if errs or not same_bits(y, x):
+                fail(f"p2p staging: the {x.nbytes} B tensor did not arrive bit-exact {errs}")
+            if i:
+                out["gbps"].append(x.nbytes / dt / 1e9)
+        try:
+            server.reg(x)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+    if x.device.type == "cuda" and not refused:
+        fail("p2p staging: reg of a CUDA tensor did not raise")
+    out["reg_refused"] = refused
+    return out
+
+def kv_tier_drive(backend, traffic) -> dict:
+    """Drive (b): prefixes of ``prefix_len`` tokens, each request a prefix and
+    ``suffix_len`` fresh tokens, submitted one after another once the one
+    before has finished (no clock in it): ``donors`` distinct prefixes, then
+    ``revisits`` requests on the oldest prefixes, whose donors by then were
+    evicted from the slots, demoted to the one-entry host tier and spilled to
+    the remote peer. Every request against replay_alone."""
+    from uccl_tpu_torch import serve
+    from uccl_tpu_torch.p2p import Endpoint
+    from uccl_tpu_torch.serving import PrefixCache, ServingEngine
+    from uccl_tpu_torch.serving.kv_tiers import KvTierServer, RemoteKVTier, TieredKVCache
+
+    cfg = backend.server.cfg
+    entry = 2 * cfg.n_layers * traffic["prefix_len"] * cfg.n_kv_heads * cfg.head_dim * 4
+    rng = np.random.default_rng(3)
+    vocab = cfg.vocab
+    prefixes = [rng.integers(0, vocab, traffic["prefix_len"]).astype(np.int32)
+                for _ in range(traffic["donors"])]
+    order = list(range(traffic["donors"])) + list(range(traffic["revisits"]))
+    fams = ("kv_tier_demotions_total", "kv_tier_promotions_total", "kv_tier_drops_total")
+
+    def counts():
+        return {f"{f.split('_')[2]}_{t}": obs.counter(f).get(tier=t) for f in fams
+                for t in ("t1", "t2")} | {
+            "p2p_kv_tier_bytes": obs.counter("p2p_bytes_total").get(verb="kv_tier")}
+
+    server = KvTierServer(capacity_bytes=64 * entry)
+    with Endpoint(n_engines=2) as peer, Endpoint(n_engines=2) as host:
+        schan, cchan = chan_pair(peer, host, 2)
+        serving = server.serve_forever(schan, timeout_ms=120000)
+        remote = RemoteKVTier(cchan, max_entry_bytes=2 * entry, timeout_ms=120000)
+        tiers = TieredKVCache(host_bytes=entry + 1, remote=remote)
+        engine = ServingEngine(backend, prefill_chunk=traffic["prefill_chunk"],
+                               prefix_cache=PrefixCache(traffic["prefill_chunk"]),
+                               kv_tiers=tiers)
+        c0 = counts()
+        reqs, t0 = [], time.perf_counter()
+        for i in order:
+            prompt = np.concatenate([prefixes[i], rng.integers(0, vocab, traffic["suffix_len"])
+                                     ]).astype(np.int32)
+            reqs.append(engine.submit(prompt, max_new_tokens=traffic["new_tokens"]))
+            engine.drain()
+        wall = time.perf_counter() - t0
+        moved = {k: v - c0[k] for k, v in counts().items()}
+        check = serve.oracle_check(engine, reqs)
+        hits = [r.cache_hit_len for r in reqs]
+        engine.prefix_cache.clear(engine.pool)
+        engine.close()
+        remote.close()
+        cchan.send(b"UKT1" + b'{"op": "stop"}')  # the serve loop exits on an op it cannot serve
+        serving.join(timeout=120)
+        if serving.is_alive():
+            fail("p2p_path: the KV tier server did not stop")
+    if not (check["oracle_match"] and check["leaked_slots"] == 0 and check["conservation"]):
+        fail(f"p2p_path kv tier: oracle_match={check['oracle_match']} leaked="
+             f"{check['leaked_slots']} conservation={check['conservation']} mismatches="
+             f"{check['mismatches']}")
+    if not (moved["demotions_t2"] > 0 and moved["promotions_t2"] > 0):
+        fail(f"p2p_path kv tier: no T2 put or get: {moved}")
+    return {"requests_exact": len(reqs), "wall_s": wall, "counters": moved,
+            "cache_hit_len": hits, "entry_bytes": entry, "remote_entries_left": len(server)}
+
+def p2p_path(device=DEV, widths=SERVE_WIDTHS, traffic=P2P_TRAFFIC,
+             kv_traffic=KV_TIER_TRAFFIC) -> int:
+    """The p2p plane's main path (see P2P_TRAFFIC above). Raises unless every
+    peer's snapshot of each push is bit-equal to the published version, the
+    publisher's counted egress is one snapshot per push, every request of the
+    pushed server equals the source server's token for token with B9
+    launched and no wire fallback, the KV-tier drive put and got through the
+    remote peer with every request equal to its replay_alone, and the staged
+    tensor arrived bit-exact with reg of a CUDA tensor refused. Returns B9's
+    launches in the two serving drives."""
+    from uccl_tpu_torch import serve
+    from uccl_tpu_torch.models import moe_inference as tmoe
+    from uccl_tpu_torch.p2p import WeightPublisher
+    from uccl_tpu_torch.serving import replicate_backend
+    from uccl_tpu_torch.serving.engine import MoEBackend
+
+    t_start = time.perf_counter()
+    is_cuda = torch.device(device).type == "cuda"
+    dev = "cuda" if is_cuda else "cpu"
+    args = serve_args(widths, traffic, stack="moe", device=dev, slots=traffic["slots"])
+    backend, _, vocab = serve.build_stack(args, dev, moe_wire="pallas")
+    params = tmoe.init_params(prng_key(0), backend.server.cfg, dev)
+    n_floats = sum(v.numel() for _, v in tree_items(params))
+    (source,) = replicate_backend(backend, 1, weights=params)
+
+    # (a) the pushes
+    pub = WeightPublisher()
+    egress = obs.counter("weight_push_bytes_total")
+    pushes, leaf_raw = {}, None
+    for wire in (None, "fp8"):
+        t0 = time.perf_counter()
+        version = pub.publish("moe", params, wire=wire)
+        publish_s = time.perf_counter() - t0
+        snap = pub.get("moe", version)
+        root0 = egress.get(role="tx", name="moe", src="publisher")
+        relay, leaf, push_s = push_chain(pub, version)
+        root = egress.get(role="tx", name="moe", src="publisher") - root0
+        canon = snap.flat()
+        for name, peer in (("relay", relay), ("leaf", leaf)):
+            got = peer.flat()
+            if peer.manifest != snap.manifest or set(got) != set(canon) or \
+                    not all(same_bits(got[k], canon[k]) for k in canon):
+                fail(f"p2p_path: the {name}'s tree differs from the published version "
+                     f"(wire {wire})")
+        if root != snap.total_bytes:
+            fail(f"p2p_path: the publisher shipped {root} B for a {snap.total_bytes} B "
+                 f"snapshot (wire {wire})")
+        pushes[wire or "none"] = {"snapshot_bytes": snap.total_bytes, "publish_s": publish_s,
+                                  "chain_s": push_s, "publisher_egress_bytes": root,
+                                  "leaf_GBps": snap.total_bytes / push_s / 1e9,
+                                  "groups": len(snap.manifest["groups"])}
+        if wire is None:
+            leaf_raw = leaf
+        del relay, leaf, canon
+    del pub
+    (pushed,) = replicate_backend(backend, 1, weights=leaf_raw)
+    del leaf_raw
+    workload = serve_workload(traffic, vocab, traffic["requests"], poisson=False)
+    fb0 = dma.WIRE_FALLBACK.total()
+    pa.reset_launch_counts()
+    out, seconds = {}, {}
+    for name, be in (("source", source), ("pushed", pushed)):
+        t0 = time.perf_counter()
+        out[name] = serve_drive(be, workload, traffic, check=False)[1]
+        seconds[name] = time.perf_counter() - t0
+    b9 = pa.launch_counts["a2a"]
+    differ = [r.rid for r, q in zip(out["pushed"], out["source"]) if r.out_tokens != q.out_tokens]
+    if differ or len(out["pushed"]) != traffic["requests"]:
+        fail(f"p2p_path: the pushed server's tokens differ from the source's on {differ}")
+    if not b9 or dma.WIRE_FALLBACK.total() != fb0:
+        fail(f"p2p_path: B9 launched {b9} times, {dma.WIRE_FALLBACK.total() - fb0} fallbacks")
+    del source, pushed, out
+    if is_cuda:
+        torch.cuda.empty_cache()
+
+    # (b) the remote KV tier, on a 4-slot backend over the same server
+    kv_backend = MoEBackend(backend.server, backend.params, batch_local=kv_traffic["slots"]
+                            // kv_traffic["world"], max_seq=kv_traffic["max_seq"],
+                            decode_impl=backend.decode_impl)
+    kv = kv_tier_drive(kv_backend, kv_traffic)
+    del kv_backend, backend, params
+    if is_cuda:
+        torch.cuda.empty_cache()
+
+    # (c) staging
+    g = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(STAGE_BYTES // 4, device=device, generator=g)
+    staged = stage_roundtrip(x)
+    del x
+    gbps = statistics.median(staged["gbps"])
+    card = nvidia_smi_line() if is_cuda else "cpu"
+    print(f"p2p staging: {gbps:.3f} GB/s for a {STAGE_BYTES >> 20} MiB tensor at "
+          f"{STAGE_CHUNK >> 20} MiB chunks (card -> pinned host -> loopback TCP -> pinned host "
+          f"-> card: a loopback host number, not a network number) | {card}", flush=True)
+    emit("p2p_path", widths=widths, traffic=traffic, kv_traffic=kv_traffic, wire="pallas",
+         params_floats=n_floats, paths_per_hop=P2P_PATHS, push=pushes,
+         serve={"requests_exact": len(workload[0]), "b9_launches": b9, "seconds": seconds},
+         kv_tier=kv, staging={"bytes": STAGE_BYTES, "chunk_bytes": STAGE_CHUNK,
+                              "GBps": staged["gbps"], "GBps_median": gbps,
+                              "reg_refused": staged["reg_refused"],
+                              "what": "loopback host number, not a network number"},
+         card=card, seconds=time.perf_counter() - t_start)
+    return b9
+
 def main() -> None:
     t_start = time.perf_counter()
     toolchain()
@@ -3735,9 +4101,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     serve_launches["serve_features_path"] = serve_features_path()
     torch.cuda.empty_cache()
+    serve_launches["p2p_path"] = p2p_path()
+    torch.cuda.empty_cache()
     ep_launches["a2a"] += (mesh_launches["a2a"] + serve_launches["prefill"]
                            + serve_launches["decode"]
-                           + sum(serve_launches["serve_features_path"].values()))
+                           + sum(serve_launches["serve_features_path"].values())
+                           + serve_launches["p2p_path"])
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": {**REPLACES, **F32_REPLACES}[name],

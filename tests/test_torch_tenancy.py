@@ -9,8 +9,9 @@ weights, the same LoRA trees (drawn by the JAX ``make_lora``, carried
 through numpy) and the same requests: tokens, states and finish reasons
 identical (no tolerance), every request equal to its ``replay_alone``, and
 on the CPU each adapted request equal to ``generate`` on its
-dense-materialized ``W + A @ B`` weights. ``ingest`` needs the p2p plane
-and raises naming its ROADMAP item.
+dense-materialized ``W + A @ B`` weights. ``ingest`` takes a weight-push
+snapshot, the port's own and one fetched from a JAX publisher over
+loopback, and stages the same table rows as the JAX store.
 """
 
 from types import SimpleNamespace
@@ -134,9 +135,63 @@ def test_can_acquire_and_row_accounting(P):
     store.release(rb)
 
 
-def test_ingest_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="queue A item 14"):
-        _store(PKGS["torch"]).ingest(object())
+def test_weight_push_ingest_round_trip(P):
+    """tests/test_tenancy.py's ingest round trip on both packages:
+    ``adapter/<tenant>`` names map onto store tenants and pin the snapshot
+    version; the staged row is the snapshot's tree."""
+    if P is PKGS["jax"]:
+        from uccl_tpu.p2p.weight_push import WeightPublisher
+    else:
+        from uccl_tpu_torch.p2p.weight_push import WeightPublisher
+    pub = WeightPublisher()
+    pub.publish("adapter/acme", _lora(2, seed=3))
+    pub.publish("adapter/acme", _lora(2, seed=4))  # v2
+    snap = pub.get("adapter/acme")
+    store = _store(P, max_rank=2, capacity=2)
+    assert store.ingest(snap) == 2
+    assert store.has("acme") and store.version("acme") == 2
+    row = store.acquire("acme")
+    want = _np(snap.tree()["wq"]["a"])
+    assert np.array_equal(_np(store.device_tables()["wq"][0][:, row]), want)
+    store.release(row)
+
+
+def test_ingest_of_a_snapshot_fetched_from_a_jax_publisher():
+    """The distribution path across the packages: a JAX WeightPublisher
+    serves an adapter over loopback, the port fetches it and ingests it,
+    and the staged tables equal the JAX store's ingest of the published
+    snapshot."""
+    import threading
+
+    from uccl_tpu.p2p import Channel as JChannel
+    from uccl_tpu.p2p import Endpoint as JEndpoint
+    from uccl_tpu.p2p.weight_push import WeightPublisher as JPublisher
+    from uccl_tpu_torch.p2p import Channel, Endpoint
+    from uccl_tpu_torch.p2p import weight_push as twp
+
+    pub = JPublisher(group_bytes=1024)
+    pub.publish("adapter/beta", _lora(2, seed=5), version=7)
+    with JEndpoint(n_engines=2) as jep, Endpoint(n_engines=2) as tep:
+        res = {}
+        t = threading.Thread(target=lambda: res.setdefault("c", JChannel.accept(jep)))
+        t.start()
+        cli = Channel.connect(tep, "127.0.0.1", jep.port, n_paths=2)
+        t.join(timeout=60)
+        ts = threading.Thread(target=lambda: pub.serve(res["c"]))
+        ts.start()
+        snap = twp.fetch(cli, "adapter/beta")
+        ts.join(timeout=60)
+    stores = {"torch": _store(PKGS["torch"], max_rank=2, capacity=2),
+              "jax": _store(PKGS["jax"], max_rank=2, capacity=2)}
+    assert stores["torch"].ingest(snap) == 7
+    assert stores["jax"].ingest(pub.get("adapter/beta")) == 7
+    rows = {k: s.acquire("beta") for k, s in stores.items()}
+    for tgt in ("wq", "wv"):
+        for i in range(2):
+            assert np.array_equal(_np(stores["torch"].device_tables()[tgt][i]),
+                                  _np(stores["jax"].device_tables()[tgt][i]))
+    for k, s in stores.items():
+        s.release(rows[k])
 
 
 # -- the engine on the dense stack -----------------------------------------------------

@@ -15,8 +15,8 @@ of a published-but-evicted tenant a miss that re-stages it (evicting the
 least-recently-used row whose refcount is 0: rows pinned by live requests
 are never evicted). Published host copies are the archive misses restage
 from; ``max_published`` bounds it, and a request whose adapter left the
-archive while it queued exits ``adapter_lost``. ``ingest`` of a weight-push
-snapshot needs the p2p plane (ROADMAP queue A item 14) and raises.
+archive while it queued exits ``adapter_lost``. ``ingest`` publishes a
+fetched weight-push snapshot (``p2p/weight_push.py``).
 
 Counters: ``adapter_cache_hits_total``, ``adapter_cache_misses_total``,
 ``adapter_cache_evictions_total``, gauge ``adapter_cache_resident``.
@@ -198,12 +198,12 @@ class AdapterStore:
         return int(version)
 
     def ingest(self, snapshot) -> int:
-        """Consume a weight-push snapshot: needs the p2p plane, which is
-        not ported yet (ROADMAP queue A item 14); :meth:`publish` takes
-        the same tree."""
-        raise NotImplementedError(
-            "AdapterStore.ingest needs the p2p weight-push plane, which is "
-            "not ported yet (ROADMAP queue A item 14)")
+        """Consume a :class:`~uccl_tpu_torch.p2p.weight_push.WeightSnapshot`:
+        the name's last ``/`` component is the tenant (``adapter/acme``
+        → ``acme``), the snapshot version becomes the adapter version."""
+        tenant = snapshot.name.rsplit("/", 1)[-1]
+        return self.publish(tenant, snapshot.tree(),
+                            version=snapshot.version)
 
     def has(self, tenant: str) -> bool:
         return tenant in self._published

@@ -351,19 +351,29 @@ def _same_backend(backend, params):
 def replicate_backend(backend, n: int, weights=None) -> List:
     """``n`` replica backends from one prototype: every replica owns its KV
     pool and shares the prototype's parameters (MoE replicas share its
-    server too). ``weights`` (a parameter tree of the prototype's
-    structure and shapes, or an object whose ``tree()`` returns one) makes
-    every replica, the prototype included, serve those instead;
-    mismatches raise before any replica serves."""
+    server too). ``weights`` (a parameter tree of the model's structure and
+    shapes, or an object whose ``tree()`` returns one, such as a fetched
+    :class:`~uccl_tpu_torch.p2p.weight_push.WeightSnapshot`) makes every
+    replica, the prototype included, serve those instead, placed on the
+    prototype's device; mismatches raise before any replica serves. An MoE
+    backend takes the global tree ``init_params`` draws (the JAX backend's
+    own shapes, so either package's publisher serves it) and places it as
+    its server serves it (``MoEServer.shard_params``)."""
     if n < 1:
         raise ValueError(f"need n >= 1 replicas, got {n}")
     if weights is not None:
-        backend = _same_backend(backend, _reweight(backend.params, weights))
+        tree = weights.tree() if hasattr(weights, "tree") else weights
+        if isinstance(backend, MoEBackend):
+            try:
+                tree = backend.server.shard_params(tree)
+            except (KeyError, TypeError, RuntimeError) as e:
+                raise ValueError(f"pushed weight tree does not match the MoE model's "
+                                 f"params: {e}") from e
+        backend = _same_backend(backend, _reweight(backend.params, tree))
     return [backend] + [_same_backend(backend, backend.params) for _ in range(1, n)]
 
 
-def _reweight(proto, weights):
-    tree = weights.tree() if hasattr(weights, "tree") else weights
+def _reweight(proto, tree):
 
     def walk(p, g, path):
         if isinstance(p, dict):
