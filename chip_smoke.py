@@ -35,7 +35,14 @@ stack at world 1. Then the p2p plane (p2p_path): the MoE model's params
 published from the card and pushed down a relay chain over loopback into a
 server that must serve the source server's tokens, the remote KV tier, and
 CUDA-tensor staging (mesh_path also holds interleaved 1F1B to sequential
-autograd). Every phase raises on failure; nothing is caught. Each
+autograd). Then the multi-process planes: dist_path (two pods, threads
+over loopback DcnGroups: hierarchical_all_reduce at the gradient bucket
+with its reduce-scatter leg on B5, compat.dist on CUDA tensors in two
+processes, DDP gradients, the engram fetch, cross-pod EP forward and
+backward against its oracle) and disagg_path (a prefill and a decode
+worker on the MoE stack, B9 on both, every request equal to its replay;
+the fleet prefix directory; the elastic KV cache, bit-equal to
+decode_step). Every phase raises on failure; nothing is caught. Each
 phase prints one JSON line; the last three lines are the card's name and power limit (nvidia-smi), the
 per-kernel JSON summary and
 
@@ -1832,6 +1839,8 @@ def ring_timing() -> dict:
          note="one card: every hop is an HBM-to-HBM store; no NVLink or bus-bandwidth claim")
     return res
 
+BUCKET_SHAPES = []  # the bench config's parameter shapes, in bucket order
+
 def gradient_bucket() -> torch.Tensor:
     """The members' payloads [W, BUCKET]: each member's gradient of the
     bench-config flagship on its own batch (B=8, S=1024), flattened in
@@ -1839,6 +1848,7 @@ def gradient_bucket() -> torch.Tensor:
     cfg = flagship.bench_config()
     params = flagship.init_params(prng_key(0), cfg, DEV)
     leaves = [p.requires_grad_() for p in flagship.tree_leaves(params)]
+    BUCKET_SHAPES[:] = [tuple(p.shape) for p in leaves]
     total = sum(p.numel() for p in leaves)
     if total != BUCKET:
         fail(f"bench config has {total} parameters, expected {BUCKET}")
@@ -4030,6 +4040,603 @@ def p2p_path(device=DEV, widths=SERVE_WIDTHS, traffic=P2P_TRAFFIC,
          card=card, seconds=time.perf_counter() - t_start)
     return b9
 
+# ---------------------------------------------------------------------------
+# 11. The multi-process planes (dist_path, disagg_path): the distributed
+# session and its DcnGroup (threads as ranks over loopback, one store),
+# hierarchical_all_reduce at the gradient bucket with its reduce-scatter leg
+# on B5, compat.dist on CUDA tensors in two processes, DDP gradients, the
+# engram fetch and cross-pod EP; then disaggregated serving on the MoE stack
+# (B9 on both workers), the fleet prefix directory and the elastic KV cache.
+
+DIST_PODS = 2
+DIST_SUM_CHUNK = 1 << 24  # elements per float64 reference slice
+COMPAT_ELEMS = 16 << 20  # f32 elements per rank through compat.dist (64 MiB)
+ENGRAM = dict(entries=65536, hidden=1024, fetch=4096)
+XPOD = dict(experts=8, dim=1024, ffn=2816, tokens=4096, topk=2, chunks=2)
+XPOD_FWD_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_ep.py::TestCrossPod's
+XPOD_GRAD_TOL = dict(rtol=2e-3, atol=2e-4)  # tests/test_ep.py::TestCrossPodTraining's
+DISAGG_TRAFFIC = dict(requests=8, prompt_len=896, min_prompt_len=128, new_tokens=64,
+                      max_seq=1024, arrival_rate=8.0, prefill_chunk=128, slots=8, world=4)
+FLEET_TRAFFIC = dict(shared_len=512, suffix_len=64, new_tokens=16)
+ELASTIC = dict(context=1000, steps=24, block_tokens=128, hot_budget_blocks=2)
+
+def pods(n, body, tag):
+    """``body(dcn, p)`` on ``n`` threads, one DcnGroup rank each over one
+    store; raises on any rank's failure. Returns {p: result}."""
+    import traceback
+
+    from uccl_tpu_torch.collective.hierarchical import DcnGroup
+    from uccl_tpu_torch.p2p.store import StoreClient, StoreServer
+    from uccl_tpu_torch.parallel.distributed import Session
+
+    server = StoreServer()
+    out, errors = {}, []
+
+    def rank_main(p):
+        try:
+            client = StoreClient("127.0.0.1", server.port)
+            g = DcnGroup(Session(rank=p, world=n, store=client), n_paths=2, tag=tag)
+            try:
+                out[p] = body(g, p)
+            finally:
+                g.close()
+                client.close()
+        except BaseException:
+            errors.append(traceback.format_exc())
+
+    ts = [threading.Thread(target=rank_main, args=(p,)) for p in range(n)]
+    [t.start() for t in ts]
+    [t.join(timeout=600) for t in ts]
+    server.close()
+    if errors or len(out) != n:
+        fail(f"{tag}: a rank failed:\n{errors[0] if errors else 'timed out'}")
+    return out
+
+def sum_rule(got, xs, what) -> dict:
+    """``got`` [N] against the float64 sum of every row of ``xs`` (a list of
+    [W, N]), within (R-1)·u·Σ|x| for R rows, in slices."""
+    rows = sum(x.shape[0] for x in xs)
+    worst, ratio = 0.0, 0.0
+    for lo in range(0, got.numel(), DIST_SUM_CHUNK):
+        hi = min(lo + DIST_SUM_CHUNK, got.numel())
+        ref = sum(x[:, lo:hi].double().sum(0) for x in xs)
+        mag = sum(x[:, lo:hi].double().abs().sum(0) for x in xs)
+        err = (got[lo:hi].double() - ref).abs()
+        bound = (rows - 1) * UNIT_ROUNDOFF[torch.float32] * mag
+        if (err > bound).any():
+            fail(f"{what}: outside (R-1)·u·Σ|x| of the float64 sum "
+                 f"(max err {err.max().item()})")
+        worst = max(worst, err.max().item())
+        ratio = max(ratio, (err / bound.clamp_min(1e-300)).max().item())
+        del ref, mag, err, bound
+    return {"max_abs_err_vs_float64": worst, "max_err_over_rule": ratio}
+
+def hier_run(xs, device, named_ring) -> tuple:
+    """Two pods (threads), each a one-card Communicator at local world 4:
+    ``hierarchical_all_reduce`` (the planner's choice), or with
+    ``named_ring`` its three legs with the ring named (B5, the DCN ring,
+    B4). Returns (the pods' results, seconds, B5 and B4 launches)."""
+    from uccl_tpu_torch.collective.hierarchical import hierarchical_all_reduce
+    from uccl_tpu_torch.p2p.endpoint import host_copy
+
+    comms = [Communicator(make_mesh(MeshConfig(dp=WORLD), device), AXIS.DP)
+             for _ in range(DIST_PODS)]
+
+    def body(g, p):
+        comm, x = comms[p], xs[p]
+        if not named_ring:
+            out = hierarchical_all_reduce(comm, g, x)
+        else:
+            shard = comm.reduce_scatter(x, algo="ring")
+            reduced = g.all_reduce(host_copy(shard).numpy())
+            gathered = comm.all_gather(comm.device_put(reduced), algo="ring")
+            out = gathered.reshape(1, -1).expand(WORLD, x.shape[1]).contiguous()
+        if out.device.type == "cuda":
+            torch.cuda.synchronize(out.device)
+        return out
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    rc.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pods(DIST_PODS, body, "hier_ring" if named_ring else "hier_auto")
+    seconds = time.perf_counter() - t0
+    return out, seconds, rc.launch_counts["ring_reduce_scatter"], rc.launch_counts[
+        "ring_all_gather"]
+
+COMPAT_RANK = r"""
+import json, sys, time, torch
+from uccl_tpu_torch.compat import dist
+rank, world, port, elems = (int(a) for a in sys.argv[1:5])
+dev = torch.device("cuda", 0)
+dist.init_process_group(rank, world, master_port=port)
+base = (torch.arange(elems, device=dev) % 1000).float() * 0.5  # sums are exact in f32
+x = base + rank
+ptr = x.data_ptr()
+dist.barrier()
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+dist.all_reduce(x)
+torch.cuda.synchronize()
+ar_s = time.perf_counter() - t0
+outs = [torch.empty(elems // 16, device=dev) for _ in range(world)]
+dist.all_gather(outs, base[: elems // 16] * (rank + 1))
+b = torch.full((1024,), float(rank), device=dev)
+dist.broadcast(b, src=1)
+a = torch.arange(world, dtype=torch.float32, device=dev) + 10 * rank
+a_out = torch.empty(world, device=dev)
+dist.all_to_all(a_out, a)
+dist.barrier()
+ok = {"in_place": x.data_ptr() == ptr and x.device.type == "cuda",
+      "all_reduce": bool(torch.equal(x, world * base + sum(range(world)))),
+      "all_gather": all(bool(torch.equal(o, base[: elems // 16] * (i + 1)))
+                        for i, o in enumerate(outs)),
+      "broadcast": bool((b == 1.0).all()),
+      "all_to_all": a_out.tolist() == [rank + 10.0 * j for j in range(world)]}
+dist.destroy_process_group()
+print(json.dumps({"rank": rank, "ok": ok, "all_reduce_s": ar_s}))
+"""
+
+def compat_check(elems=COMPAT_ELEMS) -> dict:
+    """compat.dist in two processes, one a rank, on CUDA tensors in place:
+    each rank checks its own results (the sums are exact by construction)
+    and reports them as JSON."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = [subprocess.Popen([sys.executable, "-c", COMPAT_RANK, str(r), str(DIST_PODS),
+                               str(port), str(elems)], cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(DIST_PODS)]
+    res = {}
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=300)
+            if p.returncode != 0:
+                fail(f"dist_path compat: rank {r} exited {p.returncode}: {err[-2000:]}")
+            res[r] = json.loads(out.strip().splitlines()[-1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = {r: v["ok"] for r, v in res.items() if not all(v["ok"].values())}
+    if bad:
+        fail(f"dist_path compat: {bad}")
+    s = max(v["all_reduce_s"] for v in res.values())
+    return {"elems_per_rank": elems, "bytes_per_rank": elems * 4, "all_reduce_s": s,
+            "all_reduce_GBps": elems * 4 / s / 1e9, "in_place": True}
+
+def ddp_check(bucket) -> dict:
+    """allreduce_gradients on the flagship's gradients: rank r's grads are
+    bucket row r (one member's gradient of the bench config), laid out as
+    the model's parameters; the averages equal (g0 + g1) / 2 on the host,
+    bit for bit."""
+    from uccl_tpu_torch.interop import allreduce_gradients
+
+    shapes = BUCKET_SHAPES or [(bucket.shape[1],)]
+    ranks = []
+    for r in range(DIST_PODS):
+        params, off = [], 0
+        for shape in shapes:
+            n = math.prod(shape)
+            p = torch.empty(shape, device=bucket.device)
+            p.grad = bucket[r, off:off + n].view(shape).clone()
+            params.append(p)
+            off += n
+        ranks.append(params)
+    want = (bucket[0].cpu() + bucket[1].cpu()) / DIST_PODS
+    if bucket.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pods(DIST_PODS, lambda g, p: allreduce_gradients(ranks[p], g), "ddp")
+    seconds = time.perf_counter() - t0
+    for params in ranks:
+        got = torch.cat([p.grad.reshape(-1) for p in params]).cpu()
+        if not torch.equal(got, want):
+            fail(f"dist_path ddp: averaged gradients differ "
+                 f"(max abs {(got - want).abs().max().item()})")
+        del got
+    del ranks
+    return {"leaves": len(shapes), "bytes_per_rank": bucket.shape[1] * 4, "seconds": seconds,
+            "GBps": bucket.shape[1] * 4 / seconds / 1e9}
+
+def engram_check(device, sizes=ENGRAM) -> dict:
+    """EngramTable.fetch across two endpoints (half the rows remote), and
+    mesh_fetch on the card, both against the global table."""
+    from uccl_tpu_torch.ep.engram import EngramTable, mesh_fetch
+    from uccl_tpu_torch.p2p import Endpoint
+
+    rng = np.random.default_rng(7)
+    e, h = sizes["entries"], sizes["hidden"]
+    shards = [rng.standard_normal((e, h)).astype(np.float32) for _ in range(2)]
+    table = np.concatenate(shards)
+    idx = rng.integers(0, 2 * e, sizes["fetch"])
+    with Endpoint() as a, Endpoint() as b:
+        ta, tb = EngramTable(a, shards[0], 0, 2), EngramTable(b, shards[1], 1, 2)
+        acc = {}
+        t = threading.Thread(target=lambda: acc.setdefault("c", b.accept(10000)))
+        t.start()
+        conn = a.connect("127.0.0.1", b.port)
+        t.join()
+        t = threading.Thread(target=lambda: tb.link({0: acc["c"]}))
+        t.start()
+        ta.link({1: conn})
+        t.join()
+        ta.fetch(idx[:64])  # warm
+        t0 = time.perf_counter()
+        got = ta.fetch(idx)
+        fetch_s = time.perf_counter() - t0
+        if not np.array_equal(got, table[idx]) or not np.array_equal(tb.fetch(idx), table[idx]):
+            fail("dist_path engram: fetched rows differ from the global table")
+        ta.close()
+        tb.close()
+    dev_table = torch.from_numpy(table).to(device)
+    dev_idx = torch.from_numpy(idx).to(device)
+    mesh_fetch(dev_table, dev_idx)
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    rows = mesh_fetch(dev_table, dev_idx)
+    sync()
+    mesh_s = time.perf_counter() - t0
+    if not np.array_equal(rows.cpu().numpy(), table[idx]):
+        fail("dist_path engram: mesh_fetch differs from the global table")
+    nbytes = idx.size * h * 4
+    remote = int((idx >= e).sum()) * h * 4
+    return {"rows": int(idx.size), "bytes": nbytes, "remote_bytes": remote, "fetch_s": fetch_s,
+            "fetch_GBps": nbytes / fetch_s / 1e9, "mesh_fetch_s": mesh_s,
+            "mesh_fetch_GBps": 2 * nbytes / mesh_s / 1e9}
+
+def xpod_oracle_grads(x, ti, tv, wg, wu, wd, device) -> tuple:
+    """The single-process oracle on ``device``: every pod's tokens through
+    their top-k experts (grouped by expert), loss = Σ_p sum(out_p²), and
+    torch.autograd's gradients for x, the top-k weights and the experts."""
+    import torch.nn.functional as F
+
+    xs = torch.tensor(x, device=device, requires_grad=True)
+    tvs = torch.tensor(tv, device=device, requires_grad=True)
+    ws = [torch.tensor(w, device=device, requires_grad=True) for w in (wg, wu, wd)]
+    tis = torch.as_tensor(ti, device=device)
+    loss, outs = 0.0, []
+    for p in range(x.shape[0]):
+        out = torch.zeros_like(xs[p])
+        for j in range(ti.shape[-1]):
+            for e in range(wg.shape[0]):
+                rows = (tis[p, :, j] == e).nonzero().squeeze(1)
+                if rows.numel() == 0:
+                    continue
+                hsel = xs[p].index_select(0, rows)
+                y = (F.silu(hsel @ ws[0][e]) * (hsel @ ws[1][e])) @ ws[2][e]
+                out = out.index_add(0, rows, tvs[p].index_select(0, rows)[:, j:j + 1] * y)
+        outs.append(out)
+        loss = loss + (out ** 2).sum()
+    grads = torch.autograd.grad(loss, [xs, tvs] + ws)
+    return [o.detach() for o in outs], [g.detach() for g in grads]
+
+def xpod_check(device, sizes=XPOD) -> dict:
+    """CrossPodMoE forward and backward across two pods (threads), the
+    local experts SwiGLU through ep.ops on the card, n_chunks overlap and
+    the scheduled DCN order; held to the oracle on the card within the JAX
+    tests' tolerances: the output within TestCrossPod's, the gradients
+    within TestCrossPodTraining's."""
+    from uccl_tpu_torch.ep.cross_pod import CrossPodMoE
+
+    rng = np.random.default_rng(11)
+    e, h, f, t, k = (sizes[n] for n in ("experts", "dim", "ffn", "tokens", "topk"))
+    epp = e // DIST_PODS
+    w = [(rng.standard_normal(s) * 0.02).astype(np.float32)
+         for s in ((e, h, f), (e, h, f), (e, f, h))]
+    x = rng.standard_normal((DIST_PODS, t, h)).astype(np.float32)
+    logits = torch.from_numpy(rng.standard_normal((DIST_PODS, t, e)).astype(np.float32))
+    gates = torch.softmax(logits, dim=-1)
+    tv_t, ti_t = torch.topk(gates, k, dim=-1)
+    ti = ti_t.to(torch.int32).numpy()
+    tv = (tv_t / tv_t.sum(-1, keepdim=True)).numpy()
+    dev_w = [torch.from_numpy(a).to(device) for a in w]
+
+    def expert_fn(buf, ww):
+        return ep_ops._expert_gemms(buf, ww["wg"], ww["wu"], ww["wd"])
+
+    def body(g, p):
+        moe = CrossPodMoE(g, make_mesh(MeshConfig(dp=WORLD), device), num_global_experts=e,
+                          num_selected=k, capacity_factor=1.0, n_chunks=sizes["chunks"],
+                          a2a_sched="on")
+        local = {n: a[p * epp:(p + 1) * epp] for n, a in zip(("wg", "wu", "wd"), dev_w)}
+        t0 = time.perf_counter()
+        out = moe.forward(x[p], ti[p], tv[p], {"fn": expert_fn, **local})
+        fwd_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dx, dw, dwarr = moe.backward(2.0 * out)
+        bwd_s = time.perf_counter() - t0
+        return out, dx, dw, dwarr, fwd_s, bwd_s
+
+    res = pods(DIST_PODS, body, "xpod")
+    outs, grads = xpod_oracle_grads(x, ti, tv, *w, device)
+    worst = {"forward": 0.0, "gradients": 0.0}
+
+    def held(name, got, want, part, tol):
+        got = torch.as_tensor(got).to(want.device)
+        if not torch.isfinite(got).all() or not torch.allclose(got, want, **tol):
+            fail(f"dist_path cross-pod {name}: outside rtol {tol['rtol']} / atol "
+                 f"{tol['atol']} of the oracle (max abs {(got - want).abs().max().item()})")
+        worst[part] = max(worst[part], (got - want).abs().max().item())
+
+    for p in range(DIST_PODS):
+        out, dx, dw, dwarr, _, _ = res[p]
+        held(f"pod {p} out", out, outs[p], "forward", XPOD_FWD_TOL)
+        held(f"pod {p} d_x", dx, grads[0][p], "gradients", XPOD_GRAD_TOL)
+        held(f"pod {p} d_topk_weights", dw, grads[1][p], "gradients", XPOD_GRAD_TOL)
+        for i, n in enumerate(("wg", "wu", "wd")):
+            held(f"pod {p} d_{n}", dwarr[n], grads[2 + i][p * epp:(p + 1) * epp],
+                 "gradients", XPOD_GRAD_TOL)
+    wire = DIST_PODS * t * (h + 2 * k) * 4  # one pod's dispatch wire, forward
+    return {"pods": DIST_PODS, "tokens_per_pod": t, "topk": k, "experts": e, "dim": h,
+            "ffn": f, "n_chunks": sizes["chunks"], "a2a_sched": "on",
+            "forward_s": max(r[4] for r in res.values()),
+            "backward_s": max(r[5] for r in res.values()),
+            "dispatch_wire_bytes_per_pod": wire,
+            "forward_max_abs_err_vs_oracle": worst["forward"], "forward_tolerance": XPOD_FWD_TOL,
+            "grad_max_abs_err_vs_oracle": worst["gradients"], "grad_tolerance": XPOD_GRAD_TOL}
+
+def dist_path(bucket, device=DEV, engram=ENGRAM, xpod=XPOD, compat_elems=COMPAT_ELEMS) -> dict:
+    """The multi-process collective planes (the section comment above).
+    ``bucket`` is the gradient bucket [W, BUCKET]; pod 1 holds it reversed
+    along the payload. Returns the launches of B5 and B4 counted on the
+    hierarchical legs."""
+    t_start = time.perf_counter()
+    is_cuda = torch.device(device).type == "cuda"
+    card = nvidia_smi_line() if is_cuda else "cpu"
+    xs = [bucket, torch.flip(bucket, dims=[1])]
+    n = bucket.shape[1]
+    rs_auto = plan.get_planner().plan_reduce_scatter((n,), bucket.dtype, WORLD, pallas_ok=True,
+                                                     emit=False).algo
+    hier = {}
+    launches = {"ring_reduce_scatter": 0, "ring_all_gather": 0}
+    for name, named in (("auto", False), ("ring", True)):
+        out, seconds, b5, b4 = hier_run(xs, device, named)
+        want = {"ring_reduce_scatter": DIST_PODS if (named or rs_auto == "ring") else 0,
+                "ring_all_gather": DIST_PODS if named else 0}
+        if (b5, b4) != (want["ring_reduce_scatter"], want["ring_all_gather"]):
+            fail(f"dist_path hierarchical {name}: B5/B4 launched {b5}/{b4}, expected {want}")
+        launches["ring_reduce_scatter"] += b5
+        launches["ring_all_gather"] += b4
+        ref = out[0][0]
+        for p in range(DIST_PODS):
+            if out[p].shape != bucket.shape or not all(torch.equal(out[p][i], ref)
+                                                        for i in range(WORLD)):
+                fail(f"dist_path hierarchical {name}: the members' results differ")
+        hier[name] = {"seconds": seconds, "payload_bytes_per_pod": bucket.numel() * 4,
+                      "GBps_per_pod": bucket.numel() * 4 / seconds / 1e9,
+                      "dcn_bytes_per_pod": n * 4, "b5_launches": b5, "b4_launches": b4,
+                      **sum_rule(ref, xs, f"dist_path hierarchical {name}")}
+        if name == "auto":
+            auto_ref = ref.clone()
+        elif rs_auto == "ring" and not torch.equal(ref, auto_ref):
+            # the same sums in the same order when the planner picked B5
+            fail("dist_path hierarchical: the named ring differs from the planned run")
+        del out, ref
+        if is_cuda:
+            torch.cuda.empty_cache()
+    del xs, auto_ref
+    planner = {"reduce_scatter_auto": rs_auto,
+               "hier_predicted_us": plan.PLAN_PREDICTED.get(algo="hier", chunks=1,
+                                                            wire_dtype="none")}
+    compat = compat_check(compat_elems) if is_cuda else None
+    ddp = ddp_check(bucket)
+    eng = engram_check(device, engram)
+    xp = xpod_check(device, xpod)
+    emit("dist_path", pods=DIST_PODS, local_world=WORLD, bucket_elems_per_member=n,
+         hierarchical=hier, planner=planner, compat=compat, ddp=ddp, engram=eng, cross_pod=xp,
+         launches=launches, card=card, seconds=time.perf_counter() - t_start)
+    return launches
+
+def disagg_pair(backend, traffic):
+    """A PrefillWorker and a DecodeWorker in one process over loopback, on
+    two replicas of ``backend`` (the MoE server shared)."""
+    from uccl_tpu_torch.serving import ServingEngine, replicate_backend
+    from uccl_tpu_torch.serving.disagg import make_local_pair
+
+    pb, db = replicate_backend(backend, 2)
+    pe = ServingEngine(pb, prefill_chunk=traffic["prefill_chunk"])
+    de = ServingEngine(db)
+    return make_local_pair(pe, de)
+
+def b9_counted(engine, tally, key):
+    """Wrap ``engine.step`` to add its B9 launches to ``tally[key]``."""
+    real = engine.step
+
+    def step(*a, **kw):
+        before = pa.launch_counts["a2a"]
+        try:
+            return real(*a, **kw)
+        finally:
+            tally[key] += pa.launch_counts["a2a"] - before
+
+    engine.step = step
+
+def replayed(backend, req, chunk):
+    """An adopted request's tokens replayed alone on ``backend``: its prompt
+    through the prefill worker's chunks, then its decodes."""
+    import copy
+
+    from uccl_tpu_torch.serving.engine import replay_alone
+
+    r = copy.copy(req)
+    r.prefill_chunk = chunk
+    return replay_alone(backend, r).tolist()
+
+def fleet_check(backend, traffic, chunk) -> dict:
+    """Two FleetWorkers on replicas of ``backend``: a request on worker B,
+    submitted after its donor finished on worker A, takes A's prefix from
+    the directory; both equal their replays."""
+    from uccl_tpu_torch.p2p import Endpoint
+    from uccl_tpu_torch.p2p.store import StoreClient, StoreServer
+    from uccl_tpu_torch.serving import PrefixCache, ServingEngine, replicate_backend
+    from uccl_tpu_torch.serving.engine import replay_alone
+    from uccl_tpu_torch.serving.fleet import FleetWorker
+
+    cfg = backend.server.cfg
+    entry = 2 * cfg.n_layers * traffic["shared_len"] * cfg.n_kv_heads * cfg.head_dim * 4
+    srv = StoreServer()
+    made, engines = [], []
+    tally = {"a": 0, "b": 0}
+    try:
+        for name, be in zip("ab", replicate_backend(backend, 2)):
+            sc = StoreClient("127.0.0.1", srv.port)
+            eng = ServingEngine(be, prefill_chunk=chunk, prefix_cache=PrefixCache(chunk))
+            fw = FleetWorker(name, sc, Endpoint(), chunk=chunk, capacity_bytes=8 * entry,
+                             max_entry_bytes=2 * entry, timeout_ms=60000)
+            eng.attach_fleet(fw)
+            b9_counted(eng, tally, name)
+            made.append((fw, sc))
+            engines.append(eng)
+        rng = np.random.default_rng(13)
+        shared = rng.integers(0, cfg.vocab, traffic["shared_len"])
+        prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, traffic["suffix_len"])
+                                   ]).astype(np.int32) for _ in range(2)]
+        donor = engines[0].submit(prompts[0], max_new_tokens=traffic["new_tokens"])
+        engines[0].drain()
+        h0 = obs.counter("fleet_cache_hits_total").get()
+        b0 = obs.counter("p2p_bytes_total").get(verb="kv_tier")
+        t0 = time.perf_counter()
+        req = engines[1].submit(prompts[1], max_new_tokens=traffic["new_tokens"])
+        engines[1].drain()
+        hit_s = time.perf_counter() - t0
+        wire = obs.counter("p2p_bytes_total").get(verb="kv_tier") - b0
+        if obs.counter("fleet_cache_hits_total").get() != h0 + 1 or \
+                req.cache_hit_len != traffic["shared_len"]:
+            fail(f"disagg_path fleet: no directory hit (cache_hit_len {req.cache_hit_len})")
+        for eng, r in zip(engines, (donor, req)):
+            if replay_alone(eng.backend, r).tolist() != r.out_tokens:
+                fail(f"disagg_path fleet: request {r.rid} differs from its replay")
+            if eng.pool.leaked():
+                fail("disagg_path fleet: a slot leaked")
+        for eng in engines:
+            eng.prefix_cache.clear(eng.pool)
+    finally:
+        for fw, sc in made:
+            fw.close()
+            fw.ep.close()
+            sc.close()
+        srv.close()
+    if not (tally["a"] and tally["b"]):
+        fail(f"disagg_path fleet: B9 launched {tally} times")
+    return {"shared_len": traffic["shared_len"], "cache_hit_len": req.cache_hit_len,
+            "fetched_bytes": wire, "hit_request_s": hit_s, "b9_launches": tally,
+            "requests_exact": 2}
+
+def elastic_check(widths, device, sizes=ELASTIC) -> dict:
+    """ElasticKVCache on the dense stack at the serving widths: a context
+    of ``context`` tokens with a hot budget of ``hot_budget_blocks`` blocks,
+    the rest in pinned host memory; every decode_step_elastic's logits
+    equal decode_step's on the same rows, bit for bit."""
+    from uccl_tpu_torch.ep.elastic import ElasticKVCache
+    from uccl_tpu_torch.models import dense
+    from uccl_tpu_torch.models import inference as inf
+
+    cfg = dense.DenseConfig(vocab=widths["vocab"], dim=widths["dim"], n_layers=widths["layers"],
+                            n_heads=widths["heads"], n_kv_heads=widths["kv_heads"],
+                            head_dim=widths["dim"] // widths["heads"], ffn=widths["ffn"])
+    params = dense.init_params(prng_key(2), cfg, device)
+    block = sizes["block_tokens"]
+    block_bytes = 2 * cfg.n_layers * block * cfg.n_kv_heads * cfg.head_dim * 4
+    budget = sizes["hot_budget_blocks"] * block_bytes
+    max_seq = sizes["context"] + sizes["steps"] + block
+    prompt = np.random.default_rng(17).integers(0, cfg.vocab, (1, sizes["context"]))
+    logits, cache = inf.prefill(params, prompt, cfg, max_seq)
+    ekv = ElasticKVCache.from_cache(cache, block_tokens=block,
+                                    hot_blocks=budget // block_bytes)
+    if ekv.has_host != (torch.device(device).type == "cuda") or \
+            not all(k.device.type == "cpu" for k, _ in ekv._cold) or not ekv.cold_blocks:
+        fail("disagg_path elastic: the cold blocks are not in host memory")
+    if ekv.has_host and not all(k.is_pinned() for k, _ in ekv._cold):
+        fail("disagg_path elastic: the cold blocks are not pinned")
+    cold0 = ekv.cold_blocks
+    elastic_s = 0.0
+    sync = torch.cuda.synchronize if ekv.has_host else (lambda: None)
+    for _ in range(sizes["steps"]):
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        rows = (len(ekv._cold) + len(ekv._hot) + 1) * block
+        same_rows = inf.KVCache(cache.k[:, :, :rows].clone(), cache.v[:, :, :rows].clone(),
+                                cache.length)
+        want, _ = inf.decode_step(params, tok, same_rows, cfg)
+        _, cache = inf.decode_step(params, tok, cache, cfg)
+        sync()
+        t0 = time.perf_counter()
+        logits = inf.decode_step_elastic(params, tok, ekv, cfg)
+        sync()
+        elastic_s += time.perf_counter() - t0
+        if not torch.equal(logits, want):
+            fail("disagg_path elastic: decode_step_elastic differs from decode_step")
+    staged = ekv.cold_blocks * block_bytes
+    return {"context": sizes["context"] + sizes["steps"], "block_tokens": block,
+            "hot_budget_bytes": budget, "cold_blocks": [cold0, ekv.cold_blocks],
+            "device_committed_bytes": ekv.device_committed_bytes(), "steps": sizes["steps"],
+            "step_ms": elastic_s / sizes["steps"] * 1e3,
+            "staged_bytes_per_step": staged,
+            "staging_GBps": staged * sizes["steps"] / elastic_s / 1e9, "bit_equal": True}
+
+def disagg_path(device=DEV, widths=SERVE_WIDTHS, traffic=DISAGG_TRAFFIC,
+                fleet=FLEET_TRAFFIC, elastic=ELASTIC) -> int:
+    """Disaggregated serving on the MoE stack at EP world 4 on the pallas
+    wire: a PrefillWorker and a DecodeWorker in one process, every request
+    equal to its replay_alone, B9 counted on both sides; then the fleet
+    directory and the elastic KV cache. Returns B9's launches."""
+    from uccl_tpu_torch import serve
+    from uccl_tpu_torch.serving.disagg import drive_pair, warm_pair
+
+    t_start = time.perf_counter()
+    is_cuda = torch.device(device).type == "cuda"
+    dev = "cuda" if is_cuda else "cpu"
+    card = nvidia_smi_line() if is_cuda else "cpu"
+    args = serve_args(widths, traffic, stack="moe", device=dev, slots=traffic["slots"])
+    backend, _, vocab = serve.build_stack(args, dev, moe_wire="pallas")
+    pw, dw = disagg_pair(backend, traffic)
+    tally = {"prefill": 0, "decode": 0}
+    fb0 = dma.WIRE_FALLBACK.total()
+    try:
+        warm_pair(pw, dw, prompt_len=traffic["prefill_chunk"])
+        b9_counted(pw.engine, tally, "prefill")
+        b9_counted(dw.engine, tally, "decode")
+        prompts, lens, arrivals, _ = serve_workload(traffic, vocab, traffic["requests"])
+        chunks0 = obs.counter("kv_stream_chunks_total").get(role="tx")
+        done, wall = drive_pair(pw, dw, prompts, arrivals, traffic["new_tokens"])
+        chunks = obs.counter("kv_stream_chunks_total").get(role="tx") - chunks0
+        if len(done) != traffic["requests"]:
+            fail(f"disagg_path: {len(done)} of {traffic['requests']} requests finished")
+        t0 = time.perf_counter()
+        differ = [r.rid for r in done if not r.adopted or r.n_generated != traffic["new_tokens"]
+                  or replayed(dw.engine.backend, r, traffic["prefill_chunk"]) != r.out_tokens]
+        replay_s = time.perf_counter() - t0
+        if differ:
+            fail(f"disagg_path: requests {differ} differ from their replay_alone")
+        if pw.engine.pool.leaked() or dw.engine.pool.leaked():
+            fail("disagg_path: a slot leaked")
+        snap = dw.engine.snapshot()
+        pw.close()
+    finally:
+        pw.ep.close()
+        dw.ep.close()
+    if not (tally["prefill"] and tally["decode"]) or dma.WIRE_FALLBACK.total() != fb0:
+        fail(f"disagg_path: B9 launched {tally}, {dma.WIRE_FALLBACK.total() - fb0} fallbacks")
+    cfg = backend.server.cfg
+    kv_bytes = int(sum(lens)) * 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 4
+    transfer = snap.get("disagg_transfer_ms", {})
+    pair = {"requests_exact": len(done), "wall_s": wall, "replay_s": replay_s,
+            "kv_slabs": chunks, "kv_bytes": kv_bytes, "kv_GBps": kv_bytes / wall / 1e9,
+            "b9_launches": dict(tally), "ttft_ms": snap.get("disagg_ttft_ms"),
+            "transfer_ms": transfer}
+    fl = fleet_check(backend, fleet, traffic["prefill_chunk"])
+    el = elastic_check(widths, device, elastic)
+    emit("disagg_path", widths=widths, traffic=traffic, wire="pallas", pair=pair, fleet=fl,
+         elastic=el, card=card, seconds=time.perf_counter() - t_start)
+    return tally["prefill"] + tally["decode"] + sum(fl["b9_launches"].values())
+
 def main() -> None:
     t_start = time.perf_counter()
     toolchain()
@@ -4087,7 +4694,11 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats(DEV)
     q_launches, q_err_bucket = quant_path(bucket, refs)
     q_err = max(q_err, q_err_bucket)
-    del bucket, refs
+    del refs
+    torch.cuda.empty_cache()
+    for name, n in dist_path(bucket).items():
+        ring_launches[name] += n
+    del bucket
     torch.cuda.empty_cache()
     ep_fb0 = dma.WIRE_FALLBACK.total()
     ep_errs = ep_a2a_vs_plain()["max_abs_err_vs_plain"]
@@ -4103,10 +4714,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     serve_launches["p2p_path"] = p2p_path()
     torch.cuda.empty_cache()
+    serve_launches["disagg_path"] = disagg_path()
+    torch.cuda.empty_cache()
     ep_launches["a2a"] += (mesh_launches["a2a"] + serve_launches["prefill"]
                            + serve_launches["decode"]
                            + sum(serve_launches["serve_features_path"].values())
-                           + serve_launches["p2p_path"])
+                           + serve_launches["p2p_path"] + serve_launches["disagg_path"])
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": {**REPLACES, **F32_REPLACES}[name],

@@ -207,6 +207,19 @@ def test_lora_delta_matches_jax(rng):
 
 
 def test_decode_step_elastic_names_its_queue_item(models):
-    _, _, tcfg, tp = models
-    with pytest.raises(NotImplementedError, match="queue A item 16"):
-        tinf.decode_step_elastic(tp, np.zeros(1, np.int32), None, tcfg)
+    """``decode_step_elastic`` is ported (``ep/elastic.py``): a step over
+    an elastic cache holding the prompt's rows gives the JAX elastic
+    step's logits within this file's tolerance."""
+    from uccl_tpu.ep.elastic import ElasticKVCache as JElasticKVCache
+    from uccl_tpu_torch.ep.elastic import ElasticKVCache
+
+    jcfg, jp, tcfg, tp = models
+    prompt = np.arange(1, 12, dtype=np.int32)[None]
+    _, cache = tinf.prefill(tp, prompt, tcfg, MAX_SEQ)
+    _, jcache = jinf.prefill(jp, jnp.asarray(prompt), jcfg, MAX_SEQ)
+    ekv = ElasticKVCache.from_cache(cache, block_tokens=4, hot_blocks=1)
+    jekv = JElasticKVCache.from_cache(jcache, block_tokens=4, hot_blocks=1)
+    tok = np.array([7], np.int32)
+    got = tinf.decode_step_elastic(tp, tok, ekv, tcfg)
+    _close(got, jinf.decode_step_elastic(jp, jnp.asarray(tok), jekv, jcfg))
+    assert ekv.length == 12

@@ -23,6 +23,7 @@ from types import SimpleNamespace
 import jax
 import numpy as np
 import pytest
+import torch
 
 from uccl_tpu import obs as jobs
 from uccl_tpu.models import dense as jdense
@@ -41,6 +42,9 @@ from uccl_tpu_torch.serving import engine as tengine
 from uccl_tpu_torch.serving import kv_tiers as tkv
 from uccl_tpu_torch.serving import prefix_cache as tpc
 from uccl_tpu_torch.serving import slots as tslots
+
+from torch_one_thread import one_torch_thread  # noqa: F401
+
 
 PKGS = {
     "jax": SimpleNamespace(engine=jengine, kv=jkv, pc=jpc, slots=jslots, obs=jobs,

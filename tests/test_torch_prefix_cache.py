@@ -16,6 +16,7 @@ from types import SimpleNamespace
 import jax
 import numpy as np
 import pytest
+import torch
 from jax.sharding import Mesh
 
 from uccl_tpu import obs as jobs
@@ -32,6 +33,9 @@ from uccl_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from uccl_tpu_torch.serving import engine as tengine
 from uccl_tpu_torch.serving import prefix_cache as tpc
 from uccl_tpu_torch.serving import slots as tslots
+
+from torch_one_thread import one_torch_thread  # noqa: F401
+
 
 PKGS = {
     "jax": SimpleNamespace(engine=jengine, pc=jpc, slots=jslots, obs=jobs),

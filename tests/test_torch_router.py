@@ -16,6 +16,7 @@ from types import SimpleNamespace
 import jax
 import numpy as np
 import pytest
+import torch
 
 from uccl_tpu import obs as jobs
 from uccl_tpu.models import dense as jdense
@@ -25,6 +26,9 @@ from uccl_tpu_torch import obs as tobs
 from uccl_tpu_torch.models import dense as tdense
 from uccl_tpu_torch.serving import engine as tengine
 from uccl_tpu_torch.serving import router as trouter
+
+from torch_one_thread import one_torch_thread  # noqa: F401
+
 
 PKGS = {"jax": SimpleNamespace(engine=jengine, router=jrouter, obs=jobs),
         "torch": SimpleNamespace(engine=tengine, router=trouter, obs=tobs)}

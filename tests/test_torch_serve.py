@@ -14,6 +14,9 @@ import torch
 
 from uccl_tpu_torch import serve
 
+from torch_one_thread import one_torch_thread  # noqa: F401
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--device", "cpu", "--requests", "8", "--prompt-len", "12", "--new-tokens", "5",
          "--arrival-rate", "0"]

@@ -14,6 +14,8 @@ originals on the same operations, exactly.
 """
 
 
+import types
+
 import jax
 import numpy as np
 import pytest
@@ -35,6 +37,7 @@ from uccl_tpu_torch.models import dense as tdense
 from uccl_tpu_torch.models import inference as tinf
 from uccl_tpu_torch.models import moe_inference as tmoe
 from uccl_tpu_torch.models import sampling as tsampling
+from uccl_tpu_torch.serving.prefix_cache import PrefixCache
 from uccl_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from uccl_tpu_torch.serving import engine as tengine
 from uccl_tpu_torch.serving import loadgen as tload
@@ -43,6 +46,9 @@ from uccl_tpu_torch.serving import request as treq
 from uccl_tpu_torch.serving import sampling as tsamp
 from uccl_tpu_torch.serving import scheduler as tsched
 from uccl_tpu_torch.serving import slots as tslots
+
+from torch_one_thread import one_torch_thread  # noqa: F401
+
 
 DENSE = dict(vocab=128, dim=32, n_layers=2, n_heads=4, n_kv_heads=2, head_dim=8, ffn=64)
 MOE = dict(vocab=64, dim=32, n_layers=2, n_heads=4, n_kv_heads=2, head_dim=8,
@@ -194,10 +200,36 @@ def test_knobs_of_later_slices_raise_and_name_their_item(kw, exc, item):
 @pytest.mark.parametrize("method,item", [("attach_fleet", "10i"), ("adopt", "10h"),
                                          ("kill", "10e"), ("evacuate", "10e")])
 def test_methods_of_later_slices_raise_and_name_their_item(method, item):
-    """``attach_fleet`` and ``adopt`` still raise naming their item;
-    ``kill`` and ``evacuate`` are ported: a killed engine's step raises, and
-    evacuate strips its queue and slots."""
+    """All four are ported. ``attach_fleet`` refuses an engine without a
+    chunked prefix cache (the directory indexes chunk-aligned trie
+    entries) and binds one that has it; ``adopt`` admits a request whose
+    prefill ran elsewhere, its KV imported first, and decodes it; a killed
+    engine's step raises, and evacuate strips its queue and slots."""
     eng = tengine.ServingEngine(_tiny_dense_backend())
+    if method == "attach_fleet":
+        with pytest.raises(ValueError, match="prefill_chunk \\+ prefix_cache"):
+            eng.attach_fleet(None)
+        pub = types.SimpleNamespace(backend=None, tiers=None)
+        fleet = types.SimpleNamespace(publisher=pub)
+        chunked = tengine.ServingEngine(_tiny_dense_backend(), prefill_chunk=4,
+                                        prefix_cache=PrefixCache(4))
+        chunked.attach_fleet(fleet)
+        assert chunked.fleet is fleet and chunked.prefix_cache.listener is pub
+        assert pub.backend is chunked.backend
+    elif method == "adopt":
+        # prefill on a donor engine, carry its rows, adopt on this one
+        donor = tengine.ServingEngine(_tiny_dense_backend(), prefill_chunk=4)
+        src = donor.submit([1, 2, 3, 4, 5], max_new_tokens=3)
+        donor.drain()
+        k, v = donor.backend.export_slot_kv(src.slot, 0, 5)
+        slot = eng.pool.admit(99)
+        eng.backend.import_slot_kv(slot, k, v, length=5)
+        req = eng.adopt([1, 2, 3, 4, 5], src.out_tokens[0], max_new_tokens=3, slot=slot)
+        assert req.adopted and req.slot == slot and req.out_tokens == src.out_tokens[:1]
+        eng.drain()
+        assert req.out_tokens == src.out_tokens and eng.pool.leaked() == 0
+        with pytest.raises(ValueError, match="overflow"):
+            eng.adopt(list(range(15)), 1, max_new_tokens=3)
     if method in ("kill", "evacuate"):
         req = eng.submit([1, 2], max_new_tokens=3)
         eng.step()
@@ -210,10 +242,6 @@ def test_methods_of_later_slices_raise_and_name_their_item(method, item):
             queued, active = eng.evacuate()
             assert active == [req] and len(queued) == 1
             assert not eng.has_work() and eng.pool.leaked() == 0
-    else:
-        args = (None,) if method == "attach_fleet" else ()
-        with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
-            getattr(eng, method)(*args)
     with pytest.raises(ValueError, match="AdapterStore"):
         eng.submit([1, 2], max_new_tokens=2, adapter="a")
 

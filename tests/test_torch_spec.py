@@ -16,6 +16,7 @@ from types import SimpleNamespace
 import jax
 import numpy as np
 import pytest
+import torch
 from jax.sharding import Mesh
 
 from uccl_tpu import obs as jobs
@@ -33,6 +34,9 @@ from uccl_tpu_torch.serving import engine as tengine
 from uccl_tpu_torch.serving import request as treq
 from uccl_tpu_torch.serving import sampling as tsamp
 from uccl_tpu_torch.serving import spec as tspec
+
+from torch_one_thread import one_torch_thread  # noqa: F401
+
 
 PKGS = {
     "jax": SimpleNamespace(engine=jengine, spec=jspec, req=jreq, samp=jsamp, obs=jobs),

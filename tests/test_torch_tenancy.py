@@ -19,6 +19,7 @@ from types import SimpleNamespace
 import jax
 import numpy as np
 import pytest
+import torch
 from jax.sharding import Mesh
 
 from uccl_tpu.models import dense as jdense
@@ -35,6 +36,9 @@ from uccl_tpu_torch.serving import adapters as tad
 from uccl_tpu_torch.serving import engine as tengine
 from uccl_tpu_torch.serving import prefix_cache as tpc
 from uccl_tpu_torch.serving import sampling as tsamp
+
+from torch_one_thread import one_torch_thread  # noqa: F401
+
 
 PKGS = {"jax": SimpleNamespace(engine=jengine, ad=jad, pc=jpc, samp=jsamp),
         "torch": SimpleNamespace(engine=tengine, ad=tad, pc=tpc, samp=tsamp)}

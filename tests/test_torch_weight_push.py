@@ -6,7 +6,7 @@ tensors. The relay chain runs here at a small size (the JAX case is marked
 slow). The resume case plants its mid-transfer fault deterministically (the
 fetching side fails right after group 0 verified) instead of racing a loss
 injection against 1.5-4 s deadlines, which ROADMAP lists as unsteady.
-ElasticBuffer's warm-spare admission is not ported.
+ElasticBuffer's warm-spare admission is tested in tests/test_torch_elastic.py.
 
 Then the wire between the packages, bit-exact in both directions with raw,
 bf16, fp8 and lossless payloads: a JAX WeightPublisher served to a port

@@ -9,12 +9,19 @@ Port of ``uccl_tpu/ep/__init__.py``:
   hand-written kernels B9 (all-to-all) and B10 (one scheduled round).
 * :class:`Buffer` — the DeepEP-shaped host API, with :class:`EventOverlap`,
   :class:`Config` and the handles.
-
-``CrossPodMoE``, ``ElasticBuffer``, ``ElasticKVCache`` and ``EngramTable``
-are not ported yet.
+* :class:`CrossPodMoE` — experts across DCN-connected pods, forward and
+  backward (``ep.cross_pod``).
+* :class:`ElasticBuffer` / :class:`ElasticKVCache` — HBM with pinned-host
+  spill (``ep.elastic``).
+* :class:`EngramTable` / :func:`mesh_fetch` — global row fetch across
+  hosts and on the members' device (``ep.engram``).
 """
 
 from uccl_tpu_torch.ep import ll, ops, pallas_a2a
 from uccl_tpu_torch.ep.buffer import Buffer, Config, EventOverlap, LowLatencyHandle
+from uccl_tpu_torch.ep.cross_pod import CrossPodMoE
+from uccl_tpu_torch.ep.elastic import ElasticBuffer, ElasticKVCache
+from uccl_tpu_torch.ep.engram import EngramTable, mesh_fetch
 
-__all__ = ["ops", "ll", "pallas_a2a", "Buffer", "Config", "EventOverlap", "LowLatencyHandle"]
+__all__ = ["ops", "ll", "pallas_a2a", "Buffer", "Config", "EventOverlap", "LowLatencyHandle",
+           "CrossPodMoE", "ElasticBuffer", "ElasticKVCache", "EngramTable", "mesh_fetch"]

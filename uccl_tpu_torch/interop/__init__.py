@@ -1,8 +1,7 @@
 """Interop adapters: torch tensors over the transfer engine.
 
-Port of ``uccl_tpu/interop``. ``allreduce_gradients`` needs ``DcnGroup``
-(``collective/hierarchical.py``), which is not ported yet (ROADMAP queue A
-item 15).
+Port of ``uccl_tpu/interop``: tensors over the transfer engine and
+``allreduce_gradients``, DDP-style averaging over ``DcnGroup``.
 """
 
 from uccl_tpu_torch.interop.torch_bridge import (
@@ -10,6 +9,7 @@ from uccl_tpu_torch.interop.torch_bridge import (
     register_tensor,
     advertise_tensor,
     send_tensor,
+    allreduce_gradients,
 )
 
 __all__ = [
@@ -17,4 +17,5 @@ __all__ = [
     "register_tensor",
     "advertise_tensor",
     "send_tensor",
+    "allreduce_gradients",
 ]

@@ -14,8 +14,6 @@ the one-shot path, an index write for the slot pool) instead of the JAX
 package's functional updates; the primitives return the same cache
 objects, their lengths updated. Eager PyTorch compiles nothing, so
 the JAX module's per-shape compiled-program cache has no counterpart.
-
-``decode_step_elastic`` needs ``ep/elastic.py``, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +30,7 @@ from uccl_tpu_torch.models.dense import DenseConfig
 from uccl_tpu_torch.models.layers import rms_norm, rope
 from uccl_tpu_torch.models.sampling import broadcast_params, sample_tokens, sample_window
 from uccl_tpu_torch.ops.attention import _NEG_INF, _repeat_kv
+from uccl_tpu_torch.p2p.endpoint import host_copy
 
 
 def _dev_of(params) -> torch.device:
@@ -156,11 +155,27 @@ def decode_step(params, token, cache: KVCache, cfg: DenseConfig):
 
 
 def decode_step_elastic(params, token, ekv, cfg: DenseConfig):
-    """One step over an ``ElasticKVCache``: needs ``ep/elastic.py``, which
-    is not ported yet (ROADMAP queue A item 16)."""
-    raise NotImplementedError(
-        "decode_step_elastic needs ep/elastic.py (ElasticKVCache), not ported yet: "
-        "ROADMAP queue A item 16")
+    """One autoregressive step over an :class:`uccl_tpu_torch.ep.elastic.ElasticKVCache`.
+
+    Same contract as :func:`decode_step`, but the KV context comes from the
+    elastic cache (hot blocks in HBM, cold blocks staged from pinned host
+    memory), so decode length is bounded by host memory, not HBM. Returns
+    logits [B, V]; the cache is updated with the new token's KV.
+
+    The gathered context is a dense [L, B, S_blocks, Hkv, D] view whose
+    first ``length`` positions are valid — position ``length`` itself is the
+    partial block's next empty slot, which is exactly where
+    :func:`_forward_cached` writes the new token. The dense forward path is
+    therefore reused verbatim, so on a cache of the same row count the
+    logits are :func:`decode_step`'s bit for bit.
+    """
+    k_ctx, v_ctx, length = ekv.kv()
+    view = KVCache(k_ctx, v_ctx, length)
+    token = _as(token, _dev_of(params), torch.int64)
+    logits, view = _forward_cached(params, token[:, None], view, cfg)
+    sl = (slice(None), slice(None), slice(length, length + 1))
+    ekv.append_tokens(view.k[sl], view.v[sl])
+    return logits[:, 0]
 
 
 # -- slot-pool serving primitives ------------------------------------------
@@ -198,8 +213,9 @@ class SlotKVCache(NamedTuple):
     def export_rows(self, slot: int, lo: int, hi: int):
         """Host copies of rows [lo, hi): (k, v) each [L, hi-lo, Hkv, D].
         Copies on any device (a CPU tensor's ``.cpu()`` would be the pool's
-        own memory, which the slot's next occupant overwrites)."""
-        return tuple(t[:, slot, lo:hi].to("cpu", copy=True).numpy() for t in (self.k, self.v))
+        own memory, which the slot's next occupant overwrites); rows on the
+        card are staged through pinned host memory."""
+        return tuple(host_copy(t[:, slot, lo:hi]).numpy() for t in (self.k, self.v))
 
     def import_rows(self, slot: int, k_rows, v_rows, *, length: int) -> "SlotKVCache":
         """Rows [0, n) of ``slot`` replaced by ``k_rows``/``v_rows``

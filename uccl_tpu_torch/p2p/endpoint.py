@@ -285,6 +285,22 @@ def host_array(x, what: str = "p2p buffer") -> np.ndarray:
     return x
 
 
+def host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous host copy of ``t`` that the caller owns: a CPU tensor is
+    cloned; a CUDA tensor lands in pinned host memory through a
+    ``non_blocking`` copy and one wait on its event, as
+    :meth:`Endpoint.send_device` stages each chunk."""
+    t = t.detach()
+    if t.device.type != "cuda":
+        return t.contiguous().clone()
+    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    buf.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(t.device))
+    ev.synchronize()
+    return buf
+
+
 def _as_buffer(arr) -> Tuple[ctypes.c_void_p, int]:
     arr = host_array(arr)
     if not arr.flags["C_CONTIGUOUS"]:

@@ -47,7 +47,8 @@ stages each to host once, and the CRCs are taken over the host bytes.
 arrays); the consumer places them on its device. The manifest's dtype
 names are numpy's and ``ml_dtypes``' (``"float32"``, ``"bfloat16"``, ...),
 so the two packages speak one wire format: either one's publisher serves
-the other's ``fetch``. ``ElasticBuffer.admit_warm_spare`` is not ported.
+the other's ``fetch``. ``ep.elastic.admit_warm_spare`` stages a fetched
+snapshot into an ``ElasticBuffer``.
 """
 
 from __future__ import annotations

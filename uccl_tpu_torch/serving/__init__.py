@@ -9,8 +9,9 @@ host tier (``prefix_cache``, ``kv_tiers``), per-tenant LoRA adapters
 and each engine step admits, prefills, decodes and retires, with every
 request's tokens equal to its own run alone on the same slot programs
 (``replay_alone``), and on the CPU to the one-shot ``generate`` oracle's.
-Disaggregated prefill, the remote KV tier and the fleet directory ride the
-p2p plane and are not ported yet (ROADMAP queue A items 10h, 10i, 14).
+Disaggregated prefill (``disagg``) and the fleet prefix directory
+(``fleet``) ride the p2p plane and are imported explicitly by their
+consumers: they pull in the p2p runtime.
 """
 
 from uccl_tpu_torch.serving.adapters import AdapterStore, make_lora, materialize  # noqa: F401

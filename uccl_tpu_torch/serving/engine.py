@@ -12,7 +12,9 @@ request advances its prefill cursor by one C-token chunk per step in one
 ``[n_slots, C]`` call, and the step still runs its decode pass. On top of
 it: the step-token budget, preemption by SLO class, the prefix cache and
 its host tier, speculative decoding, per-tenant LoRA adapters, and
-``kill`` / ``evacuate`` for the router's failure handling.
+``kill`` / ``evacuate`` for the router's failure handling, ``adopt`` (the
+decode side of disaggregated prefill, ``serving/disagg.py``) and
+``attach_fleet`` (the fleet prefix directory, ``serving/fleet.py``).
 
 The engine is exact, not approximate: each request's tokens equal its run
 alone on the same slot programs (``replay_alone``) on any device, and on
@@ -20,9 +22,6 @@ the CPU the one-shot ``generate`` oracle's, tested on both stacks. The
 backends hold the model and the KV pool as torch tensors on one device;
 the engine itself is host code (numpy), and every batched call returns its
 tokens to the host, so a step's wall time covers its device work.
-
-``adopt`` (disaggregated prefill) and ``attach_fleet`` (the fleet prefix
-directory) raise ``NotImplementedError`` naming their ROADMAP queue A item.
 """
 
 from __future__ import annotations
@@ -95,11 +94,6 @@ _TENANT_TOKS = obs.counter(
     "serving_tenant_tokens_total",
     "generated tokens delivered per tenant (labels: tenant)",
 )
-
-
-def _later(knob: str, item: str, module: str) -> str:
-    return (f"{knob} needs {module}, which is not ported yet "
-            f"(ROADMAP queue A item {item})")
 
 
 @dataclass
@@ -546,6 +540,7 @@ class ServingEngine:
         self._adapter_ids = np.zeros(backend.n_slots, np.int32)
         self._by_slot = {}  # slot -> Request (every occupied slot)
         self._prefilling = {}  # slot -> Request mid-prefill (chunked mode)
+        self.fleet = None  # FleetWorker once attach_fleet() is called
         self.dead = False  # killed (chaos / failure injection): step() raises
         self._last_tok = np.zeros(backend.n_slots, np.int32)
         self._next_rid = 0
@@ -569,12 +564,27 @@ class ServingEngine:
             self._stats_name = "serving" if n == 0 else f"serving-{n}"
             self.metrics.register(self, self._stats_name)
 
-    # -- the parts of later slices ------------------------------------------
     def attach_fleet(self, fleet) -> None:
-        raise NotImplementedError(_later("attach_fleet", "10i", "serving/fleet.py"))
-
-    def adopt(self, *args, **kwargs) -> Request:
-        raise NotImplementedError(_later("adopt", "10h", "serving/disagg.py"))
+        """Bind this engine to the fleet prefix-cache plane
+        (``serving/fleet.py``): ``fleet.fetch`` is consulted
+        when an admission misses the local trie, and the fleet's
+        publisher (when it carries one) becomes the trie's residency
+        listener so parked entries are advertised in the shared
+        directory. Requires a chunked engine with a prefix cache — the
+        fleet is an extension of the trie, not a replacement."""
+        if self.prefix_cache is None or self.prefill_chunk is None:
+            raise ValueError(
+                "attach_fleet requires prefill_chunk + prefix_cache: the "
+                "fleet directory indexes chunk-aligned trie entries"
+            )
+        self.fleet = fleet
+        pub = getattr(fleet, "publisher", None)
+        if pub is not None:
+            if pub.backend is None:
+                pub.backend = self.backend
+            if pub.tiers is None:
+                pub.tiers = self.kv_tiers
+            self.prefix_cache.listener = pub
 
     # -- submission ---------------------------------------------------------
     def submit(self, prompt, *, max_new_tokens: int = 16,
@@ -685,6 +695,84 @@ class ServingEngine:
             debt += max(0, int(r.prompt.size) - r.prefill_pos)
             debt += max(0, r.max_new_tokens - r.n_generated)
         return debt
+
+    def adopt(self, prompt, first_token, *, max_new_tokens: int = 16,
+              eos_id: Optional[int] = None, slot: Optional[int] = None,
+              priority: str = "interactive",
+              tenant: str = "default",
+              sampling: Optional[SamplingParams] = None,
+              queue_s: Optional[float] = None,
+              prefill_s: Optional[float] = None,
+              transfer_s: Optional[float] = None,
+              trace=None) -> Request:
+        """Admit a request whose prefill happened ELSEWHERE — the disagg
+        decode side. The caller must already have imported the prompt's KV
+        into ``slot`` (``backend.import_slot_kv`` with length =
+        ``len(prompt)``) and supplies the first generated token the prefill
+        fleet computed; the request enters ACTIVE directly and decodes from
+        the next ``step()`` on. ``slot=None`` claims a free slot here;
+        passing a slot means the caller reserved it (``pool.admit``) when
+        the KV stream opened. ``priority`` keeps the request's SLO-class
+        label (it rode the BEGIN message) so per-class metrics stay
+        truthful — adopted requests are ACTIVE at once, so the class never
+        queues here. The ``*_s`` wall-clock splits (queue on the prefill
+        fleet, prefill compute, transfer tail) land on the metrics'
+        disaggregated-TTFT series. ``trace`` is the context the request
+        was minted with at the PREFILL fleet's ingress (it rode the BEGIN
+        notif verbatim) — passing it keeps the adopted request on the same
+        fleet-wide timeline; None mints a local one. Returns the Request
+        (already FINISHED when ``max_new_tokens == 1`` or the first token
+        is EOS)."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("prompt must be non-empty")
+        if max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {max_new_tokens}"
+            )
+        if prompt.size + max_new_tokens > self.backend.max_seq:
+            raise ValueError(
+                f"prompt {prompt.size} + new {max_new_tokens} tokens exceed "
+                f"max_seq {self.backend.max_seq}: the slot would overflow"
+            )
+        if priority not in PRIORITY_CLASSES:
+            raise ValueError(
+                f"unknown priority {priority!r} (classes: "
+                f"{PRIORITY_CLASSES})"
+            )
+        t = now()
+        ctx = trace if trace is not None else obs.new_context()
+        req = Request(
+            rid=self._next_rid, prompt=prompt,
+            max_new_tokens=max_new_tokens, eos_id=eos_id, t_submit=t,
+            priority=priority, tenant=tenant, sampling=sampling,
+            trace_id=ctx.trace_id, span_id=ctx.span_id,
+        )
+        self._next_rid += 1
+        if slot is None:
+            slot = self.pool.admit(req.rid)
+            if slot is None:
+                raise RuntimeError(
+                    "adopt: no free slot (reserve one at stream-open time "
+                    "or size the decode pool for the stream fan-in)"
+                )
+        req.slot = slot
+        req.adopted = True
+        req.state = RequestState.ACTIVE
+        req.prefill_pos = prompt.size
+        req.t_admit = t
+        self._stamp_admit(slot, req)
+        self.metrics.on_submit(req)
+        self.metrics.on_admit(req)
+        self.metrics.on_adopt(req, queue_s=queue_s, prefill_s=prefill_s,
+                              transfer_s=transfer_s)
+        self._by_slot[slot] = req
+        obs.instant("adopt", track=req.track, rid=req.rid, slot=slot,
+                    prompt_len=int(prompt.size), trace_id=req.trace_id)
+        finished: List[Request] = []
+        self._emit_first_token(slot, req, np.int32(first_token), now(),
+                               finished)
+        return req
 
     # -- failure injection + recovery ---------------------------------------
     def kill(self) -> None:
@@ -853,6 +941,16 @@ class ServingEngine:
                         hit_tag = (int(donor)
                                    if isinstance(donor, (int, np.integer))
                                    else repr(donor))
+                if matched == 0 and self.fleet is not None:
+                    # local miss (already counted): consult the fleet
+                    # directory — a peer may hold this prefix, in which
+                    # case its entry is fetched over the T2 wire path
+                    # into THIS request's slot (fleet.py; a stale owner
+                    # degrades back to the cold miss, never wrong bytes)
+                    matched, hit_exact = self.fleet.fetch(
+                        req.prompt, self._ns(req), slot, self.backend)
+                    if matched > 0:
+                        hit_tag = f"fleet:{matched}"
                 if matched > 0:
                     req.prefill_pos = matched
                     req.cache_hit_len = matched

@@ -99,6 +99,10 @@ class PrefixCache:
         self._seq = 0
         self._t0_tokens = 0  # running depth*chunk sum over int residents
         self._tiers = None  # TieredKVCache once attach_tiers() is called
+        # fleet listener (serving/fleet.py): mirrors residency into the
+        # shared directory — on_insert(resident, path) / on_remove(resident),
+        # both called on the engine step thread, both fail-soft
+        self.listener = None
 
     # -- inspection -------------------------------------------------------
     @property
@@ -260,6 +264,8 @@ class PrefixCache:
         if isinstance(resident, int):
             self._t0_tokens += len(path) * self.chunk
         self._stamp_gauges()
+        if self.listener is not None:
+            self.listener.on_insert(resident, list(path))
 
     def park(self, pool, slot: int, prompt, ns: str = "") -> bool:
         """Try to keep a retiring request's slot resident as a donor,
@@ -317,6 +323,8 @@ class PrefixCache:
         elif self._tiers is not None:
             self._tiers.release(resident)
         self._stamp_gauges()
+        if self.listener is not None:
+            self.listener.on_remove(resident)
 
     def replace_ref(self, old_ref, new_ref) -> None:
         """Swap a deep-tier resident for another AT THE SAME PATH AND LRU

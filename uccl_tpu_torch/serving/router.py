@@ -3,7 +3,8 @@
 Port copy of ``uccl_tpu/serving/router.py`` (jax-free there too). The
 router reads each replica's live load signals (``replica_signals``): free
 slots, token debt (``engine.pending_tokens()``), the recent queue wait and
-adoption backpressure (disaggregated prefill workers, not ported yet).
+adoption backpressure (a disaggregated ``PrefillWorker`` replica's
+BEGINs still waiting for a decode-side GRANT).
 Selection is lexicographic, ``(debt + bp_tokens * backpressure -
 cached_prefix_tokens, -free_slots, queue_wait_ms, index)``, lowest wins,
 with the index tail rotating by the routed count so equal replicas take
@@ -65,7 +66,7 @@ _ATTACHED = obs.counter(
 _CACHE_STEERED = obs.counter(
     "serving_router_cache_steered_total",
     "admissions whose winning replica was ranked with a non-zero cached "
-    "prefix (the local trie's longest-prefix match) — the "
+    "prefix (local trie or fleet-directory longest-prefix match) — the "
     "cache-aware steering signal actually changing placement",
 )
 # declared in serving/health.py (one family, shared label space)
@@ -107,7 +108,8 @@ class Router:
     """
 
     def __init__(self, replicas: List, *, bp_tokens: int = 64,
-                 detector: Optional[FailureDetector] = None):
+                 detector: Optional[FailureDetector] = None,
+                 directory=None):
         if not replicas:
             raise ValueError("router needs at least one replica")
         self.replicas = list(replicas)
@@ -124,6 +126,11 @@ class Router:
         self._draining: set = set()  # pids mid-detach (no new routes)
         self.recoveries: List[Dict] = []  # audit log (the chaos bench)
         self.detector = detector
+        # optional fleet prefix-cache directory (serving/fleet.py): ranking
+        # then credits the replica OWNING the deepest published prefix of
+        # the submitted prompt, so shared system prompts steer toward the
+        # worker that already holds their KV (cache-aware steering)
+        self.directory = directory
         if detector is not None:
             for i, r in enumerate(self.replicas):
                 detector.register(self._pids[i], probe=self._probe_for(r))
@@ -246,21 +253,30 @@ class Router:
                         trace_id=req.trace_id)
 
     # -- the routing decision ------------------------------------------
-    def _prefix_tokens(self, i: int, prompt, ns: str) -> int:
+    def _prefix_tokens(self, i: int, prompt, ns: str,
+                       dir_hit=None) -> int:
         """Cached-prefix depth (tokens) replica ``i`` could resume this
-        prompt from: its own trie's longest-prefix match (side-effect-free:
-        no counters, no LRU refresh). In debt-token units by construction:
-        every matched token is prefill work the replica does not have to
-        do. (The JAX router also credits the fleet directory's entry,
-        which needs the fleet plane, ROADMAP queue A item 10i.)"""
-        cache = engine_of(self.replicas[i]).prefix_cache
-        return 0 if cache is None else cache._lookup(prompt, ns)[0]
+        prompt from: the deepest of its own trie's longest-prefix match
+        (side-effect-free: no counters, no LRU refresh) and the fleet
+        directory's deepest entry WHEN this replica owns it. In debt-token
+        units by construction: every matched token is prefill work the
+        replica does not have to do."""
+        eng = engine_of(self.replicas[i])
+        best = 0
+        cache = eng.prefix_cache
+        if cache is not None:
+            best = cache._lookup(prompt, ns)[0]
+        if dir_hit is not None:
+            fleet = getattr(eng, "fleet", None)
+            if fleet is not None and dir_hit.get("owner") == fleet.worker:
+                best = max(best, int(dir_hit.get("tokens", 0)))
+        return best
 
     def _ranked(self, prompt=None, tenant: str = "default"
                 ) -> Tuple[List[Tuple[tuple, int]], Dict[int, Dict]]:
         """ROUTABLE replicas ranked least-loaded first (dead, draining
         and detector-suspect replicas are excluded). With ``prompt`` the
-        rank also credits cached prefixes (the local trie's
+        rank also credits cached prefixes (local trie / fleet directory
         longest-prefix match) against the debt term — cache-aware
         steering. The index tail rotates with the total routed count so
         exactly-equal replicas take turns instead of always electing
@@ -268,13 +284,17 @@ class Router:
         n = len(self.replicas)
         rot = sum(self.routed) % n
         ns = "" if tenant == "default" else tenant
+        dir_hit = None
+        if prompt is not None and self.directory is not None:
+            dir_hit = self.directory.lookup(prompt, ns)
         ranked = []
         for i, r in enumerate(self.replicas):
             if not self._routable(i):
                 continue
             s = replica_signals(r)
             if prompt is not None:
-                s["prefix_tokens"] = self._prefix_tokens(i, prompt, ns)
+                s["prefix_tokens"] = self._prefix_tokens(
+                    i, prompt, ns, dir_hit)
             key = (
                 s["debt_tokens"] + self.bp_tokens * s["backpressure"]
                 - s.get("prefix_tokens", 0),
