@@ -42,7 +42,14 @@ processes, DDP gradients, the engram fetch, cross-pod EP forward and
 backward against its oracle) and disagg_path (a prefill and a decode
 worker on the MoE stack, B9 on both, every request equal to its replay;
 the fleet prefix directory; the elastic KV cache, bit-equal to
-decode_step). Every phase raises on failure; nothing is caught. Each
+decode_step). Last, resnet_path: ResNet-50 data-parallel at full width
+(examples/ddp_train.py's mesh path, 4 members of 32 224x224 images, 5 steps),
+its [4, 25,557,032] gradient bucket through the Communicator's "pallas"
+all-reduce (B7) once a step, each sum bit-identical to ar_chain_plain, the
+params bit-equal to the same steps with ar_chain_plain, each member's step 1
+within a float64 rule that a planted TF32 run fails; with a traced step,
+B7 timed three ways, an SLO burn read by doctor and two members' metrics
+federated. Every phase raises on failure; nothing is caught. Each
 phase prints one JSON line; the last three lines are the card's name and power limit (nvidia-smi), the
 per-kernel JSON summary and
 
@@ -76,7 +83,7 @@ from torch.profiler import ProfilerActivity, profile
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: torch.cuda.is_available() is False; this script needs a GPU")
 
-from uccl_tpu_torch import obs, profile_ep  # noqa: E402
+from uccl_tpu_torch import doctor, obs, profile_ep  # noqa: E402
 from uccl_tpu_torch.collective import Communicator, dma, plan  # noqa: E402
 from uccl_tpu_torch.collective import ring_ccl as rc  # noqa: E402
 from uccl_tpu_torch.collective.lanes import SPIN_TIMEOUT_MS  # noqa: E402
@@ -84,7 +91,7 @@ from uccl_tpu_torch.ep import Buffer, a2a_sched  # noqa: E402
 from uccl_tpu_torch.ep import ll as ep_ll  # noqa: E402
 from uccl_tpu_torch.ep import ops as ep_ops  # noqa: E402
 from uccl_tpu_torch.ep import pallas_a2a as pa  # noqa: E402
-from uccl_tpu_torch.models import flagship  # noqa: E402
+from uccl_tpu_torch.models import flagship, resnet  # noqa: E402
 from uccl_tpu_torch.models.sampling import prng_key  # noqa: E402
 from uccl_tpu_torch.parallel.mesh import AXIS, MeshConfig, make_mesh  # noqa: E402
 from uccl_tpu_torch.models.layers import rms_norm, rope  # noqa: E402
@@ -92,7 +99,8 @@ from uccl_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from uccl_tpu_torch.ops import quant  # noqa: E402
 from uccl_tpu_torch.ops.attention import _NEG_INF, HOPPER_TILES, _repeat_kv  # noqa: E402
 from uccl_tpu_torch.train import _batch_for_step  # noqa: E402
-from uccl_tpu_torch.utils import build  # noqa: E402
+from uccl_tpu_torch.obs import aggregate  # noqa: E402
+from uccl_tpu_torch.utils import build, timing, tracing  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -4637,6 +4645,385 @@ def disagg_path(device=DEV, widths=SERVE_WIDTHS, traffic=DISAGG_TRAFFIC,
          elastic=el, card=card, seconds=time.perf_counter() - t_start)
     return tally["prefill"] + tally["decode"] + sum(fl["b9_launches"].values())
 
+# ---------------------------------------------------------------------------
+# 12. ResNet-50 data-parallel: the reference's DDP workload, its sync on B7
+
+# examples/ddp_train.py's mesh path at full width: W members on the card, 32
+# 224x224 images each, each member its own BN state, one [W, K] f32
+# gradient bucket a step through the Communicator's "pallas" all-reduce (B7),
+# SGD with momentum as optax.sgd
+RESNET = dict(world=4, per_member=32, image=224, steps=5, lr=0.05, momentum=0.9, seed=0)
+RESNET_BUCKET = 25_557_032  # f32 elements per member: ResNet-50's parameters
+# Each member's step 1 against the same step in float64 on the card,
+# through the port's module. f32 convolutions and sums in another order
+# than float64's: logits within 1e-4 relative in norm, each gradient leaf
+# within 1e-2 relative in norm plus 1e-5 of the whole gradient's norm. The
+# leaves lie downstream of train-mode BN's backward, which subtracts each
+# channel's means of dy and dy·x̂: a cancellation that leaves f32 gradients
+# up to a few 1e-3 off in places (the phase reports each member's worst
+# leaf), and the floor covers leaves that are small sums of many cancelling
+# terms (a stage-1 BN bias sums 100,352 products). TF32 convolutions
+# (10-bit operands) must fail the rule: the phase plants them and reports
+# how far they miss.
+RESNET_LOGITS_RTOL = 1e-4
+RESNET_GRAD_RTOL = 1e-2
+RESNET_GRAD_FLOOR = 1e-5
+RESNET_SCOPES = ("resnet.fwd_bwd", "resnet.sync", "resnet.update")
+RESNET_B7 = {}  # B7's times at the ResNet bucket, for the kernel line
+_CONV_KERNEL = re.compile(r"conv|cudnn|xmma|fprop|dgrad|wgrad|implicit|winograd", re.I)
+
+def resnet_batches(r=RESNET) -> list:
+    """examples/ddp_train.py:102-117's global batches from the seed: x
+    [W, B, 224, 224, 3] f32 normal draws, label 5 where an image's mean is
+    above 0, else 0."""
+    rng = np.random.default_rng(r["seed"])
+    out = []
+    for _ in range(r["steps"]):
+        x = rng.standard_normal((r["world"], r["per_member"], r["image"], r["image"], 3))
+        x = x.astype(np.float32)
+        y = (x.mean(axis=(2, 3, 4)) > 0).astype(np.int64) * 5 % 10
+        out.append((torch.from_numpy(x).to(DEV), torch.from_numpy(y).to(DEV)))
+    return out
+
+def resnet_run(params, state, w) -> dict:
+    """A DDP run's state: its own copy of the params (leaves in the bucket's
+    order, jax.tree's), momentum traces, each member's BN state, the bucket."""
+    params = resnet._tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    leaves = resnet.tree_leaves(params)
+    k = sum(p.numel() for p in leaves)
+    return dict(params=params, leaves=leaves, momentum=[torch.zeros_like(p) for p in leaves],
+                states=[state] * w, bucket=torch.empty((w, k), device=DEV))
+
+def resnet_step(cfg, run, x, y, sync, member_hists=None, r=RESNET) -> tuple:
+    """One step of ddp_train.py's mesh path: each member's forward and
+    backward into its bucket row, ``sync(bucket)``, the average of member 0's
+    copy unflattened, then optax.sgd's update (trace = g + momentum·trace;
+    p -= lr·trace). Each phase ends in a sync. Returns the members' losses
+    and the reduced bucket."""
+    w, losses = x.shape[0], []
+    with tracing.annotate("resnet.fwd_bwd"), tracing.timed_scope("resnet.fwd_bwd"):
+        for m in range(w):
+            t0 = time.perf_counter()
+            loss, run["states"][m] = resnet.loss_fn(run["params"], run["states"][m], x[m], y[m],
+                                                    cfg)
+            grads = torch.autograd.grad(loss, run["leaves"])
+            torch.cat([g.reshape(-1) for g in grads], out=run["bucket"][m])
+            losses.append(loss.detach())
+            del grads, loss
+            torch.cuda.synchronize()
+            if member_hists is not None:
+                member_hists[m].observe(time.perf_counter() - t0)
+    with tracing.annotate("resnet.sync"), tracing.timed_scope("resnet.sync"):
+        reduced = sync(run["bucket"])
+        torch.cuda.synchronize()
+    with tracing.annotate("resnet.update"), tracing.timed_scope("resnet.update"), \
+            torch.no_grad():
+        avg, off = reduced[0] / w, 0
+        for p, trace in zip(run["leaves"], run["momentum"]):
+            trace.mul_(r["momentum"]).add_(avg[off:off + p.numel()].view(p.shape))
+            p.sub_(trace * r["lr"])
+            off += p.numel()
+        torch.cuda.synchronize()
+    return losses, reduced
+
+def resnet_float64(cfg, params, state, x, y) -> tuple:
+    """One member's step on ``x``, ``y`` in float64 through the port's
+    module: its logits and its gradient leaves."""
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+    p64 = resnet._tree_map(lambda t: t.detach().double().requires_grad_(), params)
+    loss64, _ = resnet.loss_fn(p64, state, x, y, cfg64)
+    g64 = torch.autograd.grad(loss64, resnet.tree_leaves(p64))
+    with torch.no_grad():
+        logits64 = resnet.forward(p64, state, x, cfg64, train=True)[0]
+    return logits64, g64
+
+def resnet_vs_float64(logits, grads, ref) -> dict:
+    """f32 ``logits`` and flat gradients ``grads`` (a bucket row) against
+    the float64 step ``ref``; ``worst`` is the largest error over its rule
+    (pass: <= 1). Also the whole gradient's relative error in norm and the
+    largest leaf's (of the leaves above 1% of the whole gradient's norm)."""
+    logits64, g64 = ref
+    total = math.sqrt(sum(g.square().sum().item() for g in g64))
+    worst_g, leaf_rel, sq, off = 0.0, 0.0, 0.0, 0
+    for g in g64:
+        err = (grads[off:off + g.numel()].double() - g.reshape(-1)).norm().item()
+        norm = g.norm().item()
+        worst_g = max(worst_g, err / (RESNET_GRAD_RTOL * norm + RESNET_GRAD_FLOOR * total))
+        if norm > 1e-2 * total:
+            leaf_rel = max(leaf_rel, err / norm)
+        sq += err * err
+        off += g.numel()
+    rel = ((logits.double() - logits64).norm() / logits64.norm()).item()
+    out = dict(logits_rel=rel, grads_rel=math.sqrt(sq) / total, worst_leaf_rel=leaf_rel,
+               worst_logits=rel / RESNET_LOGITS_RTOL, worst_grads=worst_g)
+    out["worst"] = max(out["worst_logits"], worst_g)
+    return out
+
+@contextlib.contextmanager
+def tf32_convs():
+    """The planted fault: the convolutions' guard turns TF32 on."""
+    real = resnet._exact_f32
+
+    @contextlib.contextmanager
+    def faulty():
+        with real():
+            torch.backends.cudnn.allow_tf32 = True
+            yield
+
+    resnet._exact_f32 = faulty
+    try:
+        yield
+    finally:
+        resnet._exact_f32 = real
+
+def resnet_member_grads(cfg, params, state, x, y) -> torch.Tensor:
+    """One member's flat gradients, on a copy of ``params``."""
+    params = resnet._tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    leaves = resnet.tree_leaves(params)
+    loss, _ = resnet.loss_fn(params, state, x, y, cfg)
+    return torch.cat([g.reshape(-1) for g in torch.autograd.grad(loss, leaves)])
+
+def resnet_trace(cfg, run, batch, sync) -> dict:
+    """One step (on a copy of ``run``) under utils.tracing's capture; the
+    trace must hold B7, convolution kernels and the step's annotations. A
+    trace without B7 is retaken, up to three captures (C6). Also where the
+    traced step's device time went: kernel ms of B7, the convolutions
+    (cuDNN's fprop/dgrad/wgrad) and everything else (the BN, ReLU, pooling,
+    loss and update passes), the device's busy ms (union of kernel
+    intervals) and the traced step's span."""
+    log_dir = tempfile.mkdtemp(prefix="resnet_trace_")
+    try:
+        for attempt in range(1, 4):
+            copy = resnet_run(run["params"], run["states"][0], len(run["states"]))
+            copy["states"] = list(run["states"])
+            tracing.start_trace(log_dir)
+            try:
+                resnet_step(cfg, copy, *batch, sync)
+            finally:
+                path = tracing.stop_trace()
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+            del copy
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            notes = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+            split = {"b7": [0, 0.0], "conv": [0, 0.0], "other": [0, 0.0]}
+            for e in kernels:
+                cls = ("b7" if "ring_ar_kernel" in e["name"] else
+                       "conv" if _CONV_KERNEL.search(e["name"]) else "other")
+                split[cls][0] += 1
+                split[cls][1] += e["dur"] / 1e3
+            b7, convs = split["b7"][0], split["conv"][0]
+            if b7:
+                break
+        else:
+            fail(f"resnet_path: the profiler saw no ring_ar_kernel in {attempt} traces")
+        if not convs or not set(RESNET_SCOPES) <= notes:
+            fail(f"resnet_path trace: {convs} conv kernels, annotations {sorted(notes)}")
+        spans = [(e["ts"], e["ts"] + e["dur"]) for e in kernels]
+        return dict(profile_attempts=attempt, kernels=len(kernels),
+                    kernel_count_ms={cls: {"count": n, "ms": ms} for cls, (n, ms) in split.items()},
+                    device_busy_ms=profile_ep.union_ms(spans),
+                    device_span_ms=(max(e for _, e in spans) - min(b for b, _ in spans)) / 1e3,
+                    annotations=sorted(set(RESNET_SCOPES) & notes))
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+def resnet_b7_timing(bucket) -> dict:
+    """B7 at the ResNet bucket: CUDA events (median of 10, L2 flushed),
+    utils.timing's chained and slope estimators (each iteration also runs
+    the harness's perturb pass over the bucket, and the slope's a full
+    reduction of the output), beside its HBM bound, its plain version and
+    the library call."""
+    w, k = bucket.shape
+    out, lanes = torch.empty_like(bucket), []
+    red, lib_out = torch.empty_like(bucket[0]), torch.empty_like(bucket)
+
+    def b7(x):
+        o = torch.empty_like(x)
+        lanes.append(rc.launch_ar(x, o, (1, -1), 0))
+        return o
+
+    res = dict(ms=time_ms(lambda: lanes.append(rc.launch_ar(bucket, out, (1, -1), 0)), 10),
+               bound_ms=ring_bound_ms("ring_all_reduce", w, k, 4), bound_by="bytes",
+               plain_ms=time_ms(lambda: rc.ar_chain_plain(bucket, (1, -1)), 3),
+               library_ms=time_ms(lambda: lib_out.copy_(torch.sum(bucket, 0, out=red)
+                                                        .expand_as(bucket)), 10),
+               library_call="torch.sum(x, 0, out=red) then out.copy_(red.expand_as(x))")
+    res["chained_ms"] = 1e3 * timing.chained_timeit(
+        "resnet_path B7 chained", lambda x, c: c + b7(x)[0, 0], bucket, iters=10)
+    res["slope_ms"] = 1e3 * timing.slope_timeit(b7, (bucket,), 10, signal_floor=0.02, n_cap=200)
+    for lane in lanes:
+        lane.check("resnet_path B7 timing")
+    res["share_of_bound"] = res["bound_ms"] / res["ms"]
+    return res
+
+def resnet_slo(step_s, flight_dir) -> dict:
+    """A burn-rate monitor on the steps' time histogram, its threshold the
+    largest bucket edge below the fastest step: it must alert, write a
+    slo_burn bundle, and doctor must read it as slo_violation."""
+    reg = obs.Registry()
+    hist = reg.histogram("resnet_step_seconds", "ResNet-50 DDP step wall time")
+    threshold = max(b for b in hist.uppers if b < min(step_s))
+    mon = obs.BurnRateMonitor([obs.Objective("step", "resnet_step_seconds", threshold, 0.99)],
+                              windows=((60.0, 1.0),), registry=reg)
+    mon.sample(now=0.0)
+    for s in step_s:
+        hist.observe(s)
+    rec = obs.enable_flight(flight_dir, min_interval_s=0.0)
+    try:
+        alerts = mon.evaluate(now=61.0)
+    finally:
+        obs.disable_flight()
+    if len(alerts) != 1 or len(rec.bundles) != 1:
+        fail(f"resnet_path slo: {len(alerts)} alerts, {len(rec.bundles)} bundles")
+    verdict = doctor.diagnose(doctor.load_bundle(rec.bundles[0]))
+    if verdict["root_cause"] != "slo_violation":
+        fail(f"resnet_path slo: doctor read {verdict['root_cause']}")
+    return dict(threshold_s=threshold, alert=alerts[0].as_dict(),
+                bundle=os.path.basename(rec.bundles[0]), root_cause=verdict["root_cause"],
+                narrative=verdict["narrative"][0])
+
+def resnet_path(r=RESNET) -> int:
+    """ResNet-50 data-parallel on the card (examples/ddp_train.py's mesh
+    path): 5 steps at W = 4 members of 32 images, the gradient bucket
+    through Communicator.all_reduce(algo="pallas"), B7, once a step. Gates:
+    B7 launched once a step; each reduced bucket bit-identical to
+    ar_chain_plain and within (W-1)·u·Σ|x| of the float64 sum (the xla and
+    ring arms on step 1's bucket within the same rule); the 5 steps' params
+    bit-equal to the same steps with ar_chain_plain in B7's place; each
+    member's step 1 within the float64 rule, a TF32 step outside it; finite losses,
+    moved BN stats, eval mode leaving the state. Then a traced step, the
+    scopes, B7 timed three ways, an SLO burn read by doctor, and two
+    members' metrics federated. Returns B7's launches."""
+    t_start = time.perf_counter()
+    cfg = resnet.ResNetConfig()
+    w = r["world"]
+    torch.cuda.empty_cache()
+    params0, state0 = resnet.init_params(prng_key(r["seed"]), cfg, DEV)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    if resnet.num_params(params0) != RESNET_BUCKET:
+        fail(f"ResNet-50 has {resnet.num_params(params0)} parameters, expected {RESNET_BUCKET}")
+    batches = resnet_batches(r)
+    comm = Communicator(make_mesh(MeshConfig(dp=w)), AXIS.DP)
+    pallas = lambda b: comm.all_reduce(b, algo="pallas")  # noqa: E731
+    regs = [obs.Registry() for _ in range(w)]
+    member_hists = [reg.histogram("resnet_member_fwd_bwd_seconds", "one member's fwd+bwd")
+                    for reg in regs]
+    tracing.reset_scopes()
+    run, step_s, losses, checks = resnet_run(params0, state0, w), [], [], []
+    fb0 = dma.WIRE_FALLBACK.total()
+    torch.cuda.synchronize()
+    rc.reset_launch_counts()
+    for step, batch in enumerate(batches):
+        before = rc.launch_counts["ring_all_reduce"]
+        t0 = time.perf_counter()
+        step_losses, reduced = resnet_step(cfg, run, *batch, pallas, member_hists, r)
+        step_s.append(time.perf_counter() - t0)
+        launched = rc.launch_counts["ring_all_reduce"] - before
+        x = run["bucket"]
+        rule = ring_rule("sum", reduced, rc.ar_chain_plain(x, (1, -1)), x, w, torch.float32)
+        if launched != 1 or not rule["ok"]:
+            fail(f"resnet_path step {step + 1}: B7 launched {launched} times, {rule}")
+        check = dict(step=step + 1, b7_launches=launched, **rule)
+        if step == 0:
+            first_grads = x.clone()  # the members' step-1 gradients
+            for algo in ("xla", "ring"):  # the other arms, within the same rule
+                got = comm.all_reduce(x, algo=algo)
+                check[f"{algo}_worst_over_bound"] = ring_rule("sum", got, got, x, w,
+                                                              torch.float32)["worst_over_bound"]
+                if check[f"{algo}_worst_over_bound"] > 1:
+                    fail(f"resnet_path: the {algo} arm is outside (W-1)·u·Σ|x|: {check}")
+                del got
+        checks.append(check)
+        losses.append([v.item() for v in step_losses])
+        if not all(math.isfinite(v) for v in losses[-1]):
+            fail(f"resnet_path step {step + 1}: losses {losses[-1]}")
+        del reduced
+    launches = rc.launch_counts["ring_all_reduce"]
+    other = {k: v for k, v in rc.launch_counts.items() if k != "ring_all_reduce" and v}
+    if launches != r["steps"] or other or dma.WIRE_FALLBACK.total() != fb0:
+        fail(f"resnet_path: B7 {launches} launches, others {other}, "
+             f"{dma.WIRE_FALLBACK.total() - fb0} fallbacks")
+    peak_gib = torch.cuda.max_memory_allocated(DEV) / 2**30
+    scopes = {name: tracing.scope_stats(name) for name in RESNET_SCOPES}
+    for m in range(w):  # every member's BN statistics moved off their init
+        still = [i for i, (a, b) in enumerate(zip(resnet.tree_leaves(run["states"][m]),
+                                                  resnet.tree_leaves(state0)))
+                 if torch.equal(a, b)]
+        if still:
+            fail(f"resnet_path: member {m}'s BN state leaves {still} did not move")
+    x0, y0 = batches[0][0][0], batches[0][1][0]
+    eval_state = run["states"][0]
+    with torch.no_grad():
+        eval_logits, after = resnet.forward(run["params"], eval_state, x0, cfg, train=False)
+    if not all(torch.equal(a, b) for a, b in zip(resnet.tree_leaves(after),
+                                                 resnet.tree_leaves(eval_state))) \
+            or not torch.isfinite(eval_logits).all():
+        fail("resnet_path: train=False changed the BN state or gave non-finite logits")
+    # the same 5 steps with ar_chain_plain in B7's place
+    shadow = resnet_run(params0, state0, w)
+    for batch in batches:
+        resnet_step(cfg, shadow, *batch, lambda b: rc.ar_chain_plain(b, (1, -1)), None, r)
+    differ = [i for i, (a, b) in enumerate(zip(run["leaves"], shadow["leaves"]))
+              if not torch.equal(a, b)]
+    if differ:
+        fail(f"resnet_path: after {r['steps']} steps, param leaves {differ} differ from "
+             "the run with ar_chain_plain in B7's place")
+    del shadow
+    torch.cuda.empty_cache()
+    # each member's step 1 against float64, then the planted TF32 fault on
+    # member 0's
+    vs64 = []
+    for m in range(w):
+        xm, ym = batches[0][0][m], batches[0][1][m]
+        ref = resnet_float64(cfg, params0, state0, xm, ym)
+        with torch.no_grad():
+            logits = resnet.forward(params0, state0, xm, cfg, train=True)[0]
+        vs64.append(resnet_vs_float64(logits, first_grads[m], ref))
+        if vs64[-1]["worst"] > 1:
+            fail(f"resnet_path: member {m}'s step 1 is outside the float64 rule: {vs64[-1]}")
+    ref = resnet_float64(cfg, params0, state0, x0, y0)
+    with tf32_convs(), torch.no_grad():
+        logits = resnet.forward(params0, state0, x0, cfg, train=True)[0]
+    with tf32_convs():
+        tf32_vs64 = resnet_vs_float64(logits, resnet_member_grads(cfg, params0, state0, x0, y0),
+                                      ref)
+    if tf32_vs64["worst"] <= 1:
+        fail(f"resnet_path: TF32 convolutions passed the float64 rule: {tf32_vs64}")
+    del ref, logits, first_grads
+    torch.cuda.empty_cache()
+    traced = resnet_trace(cfg, run, batches[0], pallas)
+    b7 = resnet_b7_timing(run["bucket"])
+    flight_dir = tempfile.mkdtemp(prefix="resnet_flight_")
+    try:
+        slo = resnet_slo(step_s, flight_dir)
+    finally:
+        shutil.rmtree(flight_dir, ignore_errors=True)
+    texts = [("member0", obs.prometheus_text(regs[0])), ("member1", obs.prometheus_text(regs[1]))]
+    fleet = aggregate.aggregate(texts)
+    counts = fleet["fleet"]["resnet_member_fwd_bwd_seconds_count"][()]
+    if counts != 2 * r["steps"]:
+        fail(f"resnet_path: the federated histogram counts {counts}, not {2 * r['steps']}")
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    images = w * r["per_member"]
+    emit("resnet_path", config={f.name: str(getattr(cfg, f.name))
+                                for f in dataclasses.fields(cfg)},
+         world=w, images_per_member=r["per_member"], image=r["image"],
+         bucket_elems_per_member=RESNET_BUCKET, bucket_bytes_per_member=RESNET_BUCKET * 4,
+         steps=r["steps"], losses=losses, step_ms=[s * 1e3 for s in step_s],
+         step_ms_median_2_5=step_ms, images_per_s=images / step_ms * 1e3,
+         peak_mem_gib=peak_gib, b7_launches=launches, checks=checks,
+         vs_float64=vs64, tf32_fault_vs_float64=tf32_vs64,
+         scopes_us={k: v and {q: v[q] for q in ("count", "p50_us", "max_us")}
+                    for k, v in scopes.items()},
+         trace=traced, b7=b7, b7_share_of_step=b7["ms"] / step_ms, slo=slo,
+         federated=dict(fleet_count=counts,
+                        fleet_p50_s=aggregate.fleet_quantile(
+                            fleet, "resnet_member_fwd_bwd_seconds", 50)),
+         card=nvidia_smi_line(), seconds=time.perf_counter() - t_start)
+    RESNET_B7.update(b7)
+    return launches
+
 def main() -> None:
     t_start = time.perf_counter()
     toolchain()
@@ -4716,6 +5103,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     serve_launches["disagg_path"] = disagg_path()
     torch.cuda.empty_cache()
+    ring_launches["ring_all_reduce"] += resnet_path()
+    torch.cuda.empty_cache()
     ep_launches["a2a"] += (mesh_launches["a2a"] + serve_launches["prefill"]
                            + serve_launches["decode"]
                            + sum(serve_launches["serve_features_path"].values())
@@ -4735,7 +5124,8 @@ def main() -> None:
          "ms": ring_time[name]["ms"], "plain_ms": ring_time[name]["plain_ms"],
          "bound_ms": ring_time[name]["bound_ms"], "bound_by": ring_time[name]["bound_by"],
          "library_ms": ring_time[name]["library_ms"],
-         "library_call": ring_time[name]["library_call"]}
+         "library_call": ring_time[name]["library_call"],
+         **({"resnet_bucket": RESNET_B7} if name == "ring_all_reduce" else {})}
         for name in FULL_PRECISION
     ] + [
         # ms is the fp8 wire's; int8's stands beside it. The bound is the

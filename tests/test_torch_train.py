@@ -62,6 +62,11 @@ def test_importing_the_port_loads_no_jax():
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in PORT.rglob("*.py")
     )
+    # the last modules ported: importing them pulls in no jax either
+    assert {"uccl_tpu_torch.version", "uccl_tpu_torch.doctor", "uccl_tpu_torch.models.resnet",
+            "uccl_tpu_torch.obs.aggregate", "uccl_tpu_torch.obs.slo",
+            "uccl_tpu_torch.utils.latency", "uccl_tpu_torch.utils.stats",
+            "uccl_tpu_torch.utils.timing", "uccl_tpu_torch.utils.tracing"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
@@ -72,6 +77,18 @@ def test_importing_the_port_loads_no_jax():
     )
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    """Every module of the JAX package has one of the same path in the
+    port, but the jax version bridge and the two Pallas kernel files (their
+    kernels are the port's csrc/)."""
+    def modules(root):
+        return {p.relative_to(root).as_posix() for p in root.rglob("*.py")}
+
+    missing = modules(REPO / "uccl_tpu") - modules(PORT)
+    assert missing == {"utils/jaxcompat.py", "ops/pallas_attention.py",
+                       "collective/pallas_ccl.py"}
 
 
 def _imports(path):

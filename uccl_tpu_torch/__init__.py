@@ -18,7 +18,7 @@ from typing import Union
 
 import torch
 
-__version__ = "0.1.0"
+from uccl_tpu_torch.version import __version__  # noqa: F401
 
 DeviceLike = Union[str, torch.device, None]
 

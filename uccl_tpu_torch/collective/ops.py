@@ -120,11 +120,20 @@ def all_to_all(x: torch.Tensor, *, split_dim: int, concat_dim: int,
                tiled: bool = True) -> torch.Tensor:
     """Member r splits its shard along ``split_dim`` into world blocks and
     sends block j to member j; what it receives from member j lands at
-    block j along ``concat_dim``."""
-    if not tiled:
-        raise NotImplementedError("all_to_all: only the tiled form is ported")
+    block j along ``concat_dim``. Untiled (``lax.all_to_all(tiled=False)``):
+    the shard's ``split_dim`` must have size world and is removed, and what
+    member j sent lands at index j of a new dimension inserted at
+    ``concat_dim``."""
     _tally("all_to_all", x)
     n = x.shape[0]
+    if not tiled:
+        nd = x.dim() - 1
+        split_dim, concat_dim = split_dim % nd, concat_dim % nd
+        if x.shape[1 + split_dim] != n:
+            raise ValueError(f"all_to_all(tiled=False): split_dim {split_dim} has size "
+                             f"{x.shape[1 + split_dim]}, not the world size {n}")
+        return torch.stack([torch.stack([x[j].select(split_dim, i) for j in range(n)],
+                                        dim=concat_dim) for i in range(n)])
     blocks = [m.chunk(n, dim=split_dim) for m in x.unbind(0)]
     return torch.stack([torch.cat([blocks[j][i] for j in range(n)], dim=concat_dim)
                         for i in range(n)])

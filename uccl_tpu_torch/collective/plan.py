@@ -282,6 +282,16 @@ class ChunkGraph:
         return out
 
 
+def graph_from_ring(plan: RingPlan, axis: str) -> ChunkGraph:
+    """Lift a linear RingPlan into DAG form (each step depends on the last)."""
+    ops = tuple(
+        ChunkOp(id=i, deps=(i - 1,) if i else (), axis_idx=0, dir=st.dir,
+                send_off=st.send_off, recv_off=st.recv_off, combine=st.combine)
+        for i, st in enumerate(plan.steps)
+    )
+    return ChunkGraph((axis,), (plan.world,), 1, ops, plan.name)
+
+
 def graph_bidirectional_all_reduce(world: int, axis: str) -> ChunkGraph:
     """Two counter-rotating rings on independent streams."""
     fwd = plan_all_reduce(world, 1).steps

@@ -4,8 +4,10 @@ Port of ``uccl_tpu/obs`` (jax-free there too): the counter / gauge /
 histogram registry (:mod:`.counters`), the ring-buffered host event tracer
 (:mod:`.tracer`), the cross-process trace context (:mod:`.context`), the
 Prometheus-text / JSON / Chrome-trace export surfaces (:mod:`.export`,
-:mod:`.chrome_trace`) and the flight recorder (:mod:`.flight`), under the
-JAX package's names. ``aggregate`` and ``slo`` are not ported yet.
+:mod:`.chrome_trace`), the flight recorder (:mod:`.flight`), the SLO
+burn-rate monitors over the histogram families (:mod:`.slo`) and the fleet
+federation of N workers' ``/metrics`` (:mod:`.aggregate`), under the JAX
+package's names.
 
 Everything is a no-op (one bool check) until ``obs.enable_tracing()`` /
 ``--trace-out`` turns the tracer on; counters are always live.
@@ -41,3 +43,6 @@ from uccl_tpu_torch.obs.flight import get_recorder as get_flight  # noqa: F401
 from uccl_tpu_torch.obs.flight import register_provider as flight_provider  # noqa: F401
 from uccl_tpu_torch.obs.flight import trigger as flight_trigger  # noqa: F401
 from uccl_tpu_torch.obs.flight import unregister_provider as flight_unregister  # noqa: F401
+from uccl_tpu_torch.obs.slo import (  # noqa: F401
+    Alert, BurnRateMonitor, Objective, serving_objectives,
+)

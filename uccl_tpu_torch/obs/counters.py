@@ -18,7 +18,7 @@ This registry is the one place the framework's numbers live:
   concatenation; histograms with identical bucket edges SUM — N workers'
   ``_bucket`` counts add into one fleet distribution whose quantiles are
   correct to a bucket width (the Prometheus argument, PAPERS.md).
-  The JAX package's ``obs/aggregate.py`` is that summation.
+  :mod:`uccl_tpu_torch.obs.aggregate` is that summation.
 * **sources** — pull callbacks (a serving engine's snapshot, for one),
   exported as gauges.
 

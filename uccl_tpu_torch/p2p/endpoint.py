@@ -62,6 +62,8 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__f
 _NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
 NATIVE_BUILD_DIR = os.path.join(str(BUILD_DIR), "native")
 _SO_PATH = os.path.join(NATIVE_BUILD_DIR, "libuccl_tpu.so")
+_NET_SO_PATH = os.path.join(NATIVE_BUILD_DIR, "libuccl_tpu_net.so")
+_ARTIFACTS = (_SO_PATH, _NET_SO_PATH)
 
 FIFO_ITEM_BYTES = 64
 
@@ -79,7 +81,8 @@ def _sources():
 
 def _build_if_needed() -> str:
     """Path of the port's build of ``native/``'s ``libuccl_tpu.so``, built
-    first if it is missing or was built from other sources.
+    first, with the net plugin ``libuccl_tpu_net.so`` beside it, if either
+    is missing or was built from other sources.
 
     Freshness is a content hash of the runtime's sources (not mtimes), so
     checkout-order mtime skew can neither skip a needed rebuild nor load a
@@ -96,7 +99,7 @@ def _build_if_needed() -> str:
     digest_path = os.path.join(NATIVE_BUILD_DIR, ".src_hash")
 
     def fresh() -> bool:
-        if not os.path.exists(_SO_PATH) or not os.path.exists(digest_path):
+        if not all(os.path.exists(a) for a in _ARTIFACTS) or not os.path.exists(digest_path):
             return False
         with open(digest_path) as f:
             return f.read().strip() == src_digest()
@@ -116,7 +119,7 @@ def _build_if_needed() -> str:
         if not fresh():  # re-check under the lock
             _log.info("building native runtime into %s", NATIVE_BUILD_DIR)
             proc = subprocess.run(
-                ["make", "-C", _NATIVE_DIR, f"BUILD={NATIVE_BUILD_DIR}", _SO_PATH],
+                ["make", "-C", _NATIVE_DIR, f"BUILD={NATIVE_BUILD_DIR}", *_ARTIFACTS],
                 capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(
@@ -124,6 +127,17 @@ def _build_if_needed() -> str:
             with open(digest_path, "w") as f:
                 f.write(src_digest())
     return _SO_PATH
+
+
+def net_plugin_path() -> str:
+    """Path to the port's build of the loadable NCCL-net-shaped plugin .so
+    (built if needed).
+
+    Consumers dlopen it and read the exported ``ucclt_net_v1`` vtable
+    (native/include/uccl_tpu/net_plugin.h) — the analog of pointing
+    NCCL_NET_PLUGIN at the reference's libnccl-net-uccl.so."""
+    _build_if_needed()
+    return _NET_SO_PATH
 
 
 def _load():

@@ -19,9 +19,9 @@ benchmarks/serving_bench.py — docs/SERVING.md spells them out):
   wall time (first submit → last finish). Tokens of in-flight or rejected
   requests never count: goodput is *useful delivered* throughput.
 
-The snapshot is JSON-ready and also exported as a pull source of the obs
-registry (``obs.REGISTRY.register_source``) under the ``serving`` name, the
-surface the JAX package's stats thread delegates to.
+The snapshot is JSON-ready and also exported through the stats thread
+(``uccl_tpu_torch.utils.stats.registry``) under the ``serving`` source, which
+mirrors it into the obs registry's pull sources.
 """
 
 from __future__ import annotations
@@ -524,9 +524,10 @@ class ServingMetrics:
         return lines
 
     def register(self, engine, name: str = "serving") -> None:
-        """Export the engine's snapshot as a pull source of the obs
-        registry (what the JAX package's ``utils.stats`` registry delegates
-        to), so /metrics and /snapshot carry it."""
+        """Export through uccl_tpu_torch.utils.stats — the same periodic
+        snapshot channel the transport engines report on, mirrored into the
+        obs registry, so /metrics and /snapshot carry it too."""
+        from uccl_tpu_torch.utils.stats import registry
 
         def source() -> Dict[str, float]:
             s = engine.snapshot()
@@ -535,7 +536,9 @@ class ServingMetrics:
                 if isinstance(v, (int, float))
             }
 
-        obs.REGISTRY.register_source(name, source)
+        registry.register(name, source)
 
     def unregister(self, name: str = "serving") -> None:
-        obs.REGISTRY.unregister_source(name)
+        from uccl_tpu_torch.utils.stats import registry
+
+        registry.unregister(name)

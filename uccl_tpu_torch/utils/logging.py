@@ -9,8 +9,11 @@ Env controls (mirroring UCCL_DEBUG / UCCL_DEBUG_SUBSYS):
 * ``UCCL_TPU_DEBUG``        — minimum level name (FATAL|ERROR|WARN|INFO|DEBUG).
 * ``UCCL_TPU_DEBUG_SUBSYS`` — comma list of subsystems to enable, or ``ALL``.
 
-Port copy of the logging part of ``uccl_tpu/utils/logging.py`` (jax-free
-there too); the port's
+``CHECK`` / ``DCHECK`` are the reference's ``UCCL_CHECK`` / ``UCCL_DCHECK``:
+an always-on and a debug-only invariant check raising :class:`CheckError`
+(``UCCL_TPU_DCHECK=0`` turns the second off).
+
+Port copy of ``uccl_tpu/utils/logging.py`` (jax-free there too); the port's
 loggers hang under ``uccl_tpu_torch`` so the two packages never share handlers.
 """
 
@@ -90,3 +93,22 @@ def log(level: str, msg: str, *args: Any, subsys: str = "UTIL") -> None:
     get_logger(subsys).log(lvl, msg, *args)
     if level.upper() == "FATAL":
         raise RuntimeError(f"FATAL[{subsys}]: {msg % args if args else msg}")
+
+
+class CheckError(AssertionError):
+    pass
+
+
+def CHECK(cond: Any, msg: str = "CHECK failed") -> None:
+    """Always-on invariant check (reference UCCL_CHECK)."""
+    if not cond:
+        raise CheckError(msg)
+
+
+_DCHECK_ON = os.environ.get("UCCL_TPU_DCHECK", "1") not in ("0", "false", "off")
+
+
+def DCHECK(cond: Any, msg: str = "DCHECK failed") -> None:
+    """Debug-only check (reference UCCL_DCHECK); disable with UCCL_TPU_DCHECK=0."""
+    if _DCHECK_ON and not cond:
+        raise CheckError(msg)

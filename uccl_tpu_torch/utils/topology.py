@@ -9,13 +9,22 @@ independent rings (one per direction) a collective can spray chunks across.
 Pure-python; used by the chunk-graph planner (``collective/plan.py``) and
 the Communicator.
 
-Port copy of the ring helpers of ``uccl_tpu/utils/topology.py`` (jax-free
-there too), kept so the port never imports the JAX package.
+Port copy of ``uccl_tpu/utils/topology.py`` (jax-free there too), kept so
+the port never imports the JAX package.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List, Tuple
+
+
+@dataclass(frozen=True)
+class TorusAxis:
+    """One axis of a (possibly multi-dim) torus of members."""
+
+    name: str
+    size: int
 
 
 def ring_order(n: int, offset: int = 0, reverse: bool = False) -> List[int]:
@@ -47,6 +56,18 @@ def bidirectional_rings(n: int) -> List[List[int]]:
     return [ring_order(n), ring_order(n, reverse=True)]
 
 
+def factor_2d(n: int) -> Tuple[int, int]:
+    """Factor n into the most-square (rows, cols) grid — used to lay a logical
+    2-D torus over a flat member list when the physical topology is unknown."""
+    best = (1, n)
+    r = 1
+    while r * r <= n:
+        if n % r == 0:
+            best = (r, n // r)
+        r += 1
+    return best
+
+
 def bcast_tree_rounds(n: int, root: int = 0) -> List[List[Tuple[int, int]]]:
     """Binomial-tree broadcast schedule: per round, the (src, dst) member
     pairs (absolute indices on a ring of ``n`` rooted at ``root``). Round t
@@ -66,3 +87,15 @@ def bcast_tree_rounds(n: int, root: int = 0) -> List[List[Tuple[int, int]]]:
         )
         mask <<= 1
     return rounds
+
+
+def recursive_halving_peers(rank: int, n: int) -> List[int]:
+    """Peer schedule for recursive-halving/doubling collectives (n power of two)."""
+    if n & (n - 1):
+        raise ValueError(f"recursive halving needs power-of-two size, got {n}")
+    peers = []
+    d = n // 2
+    while d >= 1:
+        peers.append(rank ^ d)
+        d //= 2
+    return peers
