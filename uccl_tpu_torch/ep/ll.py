@@ -52,9 +52,10 @@ import torch.nn.functional as F
 
 from uccl_tpu_torch.collective import dma as _dma
 from uccl_tpu_torch.collective import lanes as _lanes
-from uccl_tpu_torch.ep.ops import (MOE_CHECKPOINT_NAMES, _expert_gemms, _gate_topk, _per_member,
-                                   _stack, _take_member_rows, _weighted_sum, checkpoint_name,
-                                   counts_exchange, resolve_wire_dtype)
+from uccl_tpu_torch.ep.ops import (MOE_CHECKPOINT_NAMES, TRACK, _expert_gemms, _gate_topk,
+                                   _per_member, _stack, _take_member_rows, _weighted_sum,
+                                   checkpoint_name, counts_exchange, resolve_wire_dtype)
+from uccl_tpu_torch.obs import tracer as _obst
 from uccl_tpu_torch.ops import quant as _quant
 
 
@@ -432,14 +433,18 @@ def ll_moe_ffn(x: torch.Tensor, router_logits: torch.Tensor, w_gate: torch.Tenso
     if grouped not in ("fixed", "ragged"):
         raise ValueError(f"unknown grouped GEMM form {grouped!r} (want fixed|ragged)")
     e = router_logits.shape[-1]
-    topk_vals, topk_idx, aux_loss, z_loss = _per_member(_gate_topk, router_logits,
-                                                        num_selected, renormalize)
-    r = ll_dispatch(x, topk_idx, topk_vals, e,
-                    num_max_dispatch_tokens_per_rank=num_max_dispatch_tokens_per_rank,
-                    pair_capacity_factor=pair_capacity_factor, wire=wire, wire_fp8=wire_fp8,
-                    n_chunks=n_chunks, wire_dtype=wire_dtype)
-    dt = r.recv_x.dtype
-    ffn = grouped_ffn if grouped == "fixed" else grouped_ffn_ragged
-    y = ffn(r.recv_x, r.group_sizes, w_gate.to(dt), w_up.to(dt), w_down.to(dt))
-    out = ll_combine(y, r.state, wire_fp8=wire_fp8, wire_dtype=wire_dtype)
-    return out.to(x.dtype), aux_loss, z_loss
+    with _obst.span("moe.route", TRACK):
+        topk_vals, topk_idx, aux_loss, z_loss = _per_member(_gate_topk, router_logits,
+                                                            num_selected, renormalize)
+    with _obst.span("moe.dispatch", TRACK):
+        r = ll_dispatch(x, topk_idx, topk_vals, e,
+                        num_max_dispatch_tokens_per_rank=num_max_dispatch_tokens_per_rank,
+                        pair_capacity_factor=pair_capacity_factor, wire=wire, wire_fp8=wire_fp8,
+                        n_chunks=n_chunks, wire_dtype=wire_dtype)
+    with _obst.span("moe.experts", TRACK):
+        dt = r.recv_x.dtype
+        ffn = grouped_ffn if grouped == "fixed" else grouped_ffn_ragged
+        y = ffn(r.recv_x, r.group_sizes, w_gate.to(dt), w_up.to(dt), w_down.to(dt))
+    with _obst.span("moe.combine", TRACK):
+        out = ll_combine(y, r.state, wire_fp8=wire_fp8, wire_dtype=wire_dtype)
+        return out.to(x.dtype), aux_loss, z_loss

@@ -38,14 +38,17 @@ Pallas kernel.
 from __future__ import annotations
 
 import contextlib
-from typing import NamedTuple, Tuple, Union
+import threading
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.autograd import _profiler_enabled
 
 from uccl_tpu_torch.collective import dma as _dma
 from uccl_tpu_torch.collective import lanes as _lanes
 from uccl_tpu_torch.obs import counters as _obsc
+from uccl_tpu_torch.obs import tracer as _obst
 from uccl_tpu_torch.ops import quant as _quant
 
 Axis = Union[str, Tuple[str, ...], None]
@@ -95,6 +98,61 @@ def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
 
 _CHUNK_DEPTH = _obsc.gauge(
     "ep_chunk_depth", "resolved chunk-pipeline depth of the last EP layer")
+
+# The obs track of the MoE layer's spans (moe.route, moe.dispatch,
+# moe.experts, moe.combine): the layer serves training and inference alike.
+TRACK = "moe"
+
+
+class MoeCounts:
+    """The sorted and dense MoE layers' routing, summed over every forward
+    while tracing is on (the obs tracer, or a ``torch.profiler`` capture):
+    the choices made (T x k), the choices kept under capacity, and the
+    expert slots the GEMMs compute (E x C), all members together. A
+    recompute inside the backward (remat) does not count again. ``kept``
+    stays on the device until :meth:`read`, the one host read; the ``moe``
+    source on ``obs.REGISTRY`` reads it at each scrape."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self._choices = self._slots = 0
+            self._kept: Optional[torch.Tensor] = None
+
+    def add(self, choices: int, slots: int, kept: torch.Tensor) -> None:
+        n = kept.sum(dtype=torch.int64)
+        with self._lock:
+            self._choices += choices
+            self._slots += slots
+            self._kept = n if self._kept is None else self._kept + n
+
+    def read(self) -> Dict[str, float]:
+        """The counts, and once a choice is counted ``drop_pct`` = 100 (1 -
+        kept / choices) and ``expert_fill`` = 100 kept / slots."""
+        with self._lock:
+            choices, slots, kept = self._choices, self._slots, self._kept
+        n_kept = 0 if kept is None else int(kept)
+        out = {"choices": choices, "kept": n_kept, "slots": slots}
+        if choices:
+            out["drop_pct"] = 100.0 * (1.0 - n_kept / choices)
+            out["expert_fill"] = 100.0 * n_kept / slots
+        return out
+
+
+MOE_COUNTS = MoeCounts()
+_obsc.REGISTRY.register_source("moe", MOE_COUNTS.read)
+
+
+def _count(choices: int, slots: int, kept: torch.Tensor) -> None:
+    """One forward's routing onto :data:`MOE_COUNTS` while tracing is on and
+    outside a backward (a remat recompute runs inside one, and its forward
+    has counted)."""
+    if ((_obst.enabled() or _profiler_enabled())
+            and torch._C._current_graph_task_id() == -1):
+        MOE_COUNTS.add(choices, slots, kept)
 
 
 class Routing(NamedTuple):
@@ -583,21 +641,29 @@ def _moe_ffn_sort_chunked(x, plan: SlotPlan, weights, w_gate, w_up, w_down, num_
         cs = tfs_chunks.shape[-1]
         recv_chunks, y_chunks = [], []
         for c in range(n_chunks):
-            buf = _take_member_rows(x, tfs_chunks[c].reshape(w, -1)).reshape(w, w, e_local, cs, h)
-            buf = _dma.tie_chunk(buf, recv_chunks[c - 2] if c >= 2 else None)
-            buf = _wire_all_to_all(buf, False, 128, x.dtype, "pallas",
-                                   collective_id=_dma.chunk_collective_id(_dma.CID_EP_DISPATCH, c),
-                                   wire_dtype=wire_dtype)
-            xe = _wire_to_members(buf)
+            with _obst.span("moe.dispatch", TRACK):
+                buf = _take_member_rows(x, tfs_chunks[c].reshape(w, -1)).reshape(
+                    w, w, e_local, cs, h)
+                buf = _dma.tie_chunk(buf, recv_chunks[c - 2] if c >= 2 else None)
+                buf = _wire_all_to_all(
+                    buf, False, 128, x.dtype, "pallas",
+                    collective_id=_dma.chunk_collective_id(_dma.CID_EP_DISPATCH, c),
+                    wire_dtype=wire_dtype)
+                xe = _wire_to_members(buf)
             recv_chunks.append(xe)
-            ye = _member_gemms(xe, w_gate, w_up, w_down)
-            back = _dma.tie_chunk(_members_to_wire(ye, w), y_chunks[c - 2] if c >= 2 else None)
-            back = _wire_all_to_all(back, False, 128, ye.dtype, "pallas",
-                                    collective_id=_dma.chunk_collective_id(_dma.CID_EP_COMBINE, c),
-                                    wire_dtype=wire_dtype)
+            with _obst.span("moe.experts", TRACK):
+                ye = _member_gemms(xe, w_gate, w_up, w_down)
+            with _obst.span("moe.combine", TRACK):
+                back = _dma.tie_chunk(_members_to_wire(ye, w),
+                                      y_chunks[c - 2] if c >= 2 else None)
+                back = _wire_all_to_all(
+                    back, False, 128, ye.dtype, "pallas",
+                    collective_id=_dma.chunk_collective_id(_dma.CID_EP_COMBINE, c),
+                    wire_dtype=wire_dtype)
             y_chunks.append(back.reshape(w, num_experts, cs, h))
-        y = torch.cat(y_chunks, dim=2)[:, :, :capacity].reshape(w, num_experts * capacity, h)
-        return _weighted_sum(weights, _take_member_rows(y, plan.slot))
+        with _obst.span("moe.combine", TRACK):
+            y = torch.cat(y_chunks, dim=2)[:, :, :capacity].reshape(w, num_experts * capacity, h)
+            return _weighted_sum(weights, _take_member_rows(y, plan.slot))
 
 
 def moe_ffn(
@@ -635,7 +701,12 @@ def moe_ffn(
     wire_dtype: "fp8" | "int8" quantizes the dispatch and combine payloads
     (``wire_fp8=True`` is the legacy "fp8"). ll_grouped: the "ll" path's
     grouped GEMM, "fixed" (serving's fixed shapes) or "ragged" (training:
-    the products see only the packed rows, ``ll.grouped_ffn_ragged``)."""
+    the products see only the packed rows, ``ll.grouped_ffn_ragged``).
+
+    The stages run under the spans ``moe.route``, ``moe.dispatch``,
+    ``moe.experts`` and ``moe.combine`` (track :data:`TRACK`), and while
+    tracing is on "sort" and "dense" count their routing on
+    :data:`MOE_COUNTS`."""
     wire_dtype = resolve_wire_dtype(wire_fp8, wire_dtype)
     if axis is None:
         # world 1 is one member of a member-stacked world: views, no copies;
@@ -657,28 +728,33 @@ def moe_ffn(
                               pair_capacity_factor=capacity_factor,
                               wire="pallas" if wire == "pallas" else "auto",
                               wire_dtype=wire_dtype, n_chunks=n_chunks, grouped=ll_grouped)
+        if impl not in ("sort", "dense"):
+            raise ValueError(f"unknown moe impl {impl!r} (want 'sort', 'dense', or 'll')")
+        with _obst.span("moe.route", TRACK):
+            route = route_topk_sorted if impl == "sort" else route_topk
+            r = route(router_logits, num_selected, capacity)
+            _count(w * t * num_selected, w * e * capacity, r.counts)
         if impl == "sort":
-            rs = route_topk_sorted(router_logits, num_selected, capacity)
             n_chunks = resolve_chunks(n_chunks, wire, w, capacity, e // w, h,
                                       wire_itemsize(False, h, x.dtype, wire_dtype=wire_dtype),
                                       wire_dtype=wire_dtype, device=x.device)
             if n_chunks > 1:
-                plan = SlotPlan(rs.token_for_slot, rs.slot, rs.counts)
-                out = _moe_ffn_sort_chunked(x, plan, rs.weights, w_gate, w_up, w_down, e, capacity,
+                plan = SlotPlan(r.token_for_slot, r.slot, r.counts)
+                out = _moe_ffn_sort_chunked(x, plan, r.weights, w_gate, w_up, w_down, e, capacity,
                                             n_chunks, wire_dtype=wire_dtype)
-                return out.to(x.dtype), rs.aux_loss, rs.z_loss
-            xe = dispatch_sorted(x, rs.token_for_slot, e, capacity, axis, wire=wire,
-                                 wire_dtype=wire_dtype)
-            aux_loss, z_loss = rs.aux_loss, rs.z_loss
-        elif impl == "dense":
-            r = route_topk(router_logits, num_selected, capacity)
-            xe = dispatch(x, r.dispatch_mask, axis, wire=wire, wire_dtype=wire_dtype)
-            aux_loss, z_loss = r.aux_loss, r.z_loss
-        else:
-            raise ValueError(f"unknown moe impl {impl!r} (want 'sort', 'dense', or 'll')")
-        ye = _member_gemms(xe, w_gate, w_up, w_down)
-        if impl == "sort":
-            out = combine_sorted(ye, rs.slot, rs.weights, axis, wire=wire, wire_dtype=wire_dtype)
-        else:
-            out = combine(ye, r.combine_weights, axis, wire=wire, wire_dtype=wire_dtype)
-        return out.to(x.dtype), aux_loss, z_loss
+                return out.to(x.dtype), r.aux_loss, r.z_loss
+        with _obst.span("moe.dispatch", TRACK):
+            if impl == "sort":
+                xe = dispatch_sorted(x, r.token_for_slot, e, capacity, axis, wire=wire,
+                                     wire_dtype=wire_dtype)
+            else:
+                xe = dispatch(x, r.dispatch_mask, axis, wire=wire, wire_dtype=wire_dtype)
+        with _obst.span("moe.experts", TRACK):
+            ye = _member_gemms(xe, w_gate, w_up, w_down)
+        with _obst.span("moe.combine", TRACK):
+            if impl == "sort":
+                out = combine_sorted(ye, r.slot, r.weights, axis, wire=wire,
+                                     wire_dtype=wire_dtype)
+            else:
+                out = combine(ye, r.combine_weights, axis, wire=wire, wire_dtype=wire_dtype)
+            return out.to(x.dtype), r.aux_loss, r.z_loss

@@ -58,6 +58,7 @@ from uccl_tpu_torch import DeviceLike, resolve_device
 from uccl_tpu_torch.ep import ops as ep_ops
 from uccl_tpu_torch.models.layers import rms_norm, rope, tp_cross_entropy
 from uccl_tpu_torch.models.sampling import normal, split
+from uccl_tpu_torch.obs import tracer as _obst
 from uccl_tpu_torch.ops.attention import attention_reference, ring_attention, ulysses_attention
 from uccl_tpu_torch.ops.flash_attention import flash_attention
 from uccl_tpu_torch.parallel import sharding as shd
@@ -66,6 +67,12 @@ from uccl_tpu_torch.parallel.pipeline import gpipe_spmd, pipeline_train
 from uccl_tpu_torch.parallel.sharding import P
 
 Params = Dict[str, Any]
+
+# The obs track of the train step's spans (flagship.embed, .attention,
+# .stack_slice, .block, .head, and adamw); the MoE layer's are on
+# ep.ops.TRACK. Inside a torch.profiler capture each span is a
+# record_function range, above the kernels launched under it.
+TRACK = "train"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -405,7 +412,8 @@ def _moe(flat: torch.Tensor, router_logits: torch.Tensor, lp: Params, cfg: Flags
     group's EP world, on its members' tokens [W_ep, T_loc, H] and experts
     (capacity per member and microbatch, as in the JAX shard)."""
     xs, ls = _ep_groups(flat), _ep_groups(router_logits)
-    ws = [_ep_groups(lp[k].to(flat.dtype)) for k in ("we_gate", "we_up", "we_down")]
+    with _obst.span("moe.experts", ep_ops.TRACK):  # the weights' casts
+        ws = [_ep_groups(lp[k].to(flat.dtype)) for k in ("we_gate", "we_up", "we_down")]
     outs = [ep_ops.moe_ffn(xs[g], ls[g], ws[0][g], ws[1][g], ws[2][g], AXIS.EP,
                            num_selected=cfg.moe_topk, capacity_factor=cfg.capacity_factor,
                            wire_fp8=cfg.wire_fp8, wire_dtype=cfg.wire_dtype, impl=cfg.moe_impl,
@@ -418,18 +426,28 @@ def _layer(x: torch.Tensor, lp: Params, cfg: FlagshipConfig) -> Tuple[torch.Tens
     """One transformer block on every member. x: [*G, B, S_loc, H]. Returns
     (x, aux [*G])."""
     b, s, h = x.shape[G:]
-    attn_out = _attention(rms_norm(x, _w(lp["ln1"], x), cfg.norm_eps), lp, cfg)
+    with _obst.span("flagship.attention", TRACK):
+        attn_out = _attention(rms_norm(x, _w(lp["ln1"], x), cfg.norm_eps), lp, cfg)
     x = x + shd.psum(attn_out, AXIS.TP)
     h2 = rms_norm(x, _w(lp["ln2"], x), cfg.norm_eps)
     flat = h2.reshape(tuple(x.shape[:G]) + (b * s, h))
-    router_logits = _gmm(flat.float(), lp["router"])
+    with _obst.span("moe.route", ep_ops.TRACK):
+        router_logits = _gmm(flat.float(), lp["router"])
     moe_out, aux, z = _moe(flat, router_logits, lp, cfg)
     x = x + shd.psum(moe_out.reshape(x.shape), AXIS.TP)
     return x, cfg.aux_loss_weight * aux + cfg.z_loss_weight * z
 
 
 def _layer_at(layer: Callable, blocks: Params, i: int, x: torch.Tensor, cfg):
-    return layer(x, {k: v.select(G, i) for k, v in blocks.items()}, cfg)
+    """Block ``i`` on its slice of the stacked leaves. The slices' backward
+    writes each layer's gradient into the stacked gradient
+    (``flagship.stack_slice``); ``flagship.block`` holds what no finer span
+    does (residual adds, ln2, the aux sum), also when a remat recompute
+    re-runs the block inside the backward."""
+    with _obst.span("flagship.stack_slice", TRACK):
+        lp = {k: v.select(G, i) for k, v in blocks.items()}
+    with _obst.span("flagship.block", TRACK):
+        return layer(x, lp, cfg)
 
 
 def _embed(tokens: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
@@ -493,11 +511,13 @@ def _per_shard_logits_aux(gp: Params, tokens: torch.Tensor, cfg, layer: Callable
     GPipe schedule over pp (each stage's layers on stacked stage weights),
     the final norm and the vocab head."""
     layer = layer or _layer
-    x = _embed(tokens, gp["embed"]).to(cfg.dtype)
+    with _obst.span("flagship.embed", TRACK):
+        x = _embed(tokens, gp["embed"]).to(cfg.dtype)
     out, aux = gpipe_spmd(partial(_stage_fn, layer, cfg, gp["blocks"]),
                           _microbatches(x, cfg.n_microbatches), AXIS.PP)
     x = out.movedim(1, G).reshape(x.shape)
-    return _head_logits(gp, x, cfg), aux
+    with _obst.span("flagship.head", TRACK):
+        return _head_logits(gp, x, cfg), aux
 
 
 def _per_shard_loss(gp: Params, tokens, targets, cfg):
@@ -506,8 +526,10 @@ def _per_shard_loss(gp: Params, tokens, targets, cfg):
     cp), plus the aux losses averaged likewise and normalised by layers x
     microbatches."""
     logits, aux = _per_shard_logits_aux(gp, tokens, cfg)
-    per_token = _tp_ce(logits, targets)
-    loss = shd.pmean(per_token.reshape(tuple(per_token.shape[:G]) + (-1,)).mean(-1), AXIS.EP)
+    with _obst.span("flagship.head", TRACK):
+        per_token = _tp_ce(logits, targets)
+        loss = shd.pmean(per_token.reshape(tuple(per_token.shape[:G]) + (-1,)).mean(-1),
+                         AXIS.EP)
     aux_norm = shd.pmean(aux, AXIS.EP) / (cfg.n_layers * cfg.n_microbatches)
     return loss + aux_norm, loss
 
@@ -579,13 +601,14 @@ def manual_loss_and_grads(params: Params, tokens, targets, cfg: FlagshipConfig,
     tok, tgt = _put_data(mesh, tokens), _put_data(mesh, targets)
     m = cfg.n_microbatches
     emb = gp["embed"].requires_grad_()
-    with torch.enable_grad():
+    with torch.enable_grad(), _obst.span("flagship.embed", TRACK):
         x = _embed(tok, emb).to(cfg.dtype)
     n_tok = tok.shape[G] * tok.shape[G + 1]  # per member: summed mb losses == its mean
 
     def loss_head(lp, y, target):
-        per = _tp_ce(_head_logits(lp, y, cfg), target)
-        return per.reshape(tuple(per.shape[:G]) + (-1,)).sum(-1) / n_tok
+        with _obst.span("flagship.head", TRACK):
+            per = _tp_ce(_head_logits(lp, y, cfg), target)
+            return per.reshape(tuple(per.shape[:G]) + (-1,)).sum(-1) / n_tok
 
     total, ce, dblocks, dlp, dxmb = pipeline_train(
         partial(_stage_fn, _layer, cfg), loss_head, gp["blocks"],
@@ -673,7 +696,7 @@ def adamw_train_step(loss: Optional[Callable], device: DeviceLike = None,
             gs = tree_leaves(g_tree)
         count = opt_state["count"] + 1
         bc1, bc2 = 1.0 - b1 ** count, 1.0 - b2 ** count
-        with torch.no_grad():
+        with torch.no_grad(), _obst.span("adamw", TRACK):
             for p, g, mu, nu in zip(leaves, gs, tree_leaves(opt_state["mu"]),
                                     tree_leaves(opt_state["nu"])):
                 mu.mul_(b1).add_(g, alpha=1.0 - b1)

@@ -2,8 +2,12 @@
 
 Port copy of ``uccl_tpu/obs/tracer.py`` (jax-free there too), on this
 package's counter registry. The device timeline of the port belongs to
-``torch.profiler``; the spans here are host windows (``ep.<verb>`` on the
-``wire`` track, for instance).
+``torch.profiler``, and :func:`span` is the port's one span primitive on
+both timelines: while a ``torch.profiler`` capture runs it opens a
+``record_function`` range of its name (so the span sits in the device
+trace on the profiler's clock, above the kernels launched under it), and
+while the tracer here is on it records its host window (``ep.<verb>`` on
+the ``wire`` track, the train step's layers on the ``train`` track).
 
 The reference ships NPKit GPU event tracing (SURVEY.md §5): fixed-size
 per-channel event buffers filled by the kernels and dumped to a
@@ -19,7 +23,7 @@ the same properties the NPKit design proves out:
   nothing else shared.
 * **zero-cost when disabled**: the module-level helpers check one bool and
   return a cached no-op context manager — no allocation, no lock, no
-  timestamp read.
+  timestamp read (:func:`span` also asks the profiler's flag once).
 * **monotonic timestamps**: ``time.perf_counter`` relative to the tracer's
   epoch, in microseconds (the Chrome-trace unit), so spans from different
   threads land on one consistent timeline.
@@ -52,6 +56,9 @@ import threading
 import time
 from collections import deque
 from typing import Dict, List, NamedTuple, Optional
+
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
 
 from uccl_tpu_torch.obs.counters import counter as _counter
 
@@ -245,11 +252,21 @@ def get_tracer() -> Optional[Tracer]:
 
 
 def span(name: str, track: Optional[str] = None, **args):
-    """Span on the global tracer; a cached no-op when tracing is off."""
+    """Span ``name``: a ``record_function`` range while a ``torch.profiler``
+    capture runs, an "X" event on the global tracer while it is on, both
+    when both are; the cached no-op, allocating nothing, when neither is."""
     t = _tracer
     if t is None:
-        return _NULL_SPAN
+        return record_function(name) if _profiler_enabled() else _NULL_SPAN
+    if _profiler_enabled():
+        return _both(t, name, track, args)
     return t.span(name, track, **args)
+
+
+@contextlib.contextmanager
+def _both(t: Tracer, name: str, track: Optional[str], args: dict):
+    with record_function(name), t.span(name, track, **args):
+        yield
 
 
 def instant(name: str, track: Optional[str] = None, **args) -> None:

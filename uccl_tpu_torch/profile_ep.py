@@ -182,7 +182,9 @@ def main(argv=None):
         with profile(activities=sorted({ProfilerActivity.CPU, activity}, key=str)) as host_prof:
             layer(True)
         host_top = sorted(((e.key, e.self_cpu_time_total / 1e3)
-                           for e in host_prof.key_averages()), key=lambda kv: -kv[1])
+                           for e in host_prof.key_averages()
+                           if not getattr(e, "is_user_annotation", False)),  # the ep.* spans
+                          key=lambda kv: -kv[1])
         print(json.dumps({
             "bench": "profile_ep", "arm": name,
             "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",

@@ -112,9 +112,11 @@ def main(argv=None):
     if args.trace_out:
         prof.export_chrome_trace(args.trace_out)
 
+    # a span's range (obs.span in a capture) gets a shadow on the device,
+    # covering its kernels: it is no kernel, and no op of the ops list
     kernels, by_class, by_name = [], defaultdict(float), defaultdict(float)
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation:
             s, e = ev.time_range.start, ev.time_range.end
             kernels.append((s, e))
             by_class[kernel_class(ev.name)] += e - s
@@ -124,7 +126,8 @@ def main(argv=None):
     busy_us = _union_us(kernels)
     ops = sorted(
         ((e.key, e.self_device_time_total) for e in prof.key_averages()
-         if e.self_device_time_total > 0 and e.device_type != torch.autograd.DeviceType.CUDA),
+         if e.self_device_time_total > 0 and e.device_type != torch.autograd.DeviceType.CUDA
+         and not getattr(e, "is_user_annotation", False)),
         key=lambda kv: -kv[1],
     )
     per = 1e-3 / args.steps  # us over all steps -> ms per step

@@ -3,8 +3,9 @@
 The answer to the reference's observability stack (SURVEY.md §5: STATS engine
 counters, latency histograms, NPKit GPU event tracing, nsys wrappers):
 ``torch.profiler`` captures written as Chrome/Perfetto traces, named
-annotations that show up on the same timeline (and as NVTX ranges on the
-card), and a wall-clock scope timer feeding LatencyHistograms.
+annotations that show up on the same timeline (``annotate``, the obs
+tracer's ``span`` plus an NVTX range on the card), and a wall-clock scope
+timer feeding LatencyHistograms.
 
 ``timed_scope`` keeps its histogram contract (``scope_stats`` /
 ``reset_scopes``) and also lands every sample as a span on the obs tracer
@@ -14,8 +15,8 @@ source on :data:`uccl_tpu_torch.obs.REGISTRY`, so they ride the ``/metrics``
 
 Port of ``uccl_tpu/utils/tracing.py``: its ``jax.profiler`` XPlane capture
 and ``TraceAnnotation`` become a ``torch.profiler`` capture (CPU activity,
-plus CUDA activity when the card is in use) and ``record_function``; the
-scope timer is unchanged.
+plus CUDA activity when the card is in use) and the obs span (a
+``record_function`` range inside a capture); the scope timer is unchanged.
 """
 
 from __future__ import annotations
@@ -100,10 +101,11 @@ def stop_trace() -> str:
 
 @contextlib.contextmanager
 def annotate(name: str) -> Iterator[None]:
-    """Named region on the trace timeline (``record_function``), and an
-    NVTX range while the card is in use."""
+    """:func:`uccl_tpu_torch.obs.span` ``name`` (a ``record_function`` range
+    in a profiler capture, an event on the obs tracer when it is on), and
+    an NVTX range while the card is in use."""
     nvtx = _on_card()
-    with torch.profiler.record_function(name):
+    with _obst.span(name):
         if nvtx:
             torch.cuda.nvtx.range_push(name)
         try:
