@@ -27,7 +27,11 @@ world: the all-to-all kernels against their plain versions and the
 transpose, their timing at the MoE layer's dispatch buffer (B9 also at the
 serving drives' exchanges), and the
 DeepEP-shaped Buffer verbs through layer 0 of the bench config on every
-wire. Then the serving slice: ``python -m uccl_tpu_torch.serve --server``'s
+wire. Then the sorted MoE layer's gather pair (csrc/moe_gather.cu) at both
+benchmark cells' layers: each launch held to its plain version's bits and
+timed beside its bytes bound and the launches it replaced (main_path counts
+its launches: forward, recompute and backward of every layer). Then the
+serving slice: ``python -m uccl_tpu_torch.serve --server``'s
 engine on the MoE stack at the bench config's widths, EP world 4 on the
 pallas wire (B9 in prefill and decode), every request held token for token
 to the world-1 oracle, the same requests on the lax wire, and the dense
@@ -88,6 +92,7 @@ from uccl_tpu_torch.collective import Communicator, dma, plan  # noqa: E402
 from uccl_tpu_torch.collective import ring_ccl as rc  # noqa: E402
 from uccl_tpu_torch.collective.lanes import SPIN_TIMEOUT_MS  # noqa: E402
 from uccl_tpu_torch.ep import Buffer, a2a_sched  # noqa: E402
+from uccl_tpu_torch.ep import gather  # noqa: E402
 from uccl_tpu_torch.ep import ll as ep_ll  # noqa: E402
 from uccl_tpu_torch.ep import ops as ep_ops  # noqa: E402
 from uccl_tpu_torch.ep import pallas_a2a as pa  # noqa: E402
@@ -752,6 +757,7 @@ def main_path() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(DEV)
     fa.reset_launch_counts()
+    gather.reset_launch_counts()
     losses, step_ms = [], []
     for tokens, targets in batches:
         t = time.perf_counter()
@@ -760,11 +766,16 @@ def main_path() -> dict:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
     launches = dict(fa.launch_counts)
+    launches.update({f"moe_{role}": n for role, n in gather.launch_counts.items()})
 
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite losses {losses}")
+    # remat full: each layer's forward runs twice (the recompute), its
+    # backward once
     want = {"flash_fwd": 2 * cfg.n_layers * STEPS, "flash_bwd_dq": cfg.n_layers * STEPS,
-            "flash_bwd_dkv": cfg.n_layers * STEPS, **{n: 0 for n in fa.F32_KERNELS}}
+            "flash_bwd_dkv": cfg.n_layers * STEPS, **{n: 0 for n in fa.F32_KERNELS},
+            **{f"moe_{role}": (1 if role.endswith("_bwd") else 2) * cfg.n_layers * STEPS
+               for role in gather.ROLES}}
     if launches != want:
         fail(f"kernel launches {launches} over {STEPS} steps, expected {want}")
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain["losses"])]
@@ -3070,6 +3081,96 @@ def ep_moe_ffn(cfg, x, logits, experts, depth) -> dict:
     return {"launches_a2a": launches, "rel_norm_err_vs_world1": worst,
             "auto_depth_equals_phased": bool(torch.equal(phased, auto))}
 
+# ---------------------------------------------------------------------------
+# 8b. The sorted MoE layer's gather pair (csrc/moe_gather.cu, ep/gather.py)
+
+GATHER_SOURCE = "uccl_tpu_torch/csrc/moe_gather.cu"
+GATHER_REPLACES = ("none: uccl_tpu/ep/ops.py's dispatch_sorted and combine_sorted are "
+                   "jnp.take and an einsum under XLA")
+# (cell, tokens, hidden, capacity): each benchmark cell's MoE layer at world
+# 1, 8 experts, top-2, bf16, routed as by a random router
+GATHER_CELLS = (("flagship", 131072, 1024, 40960), ("mixtral", 4096, 4096, 4096))
+GATHER_LIBRARY = "the replaced path: the zero-padded gathers, their index_put backward"
+
+def gather_bytes(plan, t, h, e, c, k=2, itemsize=2) -> dict:
+    """Compulsory bytes of each launch of the pair: each row it needs read
+    once, each output row written once, the int32 maps and float32 weights
+    once."""
+    kept, n, row = int((plan.slot < e * c).sum()), e * c, h * itemsize
+    return {"dispatch": (kept + n) * row + 4 * n,
+            "dispatch_bwd": (kept + t) * row + 4 * t * k,
+            "combine": (kept + t) * row + 8 * t * k,
+            "combine_bwd": (t + kept + n) * row + 12 * t * k}
+
+def moe_gather_timing() -> dict:
+    """Each launch of the gather pair at the two cells' MoE layers, held to
+    its plain version (the bits; dw within its float32 rounding), then
+    CUDA-event medians (L2 flushed, median of 10) beside its bytes bound,
+    its plain version and the launch it replaced: the gather from a
+    zero-padded copy forward, and through autograd backward (index_put
+    accumulating into the padded rows; the combine's [T, K, H] sum)."""
+    res = {}
+    for cell, t, h, c in GATHER_CELLS:
+        e, k = 8, 2
+        g = torch.Generator(device=DEV).manual_seed(70)
+        topk = torch.randn((1, t, e), generator=g, device=DEV).argsort(-1, descending=True)
+        plan = ep_ops.plan_slots(topk[..., :k], e, c)
+        tfs, slot = plan.token_for_slot, plan.slot
+        x, y, dxe = (torch.randn(shape, generator=g, device=DEV).bfloat16()
+                     for shape in ((1, t, h), (1, e * c, h), (1, e * c, h)))
+        wts = torch.rand((1, t, k), generator=g, device=DEV)
+        dout = torch.randn((1, t, h), generator=g, device=DEV).bfloat16()
+        runs = {"dispatch": (lambda: gather.gather_rows(x, tfs),
+                             lambda: gather.gather_rows_plain(x, tfs)),
+                "dispatch_bwd": (lambda: gather.gather_sum(dxe, slot, role="dispatch_bwd"),
+                                 lambda: gather.gather_sum_plain(dxe, slot)),
+                "combine": (lambda: gather.gather_sum(y, slot, wts),
+                            lambda: gather.gather_sum_plain(y, slot, wts)),
+                "combine_bwd": (lambda: gather.scatter_rows(dout, y, slot, wts),
+                                lambda: gather.scatter_rows_plain(dout, y, slot, wts))}
+        for role, (kernel, plain) in runs.items():
+            got, want = kernel(), plain()
+            if role == "combine_bwd":
+                (got, dw), (want, dw_p) = got, want
+                index, _ = gather._choices(slot, e * c)
+                mag = torch.stack([(dout.float().abs() * gather._rows_at(y, index[..., j])
+                                    .float().abs()).sum(-1) for j in range(k)], -1)
+                dw_err = float((dw - dw_p).abs().max())
+                if not bool(((dw - dw_p).abs() <= h * 2**-24 * mag).all()):
+                    fail(f"moe gather {cell} dw: off its plain version by {dw_err}")
+            if not torch.equal(got, want):
+                fail(f"moe gather {cell} {role}: not its plain version's bits")
+        del got, want
+        leaves = [a.clone().requires_grad_() for a in (x, y, wts)]
+        old_xe = ep_ops._take_member_rows(leaves[0], tfs)
+        old_out = ep_ops._weighted_sum(leaves[2], ep_ops._take_member_rows(leaves[1], slot))
+        replaced = {
+            "dispatch": lambda: ep_ops._take_member_rows(x, tfs),
+            "dispatch_bwd": lambda: torch.autograd.grad(old_xe, leaves[0], dxe,
+                                                        retain_graph=True),
+            "combine": lambda: ep_ops._weighted_sum(wts, ep_ops._take_member_rows(y, slot)),
+            "combine_bwd": lambda: torch.autograd.grad(old_out, leaves[1:], dout,
+                                                       retain_graph=True)}
+        nbytes = gather_bytes(plan, t, h, e, c, k)
+        res[cell] = {}
+        for role, (kernel, plain) in runs.items():
+            ms, bnd = time_ms(kernel, 10), nbytes[role] / PEAK_BYTES * 1e3
+            res[cell][role] = dict(ms=ms, bound_ms=bnd, bound_by="bytes",
+                                   share_of_bound=bnd / ms, plain_ms=time_ms(plain, 3),
+                                   library_ms=time_ms(replaced[role], 5),
+                                   library_call=GATHER_LIBRARY, bytes=nbytes[role])
+        layer = {key: sum(r[key] for r in res[cell].values())
+                 for key in ("ms", "bound_ms", "library_ms")}
+        res[cell]["combine_bwd"]["dw_max_abs_err"] = dw_err
+        res[cell]["layer"] = dict(layer, share_of_bound=layer["bound_ms"] / layer["ms"],
+                                  kept=int((slot < e * c).sum()),
+                                  empty_slots=int((tfs == t).sum()))
+        del runs, replaced, leaves, old_xe, old_out, x, y, dxe, dout
+        torch.cuda.empty_cache()
+    emit("moe_gather_timing", cells={cell: [t, h, 8, c] for cell, t, h, c in GATHER_CELLS},
+         dtype="bfloat16", kernels=res)
+    return res
+
 # The serving slice: python -m uccl_tpu_torch.serve --server on the MoE stack
 # at the bench config's widths (flagship.bench_config: vocab 16384, dim 1024,
 # 4 layers, 16/4 heads of 64, 8 experts top-2, ffn 2816) with the serving
@@ -5095,6 +5196,8 @@ def main() -> None:
     if dma.WIRE_FALLBACK.total() != ep_fb0:
         fail(f"the EP phases fell back {dma.WIRE_FALLBACK.total() - ep_fb0} times")
     torch.cuda.empty_cache()
+    gather_time = moe_gather_timing()
+    torch.cuda.empty_cache()
     serve_launches = serve_path()
     torch.cuda.empty_cache()
     serve_launches["serve_features_path"] = serve_features_path()
@@ -5154,6 +5257,17 @@ def main() -> None:
                          for kind, t in ep_time["a2a"]["serving"].items()}}
             if name == "a2a" else {})}
         for name, timed in (("a2a", "a2a"), ("sched_round", "sched_round schedule"))
+    ] + [
+        # the flagship cell's layer; the Mixtral cell's beside it. Bits equal
+        # to the plain versions' but dw's, whose dot products sum in
+        # another order
+        {"name": f"moe_{role}", "route": "cuda", "source": GATHER_SOURCE,
+         "replaces": GATHER_REPLACES, "launches": launches[f"moe_{role}"],
+         "max_abs_err": gather_time["flagship"][role].get("dw_max_abs_err", 0.0),
+         **{key: gather_time["flagship"][role][key]
+            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_call")},
+         "mixtral": gather_time["mixtral"][role]}
+        for role in gather.ROLES
     ]
     for k in kernels:
         if not k["launches"]:

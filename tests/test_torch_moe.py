@@ -5,6 +5,11 @@ token_for_slot, kept counts), with drops forced by a small capacity and gate
 ties forced by integer-valued logits: ties must resolve to the lower expert
 index, as lax.top_k does. moe_ffn values are compared at rtol 1e-5 /
 atol 1e-6, the tolerance of tests/test_ep.py.
+
+The sorted path's gather pair (ep/gather.py: dispatch_rows, combine_rows)
+is held, forward and backward, to the padded-take path it replaced
+(_take_member_rows, _weighted_sum) and to the dense one-hot oracle, and in
+float32 to jax.vjp of the JAX package's dispatch_sorted and combine_sorted.
 """
 
 import jax
@@ -16,6 +21,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from uccl_tpu.ep import ops as jops
 from uccl_tpu.utils.jaxcompat import shard_map
+from uccl_tpu_torch.ep import gather as tgather
 from uccl_tpu_torch.ep import ops as tops
 
 T, E, K, H, F = 48, 8, 2, 16, 24
@@ -150,3 +156,162 @@ def test_unported_impl_raises():
     assert out.shape == (4, 8) and aux.shape == z.shape == ()
     with pytest.raises(ValueError):
         tops.moe_ffn(*args, impl="bogus")
+
+
+# (routing, capacity factor): "random" routes by random logits; "balanced"
+# gives every expert exactly C choices (no drop, no empty slot); "hot" sends
+# every token to experts 0 and 1, so every token past the capacity has each
+# of its choices dropped
+PAIR_CASES = [("random", 1.0), ("random", 1.25), ("random", E / K), ("balanced", 1.0),
+              ("hot", 1.0)]
+# f32: the paths differ in summation order only (dw's dot products); bf16
+# rows: the replaced path rounds the weights, the sums and the weights'
+# gradient to bf16, the pair each result once (worst gap 5.2e-3)
+PAIR_TOL = {torch.float32: dict(rtol=2e-6, atol=2e-6),
+            torch.bfloat16: dict(rtol=2**-7, atol=2**-7)}
+
+
+def _pair_routing(rng, routing, w):
+    """Each member's top-k expert ids [T, K]."""
+    def one():
+        if routing == "balanced":
+            return np.stack([np.arange(T) % E, (np.arange(T) + E // 2) % E], -1)
+        if routing == "hot":
+            return np.tile([0, 1], (T, 1))
+        return np.argsort(-rng.standard_normal((T, E)), -1, kind="stable")[:, :K]
+
+    return [torch.tensor(one()) for _ in range(w)]
+
+
+def _pair_run(impl, x, y, wts, idx, cap, gx, gout):
+    """(dispatched rows [W, E*C, H], combined [W, T, H], dx, dy, dw) of one
+    dispatch of x and one combine of y, through ``impl``."""
+    x, y, wts = (t.detach().clone().requires_grad_() for t in (x, y, wts))
+    plan = tops.plan_slots(torch.stack(idx), E, cap)
+    if impl == "pair":
+        xe = tgather.dispatch_rows(x, plan.token_for_slot, plan.slot)
+        out = tgather.combine_rows(y, plan.slot, wts)
+    elif impl == "take":
+        xe = tops._take_member_rows(x, plan.token_for_slot)
+        out = tops._weighted_sum(wts, tops._take_member_rows(y, plan.slot))
+    else:  # the dense one-hot oracle, member by member
+        masks = [tops.masks_from_topk(i, wt, E, cap) for i, wt in zip(idx, wts)]
+        xe = torch.stack([tops.dispatch(xr, d) for xr, (d, _, _) in zip(x, masks)])
+        out = torch.stack([tops.combine(yr.reshape(E, cap, H), c)
+                           for yr, (_, c, _) in zip(y, masks)])
+        xe = xe.reshape(len(idx), E * cap, H)
+    loss = (xe.float() * gx).sum() + (out.float() * gout).sum()
+    return (xe.detach(), out.detach(), *torch.autograd.grad(loss, (x, y, wts)))
+
+
+def _pair_case(rng, routing, capacity_factor, w, dtype):
+    """(capacity, ids, plan, x, y, weights, gx, gout) of one case, after
+    checking that its routing drops and empties what the case names."""
+    cap = max(1, int(capacity_factor * T * K / E))
+    idx = _pair_routing(rng, routing, w)
+    plan = tops.plan_slots(torch.stack(idx), E, cap)
+    dropped = (plan.slot == E * cap).sum(-1)  # [W, T] choices dropped a token
+    empty = int((plan.token_for_slot == T).sum())
+    assert {("random", 1.0): dropped.sum() > 0 and empty > 0,
+            ("random", 1.25): empty > 0,
+            ("random", E / K): dropped.sum() == 0 and empty > 0,
+            ("balanced", 1.0): dropped.sum() == 0 and empty == 0,
+            ("hot", 1.0): bool((dropped == K).any())}[(routing, capacity_factor)]
+    x = torch.tensor(rng.standard_normal((w, T, H)), dtype=dtype)
+    y = torch.tensor(rng.standard_normal((w, E * cap, H)), dtype=dtype)
+    wts = torch.tensor(rng.random((w, T, K)), dtype=torch.float32)
+    gx = torch.tensor(rng.standard_normal((w, E * cap, H)), dtype=torch.float32)
+    gout = torch.tensor(rng.standard_normal((w, T, H)), dtype=torch.float32)
+    return cap, idx, plan, x, y, wts, gx, gout
+
+
+_PAIR_IDS = [f"{r}-{c:g}" for r, c in PAIR_CASES]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("w", [1, 2])
+@pytest.mark.parametrize("routing,capacity_factor", PAIR_CASES, ids=_PAIR_IDS)
+def test_gather_pair_matches_take_and_dense(rng, routing, capacity_factor, w, dtype):
+    cap, idx, plan, x, y, wts, gx, gout = _pair_case(rng, routing, capacity_factor, w, dtype)
+    dropped = (plan.slot == E * cap).sum(-1)
+    tgather.reset_launch_counts()
+    pair = _pair_run("pair", x, y, wts, idx, cap, gx, gout)
+    assert set(tgather.launch_counts.values()) == {0}  # CPU tensors run the plain versions
+    take = _pair_run("take", x, y, wts, idx, cap, gx, gout)
+    dense = _pair_run("dense", x, y, wts, idx, cap, gx, gout)
+    assert pair[0].dtype == pair[1].dtype == pair[2].dtype == pair[3].dtype == dtype
+    assert pair[4].dtype == torch.float32
+    assert torch.equal(pair[0], take[0])  # the dispatch copies rows: the same bits
+    np.testing.assert_array_equal(pair[0].float().numpy(), dense[0].float().numpy())
+    for name, got, *want in zip(("xe", "out", "dx", "dy", "dw"), pair, take, dense):
+        for ref in want:
+            np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(),
+                                       err_msg=name, **PAIR_TOL[dtype])
+    # a token whose every choice is dropped gets no row back and no gradient
+    for r, t in (dropped == K).nonzero().tolist():
+        assert not pair[1][r, t].any() and not pair[2][r, t].any() and not pair[4][r, t].any()
+
+
+def _jax_sorted_vjp(x, y, wts, idx, cap, gx, gout):
+    """(xe [E*C, H], out [T, H], dx, dy [E*C, H], dw) of the JAX package's
+    dispatch_sorted and combine_sorted at world 1, on its own slot plan,
+    with the cotangents gx and gout (jax.vjp inside the shard_map)."""
+    tfs, slot, _ = jops.sorted_from_topk(jnp.asarray(idx.numpy()), E, cap)
+
+    def body(x, y, wts, gx, gout):
+        xe, d_vjp = jax.vjp(lambda x: jops.dispatch_sorted(x, tfs, E, cap, "ep"), x)
+        out, c_vjp = jax.vjp(lambda y, w: jops.combine_sorted(y, slot, w, "ep"), y, wts)
+        (dx,) = d_vjp(gx.reshape(xe.shape))
+        dy, dw = c_vjp(gout)
+        return xe.reshape(E * cap, H), out, dx, dy.reshape(E * cap, H), dw
+
+    mesh = Mesh(np.array(jax.devices()[:1]), ("ep",))
+    fn = shard_map(body, mesh=mesh, in_specs=(P(),) * 5, out_specs=(P(),) * 5,
+                   check_vma=False)
+    return fn(*(jnp.asarray(a.numpy()) for a in (x, y.reshape(E, cap, H), wts, gx, gout)))
+
+
+@pytest.mark.parametrize("w", [1, 2])
+@pytest.mark.parametrize("routing,capacity_factor", PAIR_CASES, ids=_PAIR_IDS)
+def test_gather_pair_matches_jax_vjp(rng, routing, capacity_factor, w):
+    """float32: the pair's forward and (dx, dy, dw) against jax.vjp of the
+    JAX package's sorted dispatch and combine, member by member; the
+    dispatch and dy copy or scale rows, so they match bit for bit."""
+    cap, idx, _, x, y, wts, gx, gout = _pair_case(rng, routing, capacity_factor, w,
+                                                  torch.float32)
+    pair = _pair_run("pair", x, y, wts, idx, cap, gx, gout)
+    for r in range(w):
+        want = _jax_sorted_vjp(x[r], y[r], wts[r], idx[r], cap, gx[r], gout[r])
+        for name, got, ref in zip(("xe", "out", "dx", "dy", "dw"), pair, want):
+            if name in ("xe", "dy"):
+                np.testing.assert_array_equal(got[r].numpy(), np.asarray(ref), err_msg=name)
+            np.testing.assert_allclose(got[r].numpy(), np.asarray(ref), err_msg=name,
+                                       **PAIR_TOL[torch.float32])
+
+
+def _graph_names(t: torch.Tensor):
+    seen, todo = set(), [t.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        todo.extend(f for f, _ in fn.next_functions)
+    return {type(fn).__name__ for fn in seen}
+
+
+@pytest.mark.parametrize("axis", [None, "ep"], ids=["world1", "member_stacked"])
+def test_sort_backward_graph_has_no_index_node(rng, axis):
+    """moe_ffn(impl="sort")'s backward runs the gather pair's two nodes and
+    no IndexBackward / index_put node (no accumulating scatter); the dense
+    oracle is unchanged."""
+    leaves = [torch.tensor(a, requires_grad=True) for a in _moe_inputs(rng)]
+    if axis is not None:  # a world of 2 members, 4 experts each
+        leaves = [torch.stack([a.detach(), a.detach().flip(0)]).requires_grad_()
+                  for a in leaves[:2]] + [a.detach().reshape(2, E // 2, *a.shape[1:])
+                                          .requires_grad_() for a in leaves[2:]]
+    out, aux, z = tops.moe_ffn(*leaves, axis, num_selected=K, capacity_factor=1.0,
+                               impl="sort")
+    names = _graph_names(out.sum() + aux.sum() + z.sum())
+    assert {"_DispatchRowsBackward", "_CombineRowsBackward"} <= names
+    assert not [n for n in names if "Index" in n], sorted(names)

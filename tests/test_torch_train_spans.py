@@ -95,8 +95,11 @@ def test_backward_nodes_lead_to_their_spans(remat):
     cfg, events = _traced(remat)
     found = _spans_of_backward_nodes(events)
     n = cfg.n_layers
-    assert sorted(found["IndexBackward0"]) == sorted(
-        ["flagship.embed"] + ["moe.dispatch", "moe.combine"] * n)
+    # the embedding's lookup is the one index node; the MoE layer's gathers
+    # are the gather pair's nodes (ep/gather.py), once a layer each
+    assert found["IndexBackward0"] == ["flagship.embed"]
+    assert found["_DispatchRowsBackward"] == ["moe.dispatch"] * n
+    assert found["_CombineRowsBackward"] == ["moe.combine"] * n
     # every stacked leaf's slice, once a layer
     assert found["SelectBackward0"].count("flagship.stack_slice") == len(flagship._BLOCK_KEYS) * n
     assert {"flagship.attention", "moe.route", "moe.experts", "flagship.head"} <= set(

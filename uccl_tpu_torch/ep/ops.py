@@ -47,6 +47,7 @@ from torch.autograd import _profiler_enabled
 
 from uccl_tpu_torch.collective import dma as _dma
 from uccl_tpu_torch.collective import lanes as _lanes
+from uccl_tpu_torch.ep import gather as _gather
 from uccl_tpu_torch.obs import counters as _obsc
 from uccl_tpu_torch.obs import tracer as _obst
 from uccl_tpu_torch.ops import quant as _quant
@@ -178,7 +179,9 @@ class SortedRouting(NamedTuple):
 
 class SlotPlan(NamedTuple):
     """The slot permutation of one routing decision: dispatch gathers rows
-    with ``token_for_slot``, combine gathers them back with ``slot``."""
+    with ``token_for_slot``, combine gathers them back with ``slot``, and
+    each one's backward is a gather through the other map
+    (``ep/gather.py``)."""
 
     token_for_slot: torch.Tensor  # [E*C] source token per slot (T = empty)
     slot: torch.Tensor  # [T, K] slot per assignment (E*C = dropped)
@@ -369,8 +372,8 @@ def _take_member_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 
 def _weighted_sum(weights: torch.Tensor, yk: torch.Tensor) -> torch.Tensor:
     """Each member's ``tk,tkh->th`` weighted sum (``[W, T, K]`` and ``[W, T,
-    K, H]``), member by member, so a member's result is the world-1
-    combine's on the same rows."""
+    K, H]``), member by member: the ll path's and the chunk pipeline's
+    combine (the sorted combine fuses it into ``gather.combine_rows``)."""
     return _stack(torch.einsum("tk,tkh->th", wt.to(y.dtype), y) for wt, y in zip(weights, yk))
 
 
@@ -388,27 +391,28 @@ def _wire_to_members(buf: torch.Tensor) -> torch.Tensor:
     return buf.transpose(1, 2).reshape(w, e_local, w * c, h)
 
 
-def dispatch_sorted(x: torch.Tensor, token_for_slot, num_experts: int, capacity: int,
+def dispatch_sorted(x: torch.Tensor, plan: SlotPlan, num_experts: int, capacity: int,
                     axis: Axis = None, *, wire_fp8: bool = False, quant_group: int = 128,
                     wire: str = "lax", n_chunks: int = 1, wire_dtype=None,
                     schedule=None) -> torch.Tensor:
     """Ragged dispatch: one gather packs the [E*C, H] slot payloads (empty
-    slots read zeros), then the member-major all-to-all. ``token_for_slot``
-    may be a :class:`SlotPlan`. World 1 (no ``axis``): x ``[T, H]`` →
-    ``[E, C, H]``. Member-stacked: x ``[W, T, H]``, ``token_for_slot`` ``[W,
-    E*C]`` → ``[W, E_local, W*C, H]``. ``n_chunks`` splits the pallas wire's
-    capacity axis into that many launches; ``wire_dtype`` quantizes the
-    wire payload; ``schedule`` runs the pallas wire one contention-free
-    round at a time (``a2a_sched.wire_schedule``). The same bits on every
-    wire."""
-    if isinstance(token_for_slot, SlotPlan):
-        token_for_slot = token_for_slot.token_for_slot
+    slots read zeros), then the member-major all-to-all. The gather is
+    ``gather.dispatch_rows`` through the :class:`SlotPlan`'s
+    ``token_for_slot``, its backward a gather through the plan's ``slot``.
+    World 1 (no ``axis``): x ``[T, H]`` → ``[E, C, H]``. Member-stacked: x
+    ``[W, T, H]``, the plan's maps ``[W, E*C]`` and ``[W, T, K]`` → ``[W,
+    E_local, W*C, H]``. ``n_chunks`` splits the pallas wire's capacity axis
+    into that many launches; ``wire_dtype`` quantizes the wire payload;
+    ``schedule`` runs the pallas wire one contention-free round at a time
+    (``a2a_sched.wire_schedule``). The same bits on every wire."""
     if axis is None:
-        return _take_rows(x, token_for_slot).reshape(num_experts, capacity, x.shape[-1])
+        rows = _gather.dispatch_rows(x[None], plan.token_for_slot[None], plan.slot[None])[0]
+        return rows.reshape(num_experts, capacity, x.shape[-1])
     w, _, h = x.shape
     if num_experts % w:
         raise ValueError(f"experts {num_experts} not divisible by EP world {w}")
-    buf = _take_member_rows(x, token_for_slot).reshape(w, w, num_experts // w, capacity, h)
+    rows = _gather.dispatch_rows(x, plan.token_for_slot, plan.slot)
+    buf = rows.reshape(w, w, num_experts // w, capacity, h)
     cid = _dma.CID_SCHED if schedule is not None else _dma.CID_EP_DISPATCH
     buf = _wire_all_to_all(buf, wire_fp8, quant_group, x.dtype, wire, n_chunks=n_chunks,
                            chunk_axis=2, collective_id=cid, wire_dtype=wire_dtype,
@@ -420,23 +424,24 @@ def combine_sorted(expert_out: torch.Tensor, slot, weights: torch.Tensor, axis: 
                    *, wire_fp8: bool = False, quant_group: int = 128, wire: str = "lax",
                    n_chunks: int = 1, wire_dtype=None, schedule=None) -> torch.Tensor:
     """Ragged combine: the expert outputs go home over the wire, then one
-    [T, K]-row gather and a weighted sum; dropped assignments read zeros.
-    World 1: expert_out ``[E, C, H]`` → ``[T, H]``. Member-stacked:
+    fused [T, K]-row gather and float32 weighted sum
+    (``gather.combine_rows``; dropped assignments add nothing), whose
+    backward writes each slot once. World 1: expert_out ``[E, C, H]`` →
+    ``[T, H]``. Member-stacked:
     ``[W, E_local, W*C, H]`` → ``[W, T, H]``; ``schedule`` is the combine
     direction's (the dispatch matrix transposed: traffic flows home)."""
     if isinstance(slot, SlotPlan):
         slot = slot.slot
     if axis is None:
-        y = expert_out.reshape(-1, expert_out.shape[-1])  # [E*C, H], expert-major
-        yk = _take_rows(y, slot)  # [T, K, H]
-        return torch.einsum("tk,tkh->th", weights.to(yk.dtype), yk)
+        y = expert_out.reshape(1, -1, expert_out.shape[-1])  # [1, E*C, H], expert-major
+        return _gather.combine_rows(y, slot[None], weights[None])[0]
     w, h = expert_out.shape[0], expert_out.shape[-1]
     cid = _dma.CID_SCHED_COMBINE if schedule is not None else _dma.CID_EP_COMBINE
     buf = _wire_all_to_all(_members_to_wire(expert_out, w), wire_fp8, quant_group,
                            expert_out.dtype, wire, n_chunks=n_chunks, chunk_axis=2,
                            collective_id=cid, wire_dtype=wire_dtype, schedule=schedule)
     y = buf.reshape(w, -1, h)  # [W, E*C, H], expert-major
-    return _weighted_sum(weights, _take_member_rows(y, slot))
+    return _gather.combine_rows(y, slot, weights)
 
 
 def dispatch(x: torch.Tensor, dispatch_mask: torch.Tensor, axis: Axis = None, *,
@@ -735,18 +740,17 @@ def moe_ffn(
             r = route(router_logits, num_selected, capacity)
             _count(w * t * num_selected, w * e * capacity, r.counts)
         if impl == "sort":
+            plan = SlotPlan(r.token_for_slot, r.slot, r.counts)
             n_chunks = resolve_chunks(n_chunks, wire, w, capacity, e // w, h,
                                       wire_itemsize(False, h, x.dtype, wire_dtype=wire_dtype),
                                       wire_dtype=wire_dtype, device=x.device)
             if n_chunks > 1:
-                plan = SlotPlan(r.token_for_slot, r.slot, r.counts)
                 out = _moe_ffn_sort_chunked(x, plan, r.weights, w_gate, w_up, w_down, e, capacity,
                                             n_chunks, wire_dtype=wire_dtype)
                 return out.to(x.dtype), r.aux_loss, r.z_loss
         with _obst.span("moe.dispatch", TRACK):
             if impl == "sort":
-                xe = dispatch_sorted(x, r.token_for_slot, e, capacity, axis, wire=wire,
-                                     wire_dtype=wire_dtype)
+                xe = dispatch_sorted(x, plan, e, capacity, axis, wire=wire, wire_dtype=wire_dtype)
             else:
                 xe = dispatch(x, r.dispatch_mask, axis, wire=wire, wire_dtype=wire_dtype)
         with _obst.span("moe.experts", TRACK):
